@@ -32,6 +32,10 @@ def pytest_configure(config):
         'markers',
         'timeout(seconds): fail the test if it runs longer than this '
         '(pytest-timeout when installed, SIGALRM fallback otherwise)')
+    config.addinivalue_line(
+        'markers',
+        'needs_cuda: runs only on a CUDA device (the test skips itself '
+        'without one)')
 
 
 if not _HAVE_PYTEST_TIMEOUT:
