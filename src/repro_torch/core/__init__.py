@@ -1,2 +1,4 @@
-"""Core math of the port: the peephole LSTM (``lstm``) and greedy CTC
-decoding (``ctc``), forward / inference only."""
+"""Core math of the port, forward / inference only: the peephole LSTM
+(``lstm``), greedy CTC decoding (``ctc``), the silicon's fixed-point formats
+and LUTs (``quant``) and the single-device systolic datapath, float and
+bit-exact int8 (``systolic``)."""

@@ -297,6 +297,46 @@ def resolve_serving_backend(params: LSTMStackParams, backend: str, T: int,
     return backend
 
 
+# The reference's cold-cache rule for the int8 stack dispatch
+# (``repro.core.lstm``): the wavefront needs at least two layers and a
+# sequence long enough to amortise its residency (``_SEQ_MIN_T``), and below
+# ``_Q_FUSED_MIN_NH`` hidden units the layerwise chain won in the reference's
+# measurements.  The port has no schedule cache yet, so this rule decides.
+_SEQ_MIN_T = 8
+_Q_FUSED_MIN_NH = 256
+
+
+def quantized_fused_admissible(n_h: int, n_layers: int, batch: int, device,
+                               tile: int) -> bool:
+    """True iff K4's launch geometry for this stack fits the card on
+    ``device`` (shared memory per CTA within the limit, every CTA
+    co-resident at one CTA per SM) — pure dispatch, no numerics."""
+    from ..kernels.lstm_seq import stack_q_geometry
+    device = torch.device(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    padded_h = -(-n_h // tile) * tile
+    return stack_q_geometry(padded_h, tile, n_layers, batch,
+                            sms).admissible(sms)
+
+
+def select_quantized_stack_backend(n_h: int, n_layers: int, T: int,
+                                   batch: int, *, device='cuda',
+                                   tile: int = 96) -> str:
+    """Int8 stack dispatch: ``'fused'`` (K4, ``lstm_stack_seq_quantized``)
+    or ``'layerwise'`` (K3 per layer, ``lstm_layer_seq_quantized``).  Both
+    are bit-identical; this picks the launch shape only.  The reference's
+    cold-cache rule: ``'layerwise'`` if L < 2 or T < 8, else ``'fused'`` if
+    N_h >= 256, else ``'layerwise'``.  On CUDA, ``'fused'`` also needs K4's
+    launch geometry at engine tile ``tile`` (the silicon's 96 by default) to
+    be admissible (``quantized_fused_admissible``)."""
+    if n_layers < 2 or T < _SEQ_MIN_T or n_h < _Q_FUSED_MIN_NH:
+        return 'layerwise'
+    if (torch.device(device).type == 'cuda' and not
+            quantized_fused_admissible(n_h, n_layers, batch, device, tile)):
+        return 'layerwise'
+    return 'fused'
+
+
 def lstm_stack_chunk(params: LSTMStackParams, xs: torch.Tensor, states=None,
                      *, valid_len: Optional[torch.Tensor] = None,
                      backend: str = 'auto', stack_weights=None):

@@ -9,7 +9,8 @@ the checkout root with::
 The library exposes a plain C interface (no PyTorch headers), so a build
 takes seconds.  Builds run at the first CUDA launch of a kernel (``load``),
 or all at once in parallel (``build_all``).  The library file is named by
-the source's hash, so an unchanged source is not rebuilt, and a loaded
+the hash of the source and of every header under ``csrc`` (``*.cuh``, which
+sources include by name), so an unchanged source is not rebuilt, and a loaded
 library is kept for the life of the process (the source is hashed once, at
 its first load, not at every launch).  A failed build raises.  Every exported
 function returns an ``int`` CUDA error code; pointers and the stream are
@@ -46,7 +47,11 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[pathlib.Path, str, pathlib.Path]:
     src = CSRC / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return src, digest, BUILD_DIR / f'{name}.{digest}.so'
 
 

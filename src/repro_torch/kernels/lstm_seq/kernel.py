@@ -1,10 +1,12 @@
-"""K1 wrapper: the persistent whole-chunk f32 LSTM layer kernel.
+"""K1 and K3 wrappers: the persistent whole-chunk LSTM layer kernels.
 
-``lstm_seq`` launches ``csrc/lstm_seq.cu`` on CUDA tensors (a cooperative
-launch on PyTorch's current stream) and runs ``ref.lstm_seq_ref`` on CPU
-tensors; there is no fallback between the two.  ``seq_geometry`` is the
-kernel's launch geometry as a pure function of shapes, which backend
-selection reads to decide admissibility without touching the card.
+``lstm_seq`` (f32, ``csrc/lstm_seq.cu``) and ``lstm_seq_quantized`` (the
+int8 silicon datapath, ``csrc/lstm_seq_q.cu``) launch their kernels on CUDA
+tensors (a cooperative launch on PyTorch's current stream) and run their
+plain versions (``ref``) on CPU tensors; there is no fallback between the
+two.  ``seq_geometry`` and ``seq_q_geometry`` are the launch geometries as
+pure functions of shapes, which backend selection reads to decide
+admissibility without touching the card.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import dataclasses
 import torch
 
 from .. import _build
-from .ref import lstm_seq_ref
+from .ref import lstm_seq_quantized_ref, lstm_seq_ref
 
 SMEM_PER_CTA_MAX = 232_448      # 227 KB: the opt-in limit of one H100 CTA
 
@@ -54,11 +56,13 @@ _SIGNATURES = {
 }
 
 
-def check_inputs(named, shapes, device) -> None:
+def check_inputs(named, shapes, device, dtypes=None) -> None:
     """Raise ``ValueError`` unless every tensor has its expected shape, lies
-    on ``device``, is contiguous and has its dtype (f32, the mask bool)."""
+    on ``device``, is contiguous and has its dtype (``dtypes[name]``, else
+    f32, the mask bool)."""
     for name, x in named.items():
-        want_dtype = torch.bool if name == 'mask' else torch.float32
+        want_dtype = (dtypes[name] if dtypes and name in dtypes else
+                      torch.bool if name == 'mask' else torch.float32)
         if tuple(x.shape) != tuple(shapes[name]):
             raise ValueError(f'{name}: shape {tuple(x.shape)}, expected '
                              f'{tuple(shapes[name])}')
@@ -70,20 +74,21 @@ def check_inputs(named, shapes, device) -> None:
             raise ValueError(f'{name} must be contiguous')
 
 
-# (occupancy function, device index, B, N, rows) -> co-resident CTAs; a
-# property of the card and the compiled kernel, asked once per shape
+# (occupancy function, device index, shape ints, rows) -> co-resident CTAs;
+# a property of the card and the compiled kernel, asked once per shape
 _CORESIDENT = {}
 
 
 def coresident_ctas(lib, occupancy_fn: str, device: torch.device,
-                    geom: LaunchGeometry, B: int, N: int) -> int:
+                    geom: LaunchGeometry, *shape: int) -> int:
     """CTAs the card can hold at once for ``geom`` (blocks per SM from
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` times the SMs)."""
-    key = (occupancy_fn, device.index, B, N, geom.rows)
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` times the SMs).  The
+    occupancy function takes ``(device, *shape, rows, &blocks)``."""
+    key = (occupancy_fn, device.index, shape, geom.rows)
     if key not in _CORESIDENT:
         blocks = ctypes.c_int(0)
         _build.check(lib, getattr(lib, occupancy_fn)(
-            device.index, B, N, geom.rows, ctypes.byref(blocks)),
+            device.index, *shape, geom.rows, ctypes.byref(blocks)),
             occupancy_fn)
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         _CORESIDENT[key] = blocks.value * sms
@@ -134,3 +139,103 @@ def lstm_seq(pre_x: torch.Tensor, w_h: torch.Tensor, peep: torch.Tensor,
 
 
 lstm_seq.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: the int8 silicon datapath, one layer
+# ---------------------------------------------------------------------------
+
+def check_tile(tile: int) -> None:
+    """The int8 kernels read a tile as whole ``char4`` words (``__dp4a``)."""
+    if tile % 4:
+        raise ValueError(f'the int8 kernels need a tile that is a multiple '
+                         f'of 4, got {tile}')
+
+
+def seq_q_geometry(padded_x: int, padded_h: int, tile: int, batch: int,
+                   sm_count: int) -> LaunchGeometry:
+    """K3's geometry: R = ceil(padded_h / SMs) output rows per CTA; shared
+    memory holds the CTA's tile partials (int32, 4*R*B*C), its 4*R int8
+    weight rows over every column tile, the packed ``[x_t | h_{t-1}]``
+    codes of every stream, both LUTs and the c codes (same formula as
+    ``smem_bytes`` in the source)."""
+    p_in = padded_x + padded_h
+    rows = max(1, -(-padded_h // sm_count))
+    ctas = -(-padded_h // rows)
+    smem = (16 * rows * batch * (p_in // tile) + 4 * rows * p_in
+            + batch * p_in + 512 + rows * batch)
+    return LaunchGeometry(rows, ctas, smem)
+
+
+_SIGNATURES_Q = {
+    'lstm_seq_q_occupancy': [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
+    'lstm_seq_q_launch': [_I] + [_P] * 11 + [_I] * 6 + [_P],
+}
+
+
+def lstm_seq_quantized(xs_q: torch.Tensor, w_q: torch.Tensor,
+                       peep_q: torch.Tensor, bias_q: torch.Tensor,
+                       sig_lut: torch.Tensor, tanh_lut: torch.Tensor,
+                       h0_q: torch.Tensor = None, c0_q: torch.Tensor = None,
+                       mask: torch.Tensor = None, *, tile: int, cols_x: int):
+    """Whole-chunk bit-accurate int8 LSTM layer (the silicon datapath).
+
+    xs_q: (T, B, padded_x) int8 frame codes; w_q: (4, padded_h, padded_in)
+    int8 dense engine-tile layout (``[W_x | W_h]``, the x-region padded to
+    whole tiles); peep_q: (3, padded_h) int8; bias_q: (4, padded_h) int16 in
+    ACC_FMT; sig_lut, tanh_lut: (256,) int8; h0_q, c0_q: (B, padded_h) int8
+    carried codes (None = zero); mask: (T, B) bool (None = every step live;
+    a masked step re-emits the carried h codes and keeps c).  Returns (hs,
+    cs), each (T, B, padded_h) int8, bit-identical to scanning
+    ``core.systolic.systolic_cell_quantized``.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel and count it in
+    ``lstm_seq_quantized.launches``.
+    """
+    T, B, p_x = xs_q.shape
+    _, p_h, p_in = w_q.shape
+    if p_x != cols_x * tile or p_in != p_x + p_h or p_h % tile:
+        raise ValueError(f'lstm_seq_quantized: padded_x={p_x}, '
+                         f'w_q {tuple(w_q.shape)} do not fit tile={tile}, '
+                         f'cols_x={cols_x}')
+    dev = xs_q.device
+    zeros = lambda: torch.zeros((B, p_h), dtype=torch.int8, device=dev)
+    h0_q = zeros() if h0_q is None else h0_q
+    c0_q = zeros() if c0_q is None else c0_q
+    if mask is None:
+        mask = torch.ones((T, B), dtype=torch.bool, device=dev)
+    args = (xs_q, w_q, peep_q, bias_q, sig_lut, tanh_lut, h0_q, c0_q, mask)
+    if dev.type == 'cpu':
+        return lstm_seq_quantized_ref(*args, tile=tile, cols_x=cols_x)
+    if dev.type != 'cuda':
+        raise ValueError(f'lstm_seq_quantized runs on cuda or cpu, not {dev}')
+    check_tile(tile)
+    i8, i16 = torch.int8, torch.int16
+    check_inputs(dict(xs_q=xs_q, w_q=w_q, peep_q=peep_q, bias_q=bias_q,
+                      sig_lut=sig_lut, tanh_lut=tanh_lut, h0_q=h0_q,
+                      c0_q=c0_q, mask=mask),
+                 dict(xs_q=(T, B, p_x), w_q=(4, p_h, p_in), peep_q=(3, p_h),
+                      bias_q=(4, p_h), sig_lut=(256,), tanh_lut=(256,),
+                      h0_q=(B, p_h), c0_q=(B, p_h), mask=(T, B)),
+                 dev, dict(xs_q=i8, w_q=i8, peep_q=i8, bias_q=i16,
+                           sig_lut=i8, tanh_lut=i8, h0_q=i8, c0_q=i8))
+    hs = torch.empty((T, B, p_h), dtype=torch.int8, device=dev)
+    cs = torch.empty_like(hs)
+    lib = _build.load('lstm_seq_q', _SIGNATURES_Q)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geom = seq_q_geometry(p_x, p_h, tile, B, sms)
+    if not geom.admissible(coresident_ctas(lib, 'lstm_seq_q_occupancy', dev,
+                                           geom, B, p_x, p_h, tile)):
+        raise RuntimeError(f'lstm_seq_quantized: launch geometry {geom} does '
+                           f'not fit the card (padded_h={p_h}, B={B})')
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.lstm_seq_q_launch(
+        dev.index, xs_q.data_ptr(), w_q.data_ptr(), peep_q.data_ptr(),
+        bias_q.data_ptr(), sig_lut.data_ptr(), tanh_lut.data_ptr(),
+        h0_q.data_ptr(), c0_q.data_ptr(), mask.data_ptr(), hs.data_ptr(),
+        cs.data_ptr(), T, B, p_x, p_h, tile, geom.rows, stream)
+    _build.check(lib, err, 'lstm_seq_quantized launch')
+    lstm_seq_quantized.launches += 1
+    return hs, cs
+
+
+lstm_seq_quantized.launches = 0

@@ -35,6 +35,7 @@ def test_serving_path_import_leaves_jax_unloaded():
     code = ('import sys\n'
             'import repro_torch.launch.serve, repro_torch.convert\n'
             'import repro_torch.kernels.lstm_seq, repro_torch.kernels._build\n'
+            'import repro_torch.core.quant, repro_torch.core.systolic\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "repro")]\n'
             'print(bad)\n'
