@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
-Drives the port's serving path at the full CTC-3L-421H-UNI width (123 MFCC
-features -> 3x421 peephole LSTM -> 62 CTC outputs, random weights from a
-seed) and checks it:
+Drives the port's serving and training paths at the full CTC-3L-421H-UNI
+width (123 MFCC features -> 3x421 peephole LSTM -> 62 CTC outputs, random
+weights from a seed) and checks them:
 
 1. builds every CUDA kernel of the path from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and prints the build time;
@@ -41,8 +41,32 @@ on ``SystolicPlan(n_x, 421, 96)``:
    ``log_softmax``, greedy-decodes, and prints the decode agreement with
    the f32 ``forward`` (reported, not asserted: the weights are random).
 
-``--profile`` also traces one engine drain per f32 kernel backend and
-several int8 deploy passes per int8 backend with ``torch.profiler``.
+and then the training path (the reference CLI's batch 8 and sequence 64,
+the same f32 weights' configuration from seed 0):
+
+8. holds K5 (``lstm_gates_rec``, one recurrent step) against its plain
+   version at the training shape (B = 8, N_h = 421, nonzero h and c) and
+   times it, its plain version, and the product alone (``torch.addmm``);
+   checks ``lstm_layer_fused`` on ``cuda_step`` against ``cuda_seq`` over
+   16 steps;
+9. compares every leaf's gradient of ``loss_fn`` (T = 16, B = 8) on
+   ``cuda_step``, ``cuda_seq`` and ``cuda_seq_fused`` with the
+   ``torch_scan`` Function's on the card, by relative Frobenius error;
+10. runs six ``make_train_step`` steps on each of the three kernel backends
+    from the same weights and ``SyntheticCTC`` batches: every loss finite,
+    the loss histories in agreement, the launch counters at T*L K5
+    launches per step on ``cuda_step``, L K1 on ``cuda_seq`` and one K2 on
+    ``cuda_seq_fused``; the median step time after the first; then
+    restores the step-3 checkpoint into a fresh state and checks that the
+    next step's loss equals the uninterrupted run's bit for bit;
+11. runs the trainer's entry point (``launch.train.main``) on ``cuda_step``
+    as a user does: six steps with checkpoints every three, then
+    ``--resume`` for two more; the losses printed must be finite, the
+    resume must start at step 6, and K5 must launch T*L times per step.
+
+``--profile`` also traces one engine drain per f32 kernel backend, several
+int8 deploy passes per int8 backend, and one train step per kernel backend
+with ``torch.profiler``.
 
 Any failed check raises (nonzero exit).  The line before the last is the
 ``kernels`` JSON; the last line is the device JSON.  Without a CUDA device,
@@ -72,6 +96,14 @@ REQUESTS, SEED = 12, 0        # utterances of 50-300 frames, weights seed
 INT8_UTTERANCES = 8           # int8 deploy phase: utterances of 50-300 frames
 INT8_REPEATS = 7              # timed int8 deploy passes per backend
 INT8_PROFILE_PASSES = 10      # int8 deploy passes per traced window
+TRAIN_BATCH, TRAIN_SEQ = 8, 64   # the reference train CLI's defaults
+TRAIN_STEPS = 6               # train steps per kernel backend
+TRAIN_CKPT_STEP = 3           # checkpoint taken after this many steps
+TRAIN_RESUME_STEPS = 2        # train CLI steps after its --resume
+TRAIN_BACKENDS = ('cuda_step', 'cuda_seq', 'cuda_seq_fused')
+GRAD_T = 16                   # sequence of the on-card gradient check
+GRAD_REL_TOL = 1e-4           # relative Frobenius error per gradient leaf
+LOSS_RTOL = 1e-4              # loss histories across kernel backends
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -302,9 +334,10 @@ def engine_runs(cfg, params, slots: int, chunk: int, utts):
 
 def trace(fn, label: str):
     """One traced call of ``fn`` (after a warm call): device busy time from
-    ``torch.profiler`` over the host wall time of the traced call, and
-    device time by kernel name.  The tracer's own cost inflates the wall
-    time, so the idle share is an upper bound."""
+    ``torch.profiler`` over the host wall time of the traced call, device
+    time by kernel name, and the host ms under each ``record_function``
+    label (a train step's phases, ``launch.train.PHASES``).  The tracer's
+    own cost inflates the wall time, so the idle share is an upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -317,23 +350,34 @@ def trace(fn, label: str):
         wall_us = (time.perf_counter() - t0) * 1e6
     dev_us = lambda e: getattr(e, 'self_device_time_total',
                                getattr(e, 'self_cuda_time_total', 0.0))
+    events = prof.key_averages()
+    marked = lambda e: bool(getattr(e, 'is_user_annotation', False))
     # device-side entries only (kernels, copies, sets): a host op's entry
-    # repeats the time of the kernels it launched
-    by_name = sorted(((e.key, dev_us(e), e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+    # repeats the time of the kernels it launched, and a label's device-side
+    # span covers kernels already counted
+    by_name = sorted(((e.key, dev_us(e), e.count) for e in events
+                      if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+                      and not marked(e)),
                      key=lambda r: -r[1])
     busy_us = sum(r[1] for r in by_name)
     res = dict(backend=label, wall_ms=wall_us / 1e3,
                device_busy_ms=busy_us / 1e3,
                idle_share=1.0 - busy_us / wall_us,
+               device_ops=sum(r[2] for r in by_name),
                top=[dict(name=k[:80], device_ms=t / 1e3, count=n)
-                    for k, t, n in by_name[:10]])
+                    for k, t, n in by_name[:10]],
+               phases_host_ms={e.key: e.cpu_time_total / 1e3 for e in events
+                               if marked(e)
+                               and e.device_type == DeviceType.CPU})
     print(f'profile [{label}]: wall {res["wall_ms"]:.2f} ms, device busy '
-          f'{res["device_busy_ms"]:.2f} ms, idle share '
-          f'{res["idle_share"]:.3f}; top: ' + '; '.join(
+          f'{res["device_busy_ms"]:.2f} ms in {res["device_ops"]} device '
+          f'ops, idle share {res["idle_share"]:.3f}; top: ' + '; '.join(
               f'{r["name"][:40]} {r["device_ms"]:.2f} ms x{r["count"]}'
               for r in res['top'][:5]), flush=True)
+    if res['phases_host_ms']:
+        print(f'profile [{label}]: host ms by phase: ' + ', '.join(
+            f'{k} {v:.3f}' for k, v in res['phases_host_ms'].items()),
+            flush=True)
     return res
 
 
@@ -620,15 +664,247 @@ def int8_deploy(cfg, params, qps, chunk: int, utts, dev,
     return res
 
 
+def gates_kernel_checks(cfg, params, B: int, T: int, rng, dev):
+    """K5 against its plain version at the training shape (B streams, N_h
+    hidden units, an inner layer's weights, nonzero h and c); times it, its
+    plain version and the product alone; then ``cuda_step`` against
+    ``cuda_seq`` over ``T`` steps."""
+    from repro_torch.core.lstm import lstm_layer_fused
+    from repro_torch.kernels.lstm_gates import (lstm_gates_rec,
+                                                lstm_gates_rec_ref)
+    f32 = lambda *s: torch.from_numpy(
+        (rng.randn(*s) * 0.5).astype(np.float32)).to(dev)
+    lp = params.layers[1]
+    N = lp.n_h
+    args = (f32(B, N), lp.w_h, f32(B, 4, N), lp.w_peep, lp.b, f32(B, N))
+    got, want = lstm_gates_rec(*args), lstm_gates_rec_ref(*args)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    h, w_h, pre = args[:3]
+    w_rows = w_h.reshape(4 * N, N)
+    pre_rows = pre.reshape(B, 4 * N)
+    product = lambda: torch.addmm(pre_rows, h, w_rows.T)
+    row = dict(
+        name='lstm_gates_rec', route='cuda',
+        source='src/repro_torch/csrc/lstm_gates_rec.cu',
+        replaces='src/repro/kernels/lstm_gates/kernel.py:79',
+        max_abs_err=err, tol=KERNEL_ATOL,
+        ms=cuda_ms(lambda: lstm_gates_rec(*args), 200),
+        plain_ms=cuda_ms(lambda: lstm_gates_rec_ref(*args), 50),
+        product_only_ms=cuda_ms(product, 200),
+        # inputs h, W_h, pre, peep, bias, c once; outputs h, c once
+        bytes=4 * (4 * N * N + 7 * N + B * N + 4 * B * N + B * N
+                   + 2 * B * N),
+        flops=8 * B * N * N + 30 * B * N, library_ms=None)
+    row['bound_ms'], row['bound_by'] = bound(row['bytes'], row['flops'])
+    row['ok'] = err <= KERNEL_ATOL
+    print(f"lstm_gates_rec: B={B} N_h={N}: max_abs_err {err:.3e} (tol "
+          f"{KERNEL_ATOL}), kernel {row['ms']:.5f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_by']}; {row['bytes'] / 1e6:.3f} MB), library none "
+          f"(product only, torch.addmm: {row['product_only_ms']:.5f} ms)",
+          flush=True)
+    check(row['ok'], 'lstm_gates_rec disagrees with its plain version')
+
+    xs, h0, c0 = f32(T, B, lp.n_x), f32(B, N), f32(B, N)
+    step, seq = (lstm_layer_fused(lp, xs, h0, c0, backend=b)
+                 for b in ('cuda_step', 'cuda_seq'))
+    err = max(float((a - b).abs().max()) for a, b in
+              ((step[0], seq[0]), (step[1][0], seq[1][0]),
+               (step[1][1], seq[1][1])))
+    print(f'lstm_layer_fused cuda_step vs cuda_seq: T={T} B={B}: max abs '
+          f'diff {err:.3e} (tol {KERNEL_ATOL})', flush=True)
+    check(err <= KERNEL_ATOL, 'cuda_step and cuda_seq layers disagree')
+    return row
+
+
+def _train_batch(cfg, T: int, B: int, step: int, dev):
+    """``SyntheticCTC``'s batch ``step`` at (T, B), on ``dev``."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import SyntheticCTC
+    host = SyntheticCTC(cfg, ShapeConfig('smoke', 'train', T, B)).host_batch(
+        step, 0, B)
+    return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+
+def grad_checks(cfg, dev):
+    """Every leaf's gradient of ``loss_fn`` on each kernel backend against
+    the ``torch_scan`` Function's, by relative Frobenius error."""
+    from repro_torch.launch.train import _grads_of, init_train_state
+    from repro_torch.models import chipmunk_net
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.tree import flatten_with_paths
+    params = init_train_state(cfg, adamw(cosine_schedule(1e-3, 1, 2)),
+                              dev, seed=SEED)['params']
+    batch = _train_batch(cfg, GRAD_T, TRAIN_BATCH, 0, dev)
+    grads = {}
+    for b in ('torch_scan',) + TRAIN_BACKENDS:
+        loss_fn = lambda p, x, c=cfg.replace(lstm_backend=b): \
+            chipmunk_net.loss_fn(c, p, x)
+        grads[b] = flatten_with_paths(_grads_of(loss_fn, params, batch)[1])
+    worst = {}
+    for b in TRAIN_BACKENDS:
+        rel = [float(torch.linalg.vector_norm(g - r)
+                     / torch.linalg.vector_norm(r))
+               for (_, g), (_, r) in zip(grads[b], grads['torch_scan'])]
+        finite = all(bool(torch.isfinite(g).all()) for _, g in grads[b])
+        worst[b] = max(rel)
+        print(f'grads [{b}] vs torch_scan: T={GRAD_T} B={TRAIN_BATCH}, '
+              f'{len(rel)} leaves: max relative Frobenius error '
+              f'{worst[b]:.3e} (tol {GRAD_REL_TOL}), finite {finite}',
+              flush=True)
+        check(finite and worst[b] <= GRAD_REL_TOL,
+              f'{b} gradients disagree with torch_scan')
+    return worst
+
+
+def train_runs(cfg, dev, profile: bool = False):
+    """``TRAIN_STEPS`` train steps at (``TRAIN_SEQ``, ``TRAIN_BATCH``) on
+    each kernel backend from the same weights and batches, with per-step
+    launch counts and host-clock step times; the checkpoint round trip on
+    ``cuda_step``; (with ``profile``) one traced step per backend."""
+    import functools
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels.lstm_gates import lstm_gates_rec
+    from repro_torch.kernels.lstm_seq import lstm_seq, lstm_stack_seq_kernel
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.models import chipmunk_net
+    from repro_torch.optim import cosine_schedule, make_optimizer
+    counters = (lstm_gates_rec, lstm_seq, lstm_stack_seq_kernel)
+    L, T, B = cfg.n_layers, TRAIN_SEQ, TRAIN_BATCH
+    want = dict(cuda_step=dict(lstm_gates_rec=T * L, lstm_seq=0,
+                               lstm_stack_seq_kernel=0),
+                cuda_seq=dict(lstm_gates_rec=0, lstm_seq=L,
+                              lstm_stack_seq_kernel=0),
+                cuda_seq_fused=dict(lstm_gates_rec=0, lstm_seq=0,
+                                    lstm_stack_seq_kernel=1))
+    batches = [_train_batch(cfg, T, B, k, dev) for k in range(TRAIN_STEPS)]
+    runs, profiles = {}, []
+    for backend in TRAIN_BACKENDS:
+        c = cfg.replace(lstm_backend=backend)
+        opt = make_optimizer(c.optimizer, cosine_schedule(1e-3, 10,
+                                                          TRAIN_STEPS))
+        step_fn = make_train_step(functools.partial(chipmunk_net.loss_fn, c),
+                                  opt)
+        state = init_train_state(c, opt, dev, seed=SEED)
+        losses, walls, launches, ckpt = [], [], [], None
+        tmp = tempfile.TemporaryDirectory()
+        mgr = CheckpointManager(tmp.name)
+        for k, batch in enumerate(batches):
+            if k == TRAIN_CKPT_STEP:
+                mgr.save(k, state, blocking=True)
+            torch.cuda.synchronize()
+            for f in counters:
+                f.launches = 0
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches.append({f.__name__: f.launches for f in counters})
+            losses.append(m['loss'])
+        check(all(n == want[backend] for n in launches),
+              f'{backend}: launches per train step {launches[-1]}, '
+              f'expected {want[backend]}')
+        check(all(bool(torch.isfinite(x)) for x in losses),
+              f'{backend}: a loss is not finite')
+        if backend == TRAIN_BACKENDS[0]:
+            fresh = init_train_state(c, opt, dev, seed=SEED + 1)
+            restored = mgr.restore(fresh)
+            _, m = step_fn(restored, batches[TRAIN_CKPT_STEP])
+            ckpt = bool(torch.equal(m['loss'], losses[TRAIN_CKPT_STEP]))
+            print(f'train [{backend}]: restored step {TRAIN_CKPT_STEP} '
+                  f'into a fresh state; next loss {float(m["loss"])!r} vs '
+                  f'uninterrupted {float(losses[TRAIN_CKPT_STEP])!r}: '
+                  f'bit-equal {ckpt}', flush=True)
+            check(ckpt, 'resumed loss differs from the uninterrupted run')
+        tmp.cleanup()
+        if profile:
+            profiles.append(trace(lambda: step_fn(state, batches[-1]),
+                                  f'train {backend}'))
+        step_ms = float(np.median(walls[1:])) * 1e3
+        runs[backend] = dict(
+            losses=[float(x) for x in losses], step_ms=step_ms,
+            step_ms_all=[w * 1e3 for w in walls],
+            frames_per_s=B * T / step_ms * 1e3, launches=launches[-1],
+            checkpoint_bit_equal=ckpt)
+        print(f'train [{backend}]: {TRAIN_STEPS} steps of B={B} T={T}: '
+              f'losses {[round(x, 4) for x in runs[backend]["losses"]]}, '
+              f'median step {step_ms:.3f} ms after the first '
+              f'({B * T / step_ms * 1e3:.1f} frames/s), launches per step '
+              f'{launches[-1]}', flush=True)
+    ref = np.array(runs[TRAIN_BACKENDS[0]]['losses'])
+    for backend in TRAIN_BACKENDS[1:]:
+        got = np.array(runs[backend]['losses'])
+        diff = float(np.max(np.abs(got - ref) / np.abs(ref)))
+        runs[backend]['max_rel_loss_diff'] = diff
+        print(f'train loss histories {backend} vs {TRAIN_BACKENDS[0]}: max '
+              f'relative difference {diff:.3e} (rtol {LOSS_RTOL})',
+              flush=True)
+        check(diff <= LOSS_RTOL, f'{backend} loss history disagrees')
+    return runs, profiles
+
+
+def train_cli(cfg):
+    """The trainer's entry point on the card, as a user runs it:
+    ``launch.train.main`` on ``cuda_step`` for ``TRAIN_STEPS`` steps at its
+    default batch and sequence with a checkpoint every ``TRAIN_CKPT_STEP``
+    steps, then again with ``--resume`` for ``TRAIN_RESUME_STEPS`` more.
+    Checks the printed losses are finite, the resume line, the final
+    checkpoint's step, and K5's launches per step on both runs."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels.lstm_gates import lstm_gates_rec
+    from repro_torch.launch import train
+    per_step = TRAIN_SEQ * cfg.n_layers
+    end = TRAIN_STEPS + TRAIN_RESUME_STEPS
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, steps, extra in (('fresh', TRAIN_STEPS, []),
+                                   ('resume', end, ['--resume'])):
+            argv = ['--lstm-backend', 'cuda_step', '--steps', str(steps),
+                    '--ckpt-every', str(TRAIN_CKPT_STEP), '--ckpt-dir', tmp,
+                    '--log-every', '1'] + extra
+            out = io.StringIO()
+            lstm_gates_rec.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                train.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = lstm_gates_rec.launches
+            text = out.getvalue()
+            losses = [float(x) for x in re.findall(r' loss +(\S+)', text)]
+            ran = steps - (TRAIN_STEPS if extra else 0)
+            res[name] = dict(argv=argv, wall_s=wall, losses=losses,
+                             lstm_gates_rec=launches)
+            print(f'train CLI [{name}]: {ran} steps in {wall:.2f} s, '
+                  f'losses {losses}, K5 launches {launches}', flush=True)
+            check('done' in text, f'train CLI [{name}] did not finish')
+            check(len(losses) == ran and all(np.isfinite(losses)),
+                  f'train CLI [{name}]: losses {losses}')
+            check(launches == ran * per_step,
+                  f'train CLI [{name}]: {launches} K5 launches, expected '
+                  f'{ran * per_step}')
+        check(f'resumed at step {TRAIN_STEPS}' in text,
+              'train CLI did not resume from its checkpoint')
+        check(CheckpointManager(tmp).latest_step() == end,
+              'train CLI did not checkpoint its last step')
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description='chip smoke test of the port')
     ap.add_argument('--out', default=None,
                     help='also write the full results to this JSON file')
     ap.add_argument('--profile', action='store_true',
                     help='also trace one engine drain per f32 kernel '
-                         'backend and int8 deploy passes per int8 backend '
-                         'with torch.profiler (device busy/idle share, '
-                         'time by kernel)')
+                         'backend, int8 deploy passes per int8 backend and '
+                         'one train step per kernel backend with '
+                         'torch.profiler (device busy/idle share, time by '
+                         'kernel)')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -675,13 +951,23 @@ def main(argv=None) -> int:
                          profile=args.profile)
     rows += q_rows
 
+    train_cfg = configs.get_config('chipmunk-ctc')
+    rows.append(gates_kernel_checks(train_cfg, params, TRAIN_BATCH, CHUNK,
+                                    rng, dev))
+    grad_err = grad_checks(train_cfg, dev)
+    train, train_profiles = train_runs(train_cfg, dev, profile=args.profile)
+    profiles += train_profiles
+    cli = train_cli(train_cfg)
+
     launches = dict(lstm_seq=runs['cuda_seq']['launches']['lstm_seq'],
                     lstm_stack_seq_kernel=runs['cuda_seq_fused']['launches']
                     ['lstm_stack_seq_kernel'],
                     lstm_seq_quantized=deploy['runs']['layerwise']
                     ['launches']['lstm_seq_quantized'],
                     lstm_stack_seq_kernel_q=deploy['runs']['auto']
-                    ['launches']['lstm_stack_seq_kernel_q'])
+                    ['launches']['lstm_stack_seq_kernel_q'],
+                    lstm_gates_rec=train['cuda_step']['launches']
+                    ['lstm_gates_rec'])
     for r in rows:
         r['launches'] = launches[r['name']]
         check(r['launches'] > 0, f"{r['name']} never launched on the path")
@@ -697,7 +983,8 @@ def main(argv=None) -> int:
             torch=torch.__version__, cuda=torch.version.cuda,
             kernels=rows, stack_kernel_weights=stacking, engine=runs,
             engine_max_abs_diff=worst, profiles=profiles,
-            stack_kernel_weights_q=q_stacking, int8_deploy=deploy),
+            stack_kernel_weights_q=q_stacking, int8_deploy=deploy,
+            train_grad_rel_err=grad_err, train=train, train_cli=cli),
             indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {

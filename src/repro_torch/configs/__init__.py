@@ -1,9 +1,10 @@
-"""Architecture configuration for the ported LSTM family.
+"""Architecture and shape configuration for the ported LSTM family.
 
 The subset of ``repro.configs.ArchConfig`` that the paper's CTC LSTM uses
-(name, family, layer count, widths, parameter dtype, backend), plus the
-registry lookups ``get_config`` / ``get_smoke_config``.  The backend names
-are the port's (``core.lstm.BACKENDS``), not the TPU ones.
+(name, family, layer count, widths, parameter dtype, backend, optimizer),
+``ShapeConfig`` (a batch's sequence length and size), and the registry
+lookups ``get_config`` / ``get_smoke_config``.  The backend names are the
+port's (``core.lstm.BACKENDS``), not the TPU ones.
 """
 from __future__ import annotations
 
@@ -22,8 +23,10 @@ class ArchConfig:
     lstm_inputs: int
     n_outputs: int
     param_dtype: str = 'float32'
-    # auto | torch_scan | cuda_seq | cuda_seq_fused (core.lstm.BACKENDS)
+    # auto | torch_scan | cuda_seq | cuda_seq_fused | cuda_step
+    # (core.lstm.BACKENDS)
     lstm_backend: str = 'auto'
+    optimizer: str = 'adamw'       # optim.make_optimizer; only adamw ported
 
     def dtype(self) -> torch.dtype:
         """The parameter / state dtype as a torch dtype."""
@@ -32,6 +35,16 @@ class ArchConfig:
     def replace(self, **kw) -> 'ArchConfig':
         """A copy with the given fields replaced (the config is frozen)."""
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One batch shape: ``kind`` is ``train`` here; ``seq_len`` frames per
+    utterance, ``global_batch`` utterances per step."""
+    name: str
+    kind: str
+    seq_len: int
+    global_batch: int
 
 
 ARCH_MODULES = {'chipmunk-ctc': 'chipmunk_ctc'}

@@ -5,7 +5,8 @@ from . import ArchConfig
 
 CONFIG = ArchConfig(
     name='chipmunk-ctc', family='lstm', n_layers=3, lstm_hidden=421,
-    lstm_inputs=123, n_outputs=62, param_dtype='float32')
+    lstm_inputs=123, n_outputs=62, param_dtype='float32',
+    optimizer='adamw')
 
 SMOKE = CONFIG.replace(
     name='chipmunk-smoke', n_layers=2, lstm_hidden=32, lstm_inputs=13,

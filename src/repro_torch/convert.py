@@ -6,8 +6,10 @@ same field names) and returns the port's ``LSTMStackParams`` on ``device``.
 Layouts are kept as they are: ``w_x`` (4, N_h, N_x), ``w_h`` (4, N_h, N_h),
 ``w_peep`` (3, N_h), ``b`` (4, N_h), ``w_out`` (N_out, N_h), ``b_out``
 (N_out,).  ``quantized_packed_from_numpy`` does the same for one quantized
-layer (``QuantizedPackedLSTM``), keeping its integer dtypes.  Nothing here
-imports JAX; the values are copied bit for bit.
+layer (``QuantizedPackedLSTM``), keeping its integer dtypes.
+``train_state_from_numpy`` carries a whole train state — the reference's
+``{'params', 'opt', 'step'}`` with AdamW's moments — into the port's.
+Nothing here imports JAX; the values are copied bit for bit.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from .core.lstm import LSTMParams, LSTMStackParams
 from .core.systolic import QuantizedPackedLSTM
+from .optim import AdamWState
 
 
 def _field(obj, name):
@@ -63,3 +66,24 @@ def quantized_packed_from_numpy(qp, device='cuda') -> QuantizedPackedLSTM:
                                        ).to(device))
     plan_shape = tuple(int(v) for v in _field(qp, 'plan_shape'))
     return QuantizedPackedLSTM(*arrays, plan_shape=plan_shape)
+
+
+def _step(a) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(a)), dtype=torch.int32)
+
+
+def train_state_from_numpy(state, device='cuda'):
+    """The port's train state ``{'params', 'opt', 'step'}`` from a numpy
+    copy of the reference's (``jax.tree.map(np.asarray, state)`` with an
+    ``AdamWState(step, m, v)`` optimizer state): parameters and both
+    moments on ``device``, the two step counters as 0-d int32 tensors on
+    the CPU (where the port keeps its scalars)."""
+    opt = _field(state, 'opt')
+    return {'params': stack_params_from_numpy(_field(state, 'params'),
+                                              device),
+            'opt': AdamWState(_step(_field(opt, 'step')),
+                              stack_params_from_numpy(_field(opt, 'm'),
+                                                      device),
+                              stack_params_from_numpy(_field(opt, 'v'),
+                                                      device)),
+            'step': _step(_field(state, 'step'))}

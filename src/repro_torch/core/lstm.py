@@ -1,4 +1,5 @@
-"""Canonical peephole LSTM (paper Eqs. 1-5), forward and serving, in PyTorch.
+"""Canonical peephole LSTM (paper Eqs. 1-5): forward, serving and the
+hand-written training backward, in PyTorch.
 
     i_t = sigma(W_xi x_t + W_hi h_{t-1} + w_ci . c_{t-1} + b_i)
     f_t = sigma(W_xf x_t + W_hf h_{t-1} + w_cf . c_{t-1} + b_f)
@@ -22,21 +23,37 @@ Backends (``BACKENDS``) and their TPU counterparts in the JAX package:
   ``cuda_seq_fused``  ``pallas_seq_fused``    K2, whole-stack wavefront
                                               (``csrc/lstm_stack_seq.cu``),
                                               one launch per chunk
+  ``cuda_step``       ``pallas_step``         K5, one recurrent step
+                                              (``csrc/lstm_gates_rec.cu``),
+                                              T launches per layer call
   ==================  ======================  ==============================
+
+Every backend is trainable: ``lstm_layer_fused`` and ``lstm_stack_apply``
+are differentiable through ``torch.autograd.Function``s whose backward is
+the reference's hand-written one — the scan keeps its gates
+(``lstm_scan_fused``, backward ``lstm_bwd_core``); the kernel backends
+save only the h/c trajectories and recompute the gates with one wide
+product (``lstm_bwd_recompute_gates``, and across the stack
+``lstm_stack_bwd_recompute_gates``).  The JAX package has no backward
+kernel, so the backward is plain PyTorch with ``torch.einsum`` for its wide
+products.
 
 ``auto`` does not copy the TPU's VMEM rule.  On CPU tensors it picks
 ``torch_scan``.  On CUDA tensors it picks ``cuda_seq_fused`` when the stack
 is homogeneous (``stack_fused_compatible``), has at least two layers, and
 the wavefront kernel's launch geometry is admissible (shared memory per CTA
 within the card's limit, every CTA co-resident); otherwise ``cuda_seq``.
-An explicitly chosen backend that is not admissible raises; it is never
-quietly replaced.  On CPU tensors the kernel backends run their kernels'
-plain PyTorch versions.
+``cuda_step`` is a plain launch, so its admission is the shared-memory
+bound of its launcher only; K5 has no masked form, so it is not a serving
+backend on the card (a masked chunk on CUDA tensors raises).  An explicitly
+chosen backend that is not admissible raises; it is never quietly
+replaced.  On CPU tensors the kernel backends run their kernels' plain
+PyTorch versions.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,7 +61,7 @@ GATES = 4  # i, f, g, o
 I, F, G, O = 0, 1, 2, 3
 PEEP_I, PEEP_F, PEEP_O = 0, 1, 2
 
-BACKENDS = ('auto', 'torch_scan', 'cuda_seq', 'cuda_seq_fused')
+BACKENDS = ('auto', 'torch_scan', 'cuda_seq', 'cuda_seq_fused', 'cuda_step')
 
 
 @dataclasses.dataclass
@@ -148,21 +165,221 @@ def lstm_layer(params: LSTMParams, xs: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Hand-written training backward (the reference's ``lstm_bwd_core`` family):
+# weight gradients accumulate outside the reverse-time loop as single wide
+# contractions.
+# ---------------------------------------------------------------------------
+
+def _lstm_scan(w_h, w_peep, b, pre_x, h0, c0):
+    """The unmasked scan, keeping its gates for the backward.  pre_x:
+    (T, B, 4, N_h).  Returns (hs, cs, gates (T, B, 4, N_h))."""
+    h, c = h0, c0
+    hs, cs, gates = [], [], []
+    for pre_x_t in pre_x:
+        pre = pre_x_t + torch.einsum('ghk,...k->...gh', w_h, h)
+        h, c, g = _gate_phase(pre, w_peep, b, c)
+        hs.append(h)
+        cs.append(c)
+        gates.append(torch.stack(g, dim=-2))
+    return torch.stack(hs), torch.stack(cs), torch.stack(gates)
+
+
+def lstm_bwd_core(w_h, w_peep, hs, cs, gates, h0, c0, dhs, dh_T, dc_T):
+    """The shared reverse-time scan of the scan's backward and of the gate
+    recompute.  hs, cs: (T, B, N_h) saved trajectories; gates (T, B, 4,
+    N_h); dhs the cotangent of hs, (dh_T, dc_T) of the final state.
+    Returns (dw_h, d_peep, db, dpre_x, dh0, dc0)."""
+    h_prevs = torch.cat([h0[None], hs[:-1]])
+    c_prevs = torch.cat([c0[None], cs[:-1]])
+    dh_next, dc_next = dh_T, dc_T
+    das = [None] * hs.shape[0]
+    for t in range(hs.shape[0] - 1, -1, -1):
+        i, f, g, o = gates[t].unbind(-2)
+        dh = dhs[t] + dh_next
+        tc = torch.tanh(cs[t])
+        do = dh * tc
+        da_o = do * o * (1 - o)
+        dct = dh * o * (1 - tc * tc) + dc_next + da_o * w_peep[PEEP_O]
+        da_i = dct * g * i * (1 - i)
+        da_f = dct * c_prevs[t] * f * (1 - f)
+        da_g = dct * i * (1 - g * g)
+        dc_next = dct * f + da_i * w_peep[PEEP_I] + da_f * w_peep[PEEP_F]
+        das[t] = torch.stack([da_i, da_f, da_g, da_o], dim=-2)
+        dh_next = torch.einsum('ghk,...gh->...k', w_h, das[t])
+    das = torch.stack(das)
+    # weight gradients: single wide contractions outside the loop
+    dw_h = torch.einsum('t...gh,t...k->ghk', das, h_prevs)
+    d_peep = torch.stack([
+        torch.einsum('t...h,t...h->h', das[..., I, :], c_prevs),
+        torch.einsum('t...h,t...h->h', das[..., F, :], c_prevs),
+        torch.einsum('t...h,t...h->h', das[..., O, :], cs)])
+    db = das.sum(dim=tuple(range(das.ndim - 2)))
+    return dw_h, d_peep, db, das, dh_next, dc_next
+
+
+class _ScanFused(torch.autograd.Function):
+    """The scan with its gates saved; backward ``lstm_bwd_core``.  Returns
+    (hs, c_T); h_T is ``hs[-1]``, so its cotangent arrives inside dhs."""
+
+    @staticmethod
+    def forward(ctx, w_h, w_peep, b, pre_x, h0, c0):
+        hs, cs, gates = _lstm_scan(w_h, w_peep, b, pre_x, h0, c0)
+        ctx.save_for_backward(w_h, w_peep, hs, cs, gates, h0, c0)
+        return hs, cs[-1].clone()
+
+    @staticmethod
+    def backward(ctx, dhs, dc_T):
+        w_h, w_peep, hs, cs, gates, h0, c0 = ctx.saved_tensors
+        return lstm_bwd_core(w_h, w_peep, hs, cs, gates, h0, c0, dhs,
+                             torch.zeros_like(h0), dc_T)
+
+
+def lstm_scan_fused(w_h, w_peep, b, pre_x, h0, c0):
+    """The ``torch_scan`` layer with the hand-written backward.  pre_x:
+    (T, B, 4, N_h); h0, c0: (B, N_h).  Returns (hs, (h_T, c_T))."""
+    hs, c_T = _ScanFused.apply(w_h, w_peep, b, pre_x, h0, c0)
+    return hs, (hs[-1], c_T)
+
+
+def lstm_bwd_recompute_gates(w_h, w_peep, b, pre_x, hs, cs, h0, c0, grads):
+    """Backward from the saved h/c trajectories only (no stored gates):
+    the gates are recomputed with one wide product and the elementwise
+    epilogue, then ``lstm_bwd_core`` runs.  grads: (dhs, (dh_T, dc_T)).
+    Returns (dw_h, d_peep, db, dpre_x, dh0, dc0)."""
+    dhs, (dh_T, dc_T) = grads
+    h_prevs = torch.cat([h0[None], hs[:-1]])
+    c_prevs = torch.cat([c0[None], cs[:-1]])
+    pre = pre_x + torch.einsum('ghk,t...k->t...gh', w_h, h_prevs)
+    i = torch.sigmoid(pre[..., I, :] + w_peep[PEEP_I] * c_prevs + b[I])
+    f = torch.sigmoid(pre[..., F, :] + w_peep[PEEP_F] * c_prevs + b[F])
+    g = torch.tanh(pre[..., G, :] + b[G])
+    o = torch.sigmoid(pre[..., O, :] + w_peep[PEEP_O] * cs + b[O])
+    gates = torch.stack([i, f, g, o], dim=-2)
+    return lstm_bwd_core(w_h, w_peep, hs, cs, gates, h0, c0, dhs, dh_T, dc_T)
+
+
+def lstm_stack_bwd_recompute_gates(w_in, w_h, peep, b, pre_x, hs, cs, h0s,
+                                   c0s, grads):
+    """Cross-layer gate-recompute backward of a homogeneous stack, in the
+    port's stack layout: ``lstm_bwd_recompute_gates`` composed down the
+    stack, each inner layer's hoisted input recomputed from the trajectory
+    below it.  w_in: (L-1, 4, N_h, N_h) input weights of layers 1..L-1;
+    w_h: (L, 4, N_h, N_h); pre_x: (T, B, 4, N_h) layer 0's hoisted input;
+    hs, cs: (L, T, B, N_h); h0s, c0s: (L, B, N_h); grads: (d_ys (T, B, N_h)
+    of the top layer, (d_hT, d_cT) each (L, B, N_h)).  Returns (dw_in,
+    dw_h, d_peep, db, d_pre_x0, dh0s, dc0s)."""
+    d_ys, (d_hT, d_cT) = grads
+    L = w_h.shape[0]
+    dw_in, dw_h, d_peep, db, dh0, dc0 = [], [], [], [], [], []
+    d_hs = d_ys                     # cotangent flowing into the top layer
+    d_pre_x0 = None
+    for l in range(L - 1, -1, -1):
+        pre_l = pre_x if l == 0 else torch.einsum(
+            'ghx,tbx->tbgh', w_in[l - 1], hs[l - 1])
+        dwh, dp, dbias, dpre, dh, dc = lstm_bwd_recompute_gates(
+            w_h[l], peep[l], b[l], pre_l, hs[l], cs[l], h0s[l], c0s[l],
+            (d_hs, (d_hT[l], d_cT[l])))
+        for acc, v in ((dw_h, dwh), (d_peep, dp), (db, dbias), (dh0, dh),
+                       (dc0, dc)):
+            acc.append(v)
+        if l > 0:
+            dw_in.append(torch.einsum('tbgh,tbx->ghx', dpre, hs[l - 1]))
+            d_hs = torch.einsum('ghx,tbgh->tbx', w_in[l - 1], dpre)
+        else:
+            d_pre_x0 = dpre
+    stack = lambda xs: torch.stack(xs[::-1])
+    return (stack(dw_in) if dw_in else torch.zeros_like(w_in), stack(dw_h),
+            stack(d_peep), stack(db), d_pre_x0, stack(dh0), stack(dc0))
+
+
+class _RecomputeGates(torch.autograd.Function):
+    """A layer whose forward ``forward_fn(w_h, w_peep, b, pre_x, h0, c0) ->
+    (hs, cs)`` is a kernel that keeps its gates on chip, and whose backward
+    is ``lstm_bwd_recompute_gates`` from the saved trajectories.  Returns
+    (hs, c_T); h_T is ``hs[-1]``."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, w_h, w_peep, b, pre_x, h0, c0):
+        hs, cs = forward_fn(w_h, w_peep, b, pre_x, h0, c0)
+        ctx.save_for_backward(w_h, w_peep, b, pre_x, hs, cs, h0, c0)
+        return hs, cs[-1].clone()
+
+    @staticmethod
+    def backward(ctx, dhs, dc_T):
+        w_h, w_peep, b, pre_x, hs, cs, h0, c0 = ctx.saved_tensors
+        return (None,) + lstm_bwd_recompute_gates(
+            w_h, w_peep, b, pre_x, hs, cs, h0, c0,
+            (dhs, (torch.zeros_like(h0), dc_T)))
+
+
+def recompute_gates_layer(forward_fn: Callable, w_h, w_peep, b, pre_x, h0,
+                          c0):
+    """``forward_fn``'s layer (see ``_RecomputeGates``) made
+    differentiable with the gate-recompute backward.  Returns (hs, (h_T,
+    c_T))."""
+    hs, c_T = _RecomputeGates.apply(forward_fn, w_h, w_peep, b, pre_x, h0,
+                                    c0)
+    return hs, (hs[-1], c_T)
+
+
+def lstm_layer_fused(params: LSTMParams, xs: torch.Tensor,
+                     h0: Optional[torch.Tensor] = None,
+                     c0: Optional[torch.Tensor] = None, *,
+                     backend: str = 'auto'):
+    """``lstm_layer`` with the hand-written backward — the training path.
+    xs: (T, B, N_x) -> (hs (T, B, N_h), (h_T, c_T)).  ``backend``:
+    ``torch_scan`` (``lstm_scan_fused``), ``cuda_seq`` (K1,
+    ``kernels.lstm_seq.lstm_layer_seq``), ``cuda_step`` (T launches of K5,
+    ``kernels.lstm_gates.lstm_layer_fused``); ``cuda_seq_fused`` on one
+    layer is ``cuda_seq``, and ``auto`` is ``cuda_seq`` on CUDA tensors,
+    ``torch_scan`` on CPU tensors.  Forward allclose across backends,
+    backward through the same gate-recompute family."""
+    if backend not in BACKENDS:
+        raise ValueError(f'unknown backend {backend!r}; one of {BACKENDS}')
+    if xs.ndim != 3:
+        raise ValueError('lstm_layer_fused expects (T, B, N_x) input')
+    if backend == 'auto':
+        backend = 'cuda_seq' if xs.is_cuda else 'torch_scan'
+    if backend == 'cuda_seq_fused':
+        backend = 'cuda_seq'        # a 1-layer stack IS the sequence kernel
+    if backend == 'cuda_seq':
+        from ..kernels.lstm_seq import lstm_layer_seq
+        return lstm_layer_seq(params, xs, h0, c0)
+    if backend == 'cuda_step':
+        from ..kernels.lstm_gates import lstm_layer_fused as step_layer
+        return step_layer(params, xs, h0, c0)
+    zeros = xs.new_zeros((xs.shape[1], params.n_h))
+    return lstm_scan_fused(params.w_h, params.w_peep, params.b,
+                           hoisted_input(params.w_x, xs),
+                           zeros if h0 is None else h0,
+                           zeros if c0 is None else c0)
+
+
+# ---------------------------------------------------------------------------
 # Masked chunked serving primitives (the reference's DESIGN.md §7 contract)
 # ---------------------------------------------------------------------------
 
-def _cell_body(w_h, w_peep, b, pre_x_t, h, c_prev):
-    """One step from its hoisted input product: W_h @ h plus the peephole
-    gates, in the reference's order — the one gate epilogue of every plain
-    loop (``lstm_layer``, the kernels' plain versions).  Returns
-    (h_new, c_new)."""
-    pre = pre_x_t + torch.einsum('ghk,...k->...gh', w_h, h)
+def _gate_phase(pre, w_peep, b, c_prev):
+    """The peephole gate epilogue from the gate sums ``pre`` (..., 4, N_h)
+    (W_x x_t + W_h h_{t-1}, bias not yet added), in the reference's order:
+    the CPU counterpart of ``_gate_phase`` in the reference's
+    ``kernels/lstm_gates/kernel.py`` and of ``csrc/lstm_f32_epilogue.cuh``.
+    Returns (h_new, c_new, (i, f, g, o))."""
     i = torch.sigmoid(pre[..., I, :] + w_peep[PEEP_I] * c_prev + b[I])
     f = torch.sigmoid(pre[..., F, :] + w_peep[PEEP_F] * c_prev + b[F])
     g = torch.tanh(pre[..., G, :] + b[G])
     c = f * c_prev + i * g
     o = torch.sigmoid(pre[..., O, :] + w_peep[PEEP_O] * c + b[O])
-    return o * torch.tanh(c), c
+    return o * torch.tanh(c), c, (i, f, g, o)
+
+
+def _cell_body(w_h, w_peep, b, pre_x_t, h, c_prev):
+    """One step from its hoisted input product: W_h @ h plus the peephole
+    gates — the one gate epilogue of every plain loop (``lstm_layer``, the
+    kernels' plain versions).  Returns (h_new, c_new)."""
+    pre = pre_x_t + torch.einsum('ghk,...k->...gh', w_h, h)
+    h_new, c, _ = _gate_phase(pre, w_peep, b, c_prev)
+    return h_new, c
 
 
 def valid_len_mask(T: int, valid_len: torch.Tensor, batch: int
@@ -214,26 +431,34 @@ def lstm_layer_chunk(params: LSTMParams, xs: torch.Tensor,
     xs: (T, B, N_x).  ``valid_len`` (B,) marks steps ``t >= valid_len[b]``
     as identity on the state (the carried ``h`` is re-emitted), so feeding a
     sequence chunk by chunk is bit-equal to one monolithic call on the same
-    backend.  ``backend``: ``torch_scan`` | ``cuda_seq`` | ``auto`` (CPU
-    tensors: ``torch_scan``; CUDA tensors: ``cuda_seq``).  Returns
-    (hs (T, B, N_h), (h_T, c_T)).
+    backend.  Without ``valid_len`` this is ``lstm_layer_fused``
+    (differentiable).  ``backend``: ``torch_scan`` | ``cuda_seq`` |
+    ``cuda_step`` | ``auto`` (CPU tensors: ``torch_scan``; CUDA tensors:
+    ``cuda_seq``).  K5 has no masked form: ``cuda_step`` with a
+    ``valid_len`` on CPU tensors runs the masked torch scan, the reference's
+    dispatch rule for ``pallas_step`` (``repro.core.lstm.lstm_layer_chunk``);
+    on CUDA tensors it raises, since the plain scan on the card would serve
+    under a kernel backend's name.  Returns (hs (T, B, N_h), (h_T, c_T)).
     """
-    if backend not in ('auto', 'torch_scan', 'cuda_seq'):
-        raise ValueError(f'layer backend must be auto|torch_scan|cuda_seq, '
-                         f'got {backend!r}')
+    if backend not in ('auto', 'torch_scan', 'cuda_seq', 'cuda_step'):
+        raise ValueError(f'layer backend must be auto|torch_scan|cuda_seq|'
+                         f'cuda_step, got {backend!r}')
     if xs.ndim != 3:
         raise ValueError('lstm_layer_chunk expects (T, B, N_x) input')
+    if valid_len is None:
+        return lstm_layer_fused(params, xs, h0, c0, backend=backend)
     T, B = xs.shape[0], xs.shape[1]
     if backend == 'auto':
         backend = 'cuda_seq' if xs.is_cuda else 'torch_scan'
+    if backend == 'cuda_step' and xs.is_cuda:
+        raise ValueError(_CUDA_STEP_UNMASKED)
     zeros = xs.new_zeros((B, params.n_h))
     h0 = zeros if h0 is None else h0
     c0 = zeros if c0 is None else c0
     if backend == 'cuda_seq':
         from ..kernels.lstm_seq import lstm_layer_seq
         return lstm_layer_seq(params, xs, h0, c0, valid_len=valid_len)
-    mask = (torch.ones((T, B), dtype=torch.bool, device=xs.device)
-            if valid_len is None else valid_len_mask(T, valid_len, B))
+    mask = valid_len_mask(T, valid_len, B)
     return _lstm_scan_masked(params.w_h, params.w_peep, params.b,
                              hoisted_input(params.w_x, xs), h0, c0, mask)
 
@@ -258,12 +483,19 @@ def stack_carry_arrays(states, n_layers: int, batch: int, n_h: int,
     return gather(0), gather(1)
 
 
+_CUDA_STEP_UNMASKED = ('cuda_step is not a serving backend on the card: K5 '
+                       'has no masked form (serve with cuda_seq or '
+                       'cuda_seq_fused)')
+
+
 def resolve_serving_backend(params: LSTMStackParams, backend: str, T: int,
-                            B: int, device) -> str:
+                            B: int, device, *, masked: bool = True) -> str:
     """Resolve ``backend`` (incl. ``auto``) to the concrete backend a
     ``(T, B, N_x)`` chunked call on ``device`` runs, and check that it is
-    admissible there — pure dispatch, no numerics of its own.  Raises
-    ``ValueError`` for an explicit backend that is not admissible."""
+    admissible there — pure dispatch, no numerics of its own.  ``masked``
+    says the call carries a ``valid_len`` (every serving chunk does);
+    ``cuda_step`` on CUDA is admissible only unmasked, the training path.
+    Raises ``ValueError`` for an explicit backend that is not admissible."""
     from ..kernels.lstm_seq import (seq_geometry, stack_fused_compatible,
                                     stack_geometry)
     if backend not in BACKENDS:
@@ -279,6 +511,8 @@ def resolve_serving_backend(params: LSTMStackParams, backend: str, T: int,
             raise ValueError('cuda_seq_fused needs a homogeneous stack '
                              '(stack_fused_compatible)')
         return backend
+    if backend == 'cuda_step' and masked:
+        raise ValueError(_CUDA_STEP_UNMASKED)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     fused = stack_geometry(n_h, L, B, sms)
     fused_ok = compatible and fused.admissible(sms)
@@ -293,6 +527,13 @@ def resolve_serving_backend(params: LSTMStackParams, backend: str, T: int,
             geom = seq_geometry(lp.n_h, B, sms)
             if not geom.admissible(sms):
                 raise ValueError(f'cuda_seq is not admissible at '
+                                 f'N_h={lp.n_h}, B={B}: {geom}')
+    if backend == 'cuda_step':
+        from ..kernels.lstm_gates import gates_rec_geometry
+        for lp in layers:
+            geom = gates_rec_geometry(lp.n_h, B, sms)
+            if not geom.admissible():
+                raise ValueError(f'cuda_step is not admissible at '
                                  f'N_h={lp.n_h}, B={B}: {geom}')
     return backend
 
@@ -345,13 +586,16 @@ def lstm_stack_chunk(params: LSTMStackParams, xs: torch.Tensor, states=None,
     per-layer ``(h, c)`` carries; the same ``valid_len`` masks every layer,
     so chunked output equals the monolithic ``lstm_stack_apply`` on the
     valid prefix (bit-equal on a fixed backend).  xs: (T, B, N_x); states:
-    per-layer ``((h, c), ...)`` or None for zeros.  On ``cuda_seq_fused``
+    per-layer ``((h, c), ...)`` or None for zeros.  ``cuda_step`` with a
+    ``valid_len`` runs the masked torch scan on CPU tensors and raises on
+    CUDA tensors (``lstm_layer_chunk``).  On ``cuda_seq_fused``
     the whole chunk runs every layer in one wavefront launch, from
     ``stack_weights`` (``kernels.lstm_seq.stack_kernel_weights(params)``,
     built per call when None; other backends ignore it).  Returns
     (ys (T, B, N_out or N_h), new per-layer states)."""
     T, B = xs.shape[0], xs.shape[1]
-    backend = resolve_serving_backend(params, backend, T, B, xs.device)
+    backend = resolve_serving_backend(params, backend, T, B, xs.device,
+                                      masked=valid_len is not None)
     if backend == 'cuda_seq_fused':
         from ..kernels.lstm_seq import lstm_stack_seq
         h, finals = lstm_stack_seq(params, xs, states, valid_len=valid_len,
@@ -375,6 +619,10 @@ def lstm_stack_apply(params: LSTMStackParams, xs: torch.Tensor,
                      states: Optional[Sequence] = None,
                      backend: str = 'auto'):
     """Full network over a whole sequence: stacked layers + the dense
-    read-out (logits).  xs: (T, B, N_x).  The unmasked case of
-    ``lstm_stack_chunk``; returns (ys, final per-layer states)."""
+    read-out (logits) — the training path.  xs: (T, B, N_x).  The unmasked
+    case of ``lstm_stack_chunk``, and differentiable on every backend:
+    layer by layer through ``lstm_layer_fused``, or on ``cuda_seq_fused``
+    through one K2 launch under ``kernels.lstm_seq.lstm_stack_seq``'s
+    cross-layer gate-recompute backward.  Returns (ys, final per-layer
+    states)."""
     return lstm_stack_chunk(params, xs, states, backend=backend)

@@ -20,22 +20,21 @@
 // wrote it), one warp per (gate, row, stream) dot with lanes striding k and a
 // fixed butterfly reduction (no atomics, so the same inputs give the same
 // bits whatever the chunking), the epilogue in the reference's
-// `_cell_body` order, the mask select, h_t and c_t written to the outputs,
+// `_cell_body` order (`lstm_f32_epilogue.cuh`, shared with K2 and K5), the
+// mask select, h_t and c_t written to the outputs,
 // then `this_grid().sync()`.  h_t written to `hs[t]` is what step t+1 reads,
 // so no separate h buffer is needed.  The launch is cooperative, and the
 // wrapper refuses a grid that cannot be co-resident.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "lstm_f32_epilogue.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 // Shared memory: w_s [4*R][N] | h_s [B][N] | acc_s [4*R][B] | c_s [R][B]
 size_t smem_bytes(int B, int N, int R) {
@@ -98,19 +97,14 @@ lstm_seq_kernel(const float* __restrict__ pre_x,   // (T, B, 4, N)
       if (n >= N) continue;
       const float* px = pre_x + ((size_t)t * B + b) * 4 * N;
       const float c_prev = c_s[i];
-      const float a_i = px[0 * N + n] + acc_s[(0 * R + r) * B + b];
-      const float a_f = px[1 * N + n] + acc_s[(1 * R + r) * B + b];
-      const float a_g = px[2 * N + n] + acc_s[(2 * R + r) * B + b];
-      const float a_o = px[3 * N + n] + acc_s[(3 * R + r) * B + b];
-      const float ig = sigmoid_f(a_i + peep[0 * N + n] * c_prev + bias[0 * N + n]);
-      const float fg = sigmoid_f(a_f + peep[1 * N + n] * c_prev + bias[1 * N + n]);
-      const float gg = tanhf(a_g + bias[2 * N + n]);
-      const float c_new = fg * c_prev + ig * gg;
-      const float og = sigmoid_f(a_o + peep[2 * N + n] * c_new + bias[3 * N + n]);
-      const float h_new = og * tanhf(c_new);
+      float a[4];
+      for (int g = 0; g < 4; ++g)
+        a[g] = px[g * N + n] + acc_s[(g * R + r) * B + b];
+      const lstm_f32::State st =
+          lstm_f32::cell_update(a, c_prev, peep, bias, N, n);
       const bool live = mask[(size_t)t * B + b] != 0;
-      const float h_out = live ? h_new : h_s[(size_t)b * N + n];
-      const float c_out = live ? c_new : c_prev;
+      const float h_out = live ? st.h : h_s[(size_t)b * N + n];
+      const float c_out = live ? st.c : c_prev;
       c_s[i] = c_out;
       hs[((size_t)t * B + b) * N + n] = h_out;
       cs[((size_t)t * B + b) * N + n] = c_out;

@@ -22,7 +22,8 @@
 // below's h_t from global memory (L1 bypassed), computes one warp per
 // (gate, row, stream) dot over both weight families with a fixed butterfly
 // reduction (no atomics: the same inputs give the same bits), runs the
-// peephole epilogue in the reference's order with the mask select, and
+// peephole epilogue in the reference's order (`lstm_f32_epilogue.cuh`,
+// shared with K1 and K5) with the mask select, and
 // writes h_t and c_t layer-major into (L, T, B, N_h).  Every CTA, active or
 // in a fill/drain bubble, then meets at `this_grid().sync()`.  A bubble
 // writes nothing, and every (layer, step) writes its own output slot, so no
@@ -31,15 +32,13 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "lstm_f32_epilogue.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 // Shared memory: wh_s [4*R][N] | wi_s [4*R][N] | ho_s [B][N] | hb_s [B][N]
 //                | acc_s [4*R][B] | c_s [R][B]
@@ -130,27 +129,18 @@ lstm_stack_seq_kernel(const float* __restrict__ pre_x,  // (T, B, 4, N)
       for (int i = tid; i < R * B; i += blockDim.x) {
         const int r = i / B, b = i % B, n = row0 + r;
         if (n >= N) continue;
-        float a_i = acc_s[(0 * R + r) * B + b];
-        float a_f = acc_s[(1 * R + r) * B + b];
-        float a_g = acc_s[(2 * R + r) * B + b];
-        float a_o = acc_s[(3 * R + r) * B + b];
+        float a[4];
+        for (int g = 0; g < 4; ++g) a[g] = acc_s[(g * R + r) * B + b];
         if (l == 0) {
           const float* px = pre_x + ((size_t)t * B + b) * 4 * N;
-          a_i = px[0 * N + n] + a_i;
-          a_f = px[1 * N + n] + a_f;
-          a_g = px[2 * N + n] + a_g;
-          a_o = px[3 * N + n] + a_o;
+          for (int g = 0; g < 4; ++g) a[g] = px[g * N + n] + a[g];
         }
         const float c_prev = c_s[i];
-        const float ig = sigmoid_f(a_i + peep_l[0 * N + n] * c_prev + bias_l[0 * N + n]);
-        const float fg = sigmoid_f(a_f + peep_l[1 * N + n] * c_prev + bias_l[1 * N + n]);
-        const float gg = tanhf(a_g + bias_l[2 * N + n]);
-        const float c_new = fg * c_prev + ig * gg;
-        const float og = sigmoid_f(a_o + peep_l[2 * N + n] * c_new + bias_l[3 * N + n]);
-        const float h_new = og * tanhf(c_new);
+        const lstm_f32::State st =
+            lstm_f32::cell_update(a, c_prev, peep_l, bias_l, N, n);
         const bool live = mask[(size_t)t * B + b] != 0;
-        const float h_out = live ? h_new : ho_s[(size_t)b * N + n];
-        const float c_out = live ? c_new : c_prev;
+        const float h_out = live ? st.h : ho_s[(size_t)b * N + n];
+        const float c_out = live ? st.c : c_prev;
         c_s[i] = c_out;
         const size_t o = ((size_t)l * T + t) * step + (size_t)b * N + n;
         hs[o] = h_out;

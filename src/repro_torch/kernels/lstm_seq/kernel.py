@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -29,13 +30,14 @@ class LaunchGeometry:
     ctas: int
     smem_bytes: int
 
-    def admissible(self, max_coresident: int) -> bool:
+    def admissible(self, max_coresident: Optional[int] = None) -> bool:
         """True iff one CTA's shared memory fits the card's limit and all
-        CTAs can be resident at once (the grid barrier needs both).
-        Selection passes the SM count (one CTA per SM); the launch passes
-        the occupancy the driver reports."""
+        CTAs can be resident at once (a grid barrier needs both).
+        Selection passes the SM count (one CTA per SM); a cooperative
+        launch passes the occupancy the CUDA runtime reports; a plain launch
+        (K5) passes nothing, and only shared memory is checked."""
         return (self.smem_bytes <= SMEM_PER_CTA_MAX
-                and self.ctas <= max_coresident)
+                and (max_coresident is None or self.ctas <= max_coresident))
 
 
 def seq_geometry(n_h: int, batch: int, sm_count: int) -> LaunchGeometry:

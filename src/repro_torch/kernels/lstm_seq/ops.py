@@ -1,10 +1,12 @@
-"""Public ops of the persistent layer kernels (K1, K3), forward only.
+"""Public ops of the persistent layer kernels (K1, K3).
 
 ``lstm_layer_seq`` is the counterpart of ``repro.kernels.lstm_seq.ops
 .lstm_layer_seq``: the hoisted ``W_x @ x`` product stays a plain
 ``torch.einsum`` (the reference leaves it to XLA outside the kernel), the
 recurrence runs in one ``lstm_seq`` launch.  No padding: the kernel takes
-any N_h and B with bounds checks.
+any N_h and B with bounds checks.  Unmasked, it is differentiable through
+``lstm_seq_fused`` (forward K1, backward the gate recompute); the masked
+form is for serving, as in the reference.
 
 ``lstm_layer_seq_quantized`` is the counterpart of ``.ops
 .lstm_layer_seq_quantized``: the whole int8 layer in one
@@ -22,9 +24,23 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ...core.lstm import LSTMParams, hoisted_input, valid_len_mask
+from ...core.lstm import (LSTMParams, hoisted_input, recompute_gates_layer,
+                          valid_len_mask)
 from ...core.systolic import QuantizedPackedLSTM
 from .kernel import lstm_seq, lstm_seq_quantized
+
+
+def _seq_forward(w_h, w_peep, b, pre_x, h0, c0):
+    return lstm_seq(pre_x, w_h, w_peep, b, h0, c0)
+
+
+def lstm_seq_fused(w_h, w_peep, b, pre_x, h0, c0):
+    """One K1 launch over the whole sequence with the gate-recompute
+    backward (``core.lstm.recompute_gates_layer``): the counterpart of the
+    reference's ``lstm_seq_fused`` custom VJP.  pre_x: (T, B, 4, N_h); h0,
+    c0: (B, N_h) contiguous.  Returns (hs, (h_T, c_T))."""
+    return recompute_gates_layer(_seq_forward, w_h, w_peep, b, pre_x, h0,
+                                 c0)
 
 
 def lstm_layer_seq(params: LSTMParams, xs: torch.Tensor,
@@ -37,16 +53,19 @@ def lstm_layer_seq(params: LSTMParams, xs: torch.Tensor,
     xs: (T, B, N_x) -> (hs (T, B, N_h), (h_T, c_T)).  ``valid_len`` (B,)
     makes steps ``t >= valid_len[b]`` identity on the state, so (h_T, c_T)
     is the state after exactly ``valid_len[b]`` steps and chunked calls are
-    bit-equal to one monolithic call.
+    bit-equal to one monolithic call.  Differentiable without
+    ``valid_len`` (``lstm_seq_fused``); the masked form is inference-only.
     """
     T, B = xs.shape[0], xs.shape[1]
     zeros = xs.new_zeros((B, params.n_h))
-    h0 = zeros if h0 is None else h0
-    c0 = zeros if c0 is None else c0
-    mask = None if valid_len is None else valid_len_mask(T, valid_len, B)
+    h0 = zeros if h0 is None else h0.contiguous()
+    c0 = zeros if c0 is None else c0.contiguous()
     pre_x = hoisted_input(params.w_x, xs)
-    hs, cs = lstm_seq(pre_x, params.w_h, params.w_peep, params.b,
-                      h0.contiguous(), c0.contiguous(), mask)
+    if valid_len is None:
+        return lstm_seq_fused(params.w_h, params.w_peep, params.b, pre_x,
+                              h0, c0)
+    hs, cs = lstm_seq(pre_x, params.w_h, params.w_peep, params.b, h0, c0,
+                      valid_len_mask(T, valid_len, B))
     return hs, (hs[-1], cs[-1])
 
 

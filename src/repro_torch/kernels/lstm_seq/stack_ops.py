@@ -1,5 +1,4 @@
-"""Public ops of the fused whole-stack wavefront kernels (K2, K4), forward
-only.
+"""Public ops of the fused whole-stack wavefront kernels (K2, K4).
 
 ``lstm_stack_seq`` is the counterpart of ``repro.kernels.lstm_seq
 .stack_ops.lstm_stack_seq``: one wavefront launch for every layer of a
@@ -8,7 +7,10 @@ homogeneous stack (the dense read-out stays at the call site).  Layer 0's
 input products run inside the kernel against their resident ``W_in`` rows.
 The kernel's weight layout (``StackWeights``) is built by
 ``stack_kernel_weights`` once per parameter set; a server builds it when it
-starts and passes it to every chunk.
+starts and passes it to every chunk.  Unmasked, ``lstm_stack_seq`` is
+differentiable (``lstm_stack_seq_fused``: forward K2, backward the
+cross-layer gate recompute); built per call, the stacked weights pass
+their gradients back to the per-layer parameters.
 
 ``lstm_stack_seq_quantized`` is the int8 counterpart (K4): bit-identical to
 chaining ``lstm_layer_seq_quantized`` layer by layer, one launch instead of
@@ -28,6 +30,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ...core.lstm import (LSTMStackParams, hoisted_input,
+                          lstm_stack_bwd_recompute_gates,
                           quantized_fused_admissible,
                           select_quantized_stack_backend, stack_carry_arrays,
                           valid_len_mask)
@@ -63,7 +66,8 @@ class StackWeights:
 def stack_kernel_weights(params: LSTMStackParams) -> StackWeights:
     """Copy a homogeneous stack's per-layer weights into the fused kernel's
     layout (``StackWeights``), on the params' device.  A copy: build it once
-    per parameter set, not per chunk."""
+    per parameter set, not per chunk (training builds it per step, and its
+    gradient flows back to the layers)."""
     if not stack_fused_compatible(params):
         raise ValueError('the fused stack kernel needs homogeneous hidden '
                          'widths (stack_fused_compatible)')
@@ -78,6 +82,33 @@ def stack_kernel_weights(params: LSTMStackParams) -> StackWeights:
                         b=torch.stack([l.b for l in layers]))
 
 
+class _StackSeqFused(torch.autograd.Function):
+    """K2 over the whole stack, unmasked; backward
+    ``core.lstm.lstm_stack_bwd_recompute_gates`` from the saved layer-major
+    trajectories.  Returns (ys = top layer's hs, h_T, c_T), the finals
+    (L, B, N_h)."""
+
+    @staticmethod
+    def forward(ctx, w_in, w_h, peep, b, pre_x, h0s, c0s):
+        hs, cs = lstm_stack_seq_kernel(pre_x, w_in, w_h, peep, b, h0s, c0s)
+        ctx.save_for_backward(w_in, w_h, peep, b, pre_x, hs, cs, h0s, c0s)
+        return hs[-1], hs[:, -1].clone(), cs[:, -1].clone()
+
+    @staticmethod
+    def backward(ctx, d_ys, d_hT, d_cT):
+        return lstm_stack_bwd_recompute_gates(*ctx.saved_tensors,
+                                              (d_ys, (d_hT, d_cT)))
+
+
+def lstm_stack_seq_fused(w_in, w_h, peep, b, pre_x, h0s, c0s):
+    """The fused stack with the cross-layer gate-recompute backward: the
+    counterpart of the reference's ``lstm_stack_seq_fused`` custom VJP, in
+    the port's layout (``w_in`` (L-1, 4, N_h, N_h)).  Returns (ys (T, B,
+    N_h), (h_T, c_T) each (L, B, N_h))."""
+    ys, h_T, c_T = _StackSeqFused.apply(w_in, w_h, peep, b, pre_x, h0s, c0s)
+    return ys, (h_T, c_T)
+
+
 def lstm_stack_seq(params: LSTMStackParams, xs: torch.Tensor,
                    states: Optional[Sequence] = None, *,
                    valid_len: Optional[torch.Tensor] = None,
@@ -88,9 +119,10 @@ def lstm_stack_seq(params: LSTMStackParams, xs: torch.Tensor,
 
     xs: (T, B, N_x); states: optional per-layer ``((h, c), ...)`` carries;
     ``valid_len`` (B,) masks steps ``t >= valid_len[b]`` in every layer
-    (identity on each layer's carried state); ``weights``: the stack's
-    ``stack_kernel_weights``, built here when None.  Returns (hs_top
-    (T, B, N_h), per-layer ((h_T, c_T), ...)).
+    (identity on each layer's carried state; inference-only, as in the
+    reference); ``weights``: the stack's ``stack_kernel_weights``, built
+    here when None (and then differentiable back to ``params``).  Returns
+    (hs_top (T, B, N_h), per-layer ((h_T, c_T), ...)).
     """
     if weights is None:
         weights = stack_kernel_weights(params)
@@ -100,10 +132,15 @@ def lstm_stack_seq(params: LSTMStackParams, xs: torch.Tensor,
     L, n_h = len(layers), layers[0].n_h
     T, B = xs.shape[0], xs.shape[1]
     h0s, c0s = stack_carry_arrays(states, L, B, n_h, xs)
-    mask = None if valid_len is None else valid_len_mask(T, valid_len, B)
-    hs, cs = lstm_stack_seq_kernel(hoisted_input(layers[0].w_x, xs),
-                                   weights.w_in, weights.w_h, weights.peep,
-                                   weights.b, h0s, c0s, mask)
+    pre_x = hoisted_input(layers[0].w_x, xs)
+    if valid_len is None:
+        ys, (h_T, c_T) = lstm_stack_seq_fused(
+            weights.w_in, weights.w_h, weights.peep, weights.b, pre_x, h0s,
+            c0s)
+        return ys, tuple((h_T[l], c_T[l]) for l in range(L))
+    hs, cs = lstm_stack_seq_kernel(pre_x, weights.w_in, weights.w_h,
+                                   weights.peep, weights.b, h0s, c0s,
+                                   valid_len_mask(T, valid_len, B))
     return hs[-1], tuple((hs[l, -1], cs[l, -1]) for l in range(L))
 
 

@@ -81,7 +81,9 @@ def main(argv=None):
     ap.add_argument('--slots', type=int, default=4)
     ap.add_argument('--chunk', type=int, default=16,
                     help='frames per engine step')
-    ap.add_argument('--lstm-backend', default='auto', choices=BACKENDS)
+    ap.add_argument('--lstm-backend', default='auto', choices=BACKENDS,
+                    help='cuda_step serves on the CPU only (K5 has no '
+                         'masked form)')
     ap.add_argument('--device', default='cuda',
                     help='torch device of weights and states (cuda, cpu)')
     args = ap.parse_args(argv)

@@ -1,17 +1,19 @@
-"""CTC-3L-421H-UNI — the paper's workload, forward and streaming, in PyTorch.
+"""CTC-3L-421H-UNI — the paper's workload, trainable and streaming, in
+PyTorch.
 
 123 MFCC features -> 3x421 peephole LSTM -> 62 CTC outputs (log-probs).
 Counterpart of ``repro.models.chipmunk_net``; the LSTM backend comes from
 ``cfg.lstm_backend`` (``core.lstm.BACKENDS``), the read-out einsum and
-``log_softmax`` are plain torch.
+``log_softmax`` are plain torch, and ``loss_fn`` is the mean CTC loss.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from ..configs import ArchConfig
+from ..core import ctc
 from ..core.lstm import (LSTMStackParams, init_lstm_stack, lstm_stack_apply,
                          lstm_stack_chunk, stack_params_to)
 
@@ -33,6 +35,16 @@ def forward(cfg: ArchConfig, params: LSTMStackParams, frames: torch.Tensor):
     xs = frames.transpose(0, 1).contiguous()            # (T, B, n_in)
     ys, _ = lstm_stack_apply(params, xs, backend=cfg.lstm_backend)
     return torch.log_softmax(ys, dim=-1)
+
+
+def loss_fn(cfg: ArchConfig, params: LSTMStackParams,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean CTC loss of a batch: ``frames`` (B, T, n_in), ``labels`` (B, L),
+    ``frame_len`` (B,), ``label_len`` (B,) — the reference's ``loss_fn``;
+    differentiable on every backend."""
+    log_probs = forward(cfg, params, batch['frames'])
+    return ctc.ctc_loss(log_probs, batch['labels'], batch['frame_len'],
+                        batch['label_len']).mean()
 
 
 def init_state(cfg: ArchConfig, batch: int, device='cuda'):

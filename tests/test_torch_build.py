@@ -1,7 +1,10 @@
 """The port's kernel build on the CPU (no ``nvcc`` needed): which sources
-share the int8 epilogue header, and that a library's name follows every
-header, so a change to the shared epilogue rebuilds both int8 kernels."""
+share the int8 and the f32 epilogue headers, and that a library's name
+follows every header, so a change to a shared epilogue rebuilds every
+kernel that includes it."""
 import pathlib
+
+import pytest
 
 from repro_torch.kernels import _build
 
@@ -17,6 +20,19 @@ def test_int8_kernels_share_one_epilogue_header():
         # the epilogue lives in the header only
         for fn in ('int gate_lut(', 'int rshift_round(', 'int sat16('):
             assert fn not in src, (name, fn)
+
+
+@pytest.mark.parametrize('name', ['lstm_seq', 'lstm_stack_seq',
+                                  'lstm_gates_rec'])
+def test_f32_kernels_share_one_epilogue_header(name):
+    """K1, K2 and K5 include the one f32 peephole epilogue and spell none
+    of it out themselves."""
+    assert (_build.CSRC / 'lstm_f32_epilogue.cuh').exists()
+    src = (_build.CSRC / f'{name}.cu').read_text()
+    assert '#include "lstm_f32_epilogue.cuh"' in src
+    assert 'lstm_f32::cell_update(' in src
+    for body in ('float sigmoid', 'expf(', 'tanhf('):
+        assert body not in src, body
 
 
 def test_library_name_follows_source_and_headers(tmp_path, monkeypatch):

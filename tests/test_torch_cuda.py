@@ -9,8 +9,13 @@ Tolerance kernel vs plain version: atol=1e-4 on h and c (f32; the kernel
 sums the 4*N_h-term dots in another order than cuBLAS, with fused
 multiply-adds, over up to 16 recurrent steps).  TF32 is switched off for
 every library product.  The int8 kernels (K3, K4) are bit-exact by contract:
-``torch.equal`` on the h and c codes, no tolerance.
+``torch.equal`` on the h and c codes, no tolerance.  K5 (one recurrent
+step) is held at the same atol 1e-4, and the training gradients of every
+kernel backend against the ``torch_scan`` Function's at a relative
+Frobenius error of at most 1e-4 per leaf.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -29,8 +34,11 @@ from repro_torch.kernels.lstm_seq import (lstm_seq, lstm_seq_quantized,
                                           lstm_stack_seq_ref,
                                           stack_kernel_weights,
                                           stack_kernel_weights_q)
+from repro_torch.kernels.lstm_gates import lstm_gates_rec, lstm_gates_rec_ref
 from repro_torch.kernels.lstm_seq.ops import _dense_from_tiles
+from repro_torch.launch.train import _grads_of
 from repro_torch.models import chipmunk_net
+from repro_torch.tree import leaves
 from repro_torch.serving import StreamingEngine
 
 ATOL = 1e-4
@@ -207,3 +215,79 @@ def test_int8_auto_picks_fused_at_full_width(dev):
                                                 device=dev) == 'fused'
     assert tlstm.select_quantized_stack_backend(421, 3, 4, 8,
                                                 device=dev) == 'layerwise'
+
+
+# ------------------------------------------------------- training path (K5)
+@pytest.mark.parametrize('B', [5, 8, 11])
+def test_gates_rec_kernel_matches_plain_version(dev, B):
+    """K5 at full width; B = 11 takes two passes over the streams."""
+    cfg = configs.get_config('chipmunk-ctc')
+    lp = _params(cfg, dev).layers[1]
+    N = lp.n_h
+    rng = np.random.RandomState(B)
+    f = lambda *s: torch.from_numpy((rng.randn(*s) * 0.5).astype(
+        np.float32)).to(dev)
+    args = (f(B, N), lp.w_h, f(B, 4, N), lp.w_peep, lp.b, f(B, N))
+    n0 = lstm_gates_rec.launches
+    got = lstm_gates_rec(*args)
+    torch.cuda.synchronize()
+    assert lstm_gates_rec.launches == n0 + 1
+    for g, w in zip(got, lstm_gates_rec_ref(*args)):
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+
+
+def test_cuda_step_layer_launches_once_per_step(dev):
+    cfg = configs.get_config('chipmunk-ctc')
+    params = _params(cfg, dev)
+    f, xs, _ = _inputs(cfg, 12, 4, dev)
+    n0 = lstm_gates_rec.launches
+    ys, fin = tlstm.lstm_stack_apply(params, xs, backend='cuda_step')
+    assert lstm_gates_rec.launches == n0 + 12 * cfg.n_layers
+    ref, ref_fin = tlstm.lstm_stack_apply(params, xs, backend='cuda_seq')
+    torch.testing.assert_close(ys, ref, rtol=0, atol=ATOL)
+    for (h, c), (rh, rc) in zip(fin, ref_fin):
+        torch.testing.assert_close(h, rh, rtol=0, atol=ATOL)
+        torch.testing.assert_close(c, rc, rtol=0, atol=ATOL)
+
+
+def test_cuda_step_is_refused_for_serving_on_card(dev):
+    """K5 has no masked form: the engine refuses ``cuda_step`` on the card,
+    and a masked chunk on it raises rather than run the plain scan."""
+    cfg = configs.get_smoke_config('chipmunk-ctc')
+    params = _params(cfg, dev)
+    with pytest.raises(ValueError, match='no masked form'):
+        StreamingEngine(cfg.replace(lstm_backend='cuda_step'), params,
+                        max_streams=3, chunk=4)
+    lp = params.layers[0]
+    xs = torch.zeros(4, 3, lp.n_x, device=dev)
+    n0 = lstm_gates_rec.launches
+    with pytest.raises(ValueError, match='no masked form'):
+        tlstm.lstm_layer_chunk(lp, xs, valid_len=torch.tensor(
+            [4, 2, 0], device=dev), backend='cuda_step')
+    assert lstm_gates_rec.launches == n0
+
+
+@pytest.mark.parametrize('backend', ['cuda_step', 'cuda_seq',
+                                     'cuda_seq_fused'])
+def test_loss_grads_match_torch_scan_on_card(dev, backend):
+    cfg = configs.get_config('chipmunk-ctc')
+    params = _params(cfg, dev)
+    rng = np.random.RandomState(5)
+    T, B = 8, 4
+    batch = {'frames': torch.from_numpy(rng.randn(B, T, cfg.lstm_inputs)
+                                        .astype(np.float32)).to(dev),
+             'labels': torch.from_numpy(rng.randint(1, cfg.n_outputs, (B, 2))
+                                        .astype(np.int32)).to(dev),
+             'frame_len': torch.tensor([8, 6, 8, 5], dtype=torch.int32,
+                                       device=dev),
+             'label_len': torch.tensor([2, 1, 2, 2], dtype=torch.int32,
+                                       device=dev)}
+    grads = {}
+    for b in ('torch_scan', backend):
+        loss_fn = functools.partial(chipmunk_net.loss_fn,
+                                    cfg.replace(lstm_backend=b))
+        grads[b] = leaves(_grads_of(loss_fn, params, batch)[1])
+    for g, r in zip(grads[backend], grads['torch_scan']):
+        assert bool(torch.isfinite(g).all())
+        rel = torch.linalg.vector_norm(g - r) / torch.linalg.vector_norm(r)
+        assert float(rel) <= 1e-4

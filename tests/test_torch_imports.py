@@ -1,6 +1,6 @@
 """Import guard of the port: ``src/repro_torch`` and ``chip_smoke.py`` import
 neither ``jax`` nor the JAX package ``repro``, and importing the serving
-path leaves ``jax`` out of ``sys.modules``."""
+and training paths leaves ``jax`` out of ``sys.modules``."""
 import ast
 import os
 import pathlib
@@ -36,6 +36,9 @@ def test_serving_path_import_leaves_jax_unloaded():
             'import repro_torch.launch.serve, repro_torch.convert\n'
             'import repro_torch.kernels.lstm_seq, repro_torch.kernels._build\n'
             'import repro_torch.core.quant, repro_torch.core.systolic\n'
+            'import repro_torch.launch.train, repro_torch.kernels.lstm_gates\n'
+            'import repro_torch.core.ctc, repro_torch.optim, repro_torch.tree\n'
+            'import repro_torch.data, repro_torch.checkpoint\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "repro")]\n'
             'print(bad)\n'
