@@ -64,6 +64,24 @@ the same f32 weights' configuration from seed 0):
     ``--resume`` for two more; the losses printed must be finite, the
     resume must start at step 6, and K5 must launch T*L times per step.
 
+and then the three kernels that no path of the system reaches, each on its
+public op, each held against its plain version and timed beside its bound
+and a PyTorch yardstick, each op driven once per shape with its launch
+counter set to 0 just before and read just after:
+
+12. K6 (``lstm_gates``, the fused cell) on layer 0 (N_in = 123 + 421) and
+    an inner layer (421 + 421) at B = 8, atol 1e-4; ``lstm_cell_fused``
+    against ``core.lstm.lstm_cell``;
+13. K7 (``quant_matmul``) ``torch.equal`` to its plain version in f32 and
+    bf16 at Mixtral 8x22B's expert up-projection (256 x 6144 x 16384) and
+    the reference bench's 256 x 512 x 512; ``quantized_linear`` there and
+    on the ragged (3, 5, 100) x (100, 75), within 3 % of the f32 product;
+14. K8 (``flash_attention``) at Mixtral 8x22B's attention (48 heads on 8
+    kv heads, D 128, window 4096) as an 8192-token prefill and as a decode
+    row against an 8192 cache, and at the reference bench's causal 8 x 1024
+    x 64, in bf16 (one output rounding, rtol 2**-7, atol 1e-5) and f32
+    (atol 1e-4); ``mha`` on each.
+
 ``--profile`` also traces one engine drain per f32 kernel backend, several
 int8 deploy passes per int8 backend, and one train step per kernel backend
 with ``torch.profiler``.
@@ -104,6 +122,32 @@ TRAIN_BACKENDS = ('cuda_step', 'cuda_seq', 'cuda_seq_fused')
 GRAD_T = 16                   # sequence of the on-card gradient check
 GRAD_REL_TOL = 1e-4           # relative Frobenius error per gradient leaf
 LOSS_RTOL = 1e-4              # loss histories across kernel backends
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+CELL_BATCH = 8                # K6: the training batch, on layers 0 and 1
+# K7 (label, M, K, N): kernel_bench.py:147 and Mixtral 8x22B's expert
+# up-projection (256 tokens, d_model 6144 -> d_ff 16384); the first is the
+# kernels line's row, the ragged case goes through ``quantized_linear`` only
+QMM_SHAPES = (('mixtral-8x22b up-proj', 256, 6144, 16384),
+              ('kernel_bench', 256, 512, 512))
+QMM_RAGGED = ((3, 5, 100), 75)
+QMM_REL_TOL = 0.03            # quantized_linear vs the f32 product
+# K8 (label, B, H, Hkv, Sq, Sk, D, window, dtype), all causal through
+# ``mha``: kernel_bench.py:158, and Mixtral 8x22B's attention (48 heads on
+# 8 kv heads, D 128, sliding window 4096) as an 8192-token prefill and as
+# one decode row against an 8192 cache; the first is the kernels line's row
+ATTN_CASES = (
+    ('mixtral-8x22b prefill', 1, 48, 8, 8192, 8192, 128, 4096, 'bfloat16'),
+    ('mixtral-8x22b prefill', 1, 48, 8, 8192, 8192, 128, 4096, 'float32'),
+    ('mixtral-8x22b decode', 1, 48, 8, 1, 8192, 128, 4096, 'bfloat16'),
+    ('mixtral-8x22b decode', 1, 48, 8, 1, 8192, 128, 4096, 'float32'),
+    ('kernel_bench', 1, 8, 8, 1024, 1024, 64, None, 'float32'),
+    ('kernel_bench', 1, 8, 8, 1024, 1024, 64, None, 'bfloat16'),
+)
+# K8 kernel vs plain version.  Both compute in f32 and round the output to
+# q's dtype, so in bf16 they may differ by one rounding of the output
+# (2**-7 relative) and by the f32 arithmetic's own slack (under 1e-6 in f32)
+ATTN_TOL = {'float32': dict(rtol=0.0, atol=1e-4),
+            'bfloat16': dict(rtol=2.0 ** -7, atol=1e-5)}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -895,6 +939,268 @@ def train_cli(cfg):
     return res
 
 
+def _case_row(name: str, source: str, replaces: str, cases):
+    """A kernels-line row from the measured cases of one kernel: the first
+    case's numbers, the worst error and every case under ``cases``."""
+    first = cases[0]
+    return dict(name=name, route='cuda', source=source, replaces=replaces,
+                shape=first['shape'], max_abs_err=max(
+                    c['max_abs_err'] for c in cases),
+                tol=first['tol'], ok=all(c['ok'] for c in cases),
+                **{k: first[k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                         'bound_by', 'library_ms')},
+                cases=cases)
+
+
+def cell_checks(params, B: int, rng, dev):
+    """K6 (``lstm_gates``, the fused cell) against its plain version on
+    layer 0 (N_in = 123 + 421) and an inner layer (421 + 421) at B streams;
+    times it, its plain version and the product alone (``torch.mm``); then
+    drives the public op ``lstm_cell_fused`` once per layer with the
+    launch counter set to 0, against ``core.lstm.lstm_cell``."""
+    from repro_torch.core.lstm import lstm_cell
+    from repro_torch.kernels.lstm_gates import (lstm_cell_fused, lstm_gates,
+                                                lstm_gates_ref)
+    f32 = lambda *s: torch.from_numpy(
+        (rng.randn(*s) * 0.5).astype(np.float32)).to(dev)
+    cases, inputs = [], []
+    for lp in params.layers[:2]:
+        N, K = lp.n_h, lp.n_x + lp.n_h
+        x, h, c = f32(B, lp.n_x), f32(B, N), f32(B, N)
+        inputs.append((lp, x, h, c))
+        xh = torch.cat([x, h], dim=-1)
+        w = torch.cat([lp.w_x, lp.w_h], dim=-1)
+        args = (xh, w, lp.w_peep, lp.b, c)
+        err = max(float((g - r).abs().max()) for g, r in
+                  zip(lstm_gates(*args), lstm_gates_ref(*args)))
+        w_rows = w.reshape(4 * N, K)
+        case = dict(
+            shape=f'B={B} N_in={K} N_h={N}', max_abs_err=err,
+            tol=KERNEL_ATOL, ok=err <= KERNEL_ATOL,
+            ms=cuda_ms(lambda: lstm_gates(*args), 200),
+            plain_ms=cuda_ms(lambda: lstm_gates_ref(*args), 50),
+            library_ms=None,
+            product_only_ms=cuda_ms(lambda: torch.mm(xh, w_rows.T), 200),
+            # inputs xh, W, peep, bias, c once; outputs h, c once
+            bytes=4 * (B * K + 4 * N * K + 7 * N + B * N + 2 * B * N),
+            flops=8 * B * N * K + 30 * B * N)
+        case['bound_ms'], case['bound_by'] = bound(case['bytes'],
+                                                   case['flops'])
+        print(f"lstm_gates: {case['shape']}: max_abs_err {err:.3e} (tol "
+              f"{KERNEL_ATOL}), kernel {case['ms']:.5f} ms, plain "
+              f"{case['plain_ms']:.4f} ms, bound {case['bound_ms']:.6f} ms "
+              f"({case['bound_by']}; {case['bytes'] / 1e6:.3f} MB), library "
+              f"none (product only, torch.mm: "
+              f"{case['product_only_ms']:.5f} ms)", flush=True)
+        check(case['ok'], 'lstm_gates disagrees with its plain version')
+        cases.append(case)
+
+    torch.cuda.synchronize()
+    lstm_gates.launches = 0
+    outs = [lstm_cell_fused(*a) for a in inputs]
+    torch.cuda.synchronize()
+    launches = lstm_gates.launches
+    err = max(float((g - r).abs().max()) for a, o in zip(inputs, outs)
+              for g, r in zip(o, lstm_cell(*a)))
+    print(f'lstm_cell_fused: {len(inputs)} calls, {launches} K6 launches; '
+          f'max abs diff vs lstm_cell {err:.3e} (tol {KERNEL_ATOL})',
+          flush=True)
+    check(launches == len(inputs), 'lstm_cell_fused must launch K6 once')
+    check(err <= KERNEL_ATOL, 'lstm_cell_fused disagrees with lstm_cell')
+    row = _case_row('lstm_gates', 'src/repro_torch/csrc/lstm_gates_rec.cu',
+                    'src/repro/kernels/lstm_gates/kernel.py:115', cases)
+    row['launches'] = launches
+    return row
+
+
+def quant_matmul_checks(dev):
+    """K7 (``quant_matmul``) against its plain version, ``torch.equal`` in
+    f32 and bf16, at each ``QMM_SHAPES`` shape on per-row and per-column
+    quantized normal data; times it, its plain version and the product
+    alone (``torch._int_mm``, the faster of a row-major and a column-major
+    weight); then drives the public op
+    ``quantized_linear`` once at each shape and at ``QMM_RAGGED`` with the
+    launch counter set to 0, against the f32 product."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.quant_matmul import (quant_matmul,
+                                                  quant_matmul_ref,
+                                                  quantize_weights,
+                                                  quantized_linear)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cases, inputs = [], []
+    for label, M, K, N in QMM_SHAPES:
+        x = torch.randn(M, K, generator=g, device=dev)
+        w = torch.randn(K, N, generator=g, device=dev)
+        w_q, ws = quantize_weights(w)
+        inputs.append((x, w, w_q, ws))
+        xs = quant.abs_max_scale(x, axis=-1)
+        args = (quant.quantize_scaled(x, xs), w_q, xs, ws[None, :])
+        got, want = quant_matmul(*args), quant_matmul_ref(*args)
+        err = float((got - want).abs().max())
+        same = dict(float32=torch.equal(got, want), bfloat16=torch.equal(
+            quant_matmul(*args, out_dtype=torch.bfloat16),
+            quant_matmul_ref(*args, out_dtype=torch.bfloat16)))
+        big = M * K * N > 1e10
+        w_cm = w_q.t().contiguous().t()          # column-major (K, N)
+        int_mm = {layout: cuda_ms(lambda: torch._int_mm(args[0], wl),
+                                  20 if big else 200)
+                  for layout, wl in (('row-major', w_q),
+                                     ('column-major', w_cm))}
+        case = dict(
+            shape=f'{label} M={M} K={K} N={N}', max_abs_err=err, tol=0,
+            ok=all(same.values()), equal=same,
+            ms=cuda_ms(lambda: quant_matmul(*args), 20 if big else 200),
+            ms_bf16=cuda_ms(lambda: quant_matmul(
+                *args, out_dtype=torch.bfloat16), 20 if big else 200),
+            plain_ms=cuda_ms(lambda: quant_matmul_ref(*args), 3, warmup=1),
+            library_ms=None,
+            product_only_ms=min(int_mm.values()), int_mm_ms=int_mm,
+            # codes and scales in once, f32 out once
+            bytes=M * K + K * N + 4 * M + 4 * N + 4 * M * N,
+            flops=2 * M * K * N)
+        case['bound_ms'], case['bound_by'] = bound(
+            case['bytes'], case['flops'], INT8_OPS_PER_S)
+        print(f"quant_matmul: {case['shape']}: torch.equal to plain version "
+              f"{same}, kernel {case['ms']:.4f} ms (bf16 out "
+              f"{case['ms_bf16']:.4f}), plain {case['plain_ms']:.4f} ms, "
+              f"bound {case['bound_ms']:.5f} ms ({case['bound_by']}; "
+              f"{case['bytes'] / 1e6:.2f} MB), library none (product only, "
+              f"torch._int_mm: row-major weight "
+              f"{int_mm['row-major']:.4f} ms, column-major "
+              f"{int_mm['column-major']:.4f} ms)", flush=True)
+        check(case['ok'], f'quant_matmul differs from its plain version at '
+                          f'{case["shape"]}')
+        cases.append(case)
+    lead, N = QMM_RAGGED
+    x = torch.randn(*lead, generator=g, device=dev)
+    w = torch.randn(lead[-1], N, generator=g, device=dev)
+    inputs.append((x, w, *quantize_weights(w)))
+
+    torch.cuda.synchronize()
+    quant_matmul.launches = 0
+    outs = [quantized_linear(x, w_q, ws) for x, _, w_q, ws in inputs]
+    torch.cuda.synchronize()
+    launches = quant_matmul.launches
+    rel = []
+    for (x, w, _, _), out in zip(inputs, outs):
+        exact = x @ w
+        check(out.shape == exact.shape and bool(torch.isfinite(out).all()),
+              'quantized_linear output misshapen or not finite')
+        rel.append(float((out - exact).abs().max() / exact.abs().max()))
+    print(f'quantized_linear: {len(inputs)} calls (the shapes above and '
+          f'{tuple(lead)} x ({lead[-1]}, {N})), {launches} K7 launches; max '
+          f'error relative to the f32 product {max(rel):.4f} (tol '
+          f'{QMM_REL_TOL})', flush=True)
+    check(launches == len(inputs), 'quantized_linear must launch K7 once')
+    check(max(rel) < QMM_REL_TOL, 'quantized_linear strays from f32')
+    row = _case_row('quant_matmul', 'src/repro_torch/csrc/quant_matmul.cu',
+                    'src/repro/kernels/quant_matmul/kernel.py:41', cases)
+    row['launches'] = launches
+    return row
+
+
+def _needed(sq: int, sk: int, offset: int, window):
+    """(valid query-key pairs, keys any query sees) of one causal head."""
+    pos = np.arange(sq) + offset
+    hi = np.minimum(sk, pos + 1)
+    lo = np.zeros_like(pos) if window is None else np.maximum(
+        0, pos - window + 1)
+    seen = np.zeros(sk + 1, np.int64)
+    live = hi > lo
+    np.add.at(seen, lo[live], 1)
+    np.add.at(seen, hi[live], -1)
+    return (int(np.maximum(hi - lo, 0).sum()),
+            int((np.cumsum(seen)[:sk] > 0).sum()))
+
+
+def attention_checks(dev):
+    """K8 (``flash_attention``) against its plain version at each
+    ``ATTN_CASES`` case with ``mha``'s arguments (causal, offset Sk - Sq);
+    times it, its plain version and ``scaled_dot_product_attention`` with
+    ``enable_gqa`` and an explicit boolean mask (its ``is_causal`` is
+    top-left aligned, wrong for Sq != Sk); then drives the public op ``mha``
+    once per case with the launch counter set to 0."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention, mha)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cases, inputs = [], []
+    for label, B, H, Hkv, Sq, Sk, D, window, dt in ATTN_CASES:
+        dtype = getattr(torch, dt)
+        q = torch.randn(B, H, Sq, D, generator=g, device=dev).to(dtype)
+        k, v = (torch.randn(B, Hkv, Sk, D, generator=g, device=dev).to(dtype)
+                for _ in range(2))
+        inputs.append((q, k, v, window))
+        kw = dict(causal=True, window=window, offset=Sk - Sq)
+        got = flash_attention(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        tol = ATTN_TOL[dt]
+        ok = bool(torch.allclose(got.float(), want.float(), **tol))
+        # the largest share of the limit any element uses (<= 1 passes)
+        used = float(((got.float() - want.float()).abs() / (
+            tol['atol'] + tol['rtol'] * want.float().abs())).max())
+        pos = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
+        key = torch.arange(Sk, device=dev)[None, :]
+        mask = pos >= key
+        if window is not None:
+            mask &= (pos - key) < window
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                      enable_gqa=True)
+        lib_err = float((sdpa().float() - want.float()).abs().max())
+        pairs, keys = _needed(Sq, Sk, Sk - Sq, window)
+        big = pairs * H > 1e8
+        es = q.element_size()
+        case = dict(
+            shape=f'{label} {dt} B={B} H={H} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} '
+                  f'window={window}', max_abs_err=err, tol=tol, ok=ok,
+            tol_used=used,
+            ms=cuda_ms(lambda: flash_attention(q, k, v, **kw),
+                       3 if big else 20),
+            plain_ms=cuda_ms(lambda: attention_ref(q, k, v, **kw),
+                             1 if big else 5, warmup=1),
+            library_ms=cuda_ms(sdpa, 3 if big else 20, warmup=1),
+            library_max_abs_diff=lib_err,
+            # q in and out once; the keys and values some query sees, once
+            bytes=es * (2 * B * H * Sq * D + 2 * B * Hkv * keys * D),
+            flops=4 * D * pairs * B * H, pairs=pairs * B * H)
+        # operations at the peak of the inputs' type; the kernel's own f32
+        # arithmetic on the CUDA cores beside it
+        case['bound_ms'], case['bound_by'] = bound(
+            case['bytes'], case['flops'],
+            BF16_FLOPS_PER_S if dt == 'bfloat16' else F32_FLOPS_PER_S)
+        case['bound_f32_cores_ms'] = bound(case['bytes'], case['flops'])[0]
+        print(f"flash_attention: {case['shape']}: max_abs_err {err:.3e} "
+              f"(tol {tol}, {used:.3f} of the limit), kernel "
+              f"{case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, sdpa "
+              f"{case['library_ms']:.4f} ms (max abs diff {lib_err:.3e}), "
+              f"bound {case['bound_ms']:.5f} ms ({case['bound_by']}: "
+              f"{case['flops'] / 1e9:.2f} GFLOP, {case['bytes'] / 1e6:.2f} "
+              f"MB; at the f32 CUDA-core peak "
+              f"{case['bound_f32_cores_ms']:.5f} ms)", flush=True)
+        check(ok, f'flash_attention disagrees with its plain version at '
+                  f'{case["shape"]}')
+        cases.append(case)
+        del got, want, mask
+
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    outs = [mha(q, k, v, causal=True, window=w) for q, k, v, w in inputs]
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    check(all(o.shape == q.shape and o.dtype == q.dtype
+              and bool(torch.isfinite(o).all())
+              for o, (q, _, _, _) in zip(outs, inputs)),
+          'mha output misshapen or not finite')
+    print(f'mha: {len(inputs)} calls, {launches} K8 launches', flush=True)
+    check(launches == len(inputs), 'mha must launch K8 once')
+    row = _case_row('flash_attention',
+                    'src/repro_torch/csrc/flash_attention.cu',
+                    'src/repro/kernels/flash_attention/kernel.py:79', cases)
+    row['launches'] = launches
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description='chip smoke test of the port')
     ap.add_argument('--out', default=None,
@@ -959,6 +1265,10 @@ def main(argv=None) -> int:
     profiles += train_profiles
     cli = train_cli(train_cfg)
 
+    # K6-K8 on their public ops (no path of the system reaches them)
+    op_rows = [cell_checks(params, CELL_BATCH, rng, dev),
+               quant_matmul_checks(dev), attention_checks(dev)]
+
     launches = dict(lstm_seq=runs['cuda_seq']['launches']['lstm_seq'],
                     lstm_stack_seq_kernel=runs['cuda_seq_fused']['launches']
                     ['lstm_stack_seq_kernel'],
@@ -970,11 +1280,13 @@ def main(argv=None) -> int:
                     ['lstm_gates_rec'])
     for r in rows:
         r['launches'] = launches[r['name']]
+    rows += op_rows
+    for r in rows:
         check(r['launches'] > 0, f"{r['name']} never launched on the path")
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'tol',
-            'ok')
-    kernels = {'kernels': [{k: r[k] for k in keys} for r in rows]}
+            'ok', 'shape', 'cases')
+    kernels = {'kernels': [{k: r[k] for k in keys if k in r} for r in rows]}
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

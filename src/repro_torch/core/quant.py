@@ -6,16 +6,21 @@ partial-sum semantics of the systolic hop, the silicon's rounding right
 shift, and the 256-entry activation LUTs.  Three details keep it bit-equal to
 the reference: ``torch.round`` rounds half to even as ``jnp.round`` does,
 ``>>`` on a signed integer tensor is an arithmetic shift, and a LUT is
-indexed with ``code + 128``.  Quantization-aware training (``fake_quant``)
-and the arbitrary-scale int8 matmul path are not ported here.
+indexed with ``code + 128``.  The arbitrary-scale symmetric int8 helpers
+(``abs_max_scale``, ``quantize_scaled``, ``int8_matmul``) serve the int8
+linear op of K7 (``kernels.quant_matmul``); ``quantize_scaled`` divides by
+the scale, as the reference does, so its codes are the reference's bit for
+bit.  Quantization-aware training (``fake_quant``) is not ported here.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
+INT8_MIN, INT8_MAX = -128, 127
 INT16_MIN, INT16_MAX = -(2 ** 15), 2 ** 15 - 1
 
 
@@ -114,3 +119,50 @@ def default_luts(pre_fmt: QFormat = STATE_FMT, device='cuda'):
     return tuple(torch.from_numpy(build_act_lut(fn, pre_fmt, GATE_FMT)
                                   ).to(device)
                  for fn in (_SIGMOID, _TANH))
+
+
+# ---------------------------------------------------------------------------
+# Arbitrary-scale symmetric int8 (the int8 linear op, K7)
+# ---------------------------------------------------------------------------
+
+def abs_max_scale(x: torch.Tensor, axis: Optional[int] = None,
+                  eps: float = 1e-8) -> torch.Tensor:
+    """Symmetric per-tensor (``axis=None``) or per-channel scale
+    ``max(amax, eps) / 127``, so ``x / scale`` fits int8 (the channel axis
+    kept with size 1)."""
+    a = x.abs()
+    amax = torch.clamp_min(
+        a.amax() if axis is None else a.amax(dim=axis, keepdim=True), eps)
+    # a tensor divisor: on the card PyTorch divides by a Python scalar as a
+    # product with its reciprocal, which can differ from the reference's
+    # quotient in the last bit
+    return amax / torch.full_like(amax, INT8_MAX)
+
+
+def quantize_scaled(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``clip(round(x / scale))`` as int8, rounding half to even."""
+    return torch.clamp(torch.round(x / scale), INT8_MIN, INT8_MAX
+                       ).to(torch.int8)
+
+
+def dequantize_scaled(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def int8_matmul_int32(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The exact int32 product of int8 codes, x_q (..., K) @ w_q (K, N).
+    Computed in float64, where every partial sum of int8 products is an
+    integer below 2**53 and so exact in any order (PyTorch has no int32
+    product on the card); exact in int32 while K < 2**17 (K * 128**2 <
+    2**31), as the int32 accumulators of the reference and of K7 are."""
+    return torch.matmul(x_q.to(torch.float64), w_q.to(torch.float64)
+                        ).to(torch.int32)
+
+
+def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                w_scale: torch.Tensor) -> torch.Tensor:
+    """int8 x int8 -> int32 accumulate -> f32 rescale, in the reference's
+    order ``acc * (x_scale * w_scale)``; ``w_scale`` may be per channel of
+    the output dim."""
+    return (int8_matmul_int32(x_q, w_q).to(torch.float32)
+            * (x_scale * w_scale))

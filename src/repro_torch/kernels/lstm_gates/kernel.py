@@ -1,10 +1,12 @@
-"""K5 wrapper: one recurrent f32 peephole LSTM step on the card.
+"""K5 and K6 wrappers: one f32 peephole LSTM step on the card.
 
-``lstm_gates_rec`` launches ``csrc/lstm_gates_rec.cu`` on CUDA tensors (a
-plain launch on PyTorch's current stream, no grid barrier) and runs its
-plain version (``ref.lstm_gates_rec_ref``) on CPU tensors; there is no
-fallback between the two.  ``gates_rec_geometry`` is the launch geometry as
-a pure function of shapes, which backend selection reads.
+``lstm_gates_rec`` (K5, from the hoisted ``pre``) and ``lstm_gates`` (K6,
+the whole cell from the packed [x; h]) launch the one templated kernel body
+of ``csrc/lstm_gates_rec.cu`` on CUDA tensors (a plain launch on PyTorch's
+current stream, no grid barrier) and run their plain versions (``ref``) on
+CPU tensors; there is no fallback between the two.  ``gates_geometry`` is
+the launch geometry as a pure function of shapes, which backend selection
+reads.
 """
 from __future__ import annotations
 
@@ -12,22 +14,43 @@ import torch
 
 from .. import _build
 from ..lstm_seq.kernel import LaunchGeometry, check_inputs
-from .ref import lstm_gates_rec_ref
+from .ref import lstm_gates_rec_ref, lstm_gates_ref
+
+
+def gates_geometry(n_h: int, n_in: int, batch: int, sm_count: int
+                   ) -> LaunchGeometry:
+    """The geometry of K5 (``n_in`` = N_h) and K6 (``n_in`` = N_x + N_h):
+    R = ceil(N_h / SMs) rows per CTA, one CTA per row slice; shared memory
+    holds every stream's row inputs and the CTA's gate sums (same formula as
+    ``smem_bytes`` in the source).  A plain launch: only the shared memory
+    bounds it (``LaunchGeometry.admissible()``)."""
+    rows = max(1, -(-n_h // sm_count))
+    ctas = -(-n_h // rows)
+    return LaunchGeometry(rows, ctas, 4 * (batch * n_in + 4 * rows * batch))
 
 
 def gates_rec_geometry(n_h: int, batch: int, sm_count: int) -> LaunchGeometry:
-    """K5's geometry: R = ceil(N_h / SMs) rows per CTA, one CTA per row
-    slice; shared memory holds h of every stream and the CTA's gate sums
-    (same formula as ``smem_bytes`` in the source).  A plain launch: only
-    the shared memory bounds it (``LaunchGeometry.admissible()``)."""
-    rows = max(1, -(-n_h // sm_count))
-    ctas = -(-n_h // rows)
-    return LaunchGeometry(rows, ctas, 4 * (batch * n_h + 4 * rows * batch))
+    """K5's geometry (``gates_geometry`` with rows of length N_h)."""
+    return gates_geometry(n_h, n_h, batch, sm_count)
 
 
-_SIGNATURES = {'lstm_gates_rec_launch': [_build.I] + [_build.P] * 8
-               + [_build.I] * 3 + [_build.P]}
+_P, _I = _build.P, _build.I
+_SIGNATURES = {'lstm_gates_rec_launch': [_I] + [_P] * 8 + [_I] * 3 + [_P],
+               'lstm_gates_launch': [_I] + [_P] * 7 + [_I] * 4 + [_P]}
 _SMS = {}   # device index -> SM count
+
+
+def _launch_setup(name: str, dev: torch.device, n_h: int, n_in: int, B: int):
+    """The loaded library and an admissible geometry for one launch."""
+    lib = _build.load('lstm_gates_rec', _SIGNATURES)
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    geom = gates_geometry(n_h, n_in, B, _SMS[dev.index])
+    if not geom.admissible():
+        raise ValueError(f'{name}: launch geometry {geom} does not fit one '
+                         f'CTA (N_h={n_h}, row length {n_in}, B={B})')
+    return lib, geom
 
 
 def lstm_gates_rec(h: torch.Tensor, w_h: torch.Tensor, pre: torch.Tensor,
@@ -50,14 +73,7 @@ def lstm_gates_rec(h: torch.Tensor, w_h: torch.Tensor, pre: torch.Tensor,
                       c_prev=c_prev),
                  dict(h=(B, N), w_h=(4, N, N), pre=(B, 4, N), peep=(3, N),
                       bias=(4, N), c_prev=(B, N)), dev)
-    lib = _build.load('lstm_gates_rec', _SIGNATURES)
-    if dev.index not in _SMS:
-        _SMS[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    geom = gates_rec_geometry(N, B, _SMS[dev.index])
-    if not geom.admissible():
-        raise ValueError(f'lstm_gates_rec: launch geometry {geom} does not '
-                         f'fit one CTA (N_h={N}, B={B})')
+    lib, geom = _launch_setup('lstm_gates_rec', dev, N, N, B)
     h_out = torch.empty((B, N), dtype=torch.float32, device=dev)
     c_out = torch.empty_like(h_out)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -71,3 +87,39 @@ def lstm_gates_rec(h: torch.Tensor, w_h: torch.Tensor, pre: torch.Tensor,
 
 
 lstm_gates_rec.launches = 0
+
+
+def lstm_gates(xh: torch.Tensor, w: torch.Tensor, peep: torch.Tensor,
+               bias: torch.Tensor, c_prev: torch.Tensor):
+    """The fused LSTM cell from the packed inputs (the reference's
+    ``lstm_gates`` contract, any N_in and N_h: no padding to blocks).
+
+    xh: (B, N_in) = [x_t; h_{t-1}]; w: (4, N_h, N_in) = [W_x | W_h]; peep:
+    (3, N_h); bias: (4, N_h); c_prev: (B, N_h).  Returns (h, c), each
+    (B, N_h).  CPU tensors run the plain version; CUDA tensors launch the
+    kernel and count it in ``lstm_gates.launches``.
+    """
+    B, K = xh.shape
+    N = c_prev.shape[-1]
+    dev = xh.device
+    if dev.type == 'cpu':
+        return lstm_gates_ref(xh, w, peep, bias, c_prev)
+    if dev.type != 'cuda':
+        raise ValueError(f'lstm_gates runs on cuda or cpu, not {dev}')
+    check_inputs(dict(xh=xh, w=w, peep=peep, bias=bias, c_prev=c_prev),
+                 dict(xh=(B, K), w=(4, N, K), peep=(3, N), bias=(4, N),
+                      c_prev=(B, N)), dev)
+    lib, geom = _launch_setup('lstm_gates', dev, N, K, B)
+    h_out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    c_out = torch.empty_like(h_out)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.lstm_gates_launch(
+        dev.index, xh.data_ptr(), w.data_ptr(), peep.data_ptr(),
+        bias.data_ptr(), c_prev.data_ptr(), h_out.data_ptr(),
+        c_out.data_ptr(), B, N, K, geom.rows, stream)
+    _build.check(lib, err, 'lstm_gates launch')
+    lstm_gates.launches += 1
+    return h_out, c_out
+
+
+lstm_gates.launches = 0

@@ -1,11 +1,13 @@
-"""Public ops of K5: the per-step kernel scanned over time, with the
-training backward — the ``cuda_step`` backend.
+"""Public ops of K5 and K6: the fused cell (``lstm_cell_fused``, K6) and the
+per-step kernel scanned over time with the training backward (K5, the
+``cuda_step`` backend).
 
-Counterpart of ``repro.kernels.lstm_gates.ops`` (``_step_forward``,
-``lstm_step_fused``, ``lstm_layer_fused``).  The non-recurrent ``W_x @ x``
-is hoisted out of the loop (``core.lstm.hoisted_input``), so each of the T
-launches pays only the recurrent W_h h product.  No padding to the TPU's
-blocks or to B = 8: the kernel takes any N_h and B with bounds checks.
+Counterpart of ``repro.kernels.lstm_gates.ops`` (``lstm_cell_fused``,
+``_step_forward``, ``lstm_step_fused``, ``lstm_layer_fused``).  In the
+layer, the non-recurrent ``W_x @ x`` is hoisted out of the loop
+(``core.lstm.hoisted_input``), so each of the T launches pays only the
+recurrent W_h h product.  No padding to the TPU's blocks or to B = 8: the
+kernels take any N_in, N_h and B with bounds checks.
 """
 from __future__ import annotations
 
@@ -14,7 +16,19 @@ from typing import Optional
 import torch
 
 from ...core.lstm import LSTMParams, hoisted_input, recompute_gates_layer
-from .kernel import lstm_gates_rec
+from .kernel import lstm_gates, lstm_gates_rec
+
+
+def lstm_cell_fused(params: LSTMParams, x_t: torch.Tensor,
+                    h_prev: torch.Tensor, c_prev: torch.Tensor):
+    """Same contract as ``core.lstm.lstm_cell``, through K6: the packed
+    weights [W_x | W_h] and inputs [x_t; h_prev], as the reference's op
+    builds them on every call.  x_t: (B, N_x); h_prev, c_prev: (B, N_h).
+    Returns (h, c), each (B, N_h).  Not differentiable (the reference's
+    kernel has no VJP)."""
+    w = torch.cat([params.w_x, params.w_h], dim=-1)
+    xh = torch.cat([x_t, h_prev], dim=-1)
+    return lstm_gates(xh, w, params.w_peep, params.b, c_prev.contiguous())
 
 
 def _step_forward(w_h, w_peep, b, pre_x, h0, c0):

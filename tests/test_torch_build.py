@@ -1,8 +1,10 @@
 """The port's kernel build on the CPU (no ``nvcc`` needed): which sources
-share the int8 and the f32 epilogue headers, and that a library's name
-follows every header, so a change to a shared epilogue rebuilds every
-kernel that includes it."""
+share the int8 and the f32 epilogue headers, that K5 and K6 share one
+kernel body, what every source exports, and that a library's name follows
+every header, so a change to a shared epilogue rebuilds every kernel that
+includes it."""
 import pathlib
+import re
 
 import pytest
 
@@ -33,6 +35,38 @@ def test_f32_kernels_share_one_epilogue_header(name):
     assert 'lstm_f32::cell_update(' in src
     for body in ('float sigmoid', 'expf(', 'tanhf('):
         assert body not in src, body
+
+
+# source -> its exported launch functions (K1-K8)
+SOURCES = {'lstm_seq': ('lstm_seq_launch',),
+           'lstm_stack_seq': ('lstm_stack_seq_launch',),
+           'lstm_seq_q': ('lstm_seq_q_launch',),
+           'lstm_stack_seq_q': ('lstm_stack_seq_q_launch',),
+           'lstm_gates_rec': ('lstm_gates_rec_launch', 'lstm_gates_launch'),
+           'quant_matmul': ('quant_matmul_launch',),
+           'flash_attention': ('flash_attention_launch',)}
+
+
+def test_every_kernel_source_and_its_exports():
+    """One source per kernel library; each exports its launch functions
+    and ``kernel_error_string`` with C linkage, and none calls a library's
+    kernels (cuBLAS, cuDNN, CUTLASS's device-level GEMMs)."""
+    assert sorted(p.stem for p in _build.CSRC.glob('*.cu')) == sorted(SOURCES)
+    for name, exports in SOURCES.items():
+        src = (_build.CSRC / f'{name}.cu').read_text()
+        c_api = src[src.index('extern "C" {'):]
+        for fn in exports + ('kernel_error_string',):
+            assert re.search(rf'\b{fn}\(', c_api), (name, fn)
+        for banned in ('cublas', 'cudnn', 'cutlass/gemm'):
+            assert banned not in src.lower(), (name, banned)
+
+
+def test_k5_and_k6_share_one_kernel_body():
+    """K5 (``pre`` + W_h h) and K6 (W [x; h] from zero) are the two
+    instances of one template, so their dot order is one."""
+    src = (_build.CSRC / 'lstm_gates_rec.cu').read_text()
+    assert src.count('__global__') == 1
+    assert 'launch<true>(' in src and 'launch<false>(' in src
 
 
 def test_library_name_follows_source_and_headers(tmp_path, monkeypatch):

@@ -12,7 +12,11 @@ every library product.  The int8 kernels (K3, K4) are bit-exact by contract:
 ``torch.equal`` on the h and c codes, no tolerance.  K5 (one recurrent
 step) is held at the same atol 1e-4, and the training gradients of every
 kernel backend against the ``torch_scan`` Function's at a relative
-Frobenius error of at most 1e-4 per leaf.
+Frobenius error of at most 1e-4 per leaf.  K6 (the fused cell) at atol
+1e-4; K7 (int8 matmul) ``torch.equal`` to its plain version in f32 and
+bf16 (an exact int32 sum and the same epilogue order); K8 (attention) at
+atol 1e-4 in f32, and in bf16 at one rounding of the output (rtol 2**-7)
+with atol 1e-5: both compute in f32 and round the output to bf16.
 """
 import functools
 
@@ -34,7 +38,15 @@ from repro_torch.kernels.lstm_seq import (lstm_seq, lstm_seq_quantized,
                                           lstm_stack_seq_ref,
                                           stack_kernel_weights,
                                           stack_kernel_weights_q)
-from repro_torch.kernels.lstm_gates import lstm_gates_rec, lstm_gates_rec_ref
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention, mha)
+from repro_torch.kernels.lstm_gates import (lstm_cell_fused, lstm_gates,
+                                            lstm_gates_rec,
+                                            lstm_gates_rec_ref,
+                                            lstm_gates_ref)
+from repro_torch.kernels.quant_matmul import (quant_matmul, quant_matmul_ref,
+                                              quantize_weights,
+                                              quantized_linear)
 from repro_torch.kernels.lstm_seq.ops import _dense_from_tiles
 from repro_torch.launch.train import _grads_of
 from repro_torch.models import chipmunk_net
@@ -291,3 +303,101 @@ def test_loss_grads_match_torch_scan_on_card(dev, backend):
         assert bool(torch.isfinite(g).all())
         rel = torch.linalg.vector_norm(g - r) / torch.linalg.vector_norm(r)
         assert float(rel) <= 1e-4
+
+
+# ------------------------------------------------------ K6, K7, K8 on their ops
+@pytest.mark.parametrize('layer,B', [(0, 8), (1, 8), (1, 11), (0, 1)])
+def test_lstm_gates_kernel_matches_plain_version(dev, layer, B):
+    """K6 at full width: layer 0 (N_in 544) and an inner layer (842)."""
+    cfg = configs.get_config('chipmunk-ctc')
+    lp = _params(cfg, dev).layers[layer]
+    rng = np.random.RandomState(layer + B)
+    f = lambda *s: torch.from_numpy((rng.randn(*s) * 0.5).astype(
+        np.float32)).to(dev)
+    x, h, c = f(B, lp.n_x), f(B, lp.n_h), f(B, lp.n_h)
+    w = torch.cat([lp.w_x, lp.w_h], dim=-1)
+    xh = torch.cat([x, h], dim=-1)
+    want = lstm_gates_ref(xh, w, lp.w_peep, lp.b, c)
+    n0 = lstm_gates.launches
+    for got in (lstm_gates(xh, w, lp.w_peep, lp.b, c),
+                lstm_cell_fused(lp, x, h, c)):
+        for g, r in zip(got, want):
+            torch.testing.assert_close(g, r, rtol=0, atol=ATOL)
+    torch.cuda.synchronize()
+    assert lstm_gates.launches == n0 + 2
+
+
+@pytest.mark.parametrize('m,k,n', [(256, 512, 512), (15, 100, 75),
+                                   (1, 7, 3), (130, 264, 136)])
+@pytest.mark.parametrize('out_dtype', [torch.float32, torch.bfloat16])
+def test_quant_matmul_kernel_equals_plain_version(dev, m, k, n, out_dtype):
+    """K7, aligned and ragged (word and byte loads, partial tiles)."""
+    rng = np.random.RandomState(m + k + n)
+    x_q = torch.from_numpy(rng.randint(-128, 128, (m, k)).astype(
+        np.int8)).to(dev)
+    w_q = torch.from_numpy(rng.randint(-128, 128, (k, n)).astype(
+        np.int8)).to(dev)
+    xs = torch.from_numpy(rng.rand(m, 1).astype(np.float32) + 0.1).to(dev)
+    ws = torch.from_numpy(rng.rand(1, n).astype(np.float32) + 0.1).to(dev)
+    n0 = quant_matmul.launches
+    got = quant_matmul(x_q, w_q, xs, ws, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == n0 + 1 and got.dtype == out_dtype
+    assert torch.equal(got, quant_matmul_ref(x_q, w_q, xs, ws, out_dtype))
+
+
+def test_quantized_linear_on_card(dev):
+    """The reference's ragged case through the public op: one K7 launch,
+    equal to the plain path on the same codes, within 3 % of f32."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(3, 5, 100).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.randn(100, 75).astype(np.float32)).to(dev)
+    w_q, w_scale = quantize_weights(w)
+    n0 = quant_matmul.launches
+    got = quantized_linear(x, w_q, w_scale)
+    assert quant_matmul.launches == n0 + 1 and got.shape == (3, 5, 75)
+    assert torch.equal(got.cpu(), quantized_linear(x.cpu(), w_q.cpu(),
+                                                   w_scale.cpu()))
+    exact = x @ w
+    assert float((got - exact).abs().max() / exact.abs().max()) < 0.03
+
+
+@pytest.mark.parametrize('case', [
+    # (B, H, Hkv, Sq, Sk, D, causal, window, kv_len, offset)
+    (1, 8, 8, 1024, 1024, 64, True, None, None, None),
+    (2, 6, 2, 200, 200, 128, True, 64, None, None),
+    (1, 5, 1, 70, 70, 32, False, 16, None, 0),
+    (2, 4, 2, 1, 300, 128, True, 128, None, None),      # decode
+    (1, 2, 1, 96, 96, 20, True, None, 60, -16),         # D % 4 != 0, rows
+    (1, 2, 2, 64, 64, 64, True, None, 0, None),         # all keys masked
+])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_version(dev, case, dtype):
+    b, h, hkv, sq, sk, d, causal, window, kv_len, offset = case
+    g = torch.Generator(device=dev).manual_seed(sq + sk + d)
+    q, k, v = (torch.randn(b, n, s, d, generator=g, device=dev).to(dtype)
+               for n, s in ((h, sq), (hkv, sk), (hkv, sk)))
+    kw = dict(causal=causal, window=window, kv_len=kv_len, offset=offset)
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1 and got.dtype == dtype
+    want = attention_ref(q, k, v, **kw)
+    tol = dict(rtol=0, atol=1e-4) if dtype == torch.float32 else dict(
+        rtol=2.0 ** -7, atol=1e-5)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    if kv_len == 0:
+        assert not bool(got.any())
+
+
+def test_mha_on_card_launches_once(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(1, 4, 33, 64, generator=g, device=dev)
+    k, v = (torch.randn(1, 2, 50, 64, generator=g, device=dev)
+            for _ in range(2))
+    n0 = flash_attention.launches
+    got = mha(q, k, v, causal=True, window=16)
+    assert flash_attention.launches == n0 + 1
+    torch.testing.assert_close(
+        got, attention_ref(q, k, v, causal=True, window=16), rtol=0,
+        atol=1e-4)

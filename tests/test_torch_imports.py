@@ -1,6 +1,7 @@
 """Import guard of the port: ``src/repro_torch`` and ``chip_smoke.py`` import
 neither ``jax`` nor the JAX package ``repro``, and importing the serving
-and training paths leaves ``jax`` out of ``sys.modules``."""
+and training paths and every kernel package leaves ``jax`` out of
+``sys.modules``."""
 import ast
 import os
 import pathlib
@@ -39,6 +40,8 @@ def test_serving_path_import_leaves_jax_unloaded():
             'import repro_torch.launch.train, repro_torch.kernels.lstm_gates\n'
             'import repro_torch.core.ctc, repro_torch.optim, repro_torch.tree\n'
             'import repro_torch.data, repro_torch.checkpoint\n'
+            'import repro_torch.kernels.quant_matmul\n'
+            'import repro_torch.kernels.flash_attention\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "repro")]\n'
             'print(bad)\n'
