@@ -76,15 +76,24 @@ counter set to 0 just before and read just after:
     bf16 at Mixtral 8x22B's expert up-projection (256 x 6144 x 16384) and
     the reference bench's 256 x 512 x 512; ``quantized_linear`` there and
     on the ragged (3, 5, 100) x (100, 75), within 3 % of the f32 product;
+    each case records its launch geometry (``qmm_geometry``: its tiles);
 14. K8 (``flash_attention``) at Mixtral 8x22B's attention (48 heads on 8
     kv heads, D 128, window 4096) as an 8192-token prefill and as a decode
     row against an 8192 cache, and at the reference bench's causal 8 x 1024
     x 64, in bf16 (one output rounding, rtol 2**-7, atol 1e-5) and f32
-    (atol 1e-4); ``mha`` on each.
+    (atol 1e-4); ``mha`` on each; each case records its schedule
+    (``attention_geometry``: ``tiled`` with 64 or 128 rows a tile, or
+    ``split`` with n_splits), and a case in 128-row tiles also its time in
+    64-row tiles.
 
 ``--profile`` also traces one engine drain per f32 kernel backend, several
 int8 deploy passes per int8 backend, and one train step per kernel backend
-with ``torch.profiler``.
+with ``torch.profiler``.  Two measurement modes run instead of the phases:
+``--ab PARENT_SRC`` times K7 and K8 at the cases of 13 and 14 (the same
+``qmm_case`` and ``attn_case`` as those phases) against the tree whose
+``src`` is given, each turn a process of its own (parent, change, change,
+parent); ``--clock-stamps`` rebuilds K7 and K8 with
+``-DCLOCK_STAMPS`` and prints the cycles of each phase of their loops.
 
 Any failed check raises (nonzero exit).  The line before the last is the
 ``kernels`` JSON; the last line is the device JSON.  Without a CUDA device,
@@ -94,6 +103,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -131,6 +141,11 @@ QMM_SHAPES = (('mixtral-8x22b up-proj', 256, 6144, 16384),
               ('kernel_bench', 256, 512, 512))
 QMM_RAGGED = ((3, 5, 100), 75)
 QMM_REL_TOL = 0.03            # quantized_linear vs the f32 product
+# the phases ``--clock-stamps`` reads (csrc/clock_stamps.cuh, clk.lap), of
+# a row of kParts = 4 phases, the loop's cycles and the saved value
+STAMP_COLS = 6
+STAMP_PARTS = {'quant_matmul': ('wait', 'loads', 'transpose', 'wgmma'),
+               'flash_attention': ('loads+wait', 'S+softmax', 'PV')}
 # K8 (label, B, H, Hkv, Sq, Sk, D, window, dtype), all causal through
 # ``mha``: kernel_bench.py:158, and Mixtral 8x22B's attention (48 heads on
 # 8 kv heads, D 128, sliding window 4096) as an 8192-token prefill and as
@@ -1013,61 +1028,73 @@ def cell_checks(params, B: int, rng, dev):
     return row
 
 
-def quant_matmul_checks(dev):
-    """K7 (``quant_matmul``) against its plain version, ``torch.equal`` in
-    f32 and bf16, at each ``QMM_SHAPES`` shape on per-row and per-column
-    quantized normal data; times it, its plain version and the product
-    alone (``torch._int_mm``, the faster of a row-major and a column-major
-    weight); then drives the public op
-    ``quantized_linear`` once at each shape and at ``QMM_RAGGED`` with the
-    launch counter set to 0, against the f32 product."""
+def qmm_case(label: str, M: int, K: int, N: int, g, dev):
+    """One K7 case on per-row and per-column quantized normal data drawn
+    from ``g``: ``torch.equal`` to its plain version in f32 and bf16, the
+    kernel's ms (f32 and bf16 out), its plain version's, the product alone
+    (``torch._int_mm``, the faster of a row-major and a column-major
+    weight) and the bound (f32 out).  Only public calls that the parent
+    tree has too, so ``--ab`` runs it on either.  Returns (case, inputs)."""
     from repro_torch.core import quant
     from repro_torch.kernels.quant_matmul import (quant_matmul,
                                                   quant_matmul_ref,
+                                                  quantize_weights)
+    x = torch.randn(M, K, generator=g, device=dev)
+    w = torch.randn(K, N, generator=g, device=dev)
+    w_q, ws = quantize_weights(w)
+    xs = quant.abs_max_scale(x, axis=-1)
+    args = (quant.quantize_scaled(x, xs), w_q, xs, ws[None, :])
+    got, want = quant_matmul(*args), quant_matmul_ref(*args)
+    err = float((got - want).abs().max())
+    same = dict(float32=torch.equal(got, want), bfloat16=torch.equal(
+        quant_matmul(*args, out_dtype=torch.bfloat16),
+        quant_matmul_ref(*args, out_dtype=torch.bfloat16)))
+    reps = 20 if M * K * N > 1e10 else 200
+    w_cm = w_q.t().contiguous().t()          # column-major (K, N)
+    int_mm = {layout: cuda_ms(lambda: torch._int_mm(args[0], wl), reps)
+              for layout, wl in (('row-major', w_q), ('column-major', w_cm))}
+    case = dict(
+        shape=f'{label} M={M} K={K} N={N}', max_abs_err=err, tol=0,
+        ok=all(same.values()), equal=same,
+        ms=cuda_ms(lambda: quant_matmul(*args), reps),
+        ms_bf16=cuda_ms(lambda: quant_matmul(
+            *args, out_dtype=torch.bfloat16), reps),
+        plain_ms=cuda_ms(lambda: quant_matmul_ref(*args), 3, warmup=1),
+        library_ms=None,
+        product_only_ms=min(int_mm.values()), int_mm_ms=int_mm,
+        # codes and scales in once, f32 out once
+        bytes=M * K + K * N + 4 * M + 4 * N + 4 * M * N,
+        flops=2 * M * K * N)
+    case['bound_ms'], case['bound_by'] = bound(
+        case['bytes'], case['flops'], INT8_OPS_PER_S)
+    return case, (x, w, w_q, ws)
+
+
+def quant_matmul_checks(dev):
+    """K7 (``quant_matmul``) at each ``QMM_SHAPES`` shape (``qmm_case``),
+    with its launch geometry; then drives the public op
+    ``quantized_linear`` once at each shape and at ``QMM_RAGGED`` with the
+    launch counter set to 0, against the f32 product."""
+    from repro_torch.kernels.quant_matmul import (qmm_geometry,
+                                                  quant_matmul,
                                                   quantize_weights,
                                                   quantized_linear)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(SEED)
     cases, inputs = [], []
     for label, M, K, N in QMM_SHAPES:
-        x = torch.randn(M, K, generator=g, device=dev)
-        w = torch.randn(K, N, generator=g, device=dev)
-        w_q, ws = quantize_weights(w)
-        inputs.append((x, w, w_q, ws))
-        xs = quant.abs_max_scale(x, axis=-1)
-        args = (quant.quantize_scaled(x, xs), w_q, xs, ws[None, :])
-        got, want = quant_matmul(*args), quant_matmul_ref(*args)
-        err = float((got - want).abs().max())
-        same = dict(float32=torch.equal(got, want), bfloat16=torch.equal(
-            quant_matmul(*args, out_dtype=torch.bfloat16),
-            quant_matmul_ref(*args, out_dtype=torch.bfloat16)))
-        big = M * K * N > 1e10
-        w_cm = w_q.t().contiguous().t()          # column-major (K, N)
-        int_mm = {layout: cuda_ms(lambda: torch._int_mm(args[0], wl),
-                                  20 if big else 200)
-                  for layout, wl in (('row-major', w_q),
-                                     ('column-major', w_cm))}
-        case = dict(
-            shape=f'{label} M={M} K={K} N={N}', max_abs_err=err, tol=0,
-            ok=all(same.values()), equal=same,
-            ms=cuda_ms(lambda: quant_matmul(*args), 20 if big else 200),
-            ms_bf16=cuda_ms(lambda: quant_matmul(
-                *args, out_dtype=torch.bfloat16), 20 if big else 200),
-            plain_ms=cuda_ms(lambda: quant_matmul_ref(*args), 3, warmup=1),
-            library_ms=None,
-            product_only_ms=min(int_mm.values()), int_mm_ms=int_mm,
-            # codes and scales in once, f32 out once
-            bytes=M * K + K * N + 4 * M + 4 * N + 4 * M * N,
-            flops=2 * M * K * N)
-        case['bound_ms'], case['bound_by'] = bound(
-            case['bytes'], case['flops'], INT8_OPS_PER_S)
+        case, ins = qmm_case(label, M, K, N, g, dev)
+        inputs.append(ins)
+        case['geometry'] = dataclasses.asdict(qmm_geometry(M, N, sms))
         print(f"quant_matmul: {case['shape']}: torch.equal to plain version "
-              f"{same}, kernel {case['ms']:.4f} ms (bf16 out "
+              f"{case['equal']}, kernel {case['ms']:.4f} ms (bf16 out "
               f"{case['ms_bf16']:.4f}), plain {case['plain_ms']:.4f} ms, "
               f"bound {case['bound_ms']:.5f} ms ({case['bound_by']}; "
               f"{case['bytes'] / 1e6:.2f} MB), library none (product only, "
               f"torch._int_mm: row-major weight "
-              f"{int_mm['row-major']:.4f} ms, column-major "
-              f"{int_mm['column-major']:.4f} ms)", flush=True)
+              f"{case['int_mm_ms']['row-major']:.4f} ms, column-major "
+              f"{case['int_mm_ms']['column-major']:.4f} ms); geometry "
+              f"{case['geometry']}", flush=True)
         check(case['ok'], f'quant_matmul differs from its plain version at '
                           f'{case["shape"]}')
         cases.append(case)
@@ -1113,75 +1140,105 @@ def _needed(sq: int, sk: int, offset: int, window):
             int((np.cumsum(seen)[:sk] > 0).sum()))
 
 
-def attention_checks(dev):
-    """K8 (``flash_attention``) against its plain version at each
-    ``ATTN_CASES`` case with ``mha``'s arguments (causal, offset Sk - Sq);
-    times it, its plain version and ``scaled_dot_product_attention`` with
-    ``enable_gqa`` and an explicit boolean mask (its ``is_causal`` is
-    top-left aligned, wrong for Sq != Sk); then drives the public op ``mha``
-    once per case with the launch counter set to 0."""
+def attn_case(label: str, B: int, H: int, Hkv: int, Sq: int, Sk: int,
+              D: int, window, dt: str, g, dev):
+    """One K8 case with ``mha``'s arguments (causal, offset Sk - Sq) on
+    normal data drawn from ``g``: its error against the plain version and
+    the share of the tolerance used, the kernel's ms, its plain version's,
+    that of ``scaled_dot_product_attention`` with ``enable_gqa`` and an
+    explicit boolean mask (its ``is_causal`` is top-left aligned, wrong for
+    Sq != Sk) and the bound.  Only public calls that the parent tree has
+    too, so ``--ab`` runs it on either.  Returns (case, inputs)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    dtype = getattr(torch, dt)
+    q = torch.randn(B, H, Sq, D, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, Hkv, Sk, D, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    kw = dict(causal=True, window=window, offset=Sk - Sq)
+    got = flash_attention(q, k, v, **kw).float()
+    want = attention_ref(q, k, v, **kw).float()
+    err = float((got - want).abs().max())
+    tol = ATTN_TOL[dt]
+    ok = bool(torch.allclose(got, want, **tol))
+    # the largest share of the limit any element uses (<= 1 passes)
+    used = float(((got - want).abs() / (
+        tol['atol'] + tol['rtol'] * want.abs())).max())
+    pos = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
+    key = torch.arange(Sk, device=dev)[None, :]
+    mask = pos >= key
+    if window is not None:
+        mask &= (pos - key) < window
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+    lib_err = float((sdpa().float() - want).abs().max())
+    pairs, keys = _needed(Sq, Sk, Sk - Sq, window)
+    big = pairs * H > 1e8
+    es = q.element_size()
+    case = dict(
+        shape=f'{label} {dt} B={B} H={H} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} '
+              f'window={window}', max_abs_err=err, tol=tol, ok=ok,
+        tol_used=used,
+        ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), 3 if big else 20),
+        plain_ms=cuda_ms(lambda: attention_ref(q, k, v, **kw),
+                         1 if big else 5, warmup=1),
+        library_ms=cuda_ms(sdpa, 3 if big else 20, warmup=1),
+        library_max_abs_diff=lib_err,
+        # q in and out once; the keys and values some query sees, once
+        bytes=es * (2 * B * H * Sq * D + 2 * B * Hkv * keys * D),
+        flops=4 * D * pairs * B * H, pairs=pairs * B * H)
+    # operations at the peak of the inputs' type; the kernel's own f32
+    # arithmetic on the CUDA cores beside it
+    case['bound_ms'], case['bound_by'] = bound(
+        case['bytes'], case['flops'],
+        BF16_FLOPS_PER_S if dt == 'bfloat16' else F32_FLOPS_PER_S)
+    case['bound_f32_cores_ms'] = bound(case['bytes'], case['flops'])[0]
+    return case, (q, k, v, window)
+
+
+def attention_checks(dev):
+    """K8 (``flash_attention``) at each ``ATTN_CASES`` case (``attn_case``),
+    with its schedule, and where that is 128-row tiles also the time of
+    the 64-row tiles on the same inputs; then drives the public op ``mha``
+    once per case with the launch counter set to 0."""
+    from unittest import mock
+    from repro_torch.kernels.flash_attention import (attention_geometry,
                                                      flash_attention, mha)
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(SEED)
     cases, inputs = [], []
     for label, B, H, Hkv, Sq, Sk, D, window, dt in ATTN_CASES:
-        dtype = getattr(torch, dt)
-        q = torch.randn(B, H, Sq, D, generator=g, device=dev).to(dtype)
-        k, v = (torch.randn(B, Hkv, Sk, D, generator=g, device=dev).to(dtype)
-                for _ in range(2))
+        case, (q, k, v, _) = attn_case(label, B, H, Hkv, Sq, Sk, D, window,
+                                       dt, g, dev)
         inputs.append((q, k, v, window))
-        kw = dict(causal=True, window=window, offset=Sk - Sq)
-        got = flash_attention(q, k, v, **kw)
-        want = attention_ref(q, k, v, **kw)
-        err = float((got.float() - want.float()).abs().max())
-        tol = ATTN_TOL[dt]
-        ok = bool(torch.allclose(got.float(), want.float(), **tol))
-        # the largest share of the limit any element uses (<= 1 passes)
-        used = float(((got.float() - want.float()).abs() / (
-            tol['atol'] + tol['rtol'] * want.float().abs())).max())
-        pos = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
-        key = torch.arange(Sk, device=dev)[None, :]
-        mask = pos >= key
-        if window is not None:
-            mask &= (pos - key) < window
-        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                      enable_gqa=True)
-        lib_err = float((sdpa().float() - want.float()).abs().max())
-        pairs, keys = _needed(Sq, Sk, Sk - Sq, window)
-        big = pairs * H > 1e8
-        es = q.element_size()
-        case = dict(
-            shape=f'{label} {dt} B={B} H={H} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} '
-                  f'window={window}', max_abs_err=err, tol=tol, ok=ok,
-            tol_used=used,
-            ms=cuda_ms(lambda: flash_attention(q, k, v, **kw),
-                       3 if big else 20),
-            plain_ms=cuda_ms(lambda: attention_ref(q, k, v, **kw),
-                             1 if big else 5, warmup=1),
-            library_ms=cuda_ms(sdpa, 3 if big else 20, warmup=1),
-            library_max_abs_diff=lib_err,
-            # q in and out once; the keys and values some query sees, once
-            bytes=es * (2 * B * H * Sq * D + 2 * B * Hkv * keys * D),
-            flops=4 * D * pairs * B * H, pairs=pairs * B * H)
-        # operations at the peak of the inputs' type; the kernel's own f32
-        # arithmetic on the CUDA cores beside it
-        case['bound_ms'], case['bound_by'] = bound(
-            case['bytes'], case['flops'],
-            BF16_FLOPS_PER_S if dt == 'bfloat16' else F32_FLOPS_PER_S)
-        case['bound_f32_cores_ms'] = bound(case['bytes'], case['flops'])[0]
-        print(f"flash_attention: {case['shape']}: max_abs_err {err:.3e} "
-              f"(tol {tol}, {used:.3f} of the limit), kernel "
-              f"{case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, sdpa "
-              f"{case['library_ms']:.4f} ms (max abs diff {lib_err:.3e}), "
-              f"bound {case['bound_ms']:.5f} ms ({case['bound_by']}: "
+        geom = attention_geometry(B, H, Hkv, Sq, Sk, window, None, Sk - Sq,
+                                  D, sms, wide=dt == 'bfloat16')
+        case['geometry'] = dataclasses.asdict(geom)
+        narrow = ''
+        if geom.tile_rows == fa_kernel.WIDE_ROWS:
+            # the same launch in 64-row tiles, for the choice of width
+            with mock.patch.object(fa_kernel, 'WIDE_ROWS',
+                                   fa_kernel.TILE_ROWS):
+                case['ms_64_rows'] = cuda_ms(lambda: flash_attention(
+                    q, k, v, causal=True, window=window), 3)
+            narrow = f", {case['ms_64_rows']:.4f} ms in 64-row tiles"
+        print(f"flash_attention: {case['shape']}: max_abs_err "
+              f"{case['max_abs_err']:.3e} (tol {case['tol']}, "
+              f"{case['tol_used']:.3f} of the limit), kernel "
+              f"{case['ms']:.4f} ms{narrow}, plain {case['plain_ms']:.4f} "
+              f"ms, sdpa {case['library_ms']:.4f} ms (max abs diff "
+              f"{case['library_max_abs_diff']:.3e}), bound "
+              f"{case['bound_ms']:.5f} ms ({case['bound_by']}: "
               f"{case['flops'] / 1e9:.2f} GFLOP, {case['bytes'] / 1e6:.2f} "
               f"MB; at the f32 CUDA-core peak "
-              f"{case['bound_f32_cores_ms']:.5f} ms)", flush=True)
-        check(ok, f'flash_attention disagrees with its plain version at '
-                  f'{case["shape"]}')
+              f"{case['bound_f32_cores_ms']:.5f} ms); schedule {geom.path} "
+              f"({geom.tile_rows} rows a tile, n_splits {geom.n_splits})",
+              flush=True)
+        check(case['ok'], f'flash_attention disagrees with its plain version '
+                          f'at {case["shape"]}')
         cases.append(case)
-        del got, want, mask
 
     torch.cuda.synchronize()
     flash_attention.launches = 0
@@ -1201,6 +1258,120 @@ def attention_checks(dev):
     return row
 
 
+def op_times(dev):
+    """``qmm_case`` at every ``QMM_SHAPES`` shape and ``attn_case`` at every
+    ``ATTN_CASES`` case, on the phases' inputs (same seed, same order), for
+    one turn of ``--ab``."""
+    cases = []
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for shape in QMM_SHAPES:
+        cases.append(dict(qmm_case(*shape, g, dev)[0],
+                          kernel='quant_matmul'))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for spec in ATTN_CASES:
+        cases.append(dict(attn_case(*spec, g, dev)[0],
+                          kernel='flash_attention'))
+        torch.cuda.empty_cache()
+    return cases
+
+
+def ab(parent_src: str):
+    """Parent against this tree in one call, in turns (parent, change,
+    change, parent): each turn a process of its own that imports one
+    tree's ``src`` and prints ``op_times``.  Returns the turns' rows."""
+    here = str(pathlib.Path(__file__).resolve().parent / 'src')
+    turns = []
+    for side, src in (('parent', parent_src), ('change', here),
+                      ('change', here), ('parent', parent_src)):
+        proc = subprocess.run(
+            [sys.executable, __file__, '--op-times', src],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f'--op-times {side} failed:\n{proc.stdout}'
+                               f'\n{proc.stderr}')
+        turns.append(dict(side=side, rows=json.loads(
+            proc.stdout.strip().splitlines()[-1])))
+    for i, row in enumerate(turns[0]['rows']):
+        got = turns[1]['rows'][i]
+        if 'equal' in got:
+            extra = 'equal ' + str(all(all(t['rows'][i]['equal'].values())
+                                       for t in turns))
+            lib = f"product only {got['product_only_ms']:.5f}"
+        else:
+            used = max(t['rows'][i]['tol_used'] for t in turns)
+            extra = f'tol_used {used:.3f}'
+            lib = f"library {got['library_ms']:.5f}"
+        for key in ('ms', 'ms_bf16'):
+            if key not in got:
+                continue
+            ms = {s: [t['rows'][i][key] for t in turns if t['side'] == s]
+                  for s in ('parent', 'change')}
+            print(f"ab: {row['kernel']} {row['shape']} {key}: parent "
+                  f"{ms['parent'][0]:.5f} / {ms['parent'][1]:.5f} ms, change "
+                  f"{ms['change'][0]:.5f} / {ms['change'][1]:.5f} ms "
+                  f"({min(ms['parent']) / min(ms['change']):.2f}x), {lib} "
+                  f"ms, plain {got['plain_ms']:.5f} ms, bound "
+                  f"{got['bound_ms']:.5f} ms; {extra}", flush=True)
+    return turns
+
+
+def clock_stamps(dev):
+    """Debug builds of K7 and K8 (``-DCLOCK_STAMPS``): one launch each at
+    Mixtral's up-projection (f32 out) and bf16 prefill.  Per CTA, thread
+    0's cycles in each phase of the K loop (``STAMP_PARTS``), summed over
+    the loop, and the loop's whole time; printed as means over CTAs."""
+    import ctypes
+    from repro_torch.core import quant
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (attention_geometry,
+                                                     flash_attention)
+    from repro_torch.kernels.quant_matmul import (qmm_geometry,
+                                                  quant_matmul,
+                                                  quantize_weights)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    _, M, K, N = QMM_SHAPES[0]
+    x = torch.randn(M, K, generator=g, device=dev)
+    w_q, ws = quantize_weights(torch.randn(K, N, generator=g, device=dev))
+    xs = quant.abs_max_scale(x, axis=-1)
+    _, B, H, Hkv, Sq, Sk, D, window, dt = ATTN_CASES[0]
+    q = torch.randn(B, H, Sq, D, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(B, Hkv, Sk, D, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    runs = (('quant_matmul', qmm_geometry(M, N, sms).ctas,
+             lambda: quant_matmul(quant.quantize_scaled(x, xs), w_q, xs,
+                                  ws[None, :])),
+            ('flash_attention', attention_geometry(
+                B, H, Hkv, Sq, Sk, window, None, Sk - Sq, D, sms).ctas,
+             lambda: flash_attention(q, k, v, causal=True, window=window)))
+    out = {}
+    for name, ctas, fn in runs:
+        _build.DEFINES[name] = ('-DCLOCK_STAMPS',)
+        try:
+            fn()
+            torch.cuda.synchronize()
+            lib = _build.load(name, {})
+            copy = getattr(lib, f'{name}_clock_stamps')
+            copy.argtypes, copy.restype = [ctypes.c_void_p, ctypes.c_int], \
+                ctypes.c_int
+            host = np.zeros((ctas, STAMP_COLS), np.int64)
+            _build.check(lib, copy(host.ctypes.data, ctas), 'stamps')
+        finally:
+            del _build.DEFINES[name]
+        n = min(ctas, 8192)
+        mean = host[:n].mean(axis=0)
+        total = mean[-2]
+        out[name] = dict(ctas=int(n), loop_cycles=float(total),
+                         stages=float(mean[-1]), parts={
+                             label: float(c) for label, c in
+                             zip(STAMP_PARTS[name], mean)})
+        print(f'clock stamps: {name}: {n} CTAs, {mean[-1]:.1f} stages, '
+              f'{total:.0f} cycles a CTA: ' + ', '.join(
+                  f'{label} {c:.0f} ({c / total:.3f})' for label, c in
+                  zip(STAMP_PARTS[name], mean)), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description='chip smoke test of the port')
     ap.add_argument('--out', default=None,
@@ -1211,18 +1382,47 @@ def main(argv=None) -> int:
                          'one train step per kernel backend with '
                          'torch.profiler (device busy/idle share, time by '
                          'kernel)')
+    ap.add_argument('--ab', metavar='PARENT_SRC', default=None,
+                    help='only time K7 and K8 against the tree whose src '
+                         'directory is given, in turns (parent, change, '
+                         'change, parent)')
+    ap.add_argument('--op-times', metavar='SRC', default=None,
+                    help=argparse.SUPPRESS)   # one turn of --ab
+    ap.add_argument('--clock-stamps', action='store_true',
+                    help='only run debug builds of K7 and K8 with '
+                         'clock64() stamps of their phases')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
+    dev = torch.device('cuda', 0)
+    if args.op_times:
+        sys.path.insert(0, args.op_times)
+        print(json.dumps(op_times(dev)), flush=True)
+        return 0
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / 'src'))
+    if args.ab or args.clock_stamps:
+        card = subprocess.run(
+            ['nvidia-smi', '--query-gpu=name,power.limit',
+             '--format=csv,noheader'], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        print(f'card: {card}', flush=True)
+        res = dict(card=card)
+        if args.clock_stamps:
+            res['clock_stamps'] = clock_stamps(dev)
+        if args.ab:
+            res['ab'] = ab(args.ab)
+        if args.out:
+            out = pathlib.Path(args.out)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(res, indent=1))
+        return 0
     from repro_torch import configs
     from repro_torch.kernels import _build
     from repro_torch.models import chipmunk_net
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device('cuda', 0)
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,

@@ -45,14 +45,19 @@ the wavefront kernel's launch geometry is admissible (shared memory per CTA
 within the card's limit, every CTA co-resident); otherwise ``cuda_seq``.
 ``cuda_step`` is a plain launch, so its admission is the shared-memory
 bound of its launcher only; K5 has no masked form, so it is not a serving
-backend on the card (a masked chunk on CUDA tensors raises).  An explicitly
-chosen backend that is not admissible raises; it is never quietly
-replaced.  On CPU tensors the kernel backends run their kernels' plain
-PyTorch versions.
+backend on the card (a masked chunk on CUDA tensors raises).  A stack
+that is structurally incompatible with the wavefront (heterogeneous widths,
+or a single layer) resolves an explicit ``cuda_seq_fused`` to ``cuda_seq``,
+the reference's rule (``_resolve_stack_backend``): dispatch between two of
+the port's own kernels.  Any other explicitly chosen backend that is not
+admissible raises, ``cuda_seq_fused`` on a compatible stack whose launch
+geometry the card refuses included; it is never quietly replaced.  On CPU
+tensors the kernel backends run their kernels' plain PyTorch versions.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -327,32 +332,49 @@ def lstm_layer_fused(params: LSTMParams, xs: torch.Tensor,
                      c0: Optional[torch.Tensor] = None, *,
                      backend: str = 'auto'):
     """``lstm_layer`` with the hand-written backward — the training path.
-    xs: (T, B, N_x) -> (hs (T, B, N_h), (h_T, c_T)).  ``backend``:
-    ``torch_scan`` (``lstm_scan_fused``), ``cuda_seq`` (K1,
-    ``kernels.lstm_seq.lstm_layer_seq``), ``cuda_step`` (T launches of K5,
-    ``kernels.lstm_gates.lstm_layer_fused``); ``cuda_seq_fused`` on one
-    layer is ``cuda_seq``, and ``auto`` is ``cuda_seq`` on CUDA tensors,
-    ``torch_scan`` on CPU tensors.  Forward allclose across backends,
-    backward through the same gate-recompute family."""
+    xs: (T, ..., N_x) -> (hs (T, ..., N_h), (h_T, c_T)), h0 and c0 (...,
+    N_h).  ``backend``: ``torch_scan`` (``lstm_scan_fused``), ``cuda_seq``
+    (K1, ``kernels.lstm_seq.lstm_layer_seq``), ``cuda_step`` (T launches of
+    K5, ``kernels.lstm_gates.lstm_layer_fused``); ``cuda_seq_fused`` on one
+    layer is ``cuda_seq``.  ``torch_scan`` and ``cuda_step`` flatten the
+    batch dims and restore them afterwards, as the reference does;
+    ``cuda_seq`` takes (T, B, N_x) only.  ``auto`` is ``torch_scan`` on CPU
+    tensors and on CUDA tensors ``cuda_seq`` for (T, B, N_x), else
+    ``cuda_step``.  Forward allclose across backends, backward through the
+    same gate-recompute family."""
     if backend not in BACKENDS:
         raise ValueError(f'unknown backend {backend!r}; one of {BACKENDS}')
-    if xs.ndim != 3:
-        raise ValueError('lstm_layer_fused expects (T, B, N_x) input')
+    if xs.ndim < 3:
+        raise ValueError('lstm_layer_fused expects (T, ..., N_x) input')
     if backend == 'auto':
-        backend = 'cuda_seq' if xs.is_cuda else 'torch_scan'
+        backend = ('torch_scan' if not xs.is_cuda
+                   else 'cuda_seq' if xs.ndim == 3 else 'cuda_step')
     if backend == 'cuda_seq_fused':
         backend = 'cuda_seq'        # a 1-layer stack IS the sequence kernel
     if backend == 'cuda_seq':
+        if xs.ndim != 3:
+            raise ValueError(f'cuda_seq takes (T, B, N_x) input only, got '
+                             f'{tuple(xs.shape)}: K1 runs one batch axis '
+                             f'(torch_scan and cuda_step flatten the rest)')
         from ..kernels.lstm_seq import lstm_layer_seq
         return lstm_layer_seq(params, xs, h0, c0)
+    T, batch = xs.shape[0], xs.shape[1:-1]
+    flat = (T, math.prod(batch), params.n_x)
+    xs = xs.reshape(flat)
+    zeros = xs.new_zeros((flat[1], params.n_h))
+    h0 = zeros if h0 is None else h0.reshape(flat[1], params.n_h)
+    c0 = zeros if c0 is None else c0.reshape(flat[1], params.n_h)
     if backend == 'cuda_step':
         from ..kernels.lstm_gates import lstm_layer_fused as step_layer
-        return step_layer(params, xs, h0, c0)
-    zeros = xs.new_zeros((xs.shape[1], params.n_h))
-    return lstm_scan_fused(params.w_h, params.w_peep, params.b,
-                           hoisted_input(params.w_x, xs),
-                           zeros if h0 is None else h0,
-                           zeros if c0 is None else c0)
+        hs, (h_T, c_T) = step_layer(params, xs, h0, c0, return_state=True)
+    else:
+        hs, (h_T, c_T) = lstm_scan_fused(params.w_h, params.w_peep,
+                                         params.b,
+                                         hoisted_input(params.w_x, xs), h0,
+                                         c0)
+    state = batch + (params.n_h,)
+    return (hs.reshape((T,) + state),
+            (h_T.reshape(state), c_T.reshape(state)))
 
 
 # ---------------------------------------------------------------------------
@@ -503,25 +525,23 @@ def resolve_serving_backend(params: LSTMStackParams, backend: str, T: int,
     device = torch.device(device)
     layers = params.layers
     n_h, L = layers[0].n_h, len(layers)
-    compatible = stack_fused_compatible(params)
+    # structural admission, the reference's: a heterogeneous or one-layer
+    # stack cannot run the wavefront, so cuda_seq_fused is cuda_seq there
+    compatible = stack_fused_compatible(params) and L >= 2
+    if backend == 'cuda_seq_fused' and not compatible:
+        backend = 'cuda_seq'
     if device.type != 'cuda':
-        if backend == 'auto':
-            return 'torch_scan'
-        if backend == 'cuda_seq_fused' and not compatible:
-            raise ValueError('cuda_seq_fused needs a homogeneous stack '
-                             '(stack_fused_compatible)')
-        return backend
+        return 'torch_scan' if backend == 'auto' else backend
     if backend == 'cuda_step' and masked:
         raise ValueError(_CUDA_STEP_UNMASKED)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     fused = stack_geometry(n_h, L, B, sms)
     fused_ok = compatible and fused.admissible(sms)
     if backend == 'auto':
-        backend = 'cuda_seq_fused' if fused_ok and L >= 2 else 'cuda_seq'
+        backend = 'cuda_seq_fused' if fused_ok else 'cuda_seq'
     if backend == 'cuda_seq_fused' and not fused_ok:
-        raise ValueError(f'cuda_seq_fused is not admissible: homogeneous '
-                         f'stack {compatible}, N_h={n_h}, L={L}, B={B}: '
-                         f'{fused}')
+        raise ValueError(f'cuda_seq_fused is not admissible at N_h={n_h}, '
+                         f'L={L}, B={B}: {fused}')
     if backend == 'cuda_seq':
         for lp in layers:
             geom = seq_geometry(lp.n_h, B, sms)

@@ -15,6 +15,10 @@ library is kept for the life of the process (the source is hashed once, at
 its first load, not at every launch).  A failed build raises.  Every exported
 function returns an ``int`` CUDA error code; pointers and the stream are
 declared ``c_void_p`` and integers ``c_int``.
+
+``DEFINES`` maps a source to extra ``nvcc`` flags for a debug build (for
+example ``-DCLOCK_STAMPS``, ``csrc/clock_stamps.cuh``); they enter the hash,
+so a debug build is a library of its own, loaded beside the plain one.
 """
 from __future__ import annotations
 
@@ -33,8 +37,10 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 P = ctypes.c_void_p     # device pointer or cudaStream_t
 I = ctypes.c_int
 
-# name -> loaded library; one entry per source per process
-_LIBS: Dict[str, ctypes.CDLL] = {}
+# (name, extra flags) -> loaded library; one entry per build per process
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+# name -> extra nvcc flags of its debug build (none by default)
+DEFINES: Dict[str, Tuple[str, ...]] = {}
 
 
 def _nvcc() -> str:
@@ -48,6 +54,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Tuple[pathlib.Path, str, pathlib.Path]:
     src = CSRC / f'{name}.cu'
     h = hashlib.sha256(src.read_bytes())
+    for flag in DEFINES.get(name, ()):
+        h.update(flag.encode())
     for header in sorted(CSRC.glob('*.cuh')):
         h.update(header.name.encode())
         h.update(header.read_bytes())
@@ -66,7 +74,8 @@ def build(names: Iterable[str]) -> None:
         if out.exists():
             continue
         tmp = out.with_suffix('.tmp.so')
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, *DEFINES.get(name, ()), '-o',
+               str(tmp), str(src)]
         procs.append((name, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failed = []
@@ -90,9 +99,11 @@ def build_all() -> Sequence[str]:
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed.
     ``signatures`` maps each exported function to its ``argtypes``; every
-    function's ``restype`` is ``c_int`` (a CUDA error code)."""
-    if name in _LIBS:
-        return _LIBS[name]
+    function's ``restype`` is ``c_int`` (a CUDA error code).  The build
+    with ``DEFINES[name]``, when given."""
+    key = (name, DEFINES.get(name, ()))
+    if key in _LIBS:
+        return _LIBS[key]
     _, _, out = _target(name)
     build([name])
     lib = ctypes.CDLL(str(out))
@@ -100,7 +111,7 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
-    _LIBS[name] = lib
+    _LIBS[key] = lib
     return lib
 
 

@@ -4,25 +4,100 @@
 plain launch on PyTorch's current stream) and runs its plain version
 (``ref.attention_ref``) on CPU tensors; there is no fallback between the
 two.  Any Sq and Sk (no padding to blocks), D <= 128, f32 or bf16.
+
+``attention_geometry`` picks the kernel's schedule, one launch either way:
+``tiled`` (one CTA per (batch x head, 64- or 128-row query tile); bf16 on
+the tensor cores, f32 on the CUDA cores) or ``split`` (flash-decoding: one CTA
+per (kv head, key range), every query head of the group in it, the
+partials merged by the last CTA of each kv head, which also sets its
+ticket back to 0, so one zeroed ticket buffer per device and stream serves
+every split launch).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import torch
 
 from .. import _build
 from ..lstm_seq.kernel import check_inputs
-from .ref import attention_ref
+from .ref import attention_ref, live_key_range
 
 D_MAX = 128
 POS_MAX = 1 << 28     # |positions| stay below 2 POS_MAX: int32 never wraps
 
 _P, _I = _build.P, _build.I
 _SIGNATURES = {'flash_attention_launch': [_I] + [_P] * 4 + [_I] * 6
-               + [ctypes.c_float] + [_I] * 7 + [_P]}
+               + [ctypes.c_float] + [_I] * 12 + [_P] * 5}
 _DTYPES = (torch.float32, torch.bfloat16)
+
+TILE_ROWS = 64     # query rows of one tiled CTA (the finest tile)
+WIDE_ROWS = 128    # bf16 tiled CTAs, where the grid still fills the card
+SPLIT_ROWS = 32    # packed rows (query rows x GQA group) of one split CTA
+SPLIT_KEYS = 64    # a split covers whole multiples of these keys
+SPLIT_MAX = 64     # splits per kv head (the merge keeps a weight for each)
+
+# (device index, stream) -> the split schedule's int32 tickets, one per
+# (batch, kv head); zero between launches (the kernel resets each one)
+_TICKETS: dict = {}
+
+
+def _tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zero tickets for launches on ``stream``, allocated
+    (and zeroed) only when the stream's buffer is missing or too short."""
+    t = _TICKETS.get((dev.index, stream))
+    if t is None or t.numel() < n:
+        t = _TICKETS[(dev.index, stream)] = torch.zeros(
+            n, dtype=torch.int32, device=dev)
+    return t
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionGeometry:
+    """The schedule of one K8 launch.  ``split``: grid (n_splits, B *
+    Hkv); split s covers keys [key_lo + s * split_keys, min(key_hi, ...))."""
+    path: str            # 'tiled' or 'split'
+    ctas: int
+    tile_rows: int = TILE_ROWS   # query rows of a tiled CTA
+    n_splits: int = 0
+    key_lo: int = 0
+    key_hi: int = 0
+    split_keys: int = 0
+
+
+def attention_geometry(B: int, H: int, Hkv: int, Sq: int, Sk: int,
+                       window: Optional[int], kv_len: Optional[int],
+                       offset: int, D: int, sms: int, *,
+                       causal: bool = True,
+                       wide: bool = True) -> AttentionGeometry:
+    """Pure rule: ``split`` when the tiled grid would fill fewer CTAs than
+    the card has SMs and one CTA holds every packed row (Sq x H / Hkv <=
+    ``SPLIT_ROWS``), else ``tiled``.  The split cuts the live key range
+    (``live_key_range``: after the window, causality and kv_len) into whole
+    ``SPLIT_KEYS`` tiles, up to two CTAs an SM (each holds under half an
+    SM's shared memory), so at least ``sms`` CTAs when there are keys
+    enough, and at most ``SPLIT_MAX`` splits per kv head.  D does not enter
+    the rule (every D <= 128 has both schedules).  A tiled CTA takes
+    ``WIDE_ROWS`` query rows where ``wide`` (the bf16 tensor-core kernel
+    has both widths) and that grid still gives every SM two CTAs, else
+    ``TILE_ROWS``."""
+    del D
+    tiled = -(-Sq // TILE_ROWS) * B * H
+    if tiled >= sms or Sq * (H // Hkv) > SPLIT_ROWS:
+        wide_ctas = -(-Sq // WIDE_ROWS) * B * H
+        if wide and wide_ctas >= 2 * sms:
+            return AttentionGeometry('tiled', wide_ctas, WIDE_ROWS)
+        return AttentionGeometry('tiled', tiled)
+    lo, hi = live_key_range(Sq, Sk, causal=causal, window=window,
+                            kv_len=kv_len, offset=offset)
+    tiles = -(-(hi - lo) // SPLIT_KEYS)
+    want = -(-2 * sms // (B * Hkv))             # two CTAs an SM fit
+    per = max(1, -(-tiles // want), -(-tiles // SPLIT_MAX))   # tiles a split
+    n_splits = max(1, -(-tiles // per))
+    return AttentionGeometry('split', n_splits * B * Hkv, TILE_ROWS,
+                             n_splits, lo, hi, per * SPLIT_KEYS)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -70,14 +145,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # a window beyond +-2 POS_MAX passes or masks every pair alike
     win = 0 if window is None else max(-2 * POS_MAX, min(2 * POS_MAX, window))
     kv = sk if kv_len is None else max(-1, min(sk, kv_len))
-    vec = d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
+    vec = (d % (16 // q.element_size()) == 0
+           and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
+    geom = attention_geometry(
+        b, h, hkv, sq, sk, window, kv_len, offset, d,
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        causal=causal, wide=q.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    parts = [None] * 4                 # m, l, acc partials and tickets
+    if geom.path == 'split':
+        rows = geom.n_splits * b * h * sq
+        parts = [torch.empty(rows, dtype=torch.float32, device=dev),
+                 torch.empty(rows, dtype=torch.float32, device=dev),
+                 torch.empty(rows * d, dtype=torch.float32, device=dev),
+                 _tickets(dev, stream, b * hkv)]
     lib = _build.load('flash_attention', _SIGNATURES)
     err = lib.flash_attention_launch(
         dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, h, hkv, sq, sk, d, float(scale), int(causal),
         int(window is not None), win, kv, offset,
-        int(q.dtype == torch.bfloat16), int(vec),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(q.dtype == torch.bfloat16), int(vec), geom.tile_rows,
+        geom.n_splits,
+        geom.key_lo, geom.key_hi, geom.split_keys,
+        *(0 if t is None else t.data_ptr() for t in parts), stream)
     _build.check(lib, err, 'flash_attention launch')
     flash_attention.launches += 1
     return out

@@ -54,12 +54,15 @@ def lstm_step_fused(w_h, w_peep, b, pre_x, h0, c0):
 
 def lstm_layer_fused(params: LSTMParams, xs: torch.Tensor,
                      h0: Optional[torch.Tensor] = None,
-                     c0: Optional[torch.Tensor] = None):
-    """Scan K5 over time.  xs: (T, B, N_x) -> (hs (T, B, N_h), (h_T,
-    c_T)).  Differentiable (gate recompute)."""
+                     c0: Optional[torch.Tensor] = None, *,
+                     return_state: bool = False):
+    """Scan K5 over time.  xs: (T, B, N_x) -> hs (T, B, N_h), or (hs, (h_T,
+    c_T)) with ``return_state``, the reference op's contract.
+    Differentiable (gate recompute)."""
     B = xs.shape[1]
     zeros = xs.new_zeros((B, params.n_h))
     h0 = zeros if h0 is None else h0.contiguous()
     c0 = zeros if c0 is None else c0.contiguous()
-    return lstm_step_fused(params.w_h, params.w_peep, params.b,
-                           hoisted_input(params.w_x, xs), h0, c0)
+    hs, state = lstm_step_fused(params.w_h, params.w_peep, params.b,
+                                hoisted_input(params.w_x, xs), h0, c0)
+    return (hs, state) if return_state else hs

@@ -5,8 +5,13 @@ per-column dequant epilogue on the card.
 launch on PyTorch's current stream) and runs its plain version
 (``ref.quant_matmul_ref``) on CPU tensors; there is no fallback between the
 two.  Any M, K and N: no padding to the TPU's 128-blocks.
+
+``qmm_geometry`` picks the launch: output tiles of BM x 128 (BM 256, 128 or
+64), each CTA over all of K.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -17,8 +22,37 @@ from .ref import quant_matmul_ref
 K_MAX = 1 << 17   # the int32 sum of K int8 products is exact below this
 
 _P, _I = _build.P, _build.I
-_SIGNATURES = {'quant_matmul_launch': [_I] + [_P] * 5 + [_I] * 5 + [_P]}
+_SIGNATURES = {'quant_matmul_launch': [_I] + [_P] * 5 + [_I] * 6 + [_P]}
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+TILE_N = 128          # output columns of one CTA
+TILE_MS = (256, 128, 64)
+
+
+@dataclasses.dataclass(frozen=True)
+class QmmGeometry:
+    """One K7 launch: grid (tiles_n, tiles_m) of BM x 128 output tiles."""
+    bm: int
+    tiles_m: int
+    tiles_n: int
+
+    @property
+    def ctas(self) -> int:
+        return self.tiles_m * self.tiles_n
+
+
+def qmm_geometry(M: int, N: int, sms: int) -> QmmGeometry:
+    """Pure rule.  BM: the smallest of 256, 128, 64 that holds M (256 for
+    larger M), halved while the tiles then still number at most ``sms`` (so
+    one tile holds all of M for each column block when that fills the
+    card, as at Mixtral's 256 x 6144 x 16384: 128 CTAs, every weight byte
+    fetched once).  K is not split: every CTA runs all of it."""
+    bm = next((b for b in reversed(TILE_MS) if M <= b), TILE_MS[0])
+    tiles_n = -(-N // TILE_N)
+    tiles = lambda b: -(-M // b) * tiles_n
+    while bm > TILE_MS[-1] and tiles(bm // 2) <= sms:
+        bm //= 2
+    return QmmGeometry(bm, -(-M // bm), tiles_n)
 
 
 def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, w_scale,
@@ -47,19 +81,21 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, w_scale,
     if out_dtype not in _OUT_DTYPES:
         raise ValueError(f'quant_matmul: out_dtype {out_dtype}, expected '
                          f'one of {_OUT_DTYPES}')
-    if K >= K_MAX or -(-M // 128) > 65535:
+    geom = qmm_geometry(
+        M, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if K >= K_MAX or geom.tiles_m > 65535:
         raise ValueError(f'quant_matmul: K={K} must be below {K_MAX} (exact '
-                         f'int32 sums) and M={M} at most 65535 * 128')
+                         f'int32 sums) and M={M} at most 65535 * {geom.bm}')
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
-    vec = (K % 4 == 0 and N % 4 == 0 and x_q.data_ptr() % 4 == 0
-           and w_q.data_ptr() % 4 == 0)
+    vec = (K > 0 and K % 16 == 0 and N % 16 == 0
+           and x_q.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0)
     lib = _build.load('quant_matmul', _SIGNATURES)
     err = lib.quant_matmul_launch(
         dev.index, x_q.data_ptr(), w_q.data_ptr(), xs.data_ptr(),
         ws.data_ptr(), out.data_ptr(), M, N, K,
-        int(out_dtype == torch.bfloat16), int(vec),
+        int(out_dtype == torch.bfloat16), int(vec), geom.bm,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, 'quant_matmul launch')
     quant_matmul.launches += 1

@@ -91,3 +91,30 @@ def test_library_name_follows_source_and_headers(tmp_path, monkeypatch):
 def test_build_dir_is_in_the_checkout():
     root = pathlib.Path(__file__).resolve().parents[1]
     assert _build.BUILD_DIR == root / 'build' / 'kernels'
+
+
+def test_debug_defines_build_a_library_of_their_own(tmp_path, monkeypatch):
+    """A debug build (``DEFINES``, e.g. ``-DCLOCK_STAMPS``) hashes its flags
+    into the library's name, so it never replaces the plain build."""
+    monkeypatch.setattr(_build, 'CSRC', tmp_path)
+    monkeypatch.setattr(_build, 'BUILD_DIR', tmp_path / 'build')
+    monkeypatch.setattr(_build, 'DEFINES', {})
+    (tmp_path / 'k.cu').write_text('// kernel\n')
+    plain = _build._target('k')
+    _build.DEFINES['k'] = ('-DCLOCK_STAMPS',)
+    stamped = _build._target('k')
+    assert stamped[2] != plain[2] and stamped[0] == plain[0]
+    del _build.DEFINES['k']
+    assert _build._target('k') == plain
+
+
+@pytest.mark.parametrize('name', ['flash_attention', 'quant_matmul'])
+def test_clock_stamps_only_in_debug_builds(name):
+    """K7 and K8 time their phases with the shared ``clock_stamps.cuh``;
+    its export exists only under ``CLOCK_STAMPS``."""
+    src = (_build.CSRC / f'{name}.cu').read_text()
+    assert '#include "clock_stamps.cuh"' in src
+    assert 'clk.lap(0)' in src and 'clk.lap(1)' in src
+    export = src.index(f'int {name}_clock_stamps(')
+    assert src.rfind('#ifdef CLOCK_STAMPS', 0, export) > src.rfind(
+        '#endif', 0, export)

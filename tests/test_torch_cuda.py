@@ -19,6 +19,7 @@ atol 1e-4 in f32, and in bf16 at one rounding of the output (rtol 2**-7)
 with atol 1e-5: both compute in f32 and round the output to bf16.
 """
 import functools
+import subprocess
 
 import numpy as np
 import pytest
@@ -38,8 +39,11 @@ from repro_torch.kernels.lstm_seq import (lstm_seq, lstm_seq_quantized,
                                           lstm_stack_seq_ref,
                                           stack_kernel_weights,
                                           stack_kernel_weights_q)
-from repro_torch.kernels.flash_attention import (attention_ref,
+from repro_torch.kernels.flash_attention import (attention_geometry,
+                                                 attention_ref,
                                                  flash_attention, mha)
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.lstm_gates import (lstm_cell_fused, lstm_gates,
                                             lstm_gates_rec,
                                             lstm_gates_rec_ref,
@@ -328,10 +332,15 @@ def test_lstm_gates_kernel_matches_plain_version(dev, layer, B):
 
 
 @pytest.mark.parametrize('m,k,n', [(256, 512, 512), (15, 100, 75),
-                                   (1, 7, 3), (130, 264, 136)])
+                                   (1, 7, 3), (130, 264, 136),
+                                   (256, 6144 + 48, 384), (512, 1024, 2048),
+                                   (256, 1024, 16384)])
 @pytest.mark.parametrize('out_dtype', [torch.float32, torch.bfloat16])
 def test_quant_matmul_kernel_equals_plain_version(dev, m, k, n, out_dtype):
-    """K7, aligned and ragged (word and byte loads, partial tiles)."""
+    """K7, aligned and ragged (16-byte and byte staging, partial tiles),
+    in 64-row tiles (256 x 512 x 512; 512 x 1024 x 2048), 256-row tiles
+    (256 x 1024 x 16384, Mixtral's schedule) and with K over many ring
+    stages and a ragged last one (256 x 6192 x 384)."""
     rng = np.random.RandomState(m + k + n)
     x_q = torch.from_numpy(rng.randint(-128, 128, (m, k)).astype(
         np.int8)).to(dev)
@@ -344,6 +353,20 @@ def test_quant_matmul_kernel_equals_plain_version(dev, m, k, n, out_dtype):
     torch.cuda.synchronize()
     assert quant_matmul.launches == n0 + 1 and got.dtype == out_dtype
     assert torch.equal(got, quant_matmul_ref(x_q, w_q, xs, ws, out_dtype))
+
+
+def test_quant_matmul_wgmma_pipeline_is_not_serialized(dev, tmp_path):
+    """K7's ``wgmma``s stay asynchronous: ptxas serializes them (its note
+    C7514) when other instructions touch the accumulators inside the
+    pipeline, as it did once the accumulators lost their fences."""
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, '-Xptxas', '-v', '-o',
+         str(tmp_path / 'quant_matmul.so'),
+         str(_build.CSRC / 'quant_matmul.cu')],
+        capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    assert proc.returncode == 0, log
+    assert 'quant_matmul_kernel' in log and 'C7514' not in log, log
 
 
 def test_quantized_linear_on_card(dev):
@@ -362,6 +385,17 @@ def test_quantized_linear_on_card(dev):
     assert float((got - exact).abs().max() / exact.abs().max()) < 0.03
 
 
+# bf16 grids of at least two CTAs an SM take 128-row tiles: a ragged Sq
+# tail, 16-byte and zero-filled (D 20) staging, kv_len with a negative
+# offset, and a window without causality
+WIDE_ATTN_CASES = (
+    (4, 48, 8, 200, 200, 64, True, 64, None, None),
+    (4, 48, 8, 200, 200, 20, True, 64, None, None),
+    (4, 48, 8, 200, 260, 32, True, None, 150, -20),
+    (4, 48, 8, 200, 200, 128, False, 48, None, 0),
+)
+
+
 @pytest.mark.parametrize('case', [
     # (B, H, Hkv, Sq, Sk, D, causal, window, kv_len, offset)
     (1, 8, 8, 1024, 1024, 64, True, None, None, None),
@@ -370,10 +404,26 @@ def test_quantized_linear_on_card(dev):
     (2, 4, 2, 1, 300, 128, True, 128, None, None),      # decode
     (1, 2, 1, 96, 96, 20, True, None, 60, -16),         # D % 4 != 0, rows
     (1, 2, 2, 64, 64, 64, True, None, 0, None),         # all keys masked
-])
+    # the split schedule (flash-decoding), one CTA per kv head and range:
+    (1, 48, 8, 1, 8192, 128, True, 4096, None, None),   # Mixtral decode
+    (1, 48, 8, 4, 8192, 128, True, 4096, None, None),   # Sq 4 x group 6
+    (1, 6, 1, 3, 2048, 64, True, None, 700, None),      # kv_len mid-tile
+    (1, 6, 2, 3, 512, 64, True, None, 100, -50),        # every split empty
+    (2, 4, 2, 1, 300, 20, True, 128, None, None),       # D % 8 != 0
+] + list(WIDE_ATTN_CASES))
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain_version(dev, case, dtype):
+    """K8 on both sides of ``attention_geometry``'s rule: tiled (bf16 on
+    the tensor cores in 64- or 128-row tiles, f32 on the CUDA cores) and
+    split."""
     b, h, hkv, sq, sk, d, causal, window, kv_len, offset = case
+    if case in WIDE_ATTN_CASES and dtype == torch.bfloat16:
+        geom = attention_geometry(
+            b, h, hkv, sq, sk, window, kv_len,
+            (sk - sq if causal else 0) if offset is None else offset, d,
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            causal=causal)
+        assert (geom.path, geom.tile_rows) == ('tiled', 128)
     g = torch.Generator(device=dev).manual_seed(sq + sk + d)
     q, k, v = (torch.randn(b, n, s, d, generator=g, device=dev).to(dtype)
                for n, s in ((h, sq), (hkv, sk), (hkv, sk)))
@@ -386,8 +436,10 @@ def test_flash_attention_kernel_matches_plain_version(dev, case, dtype):
     tol = dict(rtol=0, atol=1e-4) if dtype == torch.float32 else dict(
         rtol=2.0 ** -7, atol=1e-5)
     torch.testing.assert_close(got.float(), want.float(), **tol)
-    if kv_len == 0:
+    if kv_len == 0 or (offset or 0) + sq <= 0:
         assert not bool(got.any())
+    # the split schedule's merging CTAs leave their tickets at 0
+    assert not any(bool(t.any()) for t in fa_kernel._TICKETS.values())
 
 
 def test_mha_on_card_launches_once(dev):

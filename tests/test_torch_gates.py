@@ -103,13 +103,31 @@ def test_cuda_step_layer_and_grads_match_reference_pallas_step():
                                    rtol=RTOL, atol=ATOL, err_msg=name)
 
 
-def test_step_op_matches_scan():
+@pytest.mark.parametrize('return_state', [None, False, True])
+def test_step_op_matches_scan(return_state):
+    """The op's contract is the reference's
+    (``repro.kernels.lstm_gates.ops.lstm_layer_fused``): ``hs`` alone by
+    default and with ``return_state=False``, (hs, (h_T, c_T)) with
+    ``return_state=True``."""
     port = stack_params_from_numpy(
         {'layers': [_np_layer(11, 13, 32)], 'w_out': None, 'b_out': None},
         'cpu').layers[0]
     xs, h0, c0 = _t(_x(12, 6, 3, 13)), _t(_x(13, 3, 32)), _t(_x(14, 3, 32))
-    hs, (h_T, c_T) = lstm_layer_fused(port, xs, h0, c0)
+    kw = {} if return_state is None else dict(return_state=return_state)
+    out = lstm_layer_fused(port, xs, h0, c0, **kw)
     ref_hs, (ref_h, ref_c) = tlstm.lstm_layer(port, xs, h0, c0)
+    if not return_state:
+        assert isinstance(out, torch.Tensor)
+        torch.testing.assert_close(out, ref_hs, rtol=1e-5, atol=1e-6)
+        jout = jgates.lstm_layer_fused(
+            jax.tree.map(jnp.asarray, _np_layer(11, 13, 32)),
+            jnp.asarray(xs.numpy()), h0=jnp.asarray(h0.numpy()),
+            c0=jnp.asarray(c0.numpy()), use_pallas=False, **kw)
+        assert not isinstance(jout, tuple)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout),
+                                   rtol=RTOL, atol=ATOL)
+        return
+    hs, (h_T, c_T) = out
     for a, b in ((hs, ref_hs), (h_T, ref_h), (c_T, ref_c)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 

@@ -207,8 +207,13 @@ def test_auto_on_cpu_is_torch_scan_and_fused_needs_homogeneous_stack():
         hetero.layers + stack_params_from_numpy(
             _np_stack(72, n_x=N_H, n_h=16, n_layers=1), 'cpu').layers,
         None, None)
-    with pytest.raises(ValueError):
-        tlstm.resolve_serving_backend(hetero, 'cuda_seq_fused', 4, 2, 'cpu')
+    # structurally incompatible with the wavefront: cuda_seq_fused is
+    # cuda_seq, the reference's ``_resolve_stack_backend``
+    assert tlstm.resolve_serving_backend(hetero, 'cuda_seq_fused', 4, 2,
+                                         'cpu') == 'cuda_seq'
+    one = stack_params_from_numpy(_np_stack(73, n_layers=1), 'cpu')
+    assert tlstm.resolve_serving_backend(one, 'cuda_seq_fused', 4, 2,
+                                         'cpu') == 'cuda_seq'
     with pytest.raises(ValueError):
         tlstm.resolve_serving_backend(port, 'pallas_seq', 4, 2, 'cpu')
 
@@ -225,3 +230,46 @@ def test_launch_geometry_at_full_width():
     assert not stack_geometry(421, 3, 64, 132).admissible(132)
     # a grid larger than the co-resident CTAs is refused
     assert not k2.admissible(128)
+
+
+def test_incompatible_stack_on_fused_serves_layerwise_bit_for_bit():
+    """A heterogeneous stack served on ``cuda_seq_fused`` gives the
+    log-probs of ``cuda_seq`` bit for bit on CPU, chunk by chunk."""
+    head = stack_params_from_numpy(_np_stack(74, n_layers=1), 'cpu')
+    tail = stack_params_from_numpy(
+        _np_stack(75, n_x=N_H, n_h=16, n_layers=1, n_out=6), 'cpu')
+    port = tlstm.LSTMStackParams(head.layers + tail.layers, tail.w_out,
+                                 tail.b_out)
+    xs = torch.from_numpy(_x(76, 8, 3, N_X))
+    lens = np.array([8, 5, 2])
+    outs = {}
+    for backend in ('cuda_seq_fused', 'cuda_seq'):
+        states, ys = None, []
+        for lo, hi in _chunks(8, 4):
+            vl = torch.from_numpy(np.clip(lens - lo, 0, hi - lo))
+            y, states = tlstm.lstm_stack_chunk(port, xs[lo:hi], states,
+                                               valid_len=vl, backend=backend)
+            ys.append(torch.log_softmax(y, dim=-1))
+        outs[backend] = torch.cat(ys)
+    assert outs['cuda_seq_fused'].shape == (8, 3, 6)
+    assert torch.equal(outs['cuda_seq_fused'], outs['cuda_seq'])
+
+
+@pytest.mark.parametrize('backend', ['torch_scan', 'cuda_step'])
+def test_layer_takes_several_batch_dims_like_reference(backend):
+    """(T, 2, 3, N_x) input: the batch dims are flattened and restored, as
+    the reference's ``lstm_layer_fused`` does."""
+    ref = _np_stack(77, n_layers=1)
+    port = stack_params_from_numpy(ref, 'cpu').layers[0]
+    xs, h0, c0 = _x(78, 5, 2, 3, N_X), _x(79, 2, 3, N_H), _x(80, 2, 3, N_H)
+    hs, (hT, cT) = tlstm.lstm_layer_fused(
+        port, torch.from_numpy(xs), torch.from_numpy(h0),
+        torch.from_numpy(c0), backend=backend)
+    jhs, (jhT, jcT) = jlstm.lstm_layer_fused(
+        _jax(ref.layers[0]), jnp.asarray(xs), jnp.asarray(h0),
+        jnp.asarray(c0), backend='xla_scan')
+    assert hs.shape == (5, 2, 3, N_H) and hT.shape == (2, 3, N_H)
+    for a, b in ((hs, jhs), (hT, jhT), (cT, jcT)):
+        _close(a, b)
+    with pytest.raises(ValueError, match=r'\(T, B, N_x\)'):
+        tlstm.lstm_layer_fused(port, torch.from_numpy(xs), backend='cuda_seq')

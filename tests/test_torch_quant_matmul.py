@@ -20,10 +20,13 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import quant as jquant  # noqa: E402
 from repro.kernels import quant_matmul as jqm  # noqa: E402
 from repro_torch.core import quant as tquant  # noqa: E402
-from repro_torch.kernels.quant_matmul import (quant_matmul,  # noqa: E402
+from repro_torch.kernels.quant_matmul import (qmm_geometry,  # noqa: E402
+                                              quant_matmul,
                                               quant_matmul_ref,
                                               quantize_weights,
                                               quantized_linear)
+from repro_torch.kernels.quant_matmul.kernel import (  # noqa: E402
+    TILE_MS, TILE_N)
 
 
 def _x(seed, *shape):
@@ -102,3 +105,28 @@ def test_quant_matmul_refuses_other_devices():
     with pytest.raises(ValueError):
         quant_matmul(t(4, 8), t(8, 4), torch.ones(4, 1, device='meta'),
                      torch.ones(1, 4, device='meta'))
+
+
+@pytest.mark.parametrize('m,n', [(256, 16384), (256, 512), (15, 75), (1, 3),
+                                 (130, 136), (256, 384), (1000, 4096),
+                                 (5, 8)])
+def test_qmm_geometry_covers_outputs_once(m, n):
+    """``qmm_geometry`` is a pure rule: its tiles cover M x N exactly once,
+    they are the shortest that keep the CTAs within the card's SMs
+    (Mixtral's up-projection: 128 CTAs of one 256-row tile each, so every
+    weight byte is fetched by one CTA)."""
+    g = qmm_geometry(m, n, 132)
+    assert g == qmm_geometry(m, n, 132)
+    assert g.bm in TILE_MS and g.tiles_m == -(-m // g.bm)
+    rows = [r for i in range(g.tiles_m)
+            for r in range(i * g.bm, min(m, (i + 1) * g.bm))]
+    cols = [c for j in range(g.tiles_n)
+            for c in range(j * TILE_N, min(n, (j + 1) * TILE_N))]
+    assert rows == list(range(m)) and cols == list(range(n))
+    assert g.ctas == g.tiles_m * g.tiles_n
+    if g.bm > TILE_MS[-1]:     # a shorter tile would overfill the card
+        assert -(-m // (g.bm // 2)) * g.tiles_n > 132
+    if (m, n) == (256, 16384):
+        assert (g.bm, g.tiles_m, g.ctas) == (256, 1, 128)
+    if (m, n) == (256, 512):       # 64-row tiles: 16 CTAs
+        assert (g.bm, g.ctas) == (64, 16)
