@@ -46,9 +46,12 @@ the same f32 weights' configuration from seed 0):
 
 8. holds K5 (``lstm_gates_rec``, one recurrent step) against its plain
    version at the training shape (B = 8, N_h = 421, nonzero h and c) and
-   times it, its plain version, and the product alone (``torch.addmm``);
-   checks ``lstm_layer_fused`` on ``cuda_step`` against ``cuda_seq`` over
-   16 steps;
+   times it (one launch; a launch of a 16-step ``cuda_step`` chain, whose
+   launches 2 .. 16 stage their weights before the launch ahead has
+   finished; and a launch of the same chain of public-op launches, which
+   do not), its plain version, and the product alone (``torch.addmm``),
+   with the geometry its timed launch used; checks ``lstm_layer_fused`` on
+   ``cuda_step`` against ``cuda_seq`` over 16 steps;
 9. compares every leaf's gradient of ``loss_fn`` (T = 16, B = 8) on
    ``cuda_step``, ``cuda_seq`` and ``cuda_seq_fused`` with the
    ``torch_scan`` Function's on the card, by relative Frobenius error;
@@ -70,8 +73,9 @@ and a PyTorch yardstick, each op driven once per shape with its launch
 counter set to 0 just before and read just after:
 
 12. K6 (``lstm_gates``, the fused cell) on layer 0 (N_in = 123 + 421) and
-    an inner layer (421 + 421) at B = 8, atol 1e-4; ``lstm_cell_fused``
-    against ``core.lstm.lstm_cell``;
+    an inner layer (421 + 421) at B = 8, atol 1e-4, with the geometry
+    its timed launch used;
+    ``lstm_cell_fused`` against ``core.lstm.lstm_cell``;
 13. K7 (``quant_matmul``) ``torch.equal`` to its plain version in f32 and
     bf16 at Mixtral 8x22B's expert up-projection (256 x 6144 x 16384) and
     the reference bench's 256 x 512 x 512; ``quantized_linear`` there and
@@ -89,11 +93,12 @@ counter set to 0 just before and read just after:
 ``--profile`` also traces one engine drain per f32 kernel backend, several
 int8 deploy passes per int8 backend, and one train step per kernel backend
 with ``torch.profiler``.  Two measurement modes run instead of the phases:
-``--ab PARENT_SRC`` times K7 and K8 at the cases of 13 and 14 (the same
-``qmm_case`` and ``attn_case`` as those phases) against the tree whose
-``src`` is given, each turn a process of its own (parent, change, change,
-parent); ``--clock-stamps`` rebuilds K7 and K8 with
-``-DCLOCK_STAMPS`` and prints the cycles of each phase of their loops.
+``--ab PARENT_SRC`` times K5-K8 at the cases of 8 and 12-14 (the same
+``gates_case``, ``qmm_case`` and ``attn_case`` as those phases) against the
+tree whose ``src`` is given, each turn a process of its own (parent,
+change, change, parent); ``--clock-stamps`` rebuilds K5-K8 with
+``-DCLOCK_STAMPS`` and prints the cycles of each phase (to stamp another
+tree, run a copy of this script from that tree's root).
 
 Any failed check raises (nonzero exit).  The line before the last is the
 ``kernels`` JSON; the last line is the device JSON.  Without a CUDA device,
@@ -134,6 +139,7 @@ GRAD_REL_TOL = 1e-4           # relative Frobenius error per gradient leaf
 LOSS_RTOL = 1e-4              # loss histories across kernel backends
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 CELL_BATCH = 8                # K6: the training batch, on layers 0 and 1
+GATES_T = 16                  # steps of the timed K5 chain (``chain_ms``)
 # K7 (label, M, K, N): kernel_bench.py:147 and Mixtral 8x22B's expert
 # up-projection (256 tokens, d_model 6144 -> d_ff 16384); the first is the
 # kernels line's row, the ragged case goes through ``quantized_linear`` only
@@ -145,7 +151,8 @@ QMM_REL_TOL = 0.03            # quantized_linear vs the f32 product
 # a row of kParts = 4 phases, the loop's cycles and the saved value
 STAMP_COLS = 6
 STAMP_PARTS = {'quant_matmul': ('wait', 'loads', 'transpose', 'wgmma'),
-               'flash_attention': ('loads+wait', 'S+softmax', 'PV')}
+               'flash_attention': ('loads+wait', 'S+softmax', 'PV'),
+               'lstm_gates_rec': ('staging', 'dot', 'reduce', 'epilogue')}
 # K8 (label, B, H, Hkv, Sq, Sk, D, window, dtype), all causal through
 # ``mha``: kernel_bench.py:158, and Mixtral 8x22B's attention (48 heads on
 # 8 kv heads, D 128, sliding window 4096) as an 8192-token prefill and as
@@ -723,48 +730,104 @@ def int8_deploy(cfg, params, qps, chunk: int, utts, dev,
     return res
 
 
-def gates_kernel_checks(cfg, params, B: int, T: int, rng, dev):
-    """K5 against its plain version at the training shape (B streams, N_h
-    hidden units, an inner layer's weights, nonzero h and c); times it, its
-    plain version and the product alone; then ``cuda_step`` against
-    ``cuda_seq`` over ``T`` steps."""
-    from repro_torch.core.lstm import lstm_layer_fused
-    from repro_torch.kernels.lstm_gates import (lstm_gates_rec,
-                                                lstm_gates_rec_ref)
-    f32 = lambda *s: torch.from_numpy(
-        (rng.randn(*s) * 0.5).astype(np.float32)).to(dev)
-    lp = params.layers[1]
+def gates_case(kernel: str, lp, B: int, g, dev):
+    """One K5 (``kernel`` 'lstm_gates_rec': layer ``lp``'s W_h, ``pre``) or
+    K6 ('lstm_gates': the packed [W_x | W_h] and [x; h]) case at B streams,
+    inputs from ``g`` (x 0.5): max abs error against its plain version, the
+    kernel's ms, its plain version's, the product alone (``torch.addmm`` /
+    ``torch.mm``), the bound and the geometry of the timed launch (where
+    the wrapper records it); for K5 also the ms per launch of a
+    ``GATES_T``-step ``_step_forward`` chain (the ``cuda_step`` layer, its
+    two stacks included) and of the same chain of public-op launches
+    (``chain_no_early_ms``: no launch stages anything before the one ahead
+    has finished).  Only calls that the parent tree has too, so ``--ab``
+    runs it on either.  Returns (case, inputs)."""
+    from repro_torch.kernels import lstm_gates as kg
+    from repro_torch.kernels.lstm_gates.ops import _step_forward
+    r = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.5
     N = lp.n_h
-    args = (f32(B, N), lp.w_h, f32(B, 4, N), lp.w_peep, lp.b, f32(B, N))
-    got, want = lstm_gates_rec(*args), lstm_gates_rec_ref(*args)
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    h, w_h, pre = args[:3]
-    w_rows = w_h.reshape(4 * N, N)
-    pre_rows = pre.reshape(B, 4 * N)
-    product = lambda: torch.addmm(pre_rows, h, w_rows.T)
-    row = dict(
-        name='lstm_gates_rec', route='cuda',
-        source='src/repro_torch/csrc/lstm_gates_rec.cu',
-        replaces='src/repro/kernels/lstm_gates/kernel.py:79',
-        max_abs_err=err, tol=KERNEL_ATOL,
-        ms=cuda_ms(lambda: lstm_gates_rec(*args), 200),
-        plain_ms=cuda_ms(lambda: lstm_gates_rec_ref(*args), 50),
-        product_only_ms=cuda_ms(product, 200),
+    if kernel == 'lstm_gates_rec':
+        K, fn, ref = N, kg.lstm_gates_rec, kg.lstm_gates_rec_ref
+        h, pre, c = r(B, N), r(B, 4, N), r(B, N)
+        args = (h, lp.w_h, pre, lp.w_peep, lp.b, c)
+        w_rows, pre_rows = lp.w_h.reshape(4 * N, N), pre.reshape(B, 4 * N)
+        product = lambda: torch.addmm(pre_rows, h, w_rows.T)
+        inputs = args
         # inputs h, W_h, pre, peep, bias, c once; outputs h, c once
-        bytes=4 * (4 * N * N + 7 * N + B * N + 4 * B * N + B * N
-                   + 2 * B * N),
-        flops=8 * B * N * N + 30 * B * N, library_ms=None)
-    row['bound_ms'], row['bound_by'] = bound(row['bytes'], row['flops'])
-    row['ok'] = err <= KERNEL_ATOL
-    print(f"lstm_gates_rec: B={B} N_h={N}: max_abs_err {err:.3e} (tol "
-          f"{KERNEL_ATOL}), kernel {row['ms']:.5f} ms, plain "
-          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
-          f"({row['bound_by']}; {row['bytes'] / 1e6:.3f} MB), library none "
-          f"(product only, torch.addmm: {row['product_only_ms']:.5f} ms)",
-          flush=True)
+        nbytes = 4 * (4 * N * N + 7 * N + B * N + 4 * B * N + B * N
+                      + 2 * B * N)
+    else:
+        K, fn, ref = lp.n_x + N, kg.lstm_gates, kg.lstm_gates_ref
+        x, h, c = r(B, lp.n_x), r(B, N), r(B, N)
+        xh = torch.cat([x, h], dim=-1)
+        w = torch.cat([lp.w_x, lp.w_h], dim=-1)
+        args = (xh, w, lp.w_peep, lp.b, c)
+        w_rows = w.reshape(4 * N, K)
+        product = lambda: torch.mm(xh, w_rows.T)
+        inputs = (lp, x, h, c)
+        # inputs xh, W, peep, bias, c once; outputs h, c once
+        nbytes = 4 * (B * K + 4 * N * K + 7 * N + B * N + 2 * B * N)
+    err = max(float((a - b).abs().max()) for a, b in zip(fn(*args),
+                                                         ref(*args)))
+    case = dict(
+        kernel=kernel, shape=f'B={B} N_in={K} N_h={N}', max_abs_err=err,
+        tol=KERNEL_ATOL, ok=err <= KERNEL_ATOL,
+        ms=cuda_ms(lambda: fn(*args), 200))
+    launched = getattr(fn, 'last_launch', None)
+    if launched is not None:
+        case['geometry'] = dict(dataclasses.asdict(launched[0]),
+                                early=launched[1])
+    case.update(plain_ms=cuda_ms(lambda: ref(*args), 50), library_ms=None,
+                product_only_ms=cuda_ms(product, 200), bytes=nbytes,
+                flops=8 * B * N * K + 30 * B * N)
+    if kernel == 'lstm_gates_rec':
+        pre_x = r(GATES_T, B, 4, N)
+
+        def no_early_chain():
+            hh, cc, hs, cs = h, c, [], []
+            for pre_t in pre_x:
+                hh, cc = fn(hh, lp.w_h, pre_t, lp.w_peep, lp.b, cc)
+                hs.append(hh)
+                cs.append(cc)
+            return torch.stack(hs), torch.stack(cs)
+        case['chain_ms'] = cuda_ms(lambda: _step_forward(
+            lp.w_h, lp.w_peep, lp.b, pre_x, h, c), 20) / GATES_T
+        case['chain_no_early_ms'] = cuda_ms(no_early_chain, 20) / GATES_T
+    case['bound_ms'], case['bound_by'] = bound(nbytes, case['flops'])
+    return case, inputs
+
+
+def _print_gates_case(case, lib: str) -> None:
+    chain = (f", {case['chain_ms']:.5f} ms a launch in a {GATES_T}-step "
+             f"chain ({case['chain_no_early_ms']:.5f} ms with no early "
+             f"staging)" if 'chain_ms' in case else '')
+    print(f"{case['kernel']}: {case['shape']}: max_abs_err "
+          f"{case['max_abs_err']:.3e} (tol {KERNEL_ATOL}), kernel "
+          f"{case['ms']:.5f} ms{chain}, plain {case['plain_ms']:.4f} ms, "
+          f"bound {case['bound_ms']:.6f} ms ({case['bound_by']}; "
+          f"{case['bytes'] / 1e6:.3f} MB), library none (product only, "
+          f"{lib}: {case['product_only_ms']:.5f} ms); geometry of the "
+          f"timed launch {case['geometry']}", flush=True)
+
+
+def gates_kernel_checks(cfg, params, B: int, T: int, rng, dev):
+    """K5 against its plain version at the training shape (``gates_case``:
+    B streams, an inner layer's weights), with the geometry its timed
+    launch used; then
+    ``cuda_step`` against ``cuda_seq`` over ``T`` steps."""
+    from repro_torch.core.lstm import lstm_layer_fused
+    lp = params.layers[1]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    row, _ = gates_case('lstm_gates_rec', lp, B, g, dev)
+    row.update(name='lstm_gates_rec', route='cuda',
+               source='src/repro_torch/csrc/lstm_gates_rec.cu',
+               replaces='src/repro/kernels/lstm_gates/kernel.py:79')
+    _print_gates_case(row, 'torch.addmm')
     check(row['ok'], 'lstm_gates_rec disagrees with its plain version')
 
-    xs, h0, c0 = f32(T, B, lp.n_x), f32(B, N), f32(B, N)
+    f32 = lambda *s: torch.from_numpy(
+        (rng.randn(*s) * 0.5).astype(np.float32)).to(dev)
+    xs, h0, c0 = f32(T, B, lp.n_x), f32(B, lp.n_h), f32(B, lp.n_h)
     step, seq = (lstm_layer_fused(lp, xs, h0, c0, backend=b)
                  for b in ('cuda_step', 'cuda_seq'))
     err = max(float((a - b).abs().max()) for a, b in
@@ -963,52 +1026,28 @@ def _case_row(name: str, source: str, replaces: str, cases):
                     c['max_abs_err'] for c in cases),
                 tol=first['tol'], ok=all(c['ok'] for c in cases),
                 **{k: first[k] for k in ('ms', 'plain_ms', 'bound_ms',
-                                         'bound_by', 'library_ms')},
+                                         'bound_by', 'library_ms',
+                                         'geometry') if k in first},
                 cases=cases)
 
 
-def cell_checks(params, B: int, rng, dev):
+def cell_checks(params, B: int, dev):
     """K6 (``lstm_gates``, the fused cell) against its plain version on
-    layer 0 (N_in = 123 + 421) and an inner layer (421 + 421) at B streams;
-    times it, its plain version and the product alone (``torch.mm``); then
-    drives the public op ``lstm_cell_fused`` once per layer with the
-    launch counter set to 0, against ``core.lstm.lstm_cell``."""
+    layer 0 (N_in = 123 + 421) and an inner layer (421 + 421) at B streams
+    (``gates_case``), with the geometry its timed launch used; then
+    drives the public op
+    ``lstm_cell_fused`` once per layer with the launch counter set to 0,
+    against ``core.lstm.lstm_cell``."""
     from repro_torch.core.lstm import lstm_cell
-    from repro_torch.kernels.lstm_gates import (lstm_cell_fused, lstm_gates,
-                                                lstm_gates_ref)
-    f32 = lambda *s: torch.from_numpy(
-        (rng.randn(*s) * 0.5).astype(np.float32)).to(dev)
+    from repro_torch.kernels.lstm_gates import lstm_cell_fused, lstm_gates
+    g = torch.Generator(device=dev).manual_seed(SEED)
     cases, inputs = [], []
     for lp in params.layers[:2]:
-        N, K = lp.n_h, lp.n_x + lp.n_h
-        x, h, c = f32(B, lp.n_x), f32(B, N), f32(B, N)
-        inputs.append((lp, x, h, c))
-        xh = torch.cat([x, h], dim=-1)
-        w = torch.cat([lp.w_x, lp.w_h], dim=-1)
-        args = (xh, w, lp.w_peep, lp.b, c)
-        err = max(float((g - r).abs().max()) for g, r in
-                  zip(lstm_gates(*args), lstm_gates_ref(*args)))
-        w_rows = w.reshape(4 * N, K)
-        case = dict(
-            shape=f'B={B} N_in={K} N_h={N}', max_abs_err=err,
-            tol=KERNEL_ATOL, ok=err <= KERNEL_ATOL,
-            ms=cuda_ms(lambda: lstm_gates(*args), 200),
-            plain_ms=cuda_ms(lambda: lstm_gates_ref(*args), 50),
-            library_ms=None,
-            product_only_ms=cuda_ms(lambda: torch.mm(xh, w_rows.T), 200),
-            # inputs xh, W, peep, bias, c once; outputs h, c once
-            bytes=4 * (B * K + 4 * N * K + 7 * N + B * N + 2 * B * N),
-            flops=8 * B * N * K + 30 * B * N)
-        case['bound_ms'], case['bound_by'] = bound(case['bytes'],
-                                                   case['flops'])
-        print(f"lstm_gates: {case['shape']}: max_abs_err {err:.3e} (tol "
-              f"{KERNEL_ATOL}), kernel {case['ms']:.5f} ms, plain "
-              f"{case['plain_ms']:.4f} ms, bound {case['bound_ms']:.6f} ms "
-              f"({case['bound_by']}; {case['bytes'] / 1e6:.3f} MB), library "
-              f"none (product only, torch.mm: "
-              f"{case['product_only_ms']:.5f} ms)", flush=True)
+        case, ins = gates_case('lstm_gates', lp, B, g, dev)
+        _print_gates_case(case, 'torch.mm')
         check(case['ok'], 'lstm_gates disagrees with its plain version')
         cases.append(case)
+        inputs.append(ins)
 
     torch.cuda.synchronize()
     lstm_gates.launches = 0
@@ -1259,10 +1298,21 @@ def attention_checks(dev):
 
 
 def op_times(dev):
-    """``qmm_case`` at every ``QMM_SHAPES`` shape and ``attn_case`` at every
-    ``ATTN_CASES`` case, on the phases' inputs (same seed, same order), for
+    """``gates_case`` at K5's training case and K6's two layers,
+    ``qmm_case`` at every ``QMM_SHAPES`` shape and ``attn_case`` at every
+    ``ATTN_CASES`` case, on the phases' inputs (same seeds, same order), for
     one turn of ``--ab``."""
-    cases = []
+    from repro_torch import configs
+    from repro_torch.models import chipmunk_net
+    params = chipmunk_net.init(configs.get_config('chipmunk-ctc'),
+                               torch.Generator().manual_seed(SEED),
+                               device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cases = [gates_case('lstm_gates_rec', params.layers[1], TRAIN_BATCH, g,
+                        dev)[0]]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for lp in params.layers[:2]:
+        cases.append(gates_case('lstm_gates', lp, CELL_BATCH, g, dev)[0])
     g = torch.Generator(device=dev).manual_seed(SEED)
     for shape in QMM_SHAPES:
         cases.append(dict(qmm_case(*shape, g, dev)[0],
@@ -1293,15 +1343,18 @@ def ab(parent_src: str):
             proc.stdout.strip().splitlines()[-1])))
     for i, row in enumerate(turns[0]['rows']):
         got = turns[1]['rows'][i]
+        lib = f"product only {got.get('product_only_ms', 0):.5f}"
         if 'equal' in got:
             extra = 'equal ' + str(all(all(t['rows'][i]['equal'].values())
                                        for t in turns))
-            lib = f"product only {got['product_only_ms']:.5f}"
-        else:
+        elif 'tol_used' in got:
             used = max(t['rows'][i]['tol_used'] for t in turns)
             extra = f'tol_used {used:.3f}'
             lib = f"library {got['library_ms']:.5f}"
-        for key in ('ms', 'ms_bf16'):
+        else:
+            err = max(t['rows'][i]['max_abs_err'] for t in turns)
+            extra = f'max_abs_err {err:.3e}'
+        for key in ('ms', 'ms_bf16', 'chain_ms', 'chain_no_early_ms'):
             if key not in got:
                 continue
             ms = {s: [t['rows'][i][key] for t in turns if t['side'] == s]
@@ -1316,19 +1369,43 @@ def ab(parent_src: str):
 
 
 def clock_stamps(dev):
-    """Debug builds of K7 and K8 (``-DCLOCK_STAMPS``): one launch each at
-    Mixtral's up-projection (f32 out) and bf16 prefill.  Per CTA, thread
-    0's cycles in each phase of the K loop (``STAMP_PARTS``), summed over
-    the loop, and the loop's whole time; printed as means over CTAs."""
+    """Debug builds (``-DCLOCK_STAMPS``) of K5 and K6 (library
+    ``lstm_gates_rec``: K5 at the training case, K6 at both layers, each
+    timed on its third launch, with W in L2 as on the ``cuda_step`` chain),
+    K7 and K8 (one launch each at Mixtral's up-projection, f32 out, and
+    bf16 prefill).  Per CTA, thread 0's cycles in each phase
+    (``STAMP_PARTS``), summed over the loop, and the whole kernel's or
+    loop's time; printed as means over CTAs."""
     import ctypes
+    from repro_torch import configs
     from repro_torch.core import quant
     from repro_torch.kernels import _build
+    from repro_torch.kernels import lstm_gates as kg
     from repro_torch.kernels.flash_attention import (attention_geometry,
                                                      flash_attention)
     from repro_torch.kernels.quant_matmul import (qmm_geometry,
                                                   quant_matmul,
                                                   quantize_weights)
+    from repro_torch.models import chipmunk_net
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    params = chipmunk_net.init(configs.get_config('chipmunk-ctc'),
+                               torch.Generator().manual_seed(SEED),
+                               device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.5
+    B, inner = TRAIN_BATCH, params.layers[1]
+    N = inner.n_h
+    k5 = (r(B, N), inner.w_h, r(B, 4, N), inner.w_peep, inner.b, r(B, N))
+    runs = [('lstm_gates_rec', 'lstm_gates_rec',
+             kg.gates_geometry(N, N, B, sms).ctas, 3,
+             lambda: kg.lstm_gates_rec(*k5))]
+    for lp in params.layers[:2]:
+        K = lp.n_x + lp.n_h
+        k6 = (r(B, K), torch.cat([lp.w_x, lp.w_h], dim=-1), lp.w_peep, lp.b,
+              r(B, N))
+        runs.append((f'lstm_gates N_in={K}', 'lstm_gates_rec',
+                     kg.gates_geometry(N, K, B, sms).ctas, 3,
+                     lambda k6=k6: kg.lstm_gates(*k6)))
     g = torch.Generator(device=dev).manual_seed(SEED)
     _, M, K, N = QMM_SHAPES[0]
     x = torch.randn(M, K, generator=g, device=dev)
@@ -1338,17 +1415,18 @@ def clock_stamps(dev):
     q = torch.randn(B, H, Sq, D, generator=g, device=dev).bfloat16()
     k, v = (torch.randn(B, Hkv, Sk, D, generator=g, device=dev).bfloat16()
             for _ in range(2))
-    runs = (('quant_matmul', qmm_geometry(M, N, sms).ctas,
-             lambda: quant_matmul(quant.quantize_scaled(x, xs), w_q, xs,
-                                  ws[None, :])),
-            ('flash_attention', attention_geometry(
-                B, H, Hkv, Sq, Sk, window, None, Sk - Sq, D, sms).ctas,
-             lambda: flash_attention(q, k, v, causal=True, window=window)))
+    runs += [('quant_matmul', 'quant_matmul', qmm_geometry(M, N, sms).ctas,
+              1, lambda: quant_matmul(quant.quantize_scaled(x, xs), w_q, xs,
+                                      ws[None, :])),
+             ('flash_attention', 'flash_attention', attention_geometry(
+                 B, H, Hkv, Sq, Sk, window, None, Sk - Sq, D, sms).ctas, 1,
+              lambda: flash_attention(q, k, v, causal=True, window=window))]
     out = {}
-    for name, ctas, fn in runs:
+    for label, name, ctas, calls, fn in runs:
         _build.DEFINES[name] = ('-DCLOCK_STAMPS',)
         try:
-            fn()
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
             lib = _build.load(name, {})
             copy = getattr(lib, f'{name}_clock_stamps')
@@ -1361,13 +1439,13 @@ def clock_stamps(dev):
         n = min(ctas, 8192)
         mean = host[:n].mean(axis=0)
         total = mean[-2]
-        out[name] = dict(ctas=int(n), loop_cycles=float(total),
-                         stages=float(mean[-1]), parts={
-                             label: float(c) for label, c in
-                             zip(STAMP_PARTS[name], mean)})
-        print(f'clock stamps: {name}: {n} CTAs, {mean[-1]:.1f} stages, '
+        out[label] = dict(ctas=int(n), loop_cycles=float(total),
+                          stages=float(mean[-1]), parts={
+                              part: float(c) for part, c in
+                              zip(STAMP_PARTS[name], mean)})
+        print(f'clock stamps: {label}: {n} CTAs, {mean[-1]:.1f} stages, '
               f'{total:.0f} cycles a CTA: ' + ', '.join(
-                  f'{label} {c:.0f} ({c / total:.3f})' for label, c in
+                  f'{part} {c:.0f} ({c / total:.3f})' for part, c in
                   zip(STAMP_PARTS[name], mean)), flush=True)
     return out
 
@@ -1383,14 +1461,14 @@ def main(argv=None) -> int:
                          'torch.profiler (device busy/idle share, time by '
                          'kernel)')
     ap.add_argument('--ab', metavar='PARENT_SRC', default=None,
-                    help='only time K7 and K8 against the tree whose src '
+                    help='only time K5-K8 against the tree whose src '
                          'directory is given, in turns (parent, change, '
                          'change, parent)')
     ap.add_argument('--op-times', metavar='SRC', default=None,
                     help=argparse.SUPPRESS)   # one turn of --ab
     ap.add_argument('--clock-stamps', action='store_true',
-                    help='only run debug builds of K7 and K8 with '
-                         'clock64() stamps of their phases')
+                    help='only run debug builds of K5-K8 with clock64() '
+                         'stamps of their phases')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1466,7 +1544,7 @@ def main(argv=None) -> int:
     cli = train_cli(train_cfg)
 
     # K6-K8 on their public ops (no path of the system reaches them)
-    op_rows = [cell_checks(params, CELL_BATCH, rng, dev),
+    op_rows = [cell_checks(params, CELL_BATCH, dev),
                quant_matmul_checks(dev), attention_checks(dev)]
 
     launches = dict(lstm_seq=runs['cuda_seq']['launches']['lstm_seq'],
@@ -1485,7 +1563,7 @@ def main(argv=None) -> int:
         check(r['launches'] > 0, f"{r['name']} never launched on the path")
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'tol',
-            'ok', 'shape', 'cases')
+            'ok', 'shape', 'geometry', 'cases')
     kernels = {'kernels': [{k: r[k] for k in keys if k in r} for r in rows]}
     if args.out:
         out = pathlib.Path(args.out)

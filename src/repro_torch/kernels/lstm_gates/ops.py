@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 
 from ...core.lstm import LSTMParams, hoisted_input, recompute_gates_layer
-from .kernel import lstm_gates, lstm_gates_rec
+from .kernel import _gates_rec, lstm_gates
 
 
 def lstm_cell_fused(params: LSTMParams, x_t: torch.Tensor,
@@ -33,12 +33,13 @@ def lstm_cell_fused(params: LSTMParams, x_t: torch.Tensor,
 
 def _step_forward(w_h, w_peep, b, pre_x, h0, c0):
     """T launches of K5 over the hoisted ``pre_x`` (T, B, 4, N_h), each
-    reading the state the previous one wrote.  Returns (hs, cs), each
-    (T, B, N_h)."""
+    reading the state the previous one wrote.  No other kernel runs between
+    two of them, so launches 2 .. T overlap the one before (``early``).
+    Returns (hs, cs), each (T, B, N_h)."""
     h, c = h0, c0
     hs, cs = [], []
-    for pre_t in pre_x:
-        h, c = lstm_gates_rec(h, w_h, pre_t, w_peep, b, c)
+    for t, pre_t in enumerate(pre_x):
+        h, c = _gates_rec(h, w_h, pre_t, w_peep, b, c, early=t > 0)
         hs.append(h)
         cs.append(c)
     return torch.stack(hs), torch.stack(cs)

@@ -108,10 +108,11 @@ def test_debug_defines_build_a_library_of_their_own(tmp_path, monkeypatch):
     assert _build._target('k') == plain
 
 
-@pytest.mark.parametrize('name', ['flash_attention', 'quant_matmul'])
+@pytest.mark.parametrize('name', ['flash_attention', 'quant_matmul',
+                                  'lstm_gates_rec'])
 def test_clock_stamps_only_in_debug_builds(name):
-    """K7 and K8 time their phases with the shared ``clock_stamps.cuh``;
-    its export exists only under ``CLOCK_STAMPS``."""
+    """K5/K6, K7 and K8 time their phases with the shared
+    ``clock_stamps.cuh``; its export exists only under ``CLOCK_STAMPS``."""
     src = (_build.CSRC / f'{name}.cu').read_text()
     assert '#include "clock_stamps.cuh"' in src
     assert 'clk.lap(0)' in src and 'clk.lap(1)' in src

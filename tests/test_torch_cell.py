@@ -83,11 +83,16 @@ def test_gates_geometry_of_k5_and_k6():
     length N_h."""
     for n_in in (544, 842):
         geom = gates_geometry(421, n_in, 8, 132)
-        assert (geom.rows, geom.ctas) == (4, 106)
-        assert geom.smem_bytes == 4 * (8 * n_in + 4 * 4 * 8)
+        assert (geom.rows, geom.ctas, geom.stages) == (4, 106, 1)
+        # mbarriers, 4 weight spans of 4 rows, one 8-stream slot with its
+        # pre and c_prev, 2 K splits' gate sums, peep and bias
+        assert geom.smem_bytes == (16 + 4 * (16 * n_in + 16) + 32 * n_in
+                                   + 16 + 640 + 1024 + 128)
         assert geom.admissible()
     assert gates_rec_geometry(421, 8, 132) == gates_geometry(421, 421, 8, 132)
-    assert not gates_geometry(421, 842, 80, 132).admissible()
+    # B = 80 at the inner layer: 10 input chunks through 6 ring slots
+    assert gates_geometry(421, 842, 80, 132).stages == 6
+    assert gates_geometry(421, 842, 80, 132).admissible()
 
 
 def test_lstm_gates_refuses_other_devices():

@@ -44,7 +44,8 @@ from repro_torch.kernels.flash_attention import (attention_geometry,
                                                  flash_attention, mha)
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
-from repro_torch.kernels.lstm_gates import (lstm_cell_fused, lstm_gates,
+from repro_torch.kernels.lstm_gates import (gates_geometry, lstm_cell_fused,
+                                            lstm_gates,
                                             lstm_gates_rec,
                                             lstm_gates_rec_ref,
                                             lstm_gates_ref)
@@ -329,6 +330,143 @@ def test_lstm_gates_kernel_matches_plain_version(dev, layer, B):
             torch.testing.assert_close(g, r, rtol=0, atol=ATOL)
     torch.cuda.synchronize()
     assert lstm_gates.launches == n0 + 2
+
+
+# --------------------------------------------- K5 and K6 at every width
+def _parent_max_batch(n_h, n_in, sms):
+    """The largest B that one CTA's shared memory held under the earlier
+    one-input-copy-per-CTA rule, 4 (B n_in + 4 R B) bytes at R = ceil(N_h /
+    SMs): the redesigned kernel must take it too."""
+    rows = max(1, -(-n_h // sms))
+    return 232_448 // (4 * (n_in + 4 * rows))
+
+
+def _gates_args(kernel, n_h, B, dev, seed=0, n_x=None):
+    """(fn, ref, args) of K5 (``kernel`` 'k5') or K6 ('k6', rows of n_x +
+    n_h) on weights and inputs from numpy at ``seed``."""
+    rng = np.random.RandomState(seed)
+    f = lambda *s, scale=0.5: torch.from_numpy(
+        (rng.randn(*s) * scale).astype(np.float32)).to(dev)
+    K = n_h if kernel == 'k5' else n_x + n_h
+    w = f(4, n_h, K, scale=1 / np.sqrt(K))
+    peep, bias = f(3, n_h, scale=0.1), f(4, n_h, scale=0.1)
+    if kernel == 'k5':
+        return (lstm_gates_rec, lstm_gates_rec_ref,
+                [f(B, n_h), w, f(B, 4, n_h), peep, bias, f(B, n_h)])
+    return lstm_gates, lstm_gates_ref, [f(B, K), w, peep, bias, f(B, n_h)]
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize('B', [1, 5, 8, 11, 'max'])
+@pytest.mark.parametrize('n_h', [3, 37, 421])
+@pytest.mark.parametrize('kernel,n_x', [('k5', None), ('k6', 123),
+                                        ('k6', 'n_h')])
+def test_gates_kernels_match_plain_versions(dev, kernel, n_x, n_h, B):
+    """K5 and K6 (layer 0's rows, 123 + N_h, and an inner layer's, 2 N_h)
+    against their plain versions at atol 1e-4, up to the largest B the
+    earlier rule admitted (several ring slots refilled at N_h = 421)."""
+    n_x = n_h if n_x == 'n_h' else n_x
+    K = n_h if kernel == 'k5' else n_x + n_h
+    if B == 'max':
+        B = _parent_max_batch(n_h, K, _sms(dev))
+    fn, ref, args = _gates_args(kernel, n_h, B, dev, seed=n_h + B, n_x=n_x)
+    n0 = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    for g, w in zip(got, ref(*args)):
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize('B', [1, 9])
+def test_gates_kernel_without_room_for_its_slab(dev, B):
+    """K6 on rows too long for a weight slab in shared memory (N_in 16,037,
+    16,000 inputs): the unstaged form, no ring slots, reads global memory."""
+    fn, ref, args = _gates_args('k6', 37, B, dev, seed=11, n_x=16000)
+    geom = gates_geometry(37, 16037, B, _sms(dev))
+    assert geom.stages == 0 and geom.admissible()
+    for g, w in zip(fn(*args), ref(*args)):
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize('n_h,B', [(421, 8), (37, 11), (421, 67)])
+@pytest.mark.parametrize('kernel', ['k5', 'k6'])
+def test_gates_kernels_take_misaligned_views(dev, kernel, n_h, B):
+    """Every input a contiguous view at a storage offset of one float (no
+    16-byte alignment anywhere): the same bits as on aligned copies, and
+    both launches deterministic."""
+    fn, ref, args = _gates_args(kernel, n_h, B, dev, seed=3, n_x=123)
+    views = []
+    for a in args:
+        buf = torch.empty(a.numel() + 1, device=dev)
+        v = buf[1:].view(a.shape)
+        v.copy_(a)
+        assert v.is_contiguous() and v.data_ptr() % 16 == 4
+        views.append(v)
+    aligned, again, shifted = fn(*args), fn(*args), fn(*views)
+    for a, b, c, w in zip(aligned, again, shifted, ref(*args)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+        torch.testing.assert_close(c, w, rtol=0, atol=ATOL)
+
+
+def test_k5_back_to_back_equals_synchronized_launches(dev):
+    """T launches of the ``cuda_step`` chain (launches 2 .. T overlap the
+    one before) give the bits of T stream-ordered launches with a
+    synchronize between each."""
+    from repro_torch.kernels.lstm_gates.ops import _step_forward
+    T, B, N = 16, 8, 421
+    _, _, (h, w_h, _, peep, bias, c) = _gates_args('k5', N, B, dev, seed=5)
+    pre_x = torch.from_numpy((np.random.RandomState(6).randn(T, B, 4, N)
+                              * 0.5).astype(np.float32)).to(dev)
+    n0 = lstm_gates_rec.launches
+    hs, cs = _step_forward(w_h, peep, bias, pre_x, h, c)
+    assert lstm_gates_rec.launches == n0 + T
+    hh, cc = h, c
+    for t in range(T):
+        torch.cuda.synchronize()
+        hh, cc = lstm_gates_rec(hh, w_h, pre_x[t], peep, bias, cc)
+        torch.cuda.synchronize()
+        assert torch.equal(hs[t], hh) and torch.equal(cs[t], cc)
+
+
+@pytest.mark.parametrize('B', [8, 132])
+def test_weight_written_by_the_preceding_kernel_is_seen(dev, B):
+    """An in-place update of W_h (as the optimizer's) just before a K5
+    launch, and before the first launch of a ``cuda_step`` chain, is seen
+    by it; so is K6's freshly ``cat``-ed W after an update of W_h."""
+    from repro_torch.kernels.lstm_gates.ops import _step_forward
+    N = 421
+    _, _, (h, w_h, pre, peep, bias, c) = _gates_args('k5', N, B, dev, seed=7)
+    delta = torch.from_numpy((np.random.RandomState(9).randn(4, N, N)
+                              * 0.05).astype(np.float32)).to(dev)
+    stale = lstm_gates_rec(h, w_h, pre, peep, bias, c)
+    w_h.add_(delta)
+    got = lstm_gates_rec(h, w_h, pre, peep, bias, c)
+    want = lstm_gates_rec_ref(h, w_h, pre, peep, bias, c)
+    assert float((stale[0] - want[0]).abs().max()) > 100 * ATOL
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+    pre_x = pre[None].repeat(4, 1, 1, 1)
+    _step_forward(w_h, peep, bias, pre_x, h, c)
+    w_h.add_(delta)
+    hs, cs = _step_forward(w_h, peep, bias, pre_x, h, c)
+    hh, cc = h, c
+    for t in range(4):
+        hh, cc = lstm_gates_rec_ref(hh, w_h, pre_x[t], peep, bias, cc)
+        torch.testing.assert_close(hs[t], hh, rtol=0, atol=ATOL)
+        torch.testing.assert_close(cs[t], cc, rtol=0, atol=ATOL)
+    w_x = torch.from_numpy((np.random.RandomState(8).randn(4, N, 123)
+                            * 0.05).astype(np.float32)).to(dev)
+    xh = torch.cat([torch.ones(B, 123, device=dev), h], dim=-1)
+    lstm_gates(xh, torch.cat([w_x, w_h], dim=-1), peep, bias, c)
+    w_h.add_(delta)
+    w = torch.cat([w_x, w_h], dim=-1)
+    got = lstm_gates(xh, w, peep, bias, c)
+    for g, r in zip(got, lstm_gates_ref(xh, w, peep, bias, c)):
+        torch.testing.assert_close(g, r, rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize('m,k,n', [(256, 512, 512), (15, 100, 75),

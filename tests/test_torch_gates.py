@@ -21,11 +21,14 @@ from repro.core import lstm as jlstm  # noqa: E402
 from repro.kernels import lstm_gates as jgates  # noqa: E402
 from repro_torch.convert import stack_params_from_numpy  # noqa: E402
 from repro_torch.core import lstm as tlstm  # noqa: E402
-from repro_torch.kernels.lstm_gates import (gates_rec_geometry,  # noqa: E402
+from repro_torch.kernels.lstm_gates import (gates_geometry,  # noqa: E402
+                                            gates_rec_geometry,
                                             lstm_gates_rec,
                                             lstm_gates_rec_ref,
                                             lstm_gates_ref,
                                             lstm_layer_fused)
+from repro_torch.kernels.lstm_gates.kernel import (  # noqa: E402
+    gates_smem_bytes)
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -153,17 +156,79 @@ def test_masked_chunk_on_cuda_step_is_the_masked_scan():
 
 def test_gates_rec_geometry_and_dispatch():
     geom = gates_rec_geometry(421, 8, 132)
-    assert (geom.rows, geom.ctas) == (4, 106)
-    assert geom.smem_bytes == 4 * (8 * 421 + 4 * 4 * 8)
+    assert (geom.rows, geom.ctas, geom.stages) == (4, 106, 1)
+    # mbarriers | weight slab, 4 spans of 4 rows | one ring slot (8 streams'
+    # h, then pre and c_prev) | gate sums of 2 K splits | peep, bias
+    assert geom.smem_bytes == (16 + 4 * (4 * 4 * 421 + 16)
+                               + (4 * 8 * 421 + 16) + 4 * 5 * 4 * 8
+                               + 4 * 2 * 4 * 32 + 4 * 8 * 4)
     assert geom.admissible()
-    # a plain launch: no co-residency bound, only shared memory
-    assert not gates_rec_geometry(421, 200, 132).admissible()
+    # a plain launch: no co-residency bound, only shared memory; B = 200
+    # streams its 25 input chunks through the ring slots that fit
+    big = gates_rec_geometry(421, 200, 132)
+    assert big.admissible() and 1 < big.stages < 25
+    # rows too long for the weight slab: the unstaged form, no ring slots
+    long_rows = gates_geometry(37, 16037, 9, 132)
+    assert long_rows.stages == 0 and long_rows.admissible()
+    assert not gates_rec_geometry(2000, 8, 1).admissible()
     port = stack_params_from_numpy(
         {'layers': [_np_layer(19, 13, 32)], 'w_out': None, 'b_out': None},
         'cpu')
     assert tlstm.resolve_serving_backend(port, 'cuda_step', 4, 2,
                                          'cpu') == 'cuda_step'
     assert 'cuda_step' in tlstm.BACKENDS
+
+
+@pytest.mark.parametrize('sms', [1, 78, 132])
+@pytest.mark.parametrize('n_h', [1, 3, 37, 131, 132, 133, 421, 1000])
+def test_gates_geometry_covers_every_row_once(n_h, sms):
+    """CTA i takes rows i R .. i R + R - 1 (the last one fewer): every
+    hidden row once; 106 CTAs of 4 rows at N_h = 421 on 132 SMs."""
+    geom = gates_geometry(n_h, n_h, 8, sms)
+    rows = [r for cta in range(geom.ctas)
+            for r in range(cta * geom.rows, min((cta + 1) * geom.rows, n_h))]
+    assert rows == list(range(n_h))
+    assert geom.rows == max(1, -(-n_h // sms))
+    if (n_h, sms) == (421, 132):
+        assert (geom.rows, geom.ctas) == (4, 106)
+
+
+def test_gates_geometry_admits_every_shape_the_parent_did():
+    """The one-input-copy-per-CTA schedule admitted 4 (B K + 4 R B) bytes of
+    shared memory up to 232,448; the staged schedule refuses none of those
+    shapes (a large B streams its input through fewer ring slots)."""
+    for n_h in (3, 37, 421):
+        for k in (n_h, 123 + n_h, 2 * n_h):
+            rows = max(1, -(-n_h // 132))
+            for b in range(1, 133):
+                if 4 * (b * k + 4 * rows * b) <= 232_448:
+                    geom = gates_geometry(n_h, k, b, 132)
+                    assert geom.admissible(), (n_h, k, b, geom)
+                    assert 1 <= geom.stages <= -(-b // 8)
+                    assert geom.smem_bytes == gates_smem_bytes(
+                        b, k, geom.rows, geom.stages)
+
+
+def test_step_forward_overlaps_every_launch_but_the_first(monkeypatch):
+    """``_step_forward`` flags launches 2 .. T as following the K5 launch
+    that wrote their h and c (programmatic dependent launch on the card),
+    never the first, whose predecessor is unknown; the public op takes no
+    such flag, so its launches are always stream-ordered."""
+    import inspect
+    from repro_torch.kernels.lstm_gates import ops
+    flags = []
+
+    def spy(h, w_h, pre, peep, bias, c, *, early):
+        flags.append(early)
+        return lstm_gates_rec_ref(h, w_h, pre, peep, bias, c)
+
+    monkeypatch.setattr(ops, '_gates_rec', spy)
+    p = _np_layer(21, 5, 8)
+    ops._step_forward(*map(_t, (p.w_h, p.w_peep, p.b, _x(22, 4, 2, 4, 8),
+                                _x(23, 2, 8), _x(24, 2, 8))))
+    assert flags == [False, True, True, True]
+    assert list(inspect.signature(lstm_gates_rec).parameters) == [
+        'h', 'w_h', 'pre', 'peep', 'bias', 'c_prev']
 
 
 def test_cuda_step_is_no_serving_backend_on_the_card():
