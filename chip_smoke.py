@@ -11,8 +11,9 @@ weights from a seed) and checks them:
    ``nvcc`` per source, all started together) and prints the build time;
 2. holds K1 (``lstm_seq``) and K2 (``lstm_stack_seq_kernel``) against their
    plain PyTorch versions on the card at the serving shape (B = slots,
-   T = chunk, ragged mask, nonzero h0/c0) and times both with CUDA events,
-   with the one-off cost of stacking K2's weights (``stack_kernel_weights``);
+   T = chunk) and the training shape (B = 8, T = 64), ragged masks, nonzero
+   h0/c0, and times both with CUDA events, with their launch geometry and
+   the one-off cost of stacking K2's weights (``stack_kernel_weights``);
 3. checks chunked == monolithic bit for bit (``torch.equal``) on both kernel
    backends;
 4. serves ragged utterances through ``launch.serve.StreamServer`` on
@@ -93,12 +94,15 @@ counter set to 0 just before and read just after:
 ``--profile`` also traces one engine drain per f32 kernel backend, several
 int8 deploy passes per int8 backend, and one train step per kernel backend
 with ``torch.profiler``.  Two measurement modes run instead of the phases:
-``--ab PARENT_SRC`` times K5-K8 at the cases of 8 and 12-14 (the same
-``gates_case``, ``qmm_case`` and ``attn_case`` as those phases) against the
-tree whose ``src`` is given, each turn a process of its own (parent,
-change, change, parent); ``--clock-stamps`` rebuilds K5-K8 with
-``-DCLOCK_STAMPS`` and prints the cycles of each phase (to stamp another
-tree, run a copy of this script from that tree's root).
+``--ab PARENT_SRC`` times K1 and K2 at the serving and training shapes
+(``seq_case``), the f32 engine on ``cuda_seq`` and ``cuda_seq_fused``
+(``engine_case``: p50 chunk ms and frames/s, medians of 5 drains) and
+K5-K8 at the cases of 8 and 12-14 (the same ``gates_case``, ``qmm_case``
+and ``attn_case`` as those phases) against the tree whose ``src`` is
+given, each turn a process of its own (parent, change, change, parent);
+``--clock-stamps`` rebuilds K1, K2 and K5-K8 with ``-DCLOCK_STAMPS`` and
+prints the cycles of each phase (to stamp another tree, run a copy of this
+script from that tree's root).
 
 Any failed check raises (nonzero exit).  The line before the last is the
 ``kernels`` JSON; the last line is the device JSON.  Without a CUDA device,
@@ -148,11 +152,16 @@ QMM_SHAPES = (('mixtral-8x22b up-proj', 256, 6144, 16384),
 QMM_RAGGED = ((3, 5, 100), 75)
 QMM_REL_TOL = 0.03            # quantized_linear vs the f32 product
 # the phases ``--clock-stamps`` reads (csrc/clock_stamps.cuh, clk.lap), of
-# a row of kParts = 4 phases, the loop's cycles and the saved value
-STAMP_COLS = 6
+# a row of kParts = 5 phases, the loop's cycles and the saved value
+STAMP_COLS = 7
+SEQ_PARTS = ('prologue', 'wait', 'staging', 'dot', 'epilogue')
 STAMP_PARTS = {'quant_matmul': ('wait', 'loads', 'transpose', 'wgmma'),
                'flash_attention': ('loads+wait', 'S+softmax', 'PV'),
-               'lstm_gates_rec': ('staging', 'dot', 'reduce', 'epilogue')}
+               'lstm_gates_rec': ('staging', 'dot', 'reduce', 'epilogue'),
+               'lstm_seq': SEQ_PARTS, 'lstm_stack_seq': SEQ_PARTS}
+# K1/K2 (T, B) of ``--ab`` and ``--clock-stamps``: the serving chunk and the
+# training sequence; the first is the kernels line's row
+SEQ_SHAPES = ((CHUNK, SLOTS), (TRAIN_SEQ, TRAIN_BATCH))
 # K8 (label, B, H, Hkv, Sq, Sk, D, window, dtype), all causal through
 # ``mha``: kernel_bench.py:158, and Mixtral 8x22B's attention (48 heads on
 # 8 kv heads, D 128, sliding window 4096) as an 8192-token prefill and as
@@ -233,38 +242,73 @@ def ragged_lens(rng, T: int, B: int) -> np.ndarray:
     return lens
 
 
-def kernel_checks(cfg, params, B: int, T: int, rng, dev):
-    """K1 and K2 against their plain versions at the serving shape."""
+def seq_case(kernel: str, params, wts, pre_x, mask, h0, c0):
+    """One K1 (``kernel`` 'lstm_seq': layer 0's weights, ``h0[0]``,
+    ``c0[0]``) or K2 ('lstm_stack_seq_kernel': the stacked weights ``wts``,
+    every layer's h0/c0) case on the given inputs: max abs error against
+    its plain version, the kernel's ms, its plain version's, and the bound
+    (bytes: every input read and every output written once; operations:
+    the live steps' products and epilogues).  Only calls that the parent
+    tree has too, so ``--ab`` runs it on either."""
+    from repro_torch.kernels import lstm_seq as ks
+    T, B, _, N = pre_x.shape
+    L = wts.w_h.shape[0]
+    n_live = int(mask.sum())
+    if kernel == 'lstm_seq':
+        lp = params.layers[0]
+        fn, ref, layers, families = ks.lstm_seq, ks.lstm_seq_ref, 1, 1
+        args = (pre_x, lp.w_h, lp.w_peep, lp.b, h0[0], c0[0], mask)
+        weights = lp.w_h.numel()
+    else:
+        fn, ref = ks.lstm_stack_seq_kernel, ks.lstm_stack_seq_ref
+        layers, families = L, 2 * L - 1
+        args = (pre_x, wts.w_in, wts.w_h, wts.peep, wts.b, h0, c0, mask)
+        weights = wts.w_in.numel() + wts.w_h.numel()
+    got, want = fn(*args), ref(*args)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    nbytes = 4 * (pre_x.numel() + weights + layers * (7 * N + 2 * B * N
+                                                       + 2 * T * B * N)
+                  ) + mask.numel()
+    flops = n_live * (families * 2 * 4 * N * N + layers * 30 * N)
+    case = dict(kernel=kernel, shape=f'T={T} B={B} N_h={N} L={layers}',
+                live_steps=n_live, max_abs_err=err, tol=KERNEL_ATOL,
+                ok=err <= KERNEL_ATOL, ms=cuda_ms(lambda: fn(*args), 50),
+                plain_ms=cuda_ms(lambda: ref(*args), 3, warmup=1),
+                bytes=nbytes, flops=flops, library_ms=None)
+    case['bound_ms'], case['bound_by'] = bound(nbytes, flops)
+    return case
+
+
+def seq_inputs(params, T: int, B: int, g, dev):
+    """K1/K2 inputs at (T, B) from ``g`` (x 0.5): layer 0's hoisted input
+    of random frames, a ragged mask (a full, an empty and partial streams),
+    nonzero h0/c0 of every layer, and the stacked weights."""
     from repro_torch.core.lstm import hoisted_input, valid_len_mask
-    from repro_torch.kernels.lstm_seq import (lstm_seq, lstm_seq_ref,
-                                              lstm_stack_seq_kernel,
-                                              lstm_stack_seq_ref,
+    from repro_torch.kernels.lstm_seq import stack_kernel_weights
+    r = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.5
+    lp, L = params.layers[0], len(params.layers)
+    lens = torch.randint(1, T, (B,), generator=g, device=dev)
+    lens[0], lens[1] = T, 0
+    pre_x = hoisted_input(lp.w_x, r(T, B, lp.n_x))
+    return (stack_kernel_weights(params), pre_x, valid_len_mask(T, lens, B),
+            r(L, B, lp.n_h), r(L, B, lp.n_h))
+
+
+def kernel_checks(cfg, params, B: int, T: int, rng, dev):
+    """K1 and K2 against their plain versions (``seq_case``) at the serving
+    shape (the kernels line's numbers) and at the training shape
+    (``SEQ_SHAPES``), each row with its launch geometry."""
+    from repro_torch.core.lstm import hoisted_input, valid_len_mask
+    from repro_torch.kernels.lstm_seq import (seq_geometry, stack_geometry,
                                               stack_kernel_weights)
+    from repro_torch.kernels.lstm_seq.kernel import seq_threads
     N, L, NX = cfg.lstm_hidden, cfg.n_layers, cfg.lstm_inputs
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
     xs = f32(rng.randn(T, B, NX) * 0.5)
     lens = torch.from_numpy(ragged_lens(rng, T, B)).to(dev)
     mask = valid_len_mask(T, lens, B)
-    n_live = int(mask.sum())
     pre_x = hoisted_input(params.layers[0].w_x, xs)
-    rows = []
-
-    lp = params.layers[0]
     h0, c0 = f32(rng.randn(B, N) * 0.5), f32(rng.randn(B, N) * 0.5)
-    args = (pre_x, lp.w_h, lp.w_peep, lp.b, h0, c0, mask)
-    hs, cs = lstm_seq(*args)
-    hs_r, cs_r = lstm_seq_ref(*args)
-    err = max(float((hs - hs_r).abs().max()), float((cs - cs_r).abs().max()))
-    nbytes = 4 * (pre_x.numel() + lp.w_h.numel() + 7 * N + 2 * B * N
-                  + 2 * T * B * N) + mask.numel()
-    flops = n_live * (2 * 4 * N * N + 30 * N)
-    rows.append(dict(
-        name='lstm_seq', route='cuda', source='src/repro_torch/csrc/lstm_seq.cu',
-        replaces='src/repro/kernels/lstm_seq/kernel.py:113',
-        max_abs_err=err, tol=KERNEL_ATOL,
-        ms=cuda_ms(lambda: lstm_seq(*args), 50),
-        plain_ms=cuda_ms(lambda: lstm_seq_ref(*args), 5, warmup=1),
-        bytes=nbytes, flops=flops, library_ms=None))
 
     build = lambda: stack_kernel_weights(params)
     wts = build()
@@ -275,30 +319,33 @@ def kernel_checks(cfg, params, B: int, T: int, rng, dev):
           f"per engine, device {stacking['device_ms']:.4f} ms, host "
           f"{stacking['host_ms']:.4f} ms per build", flush=True)
     h0s, c0s = f32(rng.randn(L, B, N) * 0.5), f32(rng.randn(L, B, N) * 0.5)
-    args2 = (pre_x, wts.w_in, wts.w_h, wts.peep, wts.b, h0s, c0s, mask)
-    hs, cs = lstm_stack_seq_kernel(*args2)
-    hs_r, cs_r = lstm_stack_seq_ref(*args2)
-    err = max(float((hs - hs_r).abs().max()), float((cs - cs_r).abs().max()))
-    nbytes = 4 * (pre_x.numel() + wts.w_in.numel() + wts.w_h.numel()
-                  + 7 * L * N + 2 * L * B * N + 2 * L * T * B * N
-                  ) + mask.numel()
-    flops = n_live * ((2 * L - 1) * 2 * 4 * N * N + L * 30 * N)
-    rows.append(dict(
-        name='lstm_stack_seq_kernel', route='cuda',
-        source='src/repro_torch/csrc/lstm_stack_seq.cu',
-        replaces='src/repro/kernels/lstm_seq/stack_kernel.py:185',
-        max_abs_err=err, tol=KERNEL_ATOL,
-        ms=cuda_ms(lambda: lstm_stack_seq_kernel(*args2), 50),
-        plain_ms=cuda_ms(lambda: lstm_stack_seq_ref(*args2), 3, warmup=1),
-        bytes=nbytes, flops=flops, library_ms=None))
-    for r in rows:
-        r['bound_ms'], r['bound_by'] = bound(r['bytes'], r['flops'])
-        r['ok'] = r['max_abs_err'] <= KERNEL_ATOL
-        print(f"{r['name']}: T={T} B={B} N_h={N} L={L} live steps {n_live}: "
-              f"max_abs_err {r['max_abs_err']:.3e} (tol {KERNEL_ATOL}), "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
-        check(r['ok'], f"{r['name']} disagrees with its plain version")
+    serving = {'lstm_seq': (pre_x, mask, h0[None], c0[None]),
+               'lstm_stack_seq_kernel': (pre_x, mask, h0s, c0s)}
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    wts_t, *training = seq_inputs(params, *SEQ_SHAPES[1], g, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for name, file, replaces, geom in (
+            ('lstm_seq', 'lstm_seq.cu', 'kernel.py:113',
+             seq_geometry(N, B, sms)),
+            ('lstm_stack_seq_kernel', 'lstm_stack_seq.cu',
+             'stack_kernel.py:185', stack_geometry(N, L, B, sms))):
+        cases = [seq_case(name, params, wts, *serving[name]),
+                 seq_case(name, params, wts_t, *training)]
+        for c in cases:
+            print(f"{name}: {c['shape']} live steps {c['live_steps']}: "
+                  f"max_abs_err {c['max_abs_err']:.3e} (tol {KERNEL_ATOL}), "
+                  f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.3f} ms, "
+                  f"bound {c['bound_ms']:.5f} ms ({c['bound_by']})",
+                  flush=True)
+        cases[0]['geometry'] = dict(dataclasses.asdict(geom),
+                                    threads=seq_threads(geom.rows))
+        rows.append(_case_row(
+            name, f'src/repro_torch/csrc/{file}',
+            f'src/repro/kernels/lstm_seq/{replaces}', cases))
+        print(f"{name}: geometry at the serving shape "
+              f"{cases[0]['geometry']}", flush=True)
+        check(rows[-1]['ok'], f'{name} disagrees with its plain version')
     return rows, stacking
 
 
@@ -1297,19 +1344,59 @@ def attention_checks(dev):
     return row
 
 
+def engine_case(cfg, params, backend: str, utts, drains: int = 5):
+    """The f32 engine on ``backend`` (``SLOTS`` slots, chunks of
+    ``CHUNK``): one warm drain of ``utts``, then ``drains`` timed ones, each
+    ending in a synchronize; the medians of the drains' p50 chunk ms and
+    frames/s.  Only calls that the parent tree has too."""
+    from repro_torch.launch.serve import StreamServer
+    p50, rate = [], []
+    for i in range(drains + 1):
+        server = StreamServer(cfg.replace(lstm_backend=backend), params,
+                              num_slots=SLOTS, chunk=CHUNK)
+        for u in utts:
+            server.submit(u)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = server.engine.stats()
+        if i:
+            p50.append(stats['p50_chunk_s'] * 1e3)
+            rate.append(stats['frames'] / wall)
+    return dict(kernel=f'engine {backend}',
+                shape=f'{len(utts)} utterances, {stats["frames"]} frames, '
+                      f'{stats["steps"]} chunks',
+                p50_chunk_ms=float(np.median(p50)),
+                frames_per_s=float(np.median(rate)))
+
+
 def op_times(dev):
     """``gates_case`` at K5's training case and K6's two layers,
+    ``seq_case`` for K1 and K2 at every ``SEQ_SHAPES`` shape, the f32
+    engine on ``cuda_seq`` and ``cuda_seq_fused`` (``engine_case``),
     ``qmm_case`` at every ``QMM_SHAPES`` shape and ``attn_case`` at every
     ``ATTN_CASES`` case, on the phases' inputs (same seeds, same order), for
     one turn of ``--ab``."""
     from repro_torch import configs
     from repro_torch.models import chipmunk_net
-    params = chipmunk_net.init(configs.get_config('chipmunk-ctc'),
-                               torch.Generator().manual_seed(SEED),
+    cfg = configs.get_config('chipmunk-ctc')
+    params = chipmunk_net.init(cfg, torch.Generator().manual_seed(SEED),
                                device=dev)
     g = torch.Generator(device=dev).manual_seed(SEED)
     cases = [gates_case('lstm_gates_rec', params.layers[1], TRAIN_BATCH, g,
                         dev)[0]]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for T, B in SEQ_SHAPES:
+        inputs = seq_inputs(params, T, B, g, dev)
+        for kernel in ('lstm_seq', 'lstm_stack_seq_kernel'):
+            cases.append(seq_case(kernel, params, *inputs))
+    rng = np.random.RandomState(SEED)
+    utts = [(rng.randn(rng.randint(50, 301), cfg.lstm_inputs) * 0.5
+             ).astype(np.float32) for _ in range(REQUESTS)]
+    for backend in ('cuda_seq', 'cuda_seq_fused'):
+        cases.append(engine_case(cfg, params, backend, utts))
     g = torch.Generator(device=dev).manual_seed(SEED)
     for lp in params.layers[:2]:
         cases.append(gates_case('lstm_gates', lp, CELL_BATCH, g, dev)[0])
@@ -1343,14 +1430,21 @@ def ab(parent_src: str):
             proc.stdout.strip().splitlines()[-1])))
     for i, row in enumerate(turns[0]['rows']):
         got = turns[1]['rows'][i]
-        lib = f"product only {got.get('product_only_ms', 0):.5f}"
+        if 'frames_per_s' in got:
+            print(f"ab: {row['kernel']} ({row['shape']}): " + '; '.join(
+                f"{t['side']} p50 chunk {t['rows'][i]['p50_chunk_ms']:.3f} "
+                f"ms, {t['rows'][i]['frames_per_s']:.1f} frames/s"
+                for t in turns), flush=True)
+            continue
+        lib = (f"product only {got['product_only_ms']:.5f} ms"
+               if 'product_only_ms' in got else 'library none')
         if 'equal' in got:
             extra = 'equal ' + str(all(all(t['rows'][i]['equal'].values())
                                        for t in turns))
         elif 'tol_used' in got:
             used = max(t['rows'][i]['tol_used'] for t in turns)
             extra = f'tol_used {used:.3f}'
-            lib = f"library {got['library_ms']:.5f}"
+            lib = f"library {got['library_ms']:.5f} ms"
         else:
             err = max(t['rows'][i]['max_abs_err'] for t in turns)
             extra = f'max_abs_err {err:.3e}'
@@ -1362,8 +1456,8 @@ def ab(parent_src: str):
             print(f"ab: {row['kernel']} {row['shape']} {key}: parent "
                   f"{ms['parent'][0]:.5f} / {ms['parent'][1]:.5f} ms, change "
                   f"{ms['change'][0]:.5f} / {ms['change'][1]:.5f} ms "
-                  f"({min(ms['parent']) / min(ms['change']):.2f}x), {lib} "
-                  f"ms, plain {got['plain_ms']:.5f} ms, bound "
+                  f"({min(ms['parent']) / min(ms['change']):.2f}x), {lib}, "
+                  f"plain {got['plain_ms']:.5f} ms, bound "
                   f"{got['bound_ms']:.5f} ms; {extra}", flush=True)
     return turns
 
@@ -1372,8 +1466,9 @@ def clock_stamps(dev):
     """Debug builds (``-DCLOCK_STAMPS``) of K5 and K6 (library
     ``lstm_gates_rec``: K5 at the training case, K6 at both layers, each
     timed on its third launch, with W in L2 as on the ``cuda_step`` chain),
-    K7 and K8 (one launch each at Mixtral's up-projection, f32 out, and
-    bf16 prefill).  Per CTA, thread 0's cycles in each phase
+    K1 and K2 (third launch, at each ``SEQ_SHAPES`` shape), K7 and K8 (one
+    launch each at Mixtral's up-projection, f32 out, and bf16 prefill).
+    Per CTA, thread 0's cycles in each phase
     (``STAMP_PARTS``), summed over the loop, and the whole kernel's or
     loop's time; printed as means over CTAs."""
     import ctypes
@@ -1381,6 +1476,7 @@ def clock_stamps(dev):
     from repro_torch.core import quant
     from repro_torch.kernels import _build
     from repro_torch.kernels import lstm_gates as kg
+    from repro_torch.kernels import lstm_seq as ks
     from repro_torch.kernels.flash_attention import (attention_geometry,
                                                      flash_attention)
     from repro_torch.kernels.quant_matmul import (qmm_geometry,
@@ -1399,6 +1495,18 @@ def clock_stamps(dev):
     runs = [('lstm_gates_rec', 'lstm_gates_rec',
              kg.gates_geometry(N, N, B, sms).ctas, 3,
              lambda: kg.lstm_gates_rec(*k5))]
+    L = len(params.layers)
+    for T, Bs in SEQ_SHAPES:
+        wts, pre_x, mask, h0, c0 = seq_inputs(params, T, Bs, g, dev)
+        lp = params.layers[0]
+        runs += [(f'lstm_seq T={T} B={Bs}', 'lstm_seq',
+                  ks.seq_geometry(N, Bs, sms).ctas, 3,
+                  lambda a=(pre_x, lp.w_h, lp.w_peep, lp.b, h0[0], c0[0],
+                            mask): ks.lstm_seq(*a)),
+                 (f'lstm_stack_seq_kernel T={T} B={Bs}', 'lstm_stack_seq',
+                  ks.stack_geometry(N, L, Bs, sms).ctas, 3,
+                  lambda a=(pre_x, wts.w_in, wts.w_h, wts.peep, wts.b, h0, c0,
+                            mask): ks.lstm_stack_seq_kernel(*a))]
     for lp in params.layers[:2]:
         K = lp.n_x + lp.n_h
         k6 = (r(B, K), torch.cat([lp.w_x, lp.w_h], dim=-1), lp.w_peep, lp.b,
@@ -1440,11 +1548,13 @@ def clock_stamps(dev):
         mean = host[:n].mean(axis=0)
         total = mean[-2]
         out[label] = dict(ctas=int(n), loop_cycles=float(total),
+                          max_cycles=float(host[:n, -2].max()),
                           stages=float(mean[-1]), parts={
                               part: float(c) for part, c in
                               zip(STAMP_PARTS[name], mean)})
         print(f'clock stamps: {label}: {n} CTAs, {mean[-1]:.1f} stages, '
-              f'{total:.0f} cycles a CTA: ' + ', '.join(
+              f'{total:.0f} cycles a CTA (most {host[:n, -2].max()}): '
+              + ', '.join(
                   f'{part} {c:.0f} ({c / total:.3f})' for part, c in
                   zip(STAMP_PARTS[name], mean)), flush=True)
     return out
@@ -1461,14 +1571,14 @@ def main(argv=None) -> int:
                          'torch.profiler (device busy/idle share, time by '
                          'kernel)')
     ap.add_argument('--ab', metavar='PARENT_SRC', default=None,
-                    help='only time K5-K8 against the tree whose src '
-                         'directory is given, in turns (parent, change, '
-                         'change, parent)')
+                    help='only time K1, K2, the f32 engine and K5-K8 '
+                         'against the tree whose src directory is given, '
+                         'in turns (parent, change, change, parent)')
     ap.add_argument('--op-times', metavar='SRC', default=None,
                     help=argparse.SUPPRESS)   # one turn of --ab
     ap.add_argument('--clock-stamps', action='store_true',
-                    help='only run debug builds of K5-K8 with clock64() '
-                         'stamps of their phases')
+                    help='only run debug builds of K1, K2 and K5-K8 with '
+                         'clock64() stamps of their phases')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)

@@ -2,7 +2,8 @@
 //
 // Compiled with -DCLOCK_STAMPS (``kernels._build.DEFINES``), a kernel
 // declares `Clock clk;` at its start, calls `clk.lap(i)` at the end of each
-// timed phase (the cycles since the previous lap go to part i), and
+// timed phase (the cycles since the previous lap go to part i;
+// `clk.sync_lap(i)` for a phase that ends in a CTA barrier), and
 // `clk.save(x)` once; thread 0 of each CTA stores (parts 0 .. kParts - 1,
 // cycles since the start, x) in `g_stamps`, which the library's
 // `<name>_clock_stamps` export copies out.  Without the flag every call is
@@ -11,7 +12,7 @@
 #include <cuda_runtime.h>
 
 #ifdef CLOCK_STAMPS
-constexpr int kStampCtas = 8192, kParts = 4;
+constexpr int kStampCtas = 8192, kParts = 5;
 __device__ long long g_stamps[kStampCtas][kParts + 2];
 
 struct Clock {
@@ -24,6 +25,12 @@ struct Clock {
     const long long now = clock64();
     parts[i] += now - t;
     t = now;
+  }
+  // A CTA barrier, then lap i.  The lap waits for the barrier's result, so
+  // its clock is read once the barrier has completed (a clock read right
+  // after `__syncthreads()` may issue before it does).
+  __device__ void sync_lap(int i) {
+    if (__syncthreads_count(1) > 0) lap(i);
   }
   __device__ void save(long long x) {
     const int cta = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
@@ -42,6 +49,7 @@ inline int copy_stamps(void* host, int n_ctas) {
 #else
 struct Clock {
   __device__ void lap(int) {}
+  __device__ void sync_lap(int) { __syncthreads(); }
   __device__ void save(long long) {}
 };
 #endif

@@ -4,9 +4,12 @@
 int8 silicon datapath, ``csrc/lstm_seq_q.cu``) launch their kernels on CUDA
 tensors (a cooperative launch on PyTorch's current stream) and run their
 plain versions (``ref``) on CPU tensors; there is no fallback between the
-two.  ``seq_geometry`` and ``seq_q_geometry`` are the launch geometries as
-pure functions of shapes, which backend selection reads to decide
-admissibility without touching the card.
+two.  K1 and K2 pass their step counters (``step_counters``: one zeroed
+buffer per device and stream, which each launch leaves zero) and a scratch
+for h_t k-major (``exchange_planes``).  ``seq_geometry`` and
+``seq_q_geometry`` are the launch geometries as pure functions of shapes,
+which backend selection reads to decide admissibility without touching the
+card.
 """
 from __future__ import annotations
 
@@ -40,21 +43,78 @@ class LaunchGeometry:
                 and (max_coresident is None or self.ctas <= max_coresident))
 
 
+def _round_up(n: int, to: int) -> int:
+    return -(-n // to) * to
+
+
+def seq_splits(rows: int) -> int:
+    """Warps that split K for one row in K1/K2's dot (``Layout.splits``)."""
+    return 8 // rows if rows < 8 else 1
+
+
+def seq_threads(rows: int) -> int:
+    """Threads of one K1/K2 CTA: a producer warp, then ``rows * splits``
+    dot warps, at most 16."""
+    return 32 * (1 + min(16, rows * seq_splits(rows)))
+
+
+def seq_smem_bytes(batch: int, n_h: int, rows: int, families: int) -> int:
+    """Shared memory of one K1 (``families`` 1: W_h) or K2 CTA (2: W_h and
+    W_in), the formula of ``layout`` in ``csrc/lstm_exchange.cuh``: two
+    mbarriers (a 128-byte line); a family's h plane (N_h x 8 streams a
+    chunk of 8, to a 128-byte boundary), weight rows (``rows`` x N_h x 4
+    gates) and gate sums of every chunk and K split; peep and bias, c, the
+    step's pre_x rows and its mask row."""
+    chunks = -(-batch // 8)
+    return (128 + families * (_round_up(32 * chunks * n_h, 128)
+                              + 16 * rows * n_h
+                              + 4 * chunks * seq_splits(rows) * rows * 32)
+            + 4 * (8 * rows + rows * batch + 4 * rows * batch)
+            + _round_up(batch + 8, 16))
+
+
+def exchange_planes(n_layers: int, steps: int, batch: int, n_h: int,
+                    device) -> torch.Tensor:
+    """K1/K2's scratch for h_t k-major, what later steps stage: (L, T,
+    ceil(B / 8), N_h, 8) floats, from PyTorch's caching allocator (no
+    launch)."""
+    return torch.empty((n_layers, steps, -(-batch // 8), n_h, 8),
+                       dtype=torch.float32, device=device)
+
+
 def seq_geometry(n_h: int, batch: int, sm_count: int) -> LaunchGeometry:
     """K1's geometry: R = ceil(N_h / SMs) rows per CTA, one CTA per row
-    slice; shared memory holds the CTA's 4*R weight rows, h_{t-1} for every
-    stream, the gate sums and c (same formula as ``smem_bytes`` in the
-    source)."""
+    slice (``seq_smem_bytes`` with one weight family)."""
     rows = max(1, -(-n_h // sm_count))
     ctas = -(-n_h // rows)
-    smem = 4 * (4 * rows * n_h + batch * n_h + 5 * rows * batch)
-    return LaunchGeometry(rows, ctas, smem)
+    return LaunchGeometry(rows, ctas, seq_smem_bytes(batch, n_h, rows, 1))
+
+
+# (device index, stream) -> K1/K2's int32 step counters (a progress counter
+# per layer, then ``done``, each on its own 128-byte line); zero between
+# launches (the last CTA of each launch resets them)
+_COUNTERS: dict = {}
+COUNTER_STRIDE = 32   # ``kCounterStride``
+
+
+def step_counters(dev: torch.device, stream: int, n_layers: int
+                  ) -> torch.Tensor:
+    """Zero step counters for a launch of ``n_layers`` layers on
+    ``stream``, allocated (and zeroed) only when the stream's buffer is
+    missing or too short: launches on one stream run one after another and
+    leave them zero, launches on two streams never share them."""
+    n = (n_layers + 1) * COUNTER_STRIDE
+    t = _COUNTERS.get((dev.index, stream))
+    if t is None or t.numel() < n:
+        t = _COUNTERS[(dev.index, stream)] = torch.zeros(
+            n, dtype=torch.int32, device=dev)
+    return t
 
 
 _P, _I = _build.P, _build.I
 _SIGNATURES = {
     'lstm_seq_occupancy': [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
-    'lstm_seq_launch': [_I] + [_P] * 9 + [_I] * 4 + [_P],
+    'lstm_seq_launch': [_I] + [_P] * 11 + [_I] * 4 + [_P],
 }
 
 
@@ -131,10 +191,15 @@ def lstm_seq(pre_x: torch.Tensor, w_h: torch.Tensor, peep: torch.Tensor,
         raise RuntimeError(f'lstm_seq: launch geometry {geom} does not fit '
                            f'the card (N_h={N}, B={B})')
     stream = torch.cuda.current_stream(device).cuda_stream
+    # held until the launch is queued: freed earlier, its block could
+    # become the stream's new counters
+    xs = exchange_planes(1, T, B, N, device)
     err = lib.lstm_seq_launch(
         device.index, pre_x.data_ptr(), w_h.data_ptr(), peep.data_ptr(),
         bias.data_ptr(), h0.data_ptr(), c0.data_ptr(), mask.data_ptr(),
-        hs.data_ptr(), cs.data_ptr(), T, B, N, geom.rows, stream)
+        hs.data_ptr(), cs.data_ptr(), xs.data_ptr(),
+        step_counters(device, stream, 1).data_ptr(), T, B, N, geom.rows,
+        stream)
     _build.check(lib, err, 'lstm_seq launch')
     lstm_seq.launches += 1
     return hs, cs

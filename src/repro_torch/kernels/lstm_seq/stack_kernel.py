@@ -17,7 +17,9 @@ import ctypes
 import torch
 
 from .. import _build
-from .kernel import LaunchGeometry, check_inputs, check_tile, coresident_ctas
+from .kernel import (LaunchGeometry, check_inputs, check_tile,
+                     coresident_ctas, exchange_planes, seq_smem_bytes,
+                     step_counters)
 from .ref import lstm_stack_seq_quantized_ref, lstm_stack_seq_ref
 
 
@@ -25,21 +27,19 @@ def stack_geometry(n_h: int, n_layers: int, batch: int,
                    sm_count: int) -> LaunchGeometry:
     """K2's geometry: CTAs own (layer, row-slice) pairs, with R the smallest
     row count such that ``L * ceil(N_h / R)`` CTAs fit on the SMs (at least
-    one slice per layer); shared memory holds the CTA's W_h and W_in rows,
-    both h planes it reads, the gate sums and c (same formula as
-    ``smem_bytes`` in the source)."""
+    one slice per layer); shared memory holds the CTA's W_h and W_in rows
+    and both h planes it reads (``seq_smem_bytes`` with two families)."""
     rows = max(1, -(-n_h * n_layers // sm_count))
     while rows < n_h and n_layers * -(-n_h // rows) > sm_count:
         rows += 1
     ctas = n_layers * -(-n_h // rows)
-    smem = 4 * (8 * rows * n_h + 2 * batch * n_h + 5 * rows * batch)
-    return LaunchGeometry(rows, ctas, smem)
+    return LaunchGeometry(rows, ctas, seq_smem_bytes(batch, n_h, rows, 2))
 
 
 _P, _I = _build.P, _build.I
 _SIGNATURES = {
     'lstm_stack_seq_occupancy': [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
-    'lstm_stack_seq_launch': [_I] + [_P] * 10 + [_I] * 5 + [_P],
+    'lstm_stack_seq_launch': [_I] + [_P] * 12 + [_I] * 5 + [_P],
 }
 
 
@@ -83,11 +83,15 @@ def lstm_stack_seq_kernel(pre_x: torch.Tensor, w_in: torch.Tensor,
         raise RuntimeError(f'lstm_stack_seq_kernel: launch geometry {geom} '
                            f'does not fit the card (N_h={N}, L={L}, B={B})')
     stream = torch.cuda.current_stream(device).cuda_stream
+    # held until the launch is queued: freed earlier, its block could
+    # become the stream's new counters
+    xs = exchange_planes(L, T, B, N, device)
     err = lib.lstm_stack_seq_launch(
         device.index, pre_x.data_ptr(), w_in.data_ptr(), w_h.data_ptr(),
         peep.data_ptr(), bias.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-        mask.data_ptr(), hs.data_ptr(), cs.data_ptr(), T, B, N, L,
-        geom.rows, stream)
+        mask.data_ptr(), hs.data_ptr(), cs.data_ptr(), xs.data_ptr(),
+        step_counters(device, stream, L).data_ptr(), T, B, N, L, geom.rows,
+        stream)
     _build.check(lib, err, 'lstm_stack_seq_kernel launch')
     lstm_stack_seq_kernel.launches += 1
     return hs, cs

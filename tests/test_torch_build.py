@@ -108,14 +108,37 @@ def test_debug_defines_build_a_library_of_their_own(tmp_path, monkeypatch):
     assert _build._target('k') == plain
 
 
+@pytest.mark.parametrize('name', ['lstm_seq', 'lstm_stack_seq'])
+def test_f32_sequence_kernels_share_one_exchange_header(name):
+    """K1 and K2 exchange their steps through ``lstm_exchange.cuh``
+    (counters published with release and awaited with acquire, planes
+    staged by bulk copies, the dot over k-major operands) and spell out
+    neither that protocol nor a grid barrier of their own."""
+    header = (_build.CSRC / 'lstm_exchange.cuh').read_text()
+    for op in ('red.release.gpu', 'ld.acquire.gpu', 'fence.proxy.async',
+               'cp.async.bulk', 'atom.acq_rel.gpu'):
+        assert op in header, op
+    src = (_build.CSRC / f'{name}.cu').read_text()
+    assert '#include "lstm_exchange.cuh"' in src
+    for call in ('publish(', 'load_acquire(', 'finish(', 'bulk_load(',
+                 'request_k_major(', 'family_sums(', 'gate_sum('):
+        assert call in src, call
+    for body in ('red.release', 'ld.acquire', 'atom.', 'fence.proxy',
+                 'cp.async.bulk',
+                 'atomicAdd', 'this_grid', '.sync()', 'cooperative_groups'):
+        assert body not in src, body
+
+
 @pytest.mark.parametrize('name', ['flash_attention', 'quant_matmul',
-                                  'lstm_gates_rec'])
+                                  'lstm_gates_rec', 'lstm_seq',
+                                  'lstm_stack_seq'])
 def test_clock_stamps_only_in_debug_builds(name):
-    """K5/K6, K7 and K8 time their phases with the shared
+    """K1, K2, K5/K6, K7 and K8 time their phases with the shared
     ``clock_stamps.cuh``; its export exists only under ``CLOCK_STAMPS``."""
     src = (_build.CSRC / f'{name}.cu').read_text()
     assert '#include "clock_stamps.cuh"' in src
-    assert 'clk.lap(0)' in src and 'clk.lap(1)' in src
+    # a phase that ends in a CTA barrier laps with `clk.sync_lap`
+    assert re.search(r'clk\.(sync_)?lap\(0\)', src) and 'clk.lap(1)' in src
     export = src.index(f'int {name}_clock_stamps(')
     assert src.rfind('#ifdef CLOCK_STAMPS', 0, export) > src.rfind(
         '#endif', 0, export)

@@ -31,7 +31,8 @@ from repro_torch.core import quant as tquant
 from repro_torch.core import systolic as tsys
 from repro_torch.kernels.lstm_seq import (lstm_seq, lstm_seq_quantized,
                                           lstm_seq_quantized_ref,
-                                          lstm_seq_ref,
+                                          lstm_seq_ref, seq_geometry,
+                                          stack_geometry,
                                           lstm_stack_seq_kernel,
                                           lstm_stack_seq_kernel_q,
                                           lstm_stack_seq_quantized_auto,
@@ -155,6 +156,144 @@ def test_auto_picks_fused_on_card_and_explicit_inadmissible_raises(dev):
         'cuda_seq'
     with pytest.raises(ValueError):
         tlstm.resolve_serving_backend(params, 'cuda_seq_fused', 16, 64, dev)
+
+
+# ------------------------------------- K1 and K2 at full width: new hazards
+SEQ_KERNELS = ('k1', 'k2')
+
+
+def _seq_args(kernel, T, B, dev, seed=0, n_h=421, n_layers=3):
+    """(fn, ref, args) of K1 (``kernel`` 'k1') or K2 ('k2', ``n_layers``
+    layers) at full width on weights and inputs from numpy at ``seed``: a
+    ragged mask (a full and an empty stream where B allows), nonzero
+    h0/c0."""
+    rng = np.random.RandomState(seed)
+    f = lambda *s, scale=0.5: torch.from_numpy(
+        (rng.randn(*s) * scale).astype(np.float32)).to(dev)
+    lens = rng.randint(1, T + 1, size=B)
+    lens[0] = T
+    if B > 1:
+        lens[1] = 0
+    mask = torch.from_numpy(np.arange(T)[:, None] < lens[None, :]).to(dev)
+    pre_x, w = f(T, B, 4, n_h), 1 / np.sqrt(n_h)
+    if kernel == 'k1':
+        return lstm_seq, lstm_seq_ref, [
+            pre_x, f(4, n_h, n_h, scale=w), f(3, n_h, scale=0.1),
+            f(4, n_h, scale=0.1), f(B, n_h), f(B, n_h), mask]
+    L = n_layers
+    return lstm_stack_seq_kernel, lstm_stack_seq_ref, [
+        pre_x, f(L - 1, 4, n_h, n_h, scale=w), f(L, 4, n_h, n_h, scale=w),
+        f(L, 3, n_h, scale=0.1), f(L, 4, n_h, scale=0.1), f(L, B, n_h),
+        f(L, B, n_h), mask]
+
+
+def _max_batch(kernel, dev, n_h=421, n_layers=3):
+    """The largest B the kernel's geometry admits on this card."""
+    sms = _sms(dev)
+    geom = ((lambda B: seq_geometry(n_h, B, sms)) if kernel == 'k1' else
+            (lambda B: stack_geometry(n_h, n_layers, B, sms)))
+    return max(B for B in range(1, 512) if geom(B).admissible(sms))
+
+
+def _assert_matches_plain(fn, ref, args):
+    n0 = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    for g, w in zip(got, ref(*args)):
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+    return got
+
+
+@pytest.mark.parametrize('T', [1, 64])
+@pytest.mark.parametrize('kernel', SEQ_KERNELS)
+def test_seq_kernels_at_one_and_many_steps(dev, kernel, T):
+    """One step (no exchange at all) and the training sequence's 64 (the
+    counters pass 64 * CTAs) against the plain versions, atol 1e-4."""
+    _assert_matches_plain(*_seq_args(kernel, T, 8, dev, seed=T))
+
+
+@pytest.mark.parametrize('B', [1, 'max'])
+@pytest.mark.parametrize('kernel', SEQ_KERNELS)
+def test_seq_kernels_at_one_stream_and_the_largest_batch(dev, kernel, B):
+    """B = 1 (a chunk of one stream, 7 empty slots in each k-major plane)
+    and the largest B the geometry admits (several chunks), atol 1e-4."""
+    B = _max_batch(kernel, dev) if B == 'max' else B
+    _assert_matches_plain(*_seq_args(kernel, 16, B, dev, seed=B))
+
+
+@pytest.mark.parametrize('kernel', SEQ_KERNELS)
+def test_seq_kernels_take_state_views_at_offset_one(dev, kernel):
+    """h0 and c0 as contiguous views at a storage offset of one float (not
+    16-byte aligned): the same bits as aligned copies."""
+    fn, ref, args = _seq_args(kernel, 16, 8, dev, seed=4)
+    views = list(args)
+    for i in (-3, -2):
+        buf = torch.empty(args[i].numel() + 1, device=dev)
+        v = buf[1:].view(args[i].shape)
+        v.copy_(args[i])
+        assert v.data_ptr() % 16 == 4
+        views[i] = v
+    for a, b in zip(fn(*args), fn(*views)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('kernel', SEQ_KERNELS)
+def test_seq_kernels_back_to_back_equal_synchronized_launches(dev, kernel):
+    """32 launches on one stream without a host sync, each on other inputs,
+    reusing the stream's step counters and the allocator's scratch: the
+    bits of the same 32 launches with a synchronize around each."""
+    fn, ref, args = _seq_args(kernel, 16, 8, dev, seed=5)
+    inputs = [[args[0] * (1 + 0.01 * i)] + args[1:] for i in range(32)]
+    torch.cuda.synchronize()
+    n0 = fn.launches
+    queued = [fn(*a) for a in inputs]
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 32
+    for a, (hs, cs) in zip(inputs, queued):
+        torch.cuda.synchronize()
+        h1, c1 = fn(*a)
+        torch.cuda.synchronize()
+        assert torch.equal(hs, h1) and torch.equal(cs, c1)
+
+
+@pytest.mark.parametrize('kernel', SEQ_KERNELS)
+def test_seq_kernels_on_two_streams(dev, kernel):
+    """Launches on two streams at once (each stream its own counters): each
+    gives the bits of the same launch alone on the default stream."""
+    fn, ref, args = _seq_args(kernel, 16, 8, dev, seed=6)
+    other = [args[0] * 0.5] + args[1:]
+    alone = [fn(*args), fn(*other)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    both = []
+    for s, a in zip(streams, (args, other)):
+        with torch.cuda.stream(s):
+            both.append(fn(*a))
+    torch.cuda.synchronize()
+    for (h, c), (h1, c1) in zip(alone, both):
+        assert torch.equal(h, h1) and torch.equal(c, c1)
+
+
+@pytest.mark.parametrize('kernel', SEQ_KERNELS)
+def test_seq_kernels_same_inputs_same_bits(dev, kernel):
+    """No atomics in any sum: the same inputs twice give the same bits."""
+    fn, _, args = _seq_args(kernel, 16, 8, dev, seed=7)
+    for a, b in zip(fn(*args), fn(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('kernel', SEQ_KERNELS)
+def test_seq_kernels_see_a_weight_written_just_before(dev, kernel):
+    """An in-place update of W_h (as the optimizer's ``add_``) on the stream
+    just before a launch is seen by it."""
+    fn, ref, args = _seq_args(kernel, 16, 8, dev, seed=8)
+    w_h = args[1] if kernel == 'k1' else args[2]
+    stale = fn(*args)
+    w_h.add_(torch.from_numpy((np.random.RandomState(9).randn(*w_h.shape)
+                               * 0.05).astype(np.float32)).to(dev))
+    got = _assert_matches_plain(fn, ref, args)
+    assert float((stale[0] - got[0]).abs().max()) > 100 * ATOL
 
 
 # ------------------------------------------------------------ int8 (K3, K4)

@@ -25,6 +25,8 @@ from repro_torch.kernels.lstm_seq import (lstm_layer_seq, lstm_seq,  # noqa: E40
                                           lstm_stack_seq_kernel,
                                           seq_geometry, stack_geometry,
                                           stack_kernel_weights)
+from repro_torch.kernels.lstm_seq.kernel import (  # noqa: E402
+    seq_threads, step_counters)
 
 RTOL, ATOL = 1e-5, 1e-6
 N_X, N_H = 13, 32
@@ -222,14 +224,43 @@ def test_launch_geometry_at_full_width():
     """Pure-shape admissibility on a 132-SM H100 at the serving shapes."""
     k1 = seq_geometry(421, 8, 132)
     assert (k1.rows, k1.ctas) == (4, 106) and k1.admissible(132)
-    assert k1.smem_bytes == 4 * (4 * 4 * 421 + 8 * 421 + 5 * 4 * 8)
+    # mbarriers | one h plane (421 x 8 streams, to 128 bytes), weights
+    # k-major (4 rows x 421 x 4 gates), the gate sums of 2 K splits | peep
+    # and bias, c, pre_x rows | mask words
+    assert k1.smem_bytes == (128 + 13568 + 4 * (4 * 421 * 4 + 2 * 4 * 32)
+                             + 4 * (8 * 4 + 4 * 8 + 16 * 8) + 16)
+    assert seq_threads(k1.rows) == 32 * (1 + 8)
     k2 = stack_geometry(421, 3, 8, 132)
     assert (k2.rows, k2.ctas) == (10, 129) and k2.admissible(132)
-    assert k2.smem_bytes < 232_448
+    # two h planes, two families (W_h, W_in) of 10 rows, two sets of sums
+    # (one K split a row)
+    assert k2.smem_bytes == (128 + 2 * (13568 + 4 * (10 * 421 * 4 + 10 * 32))
+                             + 4 * (8 * 10 + 10 * 8 + 40 * 8) + 16)
+    assert seq_threads(k2.rows) == 32 * (1 + 10)
+    # the largest batch each admits
+    assert max(B for B in range(1, 200)
+               if stack_geometry(421, 3, B, 132).admissible(132)) == 24
+    assert max(B for B in range(1, 200)
+               if seq_geometry(421, B, 132).admissible(132)) == 104
     # too many streams: the h planes overflow one CTA's shared memory
     assert not stack_geometry(421, 3, 64, 132).admissible(132)
     # a grid larger than the co-resident CTAs is refused
     assert not k2.admissible(128)
+
+
+def test_step_counters_one_zeroed_buffer_per_stream():
+    """K1/K2's step counters: a zeroed int32 buffer per (device, stream),
+    one 128-byte line per layer plus ``done``, kept across launches (each
+    launch leaves it zero) and replaced only when a deeper stack needs
+    more lines."""
+    dev = torch.device('cpu')
+    a = step_counters(dev, 1001, 1)
+    assert a.dtype == torch.int32 and a.numel() == 2 * 32 and not a.any()
+    assert step_counters(dev, 1001, 1) is a
+    assert step_counters(dev, 1002, 1) is not a
+    deeper = step_counters(dev, 1001, 3)
+    assert deeper.numel() == 4 * 32 and not deeper.any()
+    assert step_counters(dev, 1001, 2) is deeper
 
 
 def test_incompatible_stack_on_fused_serves_layerwise_bit_for_bit():
