@@ -27,9 +27,10 @@ and then the int8 silicon path (the deployment of the reference's
 on ``SystolicPlan(n_x, 421, 96)``:
 
 5. holds K3 (``lstm_seq_quantized``, on both layer plans) and K4
-   (``lstm_stack_seq_kernel_q``) against their plain versions at the serving
-   shape, bit for bit (``torch.equal`` on the h and c codes), and times
-   both, with the one-off cost of building both kernels' weight layouts
+   (``lstm_stack_seq_kernel_q``, at the serving shape and at T = 64)
+   against their plain versions, bit for bit (``torch.equal`` on the h and
+   c codes; ``int8_case``), and times both, with their launch geometry and
+   the one-off cost of building both kernels' weight layouts
    (``stack_kernel_weights_q``);
 6. checks int8 chunked == monolithic bit for bit over 3 ragged chunks on
    both ``lstm_stack_seq_quantized_auto`` backends, and fused == layerwise
@@ -96,11 +97,13 @@ int8 deploy passes per int8 backend, and one train step per kernel backend
 with ``torch.profiler``.  Two measurement modes run instead of the phases:
 ``--ab PARENT_SRC`` times K1 and K2 at the serving and training shapes
 (``seq_case``), the f32 engine on ``cuda_seq`` and ``cuda_seq_fused``
-(``engine_case``: p50 chunk ms and frames/s, medians of 5 drains) and
-K5-K8 at the cases of 8 and 12-14 (the same ``gates_case``, ``qmm_case``
-and ``attn_case`` as those phases) against the tree whose ``src`` is
-given, each turn a process of its own (parent, change, change, parent);
-``--clock-stamps`` rebuilds K1, K2 and K5-K8 with ``-DCLOCK_STAMPS`` and
+(``engine_case``: p50 chunk ms and frames/s, medians of 5 drains), K3 on
+both layer plans and K4 at T = 16 and 64 (``int8_case``), the int8 deploy
+on ``auto`` and ``layerwise`` (``int8_deploy_case``: frames/s, medians of
+5 passes) and K5-K8 at the cases of 8 and 12-14 (the same ``gates_case``,
+``qmm_case`` and ``attn_case`` as those phases) against the tree whose
+``src`` is given, each turn a process of its own (parent, change, change,
+parent); ``--clock-stamps`` rebuilds K1-K8 with ``-DCLOCK_STAMPS`` and
 prints the cycles of each phase (to stamp another tree, run a copy of this
 script from that tree's root).
 
@@ -155,10 +158,15 @@ QMM_REL_TOL = 0.03            # quantized_linear vs the f32 product
 # a row of kParts = 5 phases, the loop's cycles and the saved value
 STAMP_COLS = 7
 SEQ_PARTS = ('prologue', 'wait', 'staging', 'dot', 'epilogue')
+# K3/K4, for the first dot warp's lane 0: the tiles summed before the
+# step's own h_{t-1} lands (K3's x region, K4's below-h region or layer 0's
+# acc_x), the wait for that plane, its tiles, the epilogue and the publish
+SEQ_Q_PARTS = ('prologue', 'early dot', 'wait', 'dot', 'epilogue')
 STAMP_PARTS = {'quant_matmul': ('wait', 'loads', 'transpose', 'wgmma'),
                'flash_attention': ('loads+wait', 'S+softmax', 'PV'),
                'lstm_gates_rec': ('staging', 'dot', 'reduce', 'epilogue'),
-               'lstm_seq': SEQ_PARTS, 'lstm_stack_seq': SEQ_PARTS}
+               'lstm_seq': SEQ_PARTS, 'lstm_stack_seq': SEQ_PARTS,
+               'lstm_seq_q': SEQ_Q_PARTS, 'lstm_stack_seq_q': SEQ_Q_PARTS}
 # K1/K2 (T, B) of ``--ab`` and ``--clock-stamps``: the serving chunk and the
 # training sequence; the first is the kernels line's row
 SEQ_SHAPES = ((CHUNK, SLOTS), (TRAIN_SEQ, TRAIN_BATCH))
@@ -517,17 +525,16 @@ def quantize_stack(params):
         lp.n_x, lp.n_h, sy.N_LSTM_SILICON))) for lp in params.layers]
 
 
-def int8_kernel_checks(qps, B: int, T: int, rng, dev):
-    """K3 (on both layer plans) and K4 against their plain versions at the
-    serving shape, bit for bit; times and bounds per launch (K3 on layer
-    0's plan)."""
+def int8_inputs(qps, T: int, B: int, rng, dev):
+    """K3 and K4 inputs at (T, B) from ``rng``: quantized random frames, a
+    ragged mask (a full, an empty and partial streams), nonzero carried
+    codes (padded rows zero).  Returns (k3, k4): k3 a list of (plan, args,
+    kw) on layer 0's plan and on an inner plan (frame codes of its width),
+    k4 (plan, args, kw) on the stack's weights (``stack_kernel_weights_q``)
+    with layer 0's hoisted x-region prefix."""
     from repro_torch.core import quant, systolic as sy
     from repro_torch.core.lstm import valid_len_mask
-    from repro_torch.kernels.lstm_seq import (lstm_seq_quantized,
-                                              lstm_seq_quantized_ref,
-                                              lstm_stack_seq_kernel_q,
-                                              lstm_stack_seq_quantized_ref,
-                                              stack_kernel_weights_q)
+    from repro_torch.kernels.lstm_seq import stack_kernel_weights_q
     from repro_torch.kernels.lstm_seq.ops import _dense_from_tiles
     L, p0 = len(qps), qps[0].plan
     N, P_h = p0.n_h, p0.padded_h
@@ -535,51 +542,115 @@ def int8_kernel_checks(qps, B: int, T: int, rng, dev):
         (rng.randn(T, B, p0.n_x) * 0.5).astype(np.float32)).to(dev))
     mask = valid_len_mask(T, torch.from_numpy(ragged_lens(rng, T, B)).to(dev),
                           B)
-    n_live = int(mask.sum())
 
     def codes(*shape):   # nonzero carried codes; padded rows stay zero
         c = torch.from_numpy(rng.randint(-64, 64, shape).astype(np.int8))
         c[..., N:] = 0
         return c.to(dev)
 
-    def diff(got, want):
-        return max(int((g.int() - w.int()).abs().max())
-                   for g, w in zip(got, want))
-
-    rows, k3_args = [], None
+    k3 = []
     for qp in qps[:2]:                       # layer 0's plan, an inner plan
         plan = qp.plan
         xs_pad = torch.zeros((T, B, plan.padded_x), dtype=torch.int8,
                              device=dev)
         xs_pad[..., :plan.n_x] = (xq if plan.n_x == p0.n_x else
                                   codes(T, B, plan.n_x))
-        args = (xs_pad, *_dense_from_tiles(qp), qp.sig_lut, qp.tanh_lut,
-                codes(B, P_h), codes(B, P_h), mask)
-        kw = dict(tile=plan.tile, cols_x=plan.cols_x)
-        got = lstm_seq_quantized(*args, **kw)
-        want = lstm_seq_quantized_ref(*args, **kw)
-        same = all(torch.equal(g, w) for g, w in zip(got, want))
-        print(f'lstm_seq_quantized [{plan}]: T={T} B={B} live steps '
-              f'{n_live}: torch.equal to plain version {same}', flush=True)
-        check(same, f'lstm_seq_quantized disagrees with its plain version '
-                    f'on {plan}')
-        if k3_args is None:
-            k3_args, k3_kw, k3_err = args, kw, diff(got, want)
-    # bytes the function needs: unpadded codes and weights, each input read
-    # once and each output written once (padding is the kernels' choice)
-    plan = qps[0].plan
-    nbytes = (T * B * plan.n_x + 4 * N * (plan.n_x + N) + 3 * N + 2 * 4 * N
-              + 512 + 2 * B * N + T * B + 2 * T * B * N)
-    rows.append(dict(
-        name='lstm_seq_quantized', route='cuda',
-        source='src/repro_torch/csrc/lstm_seq_q.cu',
-        replaces='src/repro/kernels/lstm_seq/kernel.py:258',
-        max_abs_err=k3_err, tol=0,
-        ms=cuda_ms(lambda: lstm_seq_quantized(*k3_args, **k3_kw), 50),
-        plain_ms=cuda_ms(lambda: lstm_seq_quantized_ref(*k3_args, **k3_kw),
-                         3, warmup=1),
-        bytes=nbytes, flops=n_live * (8 * N * (plan.n_x + N) + 30 * N),
-        ops_per_s=INT8_OPS_PER_S, library_ms=None))
+        k3.append((plan, (xs_pad, *_dense_from_tiles(qp), qp.sig_lut,
+                          qp.tanh_lut, codes(B, P_h), codes(B, P_h), mask),
+                   dict(tile=plan.tile, cols_x=plan.cols_x)))
+    wts = stack_kernel_weights_q(qps)
+    k4 = (p0, (sy.quantized_x_prefix(qps[0], xq).contiguous(), wts.w_in,
+               wts.w_h, wts.peep, wts.bias, wts.sig_lut, wts.tanh_lut,
+               codes(L, B, P_h), codes(L, B, P_h), mask),
+          dict(tile=p0.tile))
+    return k3, k4
+
+
+def int8_case(kernel: str, plan, args, kw, reps: int = 50):
+    """One K3 (``kernel`` 'lstm_seq_quantized', ``args`` on ``plan``) or K4
+    ('lstm_stack_seq_kernel_q') case from ``int8_inputs``: ``torch.equal``
+    to its plain version on the h and c codes, the largest code difference,
+    the kernel's ms, its plain version's, and the bound (bytes: unpadded
+    codes and weights, each input read once and each output written once,
+    padding being the kernels' choice; operations: the live steps' MACs and
+    epilogues at the int8 peak).  Only calls that the parent tree has too,
+    so ``--ab`` runs it on either."""
+    from repro_torch.kernels import lstm_seq as ks
+    mask = args[-1]
+    T, B = mask.shape
+    n_live, N = int(mask.sum()), plan.n_h
+    if kernel == 'lstm_seq_quantized':
+        fn, ref, L = ks.lstm_seq_quantized, ks.lstm_seq_quantized_ref, 1
+        nbytes = (T * B * plan.n_x + 4 * N * (plan.n_x + N) + 3 * N
+                  + 2 * 4 * N + 512 + 2 * B * N + T * B + 2 * T * B * N)
+        flops = n_live * (8 * N * (plan.n_x + N) + 30 * N)
+    else:
+        fn, ref = ks.lstm_stack_seq_kernel_q, ks.lstm_stack_seq_quantized_ref
+        L = args[2].shape[0]
+        # acc_x's N rows, layer 0's own-h weights, the inner layers' below-h
+        # and own-h weights, codes and outputs
+        nbytes = (4 * T * B * 4 * N + 4 * N * N * (2 * L - 1) + 3 * L * N
+                  + 8 * L * N + 512 + 2 * L * B * N + T * B
+                  + 2 * L * T * B * N)
+        flops = n_live * ((2 * L - 1) * 8 * N * N + 30 * L * N)
+    got, want = fn(*args, **kw), ref(*args, **kw)
+    equal = {k: torch.equal(g, w) for k, g, w in zip('hc', got, want)}
+    case = dict(kernel=kernel, shape=f'T={T} B={B} n_x={plan.n_x} N_h={N} '
+                                     f'L={L} tile={plan.tile}',
+                live_steps=n_live, equal=equal, max_abs_err=max(
+                    int((g.int() - w.int()).abs().max())
+                    for g, w in zip(got, want)),
+                tol=0, ok=all(equal.values()),
+                ms=cuda_ms(lambda: fn(*args, **kw), reps),
+                plain_ms=cuda_ms(lambda: ref(*args, **kw), 3, warmup=1),
+                bytes=nbytes, flops=flops, library_ms=None)
+    case['bound_ms'], case['bound_by'] = bound(nbytes, flops, INT8_OPS_PER_S)
+    return case
+
+
+def int8_kernel_checks(qps, B: int, T: int, rng, dev):
+    """K3 (on both layer plans) and K4 against their plain versions at the
+    serving shape, bit for bit (``int8_case``), with their launch geometry;
+    K4 also at ``TRAIN_SEQ`` steps.  The kernels line's numbers are K3's on
+    layer 0's plan and K4's at T = ``T``."""
+    from repro_torch.kernels.lstm_seq import (seq_q_geometry,
+                                              stack_kernel_weights_q,
+                                              stack_q_geometry)
+    from repro_torch.kernels.lstm_seq.kernel import q_threads
+    L, p0 = len(qps), qps[0].plan
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k3, (_, k4_args, k4_kw) = int8_inputs(qps, T, B, rng, dev)
+    _, (_, k4_long, _) = int8_inputs(qps, TRAIN_SEQ, B, rng, dev)
+    geoms = {'lstm_seq_quantized': seq_q_geometry(
+        p0.padded_x, p0.padded_h, p0.tile, B, sms),
+             'lstm_stack_seq_kernel_q': stack_q_geometry(
+        p0.padded_h, p0.tile, L, B, sms)}
+    cases = {'lstm_seq_quantized': [int8_case('lstm_seq_quantized', *c)
+                                    for c in k3],
+             'lstm_stack_seq_kernel_q': [
+                 int8_case('lstm_stack_seq_kernel_q', p0, k4_args, k4_kw),
+                 int8_case('lstm_stack_seq_kernel_q', p0, k4_long, k4_kw)]}
+    rows = []
+    for name, file, replaces in (
+            ('lstm_seq_quantized', 'lstm_seq_q.cu', 'kernel.py:258'),
+            ('lstm_stack_seq_kernel_q', 'lstm_stack_seq_q.cu',
+             'stack_kernel.py:382')):
+        geom = geoms[name]
+        cases[name][0]['geometry'] = dict(dataclasses.asdict(geom),
+                                          threads=q_threads(geom.rows, B))
+        for c in cases[name]:
+            print(f"{name}: {c['shape']} live steps {c['live_steps']}: "
+                  f"torch.equal to plain version {c['ok']}, kernel "
+                  f"{c['ms']:.4f} ms, plain {c['plain_ms']:.3f} ms, bound "
+                  f"{c['bound_ms']:.5f} ms ({c['bound_by']}; "
+                  f"{c['bytes'] / 1e6:.3f} MB)", flush=True)
+            check(c['ok'], f"{name} disagrees with its plain version at "
+                           f"{c['shape']}")
+        print(f"{name}: geometry at the serving shape "
+              f"{cases[name][0]['geometry']}", flush=True)
+        rows.append(_case_row(
+            name, f'src/repro_torch/csrc/{file}',
+            f'src/repro/kernels/lstm_seq/{replaces}', cases[name]))
 
     build = lambda: stack_kernel_weights_q(qps)
     wts = build()
@@ -592,37 +663,6 @@ def int8_kernel_checks(qps, B: int, T: int, rng, dev):
           f"layouts) built once per set of quantized layers, device "
           f"{stacking['device_ms']:.4f} ms, host {stacking['host_ms']:.4f} ms "
           f"per build", flush=True)
-    acc_x = sy.quantized_x_prefix(qps[0], xq).contiguous()
-    args = (acc_x, wts.w_in, wts.w_h, wts.peep, wts.bias, wts.sig_lut,
-            wts.tanh_lut, codes(L, B, P_h), codes(L, B, P_h), mask)
-    kw = dict(tile=p0.tile)
-    got = lstm_stack_seq_kernel_q(*args, **kw)
-    want = lstm_stack_seq_quantized_ref(*args, **kw)
-    same = all(torch.equal(g, w) for g, w in zip(got, want))
-    print(f'lstm_stack_seq_kernel_q: T={T} B={B} L={L} live steps {n_live}: '
-          f'torch.equal to plain version {same}', flush=True)
-    check(same, 'lstm_stack_seq_kernel_q disagrees with its plain version')
-    # unpadded: acc_x's N rows, layer 0's own-h weights, the inner layers'
-    # below-h and own-h weights, codes and outputs
-    nbytes = (4 * T * B * 4 * N + 4 * N * N * (2 * L - 1) + 3 * L * N
-              + 8 * L * N + 512 + 2 * L * B * N + T * B + 2 * L * T * B * N)
-    rows.append(dict(
-        name='lstm_stack_seq_kernel_q', route='cuda',
-        source='src/repro_torch/csrc/lstm_stack_seq_q.cu',
-        replaces='src/repro/kernels/lstm_seq/stack_kernel.py:382',
-        max_abs_err=diff(got, want), tol=0,
-        ms=cuda_ms(lambda: lstm_stack_seq_kernel_q(*args, **kw), 50),
-        plain_ms=cuda_ms(lambda: lstm_stack_seq_quantized_ref(*args, **kw),
-                         3, warmup=1),
-        bytes=nbytes, flops=n_live * ((2 * L - 1) * 8 * N * N + 30 * L * N),
-        ops_per_s=INT8_OPS_PER_S, library_ms=None))
-    for r in rows:
-        r['bound_ms'], r['bound_by'] = bound(r['bytes'], r['flops'],
-                                             r['ops_per_s'])
-        r['ok'] = r['max_abs_err'] == 0
-        print(f"{r['name']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']}; {r['bytes'] / 1e6:.3f} MB)", flush=True)
     return rows, stacking
 
 
@@ -678,6 +718,46 @@ def int8_chunked_checks(qps, B: int, chunk: int, rng, dev):
     check(same, 'int8 fused, layerwise and the reference chain disagree')
 
 
+def int8_batch(cfg, utts, chunk: int, dev):
+    """The utterances as one ragged batch of frame codes, (T, B, n_x) with
+    T rounded up to whole chunks, and their lengths."""
+    from repro_torch.core import quant
+    lens = np.array([len(u) for u in utts])
+    T = -(-int(lens.max()) // chunk) * chunk
+    frames = np.zeros((T, len(utts), cfg.lstm_inputs), np.float32)
+    for b, u in enumerate(utts):
+        frames[:len(u), b] = u
+    return quant.quantize(torch.from_numpy(frames).to(dev)), lens
+
+
+def int8_deploy_case(cfg, qps, utts, dev, passes: int = 5):
+    """The int8 deploy's wall time (``int8_chunks`` over the utterances as
+    one batch, chunks of ``CHUNK``) on ``auto`` and ``layerwise``: a warm
+    pass each, then ``passes`` timed passes each, interleaved, each ending
+    in a synchronize; the median frames/s and mean chunk ms of each.  Only
+    calls that the parent tree has too."""
+    from repro_torch.kernels.lstm_seq import stack_kernel_weights_q
+    xq, lens = int8_batch(cfg, utts, CHUNK, dev)
+    weights = stack_kernel_weights_q(qps)
+    n_chunks, backends = xq.shape[0] // CHUNK, ('auto', 'layerwise')
+    walls = {b: [] for b in backends}
+    for i in range(passes + 1):
+        for b in backends:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            int8_chunks(qps, xq, lens, CHUNK, weights, b)
+            torch.cuda.synchronize()
+            if i:
+                walls[b].append(time.perf_counter() - t0)
+    return [dict(kernel=f'int8 deploy {b}',
+                 shape=f'{len(utts)} utterances, {int(lens.sum())} frames, '
+                       f'{n_chunks} chunks',
+                 chunk_ms=float(np.median(walls[b])) / n_chunks * 1e3,
+                 frames_per_s=float(np.median(
+                     [lens.sum() / w for w in walls[b]])))
+            for b in backends]
+
+
 def int8_deploy(cfg, params, qps, chunk: int, utts, dev,
                 profile: bool = False):
     """The int8 main path: the utterances as one ragged batch, in chunks of
@@ -695,13 +775,8 @@ def int8_deploy(cfg, params, qps, chunk: int, utts, dev,
                                               stack_kernel_weights_q)
     from repro_torch.models import chipmunk_net
     B, L = len(utts), len(qps)
-    lens = np.array([len(u) for u in utts])
-    n_frames = int(lens.sum())
-    T = -(-int(lens.max()) // chunk) * chunk
-    frames = np.zeros((T, B, cfg.lstm_inputs), np.float32)
-    for b, u in enumerate(utts):
-        frames[:len(u), b] = u
-    xq = quant.quantize(torch.from_numpy(frames).to(dev))
+    xq, lens = int8_batch(cfg, utts, chunk, dev)
+    n_frames, T = int(lens.sum()), xq.shape[0]
     weights = stack_kernel_weights_q(qps)
     n_chunks = T // chunk
     backends = ('auto', 'layerwise')
@@ -1372,13 +1447,30 @@ def engine_case(cfg, params, backend: str, utts, drains: int = 5):
                 frames_per_s=float(np.median(rate)))
 
 
+def int8_times(cfg, params, dev):
+    """``int8_case`` for K3 on layer 0's and an inner plan and for K4, at
+    the serving shape, K4 also at ``TRAIN_SEQ`` steps (``int8_inputs``, seed
+    ``SEED``), then the int8 deploy on ``auto`` and ``layerwise``
+    (``int8_deploy_case``, the main run's utterances)."""
+    qps = quantize_stack(params)
+    rng = np.random.RandomState(SEED)
+    k3, k4 = int8_inputs(qps, CHUNK, SLOTS, rng, dev)
+    _, k4_long = int8_inputs(qps, TRAIN_SEQ, SLOTS, rng, dev)
+    cases = [int8_case('lstm_seq_quantized', *c) for c in k3]
+    cases += [int8_case('lstm_stack_seq_kernel_q', *c) for c in (k4, k4_long)]
+    utts = [(rng.randn(rng.randint(50, 301), cfg.lstm_inputs) * 0.5
+             ).astype(np.float32) for _ in range(INT8_UTTERANCES)]
+    return cases + int8_deploy_case(cfg, qps, utts, dev)
+
+
 def op_times(dev):
     """``gates_case`` at K5's training case and K6's two layers,
     ``seq_case`` for K1 and K2 at every ``SEQ_SHAPES`` shape, the f32
     engine on ``cuda_seq`` and ``cuda_seq_fused`` (``engine_case``),
-    ``qmm_case`` at every ``QMM_SHAPES`` shape and ``attn_case`` at every
-    ``ATTN_CASES`` case, on the phases' inputs (same seeds, same order), for
-    one turn of ``--ab``."""
+    ``int8_times`` (K3, K4 and the int8 deploy), ``qmm_case`` at every
+    ``QMM_SHAPES`` shape and ``attn_case`` at every ``ATTN_CASES`` case, on
+    the phases' inputs (same seeds, same order), for one turn of
+    ``--ab``."""
     from repro_torch import configs
     from repro_torch.models import chipmunk_net
     cfg = configs.get_config('chipmunk-ctc')
@@ -1397,6 +1489,7 @@ def op_times(dev):
              ).astype(np.float32) for _ in range(REQUESTS)]
     for backend in ('cuda_seq', 'cuda_seq_fused'):
         cases.append(engine_case(cfg, params, backend, utts))
+    cases += int8_times(cfg, params, dev)
     g = torch.Generator(device=dev).manual_seed(SEED)
     for lp in params.layers[:2]:
         cases.append(gates_case('lstm_gates', lp, CELL_BATCH, g, dev)[0])
@@ -1431,9 +1524,10 @@ def ab(parent_src: str):
     for i, row in enumerate(turns[0]['rows']):
         got = turns[1]['rows'][i]
         if 'frames_per_s' in got:
+            chunk = 'p50_chunk_ms' if 'p50_chunk_ms' in got else 'chunk_ms'
             print(f"ab: {row['kernel']} ({row['shape']}): " + '; '.join(
-                f"{t['side']} p50 chunk {t['rows'][i]['p50_chunk_ms']:.3f} "
-                f"ms, {t['rows'][i]['frames_per_s']:.1f} frames/s"
+                f"{t['side']} {chunk} {t['rows'][i][chunk]:.3f}, "
+                f"{t['rows'][i]['frames_per_s']:.1f} frames/s"
                 for t in turns), flush=True)
             continue
         lib = (f"product only {got['product_only_ms']:.5f} ms"
@@ -1466,7 +1560,8 @@ def clock_stamps(dev):
     """Debug builds (``-DCLOCK_STAMPS``) of K5 and K6 (library
     ``lstm_gates_rec``: K5 at the training case, K6 at both layers, each
     timed on its third launch, with W in L2 as on the ``cuda_step`` chain),
-    K1 and K2 (third launch, at each ``SEQ_SHAPES`` shape), K7 and K8 (one
+    K1, K2, K3 (layer 0's plan) and K4 (third launch, at each
+    ``SEQ_SHAPES`` shape; K3/K4 on ``int8_inputs``), K7 and K8 (one
     launch each at Mixtral's up-projection, f32 out, and bf16 prefill).
     Per CTA, thread 0's cycles in each phase
     (``STAMP_PARTS``), summed over the loop, and the whole kernel's or
@@ -1507,6 +1602,19 @@ def clock_stamps(dev):
                   ks.stack_geometry(N, L, Bs, sms).ctas, 3,
                   lambda a=(pre_x, wts.w_in, wts.w_h, wts.peep, wts.b, h0, c0,
                             mask): ks.lstm_stack_seq_kernel(*a))]
+    qps = quantize_stack(params)
+    p0 = qps[0].plan
+    rng = np.random.RandomState(SEED)
+    for T, Bs in SEQ_SHAPES:
+        k3, (_, k4, kw) = int8_inputs(qps, T, Bs, rng, dev)
+        runs += [(f'lstm_seq_quantized T={T} B={Bs}', 'lstm_seq_q',
+                  ks.seq_q_geometry(p0.padded_x, p0.padded_h, p0.tile, Bs,
+                                    sms).ctas, 3,
+                  lambda a=k3[0][1], kw=k3[0][2]: ks.lstm_seq_quantized(
+                      *a, **kw)),
+                 (f'lstm_stack_seq_kernel_q T={T} B={Bs}', 'lstm_stack_seq_q',
+                  ks.stack_q_geometry(p0.padded_h, p0.tile, L, Bs, sms).ctas,
+                  3, lambda a=k4, kw=kw: ks.lstm_stack_seq_kernel_q(*a, **kw))]
     for lp in params.layers[:2]:
         K = lp.n_x + lp.n_h
         k6 = (r(B, K), torch.cat([lp.w_x, lp.w_h], dim=-1), lp.w_peep, lp.b,
@@ -1571,14 +1679,14 @@ def main(argv=None) -> int:
                          'torch.profiler (device busy/idle share, time by '
                          'kernel)')
     ap.add_argument('--ab', metavar='PARENT_SRC', default=None,
-                    help='only time K1, K2, the f32 engine and K5-K8 '
-                         'against the tree whose src directory is given, '
-                         'in turns (parent, change, change, parent)')
+                    help='only time K1-K8, the f32 engine and the int8 '
+                         'deploy against the tree whose src directory is '
+                         'given, in turns (parent, change, change, parent)')
     ap.add_argument('--op-times', metavar='SRC', default=None,
                     help=argparse.SUPPRESS)   # one turn of --ab
     ap.add_argument('--clock-stamps', action='store_true',
-                    help='only run debug builds of K1, K2 and K5-K8 with '
-                         'clock64() stamps of their phases')
+                    help='only run debug builds of K1-K8 with clock64() '
+                         'stamps of their phases')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)

@@ -1,41 +1,43 @@
-// What K1 (`lstm_seq.cu`) and K2 (`lstm_stack_seq.cu`) share: the
-// point-to-point step exchange between CTAs, the operand layouts in shared
-// memory, and the register-blocked dot.  The gate math itself is
-// `lstm_f32_epilogue.cuh`.
+// What the sequence kernels share.  K1 (`lstm_seq.cu`), K2
+// (`lstm_stack_seq.cu`), K3 (`lstm_seq_q.cu`) and K4 (`lstm_stack_seq_q.cu`)
+// exchange their steps between CTAs by the protocol of the first part; K1
+// and K2 also share the f32 operand layouts in shared memory and the
+// register-blocked dot of the second part.  The f32 gate math is
+// `lstm_f32_epilogue.cuh`, the int8 datapath `lstm_q_epilogue.cuh`.
 //
 // Step exchange.  A layer's CTAs count the steps they have finished on one
 // counter per layer (`progress`, each on its own 128-byte line): after a
 // CTA has written its rows of h_t and c_t, `__syncthreads()`, then one
 // thread adds 1 with release semantics.  The counter passes k * CTAs only
 // once every CTA of the layer has finished step k - 1, since no CTA can
-// start step k before that.  A CTA's warp 0 is its producer: its lane 0
-// spins with acquire loads until a counter reaches that value, orders the
-// async proxy after the generic one (the plane was written by ordinary
-// stores on other SMs and is read by a bulk copy), and stages the plane
-// with one bulk copy (`cp.async.bulk`) onto an mbarrier; the other warps
-// (the dot warps) wait on that mbarrier.  No grid barrier: a CTA waits
-// only for the planes it reads.  The counters stay zero between launches:
-// each CTA adds 1 to `done` after its last wait, and the CTA that brings it
-// to the grid size resets every counter, so one zeroed buffer per device
-// and stream serves every launch on that stream.  Spin-waits need every
-// CTA resident at once: the launch is cooperative.
+// start step k before that.  A CTA's producer warp spins with acquire loads
+// on one lane until a counter reaches that value, orders the async proxy
+// after the generic one (the plane was written by ordinary stores on other
+// SMs and is read by a bulk copy), and stages the plane with one bulk copy
+// (`cp.async.bulk`) onto an mbarrier; the other warps (the dot warps) wait
+// on that mbarrier.  No grid barrier: a CTA waits only for the planes it
+// reads.  The counters stay zero between launches: each CTA adds 1 to
+// `done` after its last wait, and the CTA that brings it to the grid size
+// resets every counter, so one zeroed buffer per device and stream serves
+// every launch on that stream.  Spin-waits need every CTA resident at
+// once: the launch is cooperative.
 //
-// Operands, k-major.  An h plane travels between CTAs as (chunk, k, 8
-// streams) (`xs`, beside the (B, N) outputs), so a lane reads the 8
-// streams of its k as two 16-byte loads; a CTA's weight rows sit in shared
-// memory as (row, k, 4 gates), one 16-byte load for the 4 gates of its k.
-// The first plane (h0, a (B, N) input) and the weights are requested into
-// these layouts by 4-byte `cp.async`s in the prologue.
+// f32 operands, k-major (K1, K2).  An h plane travels between CTAs as
+// (chunk, k, 8 streams) (`xs`, beside the (B, N) outputs), so a lane reads
+// the 8 streams of its k as two 16-byte loads; a CTA's weight rows sit in
+// shared memory as (row, k, 4 gates), one 16-byte load for the 4 gates of
+// its k.  The first plane (h0, a (B, N) input) and the weights are
+// requested into these layouts by 4-byte `cp.async`s in the prologue.
 //
-// Dot.  For one hidden row and an 8-stream chunk, a lane keeps the 32 gate
-// sums (4 gates x 8 streams) in registers: per k, three 16-byte shared
-// loads and 32 fused multiply-adds, so each weight is read once per chunk
-// and each h value once per row.  A lane of the second quarter of each
-// 8-lane group reads the streams' two halves in the other order, so the 8
-// lanes of a shared-memory phase touch 8 distinct bank groups.  K is split
-// over the lanes and over `splits` warps; a fixed butterfly then leaves
-// lane l with the sum of gate l / 8, stream l % 8 (`family_sums`), and the
-// epilogue adds the splits, then the families, in a fixed order
+// f32 dot (K1, K2).  For one hidden row and an 8-stream chunk, a lane keeps
+// the 32 gate sums (4 gates x 8 streams) in registers: per k, three 16-byte
+// shared loads and 32 fused multiply-adds, so each weight is read once per
+// chunk and each h value once per row.  A lane of the second quarter of
+// each 8-lane group reads the streams' two halves in the other order, so
+// the 8 lanes of a shared-memory phase touch 8 distinct bank groups.  K is
+// split over the lanes and over `splits` warps; a fixed butterfly then
+// leaves lane l with the sum of gate l / 8, stream l % 8 (`family_sums`),
+// and the epilogue adds the splits, then the families, in a fixed order
 // (`gate_sum`).  One weight family's sums need only its own plane, so K2
 // sums W_in h_below while the layer's own h_{t-1} is still on its way.  No
 // atomics in any sum: the same inputs give the same bits, whatever T or
@@ -58,39 +60,6 @@ __host__ __device__ constexpr size_t round_up(size_t bytes, size_t to) {
 }
 __host__ __device__ constexpr int chunks_of(int B) {
   return (B + kChunk - 1) / kChunk;
-}
-
-// Shared memory of a CTA that owns R rows of a layer whose rows take
-// `fam` weight families (1: W_h; 2: W_h and W_in) and `fam` h planes
-// (own h_{t-1}; the layer below's h_t), byte offsets:
-//   2 mbarriers (own plane, below plane) | planes [fam][chunks][N][8],
-//   each from a 128-byte boundary (K2 measured slower with the planes
-//   after the weights, PERF.md) | weights [fam][R][N][4] | gate sums,
-//   per family [chunks][splits][R][32] | peep and bias [R][8] | c [R][B]
-//   | the step's pre_x rows [R][4][B] | its mask row, as the 4-byte words
-//   that hold it
-// Threads: one producer warp, then R * splits dot warps (at most 16).
-struct Layout {
-  int splits, dot_warps;
-  size_t planes, plane, plane_stride, w, part, sums, consts, c, pre, mask,
-      total;
-};
-__host__ __device__ inline Layout layout(int B, int N, int R, int fam) {
-  Layout L;
-  L.splits = R < 8 ? 8 / R : 1;
-  L.dot_warps = R * L.splits < kMaxDotWarps ? R * L.splits : kMaxDotWarps;
-  L.planes = 128;
-  L.plane = (size_t)32 * chunks_of(B) * N;
-  L.plane_stride = round_up(L.plane, 128);
-  L.w = L.planes + fam * L.plane_stride;
-  L.part = L.w + (size_t)16 * fam * R * N;
-  L.sums = (size_t)4 * chunks_of(B) * L.splits * R * kOut;
-  L.consts = L.part + fam * L.sums;
-  L.c = L.consts + (size_t)4 * 8 * R;
-  L.pre = L.c + (size_t)4 * R * B;
-  L.mask = L.pre + (size_t)4 * 4 * R * B;
-  L.total = L.mask + round_up(B + 8, 16);
-  return L;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -213,7 +182,41 @@ __device__ __forceinline__ void finish(unsigned* counters, int layers,
   }
 }
 
-// --- the dot (the dot warps) ---------------------------------------------
+// --- the f32 operands and dot of K1 and K2 (the dot warps) ---------------
+
+// Shared memory of a CTA that owns R rows of a layer whose rows take
+// `fam` weight families (1: W_h; 2: W_h and W_in) and `fam` h planes
+// (own h_{t-1}; the layer below's h_t), byte offsets:
+//   2 mbarriers (own plane, below plane) | planes [fam][chunks][N][8],
+//   each from a 128-byte boundary (K2 measured slower with the planes
+//   after the weights, PERF.md) | weights [fam][R][N][4] | gate sums,
+//   per family [chunks][splits][R][32] | peep and bias [R][8] | c [R][B]
+//   | the step's pre_x rows [R][4][B] | its mask row, as the 4-byte words
+//   that hold it
+// Threads: one producer warp, then R * splits dot warps (at most 16).
+struct Layout {
+  int splits, dot_warps;
+  size_t planes, plane, plane_stride, w, part, sums, consts, c, pre, mask,
+      total;
+};
+__host__ __device__ inline Layout layout(int B, int N, int R, int fam) {
+  Layout L;
+  L.splits = R < 8 ? 8 / R : 1;
+  L.dot_warps = R * L.splits < kMaxDotWarps ? R * L.splits : kMaxDotWarps;
+  L.planes = 128;
+  L.plane = (size_t)32 * chunks_of(B) * N;
+  L.plane_stride = round_up(L.plane, 128);
+  L.w = L.planes + fam * L.plane_stride;
+  L.part = L.w + (size_t)16 * fam * R * N;
+  L.sums = (size_t)4 * chunks_of(B) * L.splits * R * kOut;
+  L.consts = L.part + fam * L.sums;
+  L.c = L.consts + (size_t)4 * 8 * R;
+  L.pre = L.c + (size_t)4 * R * B;
+  L.mask = L.pre + (size_t)4 * 4 * R * B;
+  L.total = L.mask + round_up(B + 8, 16);
+  return L;
+}
+
 
 // v[g * 8 + s] += w[k][g] x[k][s'] over this lane's k (k0, k0 + kstep, ...)
 // for one row w ([N][4] in shared memory) and one chunk's plane x ([N][8]),

@@ -5,62 +5,66 @@
 // src/repro/kernels/lstm_seq/stack_kernel.py (body `_stack_kernel_q`): one
 // launch runs every layer of a homogeneous int8 stack over a chunk of T
 // steps, bit-identical layer by layer to chaining K3 (`lstm_seq_q.cu`).
-// Diagonal d = 0 .. T+L-2 runs layer l at step t = d - l, so each layer needs
-// only what the previous diagonal wrote: the layer below's h_t codes and its
-// own h_{t-1} codes.
-//
-// The silicon's order: for each (layer, row, gate, stream), the column tiles
-// — an inner layer's below-h region, then its own-h region — each give an
-// exact int32 tile MAC (`__dp4a`), saturated to int16 and added serially
+// Layer l at step t needs only the layer below's h_t codes and its own
+// h_{t-1} codes.  The silicon's order: for each (layer, row, gate, stream),
+// the column tiles (an inner layer's below-h region, then its own-h region)
+// each give an exact int32 tile MAC, saturated to int16 and added serially
 // with a saturation after every add.  Layer 0 has no below region: it
 // resumes the chain at hop cols_h from `acc_x`, the hoisted prefix of its
 // x-region hops (`core.systolic.quantized_x_prefix`, computed outside the
-// kernel as the reference does).  The hop chain and the epilogue are K3's
-// (`lstm_q_epilogue.cuh`).
+// kernel as the reference does).
 //
-// What bounds it on an H100: the grid barrier once per diagonal.  The bytes
-// the function needs at CTC-3L-421H-UNI width (3.54 MB of unpadded int8
-// weights, 0.86 MB of acc_x, 0.32 MB of outputs) take 1.4 us of HBM time;
-// the integer MACs are spread over all SMs.
+// What bounds it on an H100: neither bytes (4.77 MB at CTC-3L-421H-UNI
+// width, 1.4 us of HBM time) nor operations, but the chain of step
+// latencies, T + L - 1 at most.  The first K4's clock stamps (PERF.md) put
+// a 40k-cycle diagonal 59 % into its tile MACs (4-byte dot loops), a fifth
+// into a grid barrier that every CTA met, bubbles included, and a tenth
+// into staging.  This design's stamps put an inner layer's ~6k-cycle step
+// mostly into the exchanges of the plane below and of its own h_{t-1}
+// (release, slowest CTA, acquire, bulk copy), then the own-h tiles (~1.2k)
+// and the epilogue.
 //
-// Design: CTAs own (layer, row-slice) pairs, R rows each, with R the
-// smallest row count that fits L * ceil(padded_h / R) CTAs on the SMs (R =
-// 11 at full width, 132 CTAs).  Weights come as K2's do: `w_in` holds the
-// inner layers' below-h weights and `w_h` every layer's own-h weights, each
-// row (gate, n) contiguous over its inputs.  A CTA copies its 4*R rows of
-// both regions (one for layer 0) into shared memory once; they stay for the
-// chunk.  Per diagonal an active CTA stages the below and own h codes of
-// every stream from the output slots (L1 bypassed), computes one thread per
-// (gate, row, stream, column tile) partial, runs the hop chains and the
-// epilogue one thread per (row, stream), and writes h_t and c_t layer-major
-// into (L, T, B, padded_h).  Every CTA, active or in a fill/drain bubble,
-// then meets at `this_grid().sync()`.  A bubble writes nothing, and every
-// (layer, step) writes its own output slot, so no live slot can be
-// clobbered.
-#include <cooperative_groups.h>
+// Design: K3's (`lstm_q_epilogue.cuh`: tile MACs on the int8 tensor cores,
+// the hop chain and the epilogue in registers, a pair of dot warps a task;
+// `lstm_exchange.cuh`: the step exchange), with layers as a dataflow
+// pipeline.  CTAs own (layer, row-slice) pairs of whole row groups of 8,
+// with R the smallest such that L * ceil(padded_h / R) CTAs fit on the SMs
+// (R = 16 at full width, 90 CTAs).  Weights come as K2's do: `w_in` holds
+// the inner layers' below-h weights and `w_h` every layer's own-h weights;
+// a CTA's rows of both (one family for layer 0) stay on chip for the
+// chunk.  At step t the producer warp stages the layer below's h_t
+// (`xch[l-1][t]`) once that layer's counter shows step t done by all its
+// CTAs, and the layer's own h_{t-1} (`xch[l][t-1]`) once its own counter
+// shows t - 1, each by one bulk copy as soon as it is ready; a CTA waits
+// for nothing else, and none waits in a fill or drain bubble.  Then it
+// requests the next step's mask row and, for layer 0, the next step's
+// `acc_x` rows (one bulk copy a stream and gate).  The dot warps sum the
+// below-h tiles (layer 0 starts from its prefix) while h_{t-1} may still be
+// on its way, then the own-h tiles, then the epilogue; h_t and c_t go
+// layer-major into (L, T, B, padded_h), h_t also into `xch[l][t]`.  Every
+// (layer, step) writes its own slots, so a layer running ahead clobbers
+// nothing.  Clock stamps (-DCLOCK_STAMPS) time, for the first dot warp's
+// lane 0, the prologue, the below-h tiles (with their wait), the wait for
+// h_{t-1}, the own-h tiles and the epilogue with the step's barrier.
 #include <cuda_runtime.h>
-#include <stdint.h>
 
+#include "clock_stamps.cuh"
+#include "lstm_exchange.cuh"
 #include "lstm_q_epilogue.cuh"
-
-namespace cg = cooperative_groups;
-using lstm_q::sat16;
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace lstm_exchange;
+using QLayout = lstm_q::Layout;
 
-// Shared memory: part_s int32 [4*R][B][C2] | w_s int8 [4*R][K2]
-//                | in_s int8 [B][K2] | lut_s int8 [2][256] | c_s int8 [R][B]
-// with K2 = 2 * P_h (below-h region, then own-h region) and C2 = K2 / tile.
-// Layer 0's CTAs leave the below halves of w_s and in_s unused.
-size_t smem_bytes(int B, int P_h, int tile, int R) {
-  const size_t K2 = 2 * (size_t)P_h, C2 = K2 / tile;
-  return 16 * (size_t)R * B * C2 + 4 * (size_t)R * K2 + (size_t)B * K2 +
-         512 + (size_t)R * B;
+__host__ __device__ QLayout q_layout(int B, int P_h, int tile,
+                                      int R) {
+  return lstm_q::layout(B, P_h, 0, tile, R, P_h / tile, 2, 2, true);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// xch: h_t, (L, T, B, sp), what later steps stage; counters: one progress
+// counter per layer, then `done`
+__global__ void __launch_bounds__(32 * (lstm_q::kMaxDotWarps + 1))
 lstm_stack_seq_q_kernel(const int* __restrict__ acc_x,   // (T, B, P_h/t, 4, t)
                         const int8_t* __restrict__ w_in,  // (L-1, 4, P_h, P_h)
                         const int8_t* __restrict__ w_h,   // (L, 4, P_h, P_h)
@@ -73,108 +77,213 @@ lstm_stack_seq_q_kernel(const int* __restrict__ acc_x,   // (T, B, P_h/t, 4, t)
                         const unsigned char* __restrict__ mask,  // (T, B)
                         int8_t* hs,                       // (L, T, B, P_h)
                         int8_t* cs,                       // (L, T, B, P_h)
-                        int T, int B, int P_h, int tile, int L, int R,
-                        int cpl) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int K2 = 2 * P_h;
-  const int C2 = K2 / tile;
-  const int cols_h = C2 / 2;
-  const int words = tile / 4;
-  int* part_s = reinterpret_cast<int*>(smem);
-  int8_t* w_s = reinterpret_cast<int8_t*>(part_s + (size_t)4 * R * B * C2);
-  int8_t* in_s = w_s + (size_t)4 * R * K2;
-  int8_t* lut_s = in_s + (size_t)B * K2;  // [0, 256) sigmoid, [256, 512) tanh
-  int8_t* c_s = lut_s + 512;
+                        int8_t* xch, unsigned* counters, int T, int B,
+                        int P_h, int tile, int L, int R, int cpl) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const QLayout Q = q_layout(B, P_h, tile, R);
+  const int cols = P_h / tile, B8 = lstm_q::kChunk * Q.chunks;
+  // [0] own plane, [1] below plane (layer 0: its acc_x prefix)
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  int8_t* own = reinterpret_cast<int8_t*>(smem + Q.planes);     // [B8][sp]
+  int8_t* below = reinterpret_cast<int8_t*>(smem + Q.planes + Q.plane);
+  // [own-h, below-h][groups][32][sw]
+  const unsigned char* w_s = smem + Q.w;
+  const size_t fam = (size_t)4 * R * Q.sw;
+  // [task][m-tile][32]; [pair][2 rounds][m-tile][32]
+  uint2* spill = reinterpret_cast<uint2*>(smem + Q.spill);
+  int* prefix = reinterpret_cast<int*>(smem + Q.prefix);  // [2][B8][4][R]
+  int2* slots = reinterpret_cast<int2*>(smem + Q.trade);
+  int8_t* c_s = reinterpret_cast<int8_t*>(smem + Q.c);         // [R][B8]
+  const int16_t* bias_s = reinterpret_cast<int16_t*>(smem + Q.consts);
+  const int8_t* peep_s =
+      reinterpret_cast<int8_t*>(smem + Q.consts + 8 * R);
+  const int8_t* lut_s = reinterpret_cast<int8_t*>(smem + Q.lut);
 
-  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x;
+  const bool producer = warp == Q.dot_warps;
   const int l = blockIdx.x / cpl;
   const int row0 = (blockIdx.x % cpl) * R;
-  const int tid = threadIdx.x;
-  const size_t mat = (size_t)4 * P_h * P_h;   // one layer's (4, P_h, P_h)
-  const int8_t* peep_l = peep + (size_t)l * 3 * P_h;
-  const int16_t* bias_l = bias + (size_t)l * 4 * P_h;
-  const size_t plane = (size_t)B * P_h;   // one (B, P_h) code plane
+  const bool inner = l > 0;
+  const int g = lane >> 2, t4 = lane & 3;
+  // dot warps: pair `pair` of `pairs` takes tasks pair, pair + pairs, ...;
+  // warp `half` of it m-tile `half`
+  const int pair = warp >> 1, half = warp & 1, pairs = Q.dot_warps / 2;
+  const size_t plane_n = (size_t)B * P_h, mat = (size_t)4 * P_h * P_h;
+  const size_t xch_n = (size_t)B * Q.sp;   // bytes of one xch plane
+  const int8_t* xch_own = xch + (size_t)l * T * xch_n;
+  // layer 0 reads no plane below (its pointers are never dereferenced)
+  const int8_t* xch_below = inner ? xch_own - (size_t)T * xch_n : xch;
+  unsigned* p_own = counters + (size_t)l * kCounterStride;
+  const unsigned* p_below = inner ? p_own - kCounterStride : p_own;
+  Clock clk;
 
-  // Resident weight rows, as char4 words: w_s[(g*R + r)*K2 + k], k in the
-  // below region [0, P_h) (inner layers only) or the own region [P_h, K2).
-  const int h_words = P_h / 4, k2_words = K2 / 4;
-  const int k4_lo = l == 0 ? h_words : 0;
-  for (int i = tid; i < 4 * R * k2_words; i += blockDim.x) {
-    const int k4 = i % k2_words, gr = i / k2_words;
-    if (k4 < k4_lo) continue;
-    const int g = gr / R, r = gr % R, n = row0 + r;
-    const int8_t* row = k4 < h_words
-        ? w_in + (l - 1) * mat + ((size_t)g * P_h + n) * P_h
-        : w_h + l * mat + ((size_t)g * P_h + n) * P_h;
-    reinterpret_cast<int*>(w_s)[i] =
-        n < P_h ? reinterpret_cast<const int*>(row)[k4 % h_words] : 0;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+    mbar_init_fence();
   }
-  for (int i = tid; i < 256; i += blockDim.x) {
-    lut_s[i] = sig_lut[i];
-    lut_s[256 + i] = tanh_lut[i];
+#pragma unroll 1
+  for (int f = 0; f < (inner ? 2 : 1); ++f) {
+    const int8_t* base = f == 0 ? w_h + l * mat : w_in + (l - 1) * mat;
+    lstm_q::stage_weights(
+        smem + Q.w + f * fam,
+        [&](int gate, int r) {
+          const int n = row0 + r;
+          return n < P_h ? base + ((size_t)gate * P_h + n) * P_h : nullptr;
+        },
+        Q, cols, tile, ((uintptr_t)base | P_h | tile) % 16 == 0, tid,
+        nthreads);
   }
-  for (int i = tid; i < R * B; i += blockDim.x) {
-    const int r = i / B, b = i % B, n = row0 + r;
-    c_s[i] = n < P_h ? c0[l * plane + (size_t)b * P_h + n] : 0;
-  }
-
-  const int c_lo = l == 0 ? cols_h : 0;   // layer 0: own-h hops only
-  const int nc = C2 - c_lo;
-  int* in_w = reinterpret_cast<int*>(in_s);
-  const int D = T + L - 1;
-  for (int d = 0; d < D; ++d) {
-    const int t = d - l;
-    if (t >= 0 && t < T) {                 // uniform over the CTA
-      const int* h_own = reinterpret_cast<const int*>(
-          t == 0 ? h0 + l * plane : hs + ((size_t)l * T + (t - 1)) * plane);
-      const int* h_below = l > 0 ? reinterpret_cast<const int*>(
-          hs + ((size_t)(l - 1) * T + t) * plane) : nullptr;
-      for (int i = tid; i < B * k2_words; i += blockDim.x) {
-        const int b = i / k2_words, k4 = i % k2_words;
-        if (k4 >= h_words)
-          in_w[i] = __ldcg(h_own + b * h_words + (k4 - h_words));
-        else if (l > 0)
-          in_w[i] = __ldcg(h_below + b * h_words + k4);
-      }
-      __syncthreads();
-
-      for (int q = tid; q < 4 * R * B * nc; q += blockDim.x) {
-        const int cc = q % nc, rest = q / nc, b = rest % B, gr = rest / B;
-        const int c = c_lo + cc;
-        const int* wp = reinterpret_cast<const int*>(w_s + (size_t)gr * K2 +
-                                                     c * tile);
-        const int* xp = reinterpret_cast<const int*>(in_s + (size_t)b * K2 +
-                                                     c * tile);
-        int s = 0;
-        for (int j = 0; j < words; ++j) s = __dp4a(wp[j], xp[j], s);
-        part_s[q] = sat16(s);
-      }
-      __syncthreads();
-
-      for (int i = tid; i < R * B; i += blockDim.x) {
-        const int r = i / B, b = i % B, n = row0 + r;
-        if (n >= P_h) continue;
-        int acc[4];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const int a0 = l == 0
-              ? acc_x[((((size_t)t * B + b) * (P_h / tile) + n / tile) * 4 +
-                       g) * tile + n % tile]
-              : 0;
-          acc[g] = lstm_q::saturating_hops(
-              a0, part_s + ((size_t)(g * R + r) * B + b) * nc, nc);
-        }
-        const lstm_q::Codes q = lstm_q::state_update(
-            acc, c_s[i], in_s[(size_t)b * K2 + P_h + n],
-            mask[(size_t)t * B + b] != 0, bias_l, peep_l, P_h, n, lut_s);
-        c_s[i] = q.c;
-        const size_t o = ((size_t)l * T + t) * plane + (size_t)b * P_h + n;
-        hs[o] = q.h;
-        cs[o] = q.c;
-      }
+  lstm_q::stage_state(smem, Q, h0 + l * plane_n, c0 + l * plane_n,
+                      bias + (size_t)l * 4 * P_h, peep + (size_t)l * 3 * P_h,
+                      mask, sig_lut, tanh_lut, B, P_h, R, row0, tid,
+                      nthreads);
+  // layer 0 (the producer warp): step t's acc_x rows of this CTA into step
+  // t's buffer ([stream][gate][R] int32) by bulk copies onto the mbarrier
+  // that inner layers use for the plane below: one contiguous run per
+  // stream and gate (two where the rows cross a column tile's edge).  Lane
+  // 0 arms the barrier with every run's bytes, then each lane copies the
+  // runs of its (stream, gate) pairs.
+  const int rows = min(R, P_h - row0), in_tile = row0 % tile;
+  const int run0 = min(rows, tile - in_tile);
+  auto stage_prefix = [&](int t) {
+    int* dst = prefix + (size_t)(t & 1) * B8 * 4 * R;
+    if (lane == 0)
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              smem_u32(bar + 1)),
+          "r"(16 * B * rows)
+          : "memory");
+    __syncwarp();
+#pragma unroll 1
+    for (int q = lane; q < 4 * B; q += 32) {
+      const int b = q >> 2, gate = q & 3;
+      const int* src = acc_x + (((size_t)t * B + b) * (P_h / tile) +
+                                row0 / tile) * 4 * tile + gate * tile;
+      int* d = dst + (b * 4 + gate) * R;
+      lstm_q::bulk_copy(d, src + in_tile, 4 * run0, bar + 1);
+      if (rows > run0)
+        lstm_q::bulk_copy(d + run0, src + 4 * tile, 4 * (rows - run0),
+                          bar + 1);
     }
-    if (d + 1 < D) grid.sync();
+  };
+  if (!inner && producer) stage_prefix(0);
+  // layer 0 waits for each step's prefix at the end of the step before, so
+  // the producer arms the next phase only after every dot warp saw this one
+  if (!inner && !producer) mbar_wait(bar + 1, 0);
+  cp_async_wait_all();
+  clk.sync_lap(0);   // a barrier: the prologue's requests are in
+
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+    if (producer) {
+      // each plane as soon as its producers counted it
+      if (lane == 0) {
+        bool own_ready = t == 0, below_ready = !inner;
+        const long long since = clock64();
+        while (!own_ready || !below_ready) {
+          spin_guard(since);
+          if (!below_ready &&
+              load_acquire(p_below) >= (unsigned)((t + 1) * cpl)) {
+            below_ready = true;
+            async_proxy_fence();
+            bulk_load(below, xch_below + t * xch_n, (uint32_t)xch_n,
+                      bar + 1);
+          }
+          if (!own_ready && load_acquire(p_own) >= (unsigned)(t * cpl)) {
+            own_ready = true;
+            async_proxy_fence();
+            bulk_load(own, xch_own + (t - 1) * xch_n, (uint32_t)xch_n, bar);
+          }
+        }
+      }
+      // a step ahead: layer 0's prefix, and the mask row (read after the
+      // step's barrier)
+      if (t + 1 < T) {
+        if (!inner) stage_prefix(t + 1);
+        lstm_q::load_mask(smem, Q, mask, t + 1, B, lane, 32);
+      }
+    } else {
+      // the below-h tiles, before h_{t-1} lands
+      if (inner) {
+        mbar_wait(bar + 1, t & 1);
+#pragma unroll 1
+        for (int task = pair; task < Q.tasks; task += pairs) {
+          const int grp = task % Q.groups, s0 = (task / Q.groups) * 8;
+          const int8_t* hb = below + (size_t)(s0 + g) * Q.sp + 4 * t4;
+          int chain[4] = {0, 0, 0, 0};
+          lstm_q::hop_tiles(
+              chain, lstm_q::a_lane(w_s + fam + (grp * 32 + half * 16) * Q.sw,
+                                    Q.sw, lane),
+              Q.kp, cols, [&](int c, int k, unsigned b[2]) {
+                const int8_t* p = hb + c * tile + k;
+                b[0] = *reinterpret_cast<const unsigned*>(p);
+                b[1] = *reinterpret_cast<const unsigned*>(p + 16);
+              });
+          spill[(task * 2 + half) * 32 + lane] = lstm_q::pack_chain(chain);
+        }
+      }
+      clk.lap(1);
+      if (t > 0) mbar_wait(bar, (t - 1) & 1);
+      clk.lap(2);
+      // the own-h tiles, then the epilogue, task by task
+      const unsigned char* mask_s = lstm_q::mask_row(smem, Q, t);
+      int round = 0;
+#pragma unroll 1
+      for (int task = pair; task < Q.tasks; task += pairs, ++round) {
+        const int grp = task % Q.groups, s0 = (task / Q.groups) * 8;
+        const int8_t* hb = own + (size_t)(s0 + g) * Q.sp + 4 * t4;
+        int chain[4];
+        if (inner) {
+          lstm_q::unpack_chain(spill[(task * 2 + half) * 32 + lane], chain);
+        } else {
+          // element i: gate 2 half + i / 2, stream s0 + 2 t4 + i % 2
+          const int* v = prefix + (size_t)(t & 1) * B8 * 4 * R +
+                         ((s0 + 2 * t4) * 4 + 2 * half) * R + grp * 8 + g;
+          chain[0] = v[0];
+          chain[1] = v[4 * R];
+          chain[2] = v[R];
+          chain[3] = v[5 * R];
+        }
+        lstm_q::hop_tiles(
+            chain, lstm_q::a_lane(w_s + (grp * 32 + half * 16) * Q.sw, Q.sw,
+                                  lane),
+            Q.kp, cols, [&](int c, int k, unsigned b[2]) {
+              const int8_t* p = hb + c * tile + k;
+              b[0] = *reinterpret_cast<const unsigned*>(p);
+              b[1] = *reinterpret_cast<const unsigned*>(p + 16);
+            });
+        clk.lap(3);
+        int acc[4];
+        lstm_q::trade(slots, pair, half, round, lane, chain, acc);
+        const int r = grp * 8 + g, n = row0 + r, b = s0 + 2 * t4 + half;
+        if (n < P_h && b < B) {
+          const lstm_q::Codes q = lstm_q::state_update(
+              acc, c_s[r * B8 + b], own[(size_t)b * Q.sp + n],
+              mask_s[b] != 0, bias_s, peep_s, R, r, lut_s);
+          c_s[r * B8 + b] = q.c;
+          const size_t o = ((size_t)l * T + t) * plane_n + (size_t)b * P_h + n;
+          hs[o] = q.h;
+          cs[o] = q.c;
+          xch[((size_t)l * T + t) * xch_n + (size_t)b * Q.sp + n] = q.h;
+        }
+      }
+      if (!inner && t + 1 < T) mbar_wait(bar + 1, (t + 1) & 1);
+    }
+    // a barrier: every h_t row of this CTA is written; both planes are free
+    clk.sync_lap(4);
+    // the top layer's last step feeds no one
+    if (producer && lane == 0 && (t + 1 < T || l + 1 < L)) publish(p_own);
   }
+  if (producer && lane == 0) finish(counters, L, gridDim.x);
+  clk.save(T);
+}
+
+int set_smem(size_t smem) {
+  return cudaFuncSetAttribute(lstm_stack_seq_q_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 }  // namespace
@@ -186,40 +295,47 @@ int lstm_stack_seq_q_occupancy(int device, int B, int P_h, int tile, int L,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   (void)L;
-  const size_t smem = smem_bytes(B, P_h, tile, R);
-  e = cudaFuncSetAttribute(lstm_stack_seq_q_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+  const QLayout Q = q_layout(B, P_h, tile, R);
+  e = (cudaError_t)set_smem(Q.total);
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, lstm_stack_seq_q_kernel, kThreads, smem);
+      blocks_per_sm, lstm_stack_seq_q_kernel, lstm_q::threads(Q), Q.total);
 }
 
+// counters: zero, (L + 1) * kCounterStride words, used by no concurrent
+// launch (the wrapper keeps one buffer per device and stream).
+// xch: scratch of L * T * B * sp bytes, 16-byte aligned; w_in and w_h
+// 4-byte aligned.
 int lstm_stack_seq_q_launch(int device, const int* acc_x,
                             const int8_t* w_in, const int8_t* w_h,
                             const int8_t* peep, const int16_t* bias,
                             const int8_t* sig_lut, const int8_t* tanh_lut,
                             const int8_t* h0, const int8_t* c0,
                             const unsigned char* mask, int8_t* hs,
-                            int8_t* cs, int T, int B, int P_h, int tile,
-                            int L, int R, void* stream) {
+                            int8_t* cs, int8_t* xch, unsigned* counters,
+                            int T, int B, int P_h, int tile, int L, int R,
+                            void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  const size_t smem = smem_bytes(B, P_h, tile, R);
-  e = cudaFuncSetAttribute(lstm_stack_seq_q_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+  const QLayout Q = q_layout(B, P_h, tile, R);
+  e = (cudaError_t)set_smem(Q.total);
   if (e != cudaSuccess) return e;
   int cpl = (P_h + R - 1) / R;             // CTAs per layer
   void* args[] = {&acc_x, &w_in, &w_h, &peep, &bias, &sig_lut, &tanh_lut,
-                  &h0, &c0, &mask, &hs, &cs, &T, &B, &P_h, &tile, &L, &R,
-                  &cpl};
+                  &h0, &c0, &mask, &hs, &cs, &xch, &counters, &T, &B, &P_h,
+                  &tile, &L, &R, &cpl};
   e = cudaLaunchCooperativeKernel((const void*)lstm_stack_seq_q_kernel,
-                                  dim3(L * cpl), dim3(kThreads), args, smem,
-                                  (cudaStream_t)stream);
+                                  dim3(L * cpl), dim3(lstm_q::threads(Q)),
+                                  args, Q.total, (cudaStream_t)stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
+
+#ifdef CLOCK_STAMPS
+int lstm_stack_seq_q_clock_stamps(void* host, int n_ctas) {
+  return copy_stamps(host, n_ctas);
+}
+#endif
 
 const char* kernel_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);

@@ -4,9 +4,10 @@
 int8 silicon datapath, ``csrc/lstm_seq_q.cu``) launch their kernels on CUDA
 tensors (a cooperative launch on PyTorch's current stream) and run their
 plain versions (``ref``) on CPU tensors; there is no fallback between the
-two.  K1 and K2 pass their step counters (``step_counters``: one zeroed
-buffer per device and stream, which each launch leaves zero) and a scratch
-for h_t k-major (``exchange_planes``).  ``seq_geometry`` and
+two.  K1-K4 pass their step counters (``step_counters``: one zeroed buffer
+per device and stream, which each launch leaves zero) and a scratch for the
+h_t planes the CTAs exchange (K1/K2: ``exchange_planes``, k-major f32;
+K3/K4: ``q_exchange_planes``, int8 codes on 16-byte rows).  ``seq_geometry`` and
 ``seq_q_geometry`` are the launch geometries as pure functions of shapes,
 which backend selection reads to decide admissibility without touching the
 card.
@@ -213,30 +214,93 @@ lstm_seq.launches = 0
 # ---------------------------------------------------------------------------
 
 def check_tile(tile: int) -> None:
-    """The int8 kernels read a tile as whole ``char4`` words (``__dp4a``)."""
+    """The int8 kernels read a tile's codes as whole 4-byte words."""
     if tile % 4:
         raise ValueError(f'the int8 kernels need a tile that is a multiple '
                          f'of 4, got {tile}')
 
 
+Q_GROUP = 8          # hidden rows of a row group (``kGroup``)
+Q_CHUNK = 8          # streams of an n8 chunk (``kChunk``)
+Q_MAX_DOT_WARPS = 8  # ``kMaxDotWarps``
+
+
+def q_row_stride(nbytes: int) -> int:
+    """K3/K4's shared-memory row stride for ``nbytes`` of a row: an odd
+    multiple of 16 bytes (``row_stride`` in ``csrc/lstm_q_epilogue.cuh``),
+    so a fragment load's 8 rows fall in 8 distinct bank groups."""
+    return _round_up(nbytes, 32) + 16
+
+
+def q_dot_warps(rows: int, batch: int) -> int:
+    """K3/K4's dot warps: a pair a (row group, 8-stream chunk) task, one
+    m-tile (two gates) each, at most 8."""
+    return min(Q_MAX_DOT_WARPS, 2 * (rows // Q_GROUP) * -(-batch // Q_CHUNK))
+
+
+def q_threads(rows: int, batch: int) -> int:
+    """Threads of one K3/K4 CTA: the dot warps, then a producer warp."""
+    return 32 * (1 + q_dot_warps(rows, batch))
+
+
+def q_smem_bytes(batch: int, padded_h: int, tile: int, rows: int,
+                 cols: int, families: int, planes: int, padded_x: int = 0,
+                 prefix: bool = False) -> int:
+    """Shared memory of one K3 (``families`` 1 of ``cols`` = cols_x +
+    cols_h column tiles, ``planes`` 1, two steps' x planes of
+    ``padded_x``) or K4 CTA (2 families of cols_h tiles, 2 planes, no x
+    plane, layer 0's acc_x ``prefix``), the formula of ``layout`` in
+    ``csrc/lstm_q_epilogue.cuh``: two mbarriers (a 128-byte line); each h
+    plane (streams rounded up to 8, at ``q_row_stride(padded_h)``, 32 bytes
+    of slack, to a 128-byte line); the x planes the same way; each family's
+    4 * ``rows`` weight rows (every column tile padded to a multiple of 32
+    k, at ``q_row_stride``); an 8-byte hop chain per lane, task and
+    m-tile; K4: two steps' 4 int32 of prefix per lane, task and m-tile; two
+    rounds of 8 bytes per lane of each dot warp, which a pair trades; c
+    codes, bias (int16) and peep of the rows; two mask rows; both LUTs."""
+    chunks = -(-batch // Q_CHUNK)
+    plane = lambda n: _round_up(Q_CHUNK * chunks * q_row_stride(n) + 32, 128)
+    return (128 + planes * plane(padded_h)
+            + (2 * plane(padded_x) if padded_x else 0)
+            + families * 4 * rows * q_row_stride(cols * _round_up(tile, 32))
+            + (80 if prefix else 16) * 32 * (rows // Q_GROUP) * chunks
+            + 16 * 32 * q_dot_warps(rows, batch)
+            + _round_up(rows * Q_CHUNK * chunks, 16) + _round_up(11 * rows, 16)
+            + 2 * _round_up(Q_CHUNK * chunks, 16) + 512)
+
+
+def q_exchange_planes(n_layers: int, steps: int, batch: int, padded_h: int,
+                      device) -> torch.Tensor:
+    """K3/K4's scratch for h_t, what later steps stage by one bulk copy:
+    (L, T, B, ``q_row_stride(padded_h)``) int8 codes (16-byte rows, whatever
+    padded_h), from PyTorch's caching allocator (no launch)."""
+    return torch.empty((n_layers, steps, batch, q_row_stride(padded_h)),
+                       dtype=torch.int8, device=device)
+
+
+def word_aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it when its data is not 4-byte aligned (a view at
+    an odd offset): the int8 kernels read codes and weights as words."""
+    return x if x.data_ptr() % 4 == 0 else x.clone()
+
+
 def seq_q_geometry(padded_x: int, padded_h: int, tile: int, batch: int,
                    sm_count: int) -> LaunchGeometry:
-    """K3's geometry: R = ceil(padded_h / SMs) output rows per CTA; shared
-    memory holds the CTA's tile partials (int32, 4*R*B*C), its 4*R int8
-    weight rows over every column tile, the packed ``[x_t | h_{t-1}]``
-    codes of every stream, both LUTs and the c codes (same formula as
-    ``smem_bytes`` in the source)."""
-    p_in = padded_x + padded_h
-    rows = max(1, -(-padded_h // sm_count))
+    """K3's geometry: row groups of 8 of the padded_h rows, R = 8 *
+    ceil(groups / SMs) rows per CTA (one row group, 60 CTAs at full
+    width), one CTA per row slice; shared memory as ``q_smem_bytes`` with
+    one family of every column tile and one h plane."""
+    groups = -(-padded_h // Q_GROUP)
+    rows = Q_GROUP * -(-groups // sm_count)
     ctas = -(-padded_h // rows)
-    smem = (16 * rows * batch * (p_in // tile) + 4 * rows * p_in
-            + batch * p_in + 512 + rows * batch)
-    return LaunchGeometry(rows, ctas, smem)
+    return LaunchGeometry(rows, ctas, q_smem_bytes(
+        batch, padded_h, tile, rows, (padded_x + padded_h) // tile, 1, 1,
+        padded_x))
 
 
 _SIGNATURES_Q = {
     'lstm_seq_q_occupancy': [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
-    'lstm_seq_q_launch': [_I] + [_P] * 11 + [_I] * 6 + [_P],
+    'lstm_seq_q_launch': [_I] + [_P] * 13 + [_I] * 6 + [_P],
 }
 
 
@@ -295,11 +359,17 @@ def lstm_seq_quantized(xs_q: torch.Tensor, w_q: torch.Tensor,
         raise RuntimeError(f'lstm_seq_quantized: launch geometry {geom} does '
                            f'not fit the card (padded_h={p_h}, B={B})')
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # held until the launch is queued: freed earlier, a block could become
+    # the stream's new counters
+    xs_w, w_w = word_aligned(xs_q), word_aligned(w_q)
+    xch = q_exchange_planes(1, T, B, p_h, dev)
     err = lib.lstm_seq_q_launch(
-        dev.index, xs_q.data_ptr(), w_q.data_ptr(), peep_q.data_ptr(),
+        dev.index, xs_w.data_ptr(), w_w.data_ptr(), peep_q.data_ptr(),
         bias_q.data_ptr(), sig_lut.data_ptr(), tanh_lut.data_ptr(),
         h0_q.data_ptr(), c0_q.data_ptr(), mask.data_ptr(), hs.data_ptr(),
-        cs.data_ptr(), T, B, p_x, p_h, tile, geom.rows, stream)
+        cs.data_ptr(), xch.data_ptr(),
+        step_counters(dev, stream, 1).data_ptr(), T, B, p_x, p_h, tile,
+        geom.rows, stream)
     _build.check(lib, err, 'lstm_seq_quantized launch')
     lstm_seq_quantized.launches += 1
     return hs, cs

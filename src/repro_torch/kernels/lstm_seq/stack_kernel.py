@@ -17,9 +17,10 @@ import ctypes
 import torch
 
 from .. import _build
-from .kernel import (LaunchGeometry, check_inputs, check_tile,
-                     coresident_ctas, exchange_planes, seq_smem_bytes,
-                     step_counters)
+from .kernel import (Q_GROUP, LaunchGeometry, check_inputs, check_tile,
+                     coresident_ctas, exchange_planes, q_exchange_planes,
+                     q_smem_bytes, seq_smem_bytes, step_counters,
+                     word_aligned)
 from .ref import lstm_stack_seq_quantized_ref, lstm_stack_seq_ref
 
 
@@ -106,25 +107,25 @@ lstm_stack_seq_kernel.launches = 0
 
 def stack_q_geometry(padded_h: int, tile: int, n_layers: int, batch: int,
                      sm_count: int) -> LaunchGeometry:
-    """K4's geometry: CTAs own (layer, row-slice) pairs, with R the smallest
-    row count such that ``L * ceil(padded_h / R)`` CTAs fit on the SMs;
-    shared memory holds the CTA's tile partials (int32, 4*R*B*2*cols_h), its
-    4*R int8 weight rows over both regions (below-h, own-h), the two h
-    planes it reads, both LUTs and the c codes (same formula as
-    ``smem_bytes`` in the source)."""
-    rows = max(1, -(-padded_h * n_layers // sm_count))
-    while rows < padded_h and n_layers * -(-padded_h // rows) > sm_count:
-        rows += 1
+    """K4's geometry: CTAs own (layer, row-slice) pairs of whole row groups
+    of 8, with R the smallest such row count that fits ``L *
+    ceil(padded_h / R)`` CTAs on the SMs (R = 16, 90 CTAs at full width);
+    shared memory as ``q_smem_bytes`` with two families (own-h and below-h
+    weights, cols_h column tiles each), two h planes and layer 0's acc_x
+    prefix."""
+    groups = -(-padded_h // Q_GROUP)
+    per = max(1, -(-groups * n_layers // sm_count))
+    while per < groups and n_layers * -(-groups // per) > sm_count:
+        per += 1
+    rows = Q_GROUP * per
     ctas = n_layers * -(-padded_h // rows)
-    k2 = 2 * padded_h
-    smem = (16 * rows * batch * (k2 // tile) + 4 * rows * k2 + batch * k2
-            + 512 + rows * batch)
-    return LaunchGeometry(rows, ctas, smem)
+    return LaunchGeometry(rows, ctas, q_smem_bytes(
+        batch, padded_h, tile, rows, padded_h // tile, 2, 2, prefix=True))
 
 
 _SIGNATURES_Q = {
     'lstm_stack_seq_q_occupancy': [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
-    'lstm_stack_seq_q_launch': [_I] + [_P] * 12 + [_I] * 6 + [_P],
+    'lstm_stack_seq_q_launch': [_I] + [_P] * 14 + [_I] * 6 + [_P],
 }
 
 
@@ -187,11 +188,19 @@ def lstm_stack_seq_kernel_q(acc_x: torch.Tensor, w_in: torch.Tensor,
                            f'does not fit the card (padded_h={p_h}, L={L}, '
                            f'B={B})')
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # held until the launch is queued: freed earlier, a block could become
+    # the stream's new counters
+    w_in_w, w_h_w = word_aligned(w_in), word_aligned(w_h)
+    # staged by bulk copies: a 16-byte aligned copy where it is not
+    acc_w = acc_x if acc_x.data_ptr() % 16 == 0 else acc_x.clone()
+    xch = q_exchange_planes(L, T, B, p_h, dev)
     err = lib.lstm_stack_seq_q_launch(
-        dev.index, acc_x.data_ptr(), w_in.data_ptr(), w_h.data_ptr(),
+        dev.index, acc_w.data_ptr(), w_in_w.data_ptr(), w_h_w.data_ptr(),
         peep.data_ptr(), bias.data_ptr(), sig_lut.data_ptr(),
         tanh_lut.data_ptr(), h0.data_ptr(), c0.data_ptr(), mask.data_ptr(),
-        hs.data_ptr(), cs.data_ptr(), T, B, p_h, tile, L, geom.rows, stream)
+        hs.data_ptr(), cs.data_ptr(), xch.data_ptr(),
+        step_counters(dev, stream, L).data_ptr(), T, B, p_h, tile, L,
+        geom.rows, stream)
     _build.check(lib, err, 'lstm_stack_seq_kernel_q launch')
     lstm_stack_seq_kernel_q.launches += 1
     return hs, cs

@@ -108,32 +108,61 @@ def test_debug_defines_build_a_library_of_their_own(tmp_path, monkeypatch):
     assert _build._target('k') == plain
 
 
-@pytest.mark.parametrize('name', ['lstm_seq', 'lstm_stack_seq'])
+# sequence kernel -> the calls it makes into the shared headers: the step
+# exchange (all four), then K1/K2's f32 operands and dot or K3/K4's int8
+# tile MACs
+EXCHANGE_CALLS = ('publish(', 'load_acquire(', 'finish(', 'bulk_load(',
+                  'async_proxy_fence(')
+SEQ_CALLS = {
+    'lstm_seq': ('request_k_major(', 'family_sums(', 'gate_sum('),
+    'lstm_stack_seq': ('request_k_major(', 'family_sums(', 'gate_sum('),
+    'lstm_seq_q': ('lstm_q::stage_weights(', 'lstm_q::hop_tiles(',
+                   'lstm_q::state_update('),
+    'lstm_stack_seq_q': ('lstm_q::stage_weights(', 'lstm_q::hop_tiles(',
+                         'lstm_q::state_update('),
+}
+
+
+@pytest.mark.parametrize('name', sorted(SEQ_CALLS))
 def test_f32_sequence_kernels_share_one_exchange_header(name):
-    """K1 and K2 exchange their steps through ``lstm_exchange.cuh``
-    (counters published with release and awaited with acquire, planes
-    staged by bulk copies, the dot over k-major operands) and spell out
-    neither that protocol nor a grid barrier of their own."""
+    """K1-K4 exchange their steps through ``lstm_exchange.cuh`` (counters
+    published with release and awaited with acquire, planes staged by bulk
+    copies) and spell out neither that protocol nor a grid barrier of their
+    own; K1/K2 take their dot from it, K3/K4 their tile MACs from
+    ``lstm_q_epilogue.cuh``."""
     header = (_build.CSRC / 'lstm_exchange.cuh').read_text()
     for op in ('red.release.gpu', 'ld.acquire.gpu', 'fence.proxy.async',
                'cp.async.bulk', 'atom.acq_rel.gpu'):
         assert op in header, op
     src = (_build.CSRC / f'{name}.cu').read_text()
     assert '#include "lstm_exchange.cuh"' in src
-    for call in ('publish(', 'load_acquire(', 'finish(', 'bulk_load(',
-                 'request_k_major(', 'family_sums(', 'gate_sum('):
+    for call in EXCHANGE_CALLS + SEQ_CALLS[name]:
         assert call in src, call
     for body in ('red.release', 'ld.acquire', 'atom.', 'fence.proxy',
-                 'cp.async.bulk',
+                 'cp.async.bulk', 'mma.sync', 'ldmatrix',
                  'atomicAdd', 'this_grid', '.sync()', 'cooperative_groups'):
         assert body not in src, body
 
 
+def test_int8_tile_macs_run_on_the_tensor_cores():
+    """K3/K4's tile MACs are ``mma.sync`` s8 instructions with an exact
+    int32 sum (no ``.satfinite``), written once in the int8 header; no
+    ``__dp4a`` tile loop is left in either source."""
+    header = (_build.CSRC / HEADER).read_text()
+    assert 'mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32' in header
+    assert 'col.satfinite' not in header and '__dp4a' not in header
+    assert 'ldmatrix.sync.aligned.m8n8.x4.shared.b16' in header
+    for name in INT8_SOURCES:
+        src = (_build.CSRC / f'{name}.cu').read_text()
+        assert '__dp4a' not in src and 'part_s' not in src, name
+
+
 @pytest.mark.parametrize('name', ['flash_attention', 'quant_matmul',
                                   'lstm_gates_rec', 'lstm_seq',
-                                  'lstm_stack_seq'])
+                                  'lstm_stack_seq', 'lstm_seq_q',
+                                  'lstm_stack_seq_q'])
 def test_clock_stamps_only_in_debug_builds(name):
-    """K1, K2, K5/K6, K7 and K8 time their phases with the shared
+    """K1-K4, K5/K6, K7 and K8 time their phases with the shared
     ``clock_stamps.cuh``; its export exists only under ``CLOCK_STAMPS``."""
     src = (_build.CSRC / f'{name}.cu').read_text()
     assert '#include "clock_stamps.cuh"' in src

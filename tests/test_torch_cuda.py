@@ -32,7 +32,8 @@ from repro_torch.core import systolic as tsys
 from repro_torch.kernels.lstm_seq import (lstm_seq, lstm_seq_quantized,
                                           lstm_seq_quantized_ref,
                                           lstm_seq_ref, seq_geometry,
-                                          stack_geometry,
+                                          seq_q_geometry, stack_geometry,
+                                          stack_q_geometry,
                                           lstm_stack_seq_kernel,
                                           lstm_stack_seq_kernel_q,
                                           lstm_stack_seq_quantized_auto,
@@ -371,6 +372,193 @@ def test_int8_auto_picks_fused_at_full_width(dev):
                                                 device=dev) == 'fused'
     assert tlstm.select_quantized_stack_backend(421, 3, 4, 8,
                                                 device=dev) == 'layerwise'
+
+
+# ----------------------------------- K3 and K4 at full width: new hazards
+Q_KERNELS = ('k3', 'k4')
+
+
+def _q_stack(n_x, n_h, tile, n_layers, dev, seed):
+    """``n_layers`` quantized layers on ``SystolicPlan(., n_h, tile)`` from
+    numpy weights drawn from ``seed``."""
+    rng = np.random.RandomState(seed)
+    qps = []
+    for l in range(n_layers):
+        nx = n_x if l == 0 else n_h
+        u = lambda *s: torch.from_numpy(
+            rng.uniform(-1, 1, s).astype(np.float32)).to(dev)
+        lp = tlstm.LSTMParams(w_x=u(4, n_h, nx), w_h=u(4, n_h, n_h),
+                              w_peep=u(3, n_h) * 0.5, b=u(4, n_h) * 0.5)
+        qps.append(tsys.quantize_packed(tsys.pack_lstm(
+            lp, tsys.SystolicPlan(nx, n_h, tile))))
+    return qps
+
+
+def _q_args(kernel, T, B, dev, seed=0, n_x=123, n_h=421, tile=96,
+            n_layers=3):
+    """(fn, ref, args, kw) of K3 (``kernel`` 'k3', layer 0 of the stack)
+    or K4 ('k4', ``n_layers`` layers) on weights quantized from numpy at
+    ``seed``: random frame codes, a ragged mask (a full and an empty stream
+    where B allows), carried codes over the whole int8 range."""
+    qps = _q_stack(n_x, n_h, tile, n_layers, dev, seed)
+    rng = np.random.RandomState(seed + 1)
+    lens = rng.randint(1, T + 1, size=B)
+    lens[0] = T
+    if B > 1:
+        lens[1] = 0
+    mask = torch.from_numpy(np.arange(T)[:, None] < lens[None, :]).to(dev)
+    code = lambda *s: torch.from_numpy(
+        rng.randint(-128, 128, s).astype(np.int8)).to(dev)
+    p0 = qps[0].plan
+    xq = code(T, B, p0.n_x)
+    if kernel == 'k3':
+        xs_pad = torch.zeros((T, B, p0.padded_x), dtype=torch.int8,
+                             device=dev)
+        xs_pad[..., :p0.n_x] = xq
+        return lstm_seq_quantized, lstm_seq_quantized_ref, [
+            xs_pad, *_dense_from_tiles(qps[0]), qps[0].sig_lut,
+            qps[0].tanh_lut, code(B, p0.padded_h), code(B, p0.padded_h),
+            mask], dict(tile=tile, cols_x=p0.cols_x)
+    wts = stack_kernel_weights_q(qps)
+    L = n_layers
+    return lstm_stack_seq_kernel_q, lstm_stack_seq_quantized_ref, [
+        tsys.quantized_x_prefix(qps[0], xq).contiguous(), wts.w_in, wts.w_h,
+        wts.peep, wts.bias, wts.sig_lut, wts.tanh_lut,
+        code(L, B, p0.padded_h), code(L, B, p0.padded_h), mask], dict(
+            tile=tile)
+
+
+def _q_max_batch(kernel, dev, n_x=123, n_h=421, tile=96, n_layers=3):
+    """The largest B the int8 kernel's geometry admits on this card."""
+    sms = _sms(dev)
+    plan = tsys.SystolicPlan(n_x, n_h, tile)
+    geom = ((lambda B: seq_q_geometry(plan.padded_x, plan.padded_h, tile, B,
+                                      sms)) if kernel == 'k3' else
+            (lambda B: stack_q_geometry(plan.padded_h, tile, n_layers, B,
+                                        sms)))
+    return max(B for B in range(1, 1024) if geom(B).admissible(sms))
+
+
+def _q_assert_equals_plain(fn, ref, args, kw):
+    n0 = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    for g, w in zip(got, ref(*args, **kw)):
+        assert g.dtype == torch.int8 and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize('T', [1, 16, 64])
+@pytest.mark.parametrize('kernel', Q_KERNELS)
+def test_int8_kernels_at_one_and_many_steps(dev, kernel, T):
+    """One step (no exchange at all), the serving chunk and 64 steps (the
+    counters pass 64 * CTAs): ``torch.equal`` on the h and c codes."""
+    _q_assert_equals_plain(*_q_args(kernel, T, 8, dev, seed=T))
+
+
+@pytest.mark.parametrize('B', [1, 5, 8, 11, 'max'])
+@pytest.mark.parametrize('kernel', Q_KERNELS)
+def test_int8_kernels_at_each_batch(dev, kernel, B):
+    """B = 1 and 5 (one n8 chunk, zero streams padded), 8, 11 (two
+    chunks) and the largest B the geometry admits (several chunks a dot
+    warp)."""
+    B = _q_max_batch(kernel, dev) if B == 'max' else B
+    _q_assert_equals_plain(*_q_args(kernel, 16, B, dev, seed=B))
+
+
+@pytest.mark.parametrize('tile', [16, 20, 36, 96])
+@pytest.mark.parametrize('kernel', Q_KERNELS)
+def test_int8_kernels_at_each_tile(dev, kernel, tile):
+    """Tile 16 (the CPU tests' tile), 20 (x rows of 140 bytes: staged by
+    4-byte copies, not bulk copies), 36 (not a multiple of 32: each column
+    tile's k padded to 64 with zeros) and 96 (the silicon's)."""
+    _q_assert_equals_plain(*_q_args(kernel, 16, 8, dev, seed=tile,
+                                    tile=tile))
+
+
+@pytest.mark.parametrize('kernel', Q_KERNELS)
+def test_int8_kernels_at_the_smoke_width(dev, kernel):
+    """The smoke config's widths (n_x 13, n_h 32 on one row tile of 96, so
+    64 padded rows), two layers."""
+    _q_assert_equals_plain(*_q_args(kernel, 16, 8, dev, seed=32, n_x=13,
+                                    n_h=32, n_layers=2))
+
+
+@pytest.mark.parametrize('kernel', Q_KERNELS)
+def test_int8_kernels_take_state_views_at_offset_one(dev, kernel):
+    """h0 and c0 as contiguous views at a storage offset of one byte: the
+    same bits as aligned copies."""
+    fn, ref, args, kw = _q_args(kernel, 16, 8, dev, seed=4)
+    views = list(args)
+    for i in (-3, -2):
+        buf = torch.empty(args[i].numel() + 1, dtype=torch.int8, device=dev)
+        v = buf[1:].view(args[i].shape)
+        v.copy_(args[i])
+        assert v.data_ptr() % 16 == 1
+        views[i] = v
+    for a, b in zip(fn(*args, **kw), fn(*views, **kw)):
+        assert torch.equal(a, b)
+    _q_assert_equals_plain(fn, ref, views, kw)
+
+
+@pytest.mark.parametrize('kernel', Q_KERNELS)
+def test_int8_kernels_back_to_back_equal_synchronized_launches(dev, kernel):
+    """32 launches on one stream without a host sync, each on other carried
+    codes, reusing the stream's step counters and the allocator's scratch:
+    the bits of the same 32 launches with a synchronize around each."""
+    fn, ref, args, kw = _q_args(kernel, 16, 8, dev, seed=5)
+    inputs = [args[:-3] + [torch.roll(args[-3], i, -1)] + args[-2:]
+              for i in range(32)]
+    torch.cuda.synchronize()
+    n0 = fn.launches
+    queued = [fn(*a, **kw) for a in inputs]
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 32
+    for a, (hs, cs) in zip(inputs, queued):
+        torch.cuda.synchronize()
+        h1, c1 = fn(*a, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(hs, h1) and torch.equal(cs, c1)
+
+
+@pytest.mark.parametrize('kernel', Q_KERNELS)
+def test_int8_kernels_on_two_streams(dev, kernel):
+    """Launches on two streams at once (each stream its own counters): each
+    gives the bits of the same launch alone on the default stream."""
+    fn, ref, args, kw = _q_args(kernel, 16, 8, dev, seed=6)
+    other = args[:-3] + [-args[-3]] + args[-2:]
+    alone = [fn(*args, **kw), fn(*other, **kw)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    both = []
+    for s, a in zip(streams, (args, other)):
+        with torch.cuda.stream(s):
+            both.append(fn(*a, **kw))
+    torch.cuda.synchronize()
+    for (h, c), (h1, c1) in zip(alone, both):
+        assert torch.equal(h, h1) and torch.equal(c, c1)
+
+
+@pytest.mark.parametrize('kernel', Q_KERNELS)
+def test_int8_kernels_same_inputs_same_bits(dev, kernel):
+    """The same inputs twice give the same bits."""
+    fn, _, args, kw = _q_args(kernel, 16, 8, dev, seed=7)
+    for a, b in zip(fn(*args, **kw), fn(*args, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('kernel', Q_KERNELS)
+def test_int8_kernels_see_a_weight_written_just_before(dev, kernel):
+    """An in-place write of the own-h weights on the stream just before a
+    launch is seen by it."""
+    fn, ref, args, kw = _q_args(kernel, 16, 8, dev, seed=8)
+    w = args[1] if kernel == 'k3' else args[2]
+    stale = fn(*args, **kw)
+    w.copy_(torch.from_numpy(np.random.RandomState(9).randint(
+        -32, 32, w.shape).astype(np.int8)).to(dev))
+    got = _q_assert_equals_plain(fn, ref, args, kw)
+    assert not torch.equal(stale[0], got[0])
 
 
 # ------------------------------------------------------- training path (K5)

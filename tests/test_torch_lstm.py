@@ -23,10 +23,11 @@ from repro_torch.core import lstm as tlstm  # noqa: E402
 from repro_torch.kernels.lstm_seq import (lstm_layer_seq, lstm_seq,  # noqa: E402
                                           lstm_stack_seq,
                                           lstm_stack_seq_kernel,
-                                          seq_geometry, stack_geometry,
+                                          seq_geometry, seq_q_geometry,
+                                          stack_geometry, stack_q_geometry,
                                           stack_kernel_weights)
 from repro_torch.kernels.lstm_seq.kernel import (  # noqa: E402
-    seq_threads, step_counters)
+    q_threads, seq_threads, step_counters)
 
 RTOL, ATOL = 1e-5, 1e-6
 N_X, N_H = 13, 32
@@ -246,6 +247,49 @@ def test_launch_geometry_at_full_width():
     assert not stack_geometry(421, 3, 64, 132).admissible(132)
     # a grid larger than the co-resident CTAs is refused
     assert not k2.admissible(128)
+
+
+def test_int8_launch_geometry_at_full_width(monkeypatch):
+    """K3 and K4 on a 132-SM H100 at the int8 deploy's plans
+    (``SystolicPlan(123, 421, 96)``: padded_x 192, padded_h 480): rows,
+    CTAs, threads and shared memory, the largest batch each admits, and
+    dispatch to the layerwise chain above K4's largest."""
+    k3 = seq_q_geometry(192, 480, 96, 8, 132)
+    assert (k3.rows, k3.ctas) == (8, 60) and k3.admissible(132)
+    # mbarriers | one h plane (8 streams at 496 bytes, + 32, to 128) | two
+    # x planes (8 streams at 208 bytes) | 32 weight rows of 7 column tiles
+    # at 688 bytes | one task's chains (two m-tiles) | two dot warps' trade
+    # slots | c, bias + peep, two mask rows, LUTs
+    assert k3.smem_bytes == (128 + 4096 + 2 * 1792 + 32 * 688 + 512 + 1024
+                             + 64 + 96 + 2 * 16 + 512)
+    # one task (row group, chunk): a pair of dot warps, and the producer
+    assert q_threads(k3.rows, 8) == 32 * (2 + 1)
+    k4 = stack_q_geometry(480, 96, 3, 8, 132)
+    assert (k4.rows, k4.ctas) == (16, 90) and k4.admissible(132)
+    # two h planes, two weight families of 64 rows of 5 column tiles at 496
+    # bytes, two tasks' chains and two steps' acc_x prefixes, four dot
+    # warps' trade slots
+    assert k4.smem_bytes == (128 + 2 * 4096 + 2 * 64 * 496 + 1024 + 4096
+                             + 2048 + 128 + 176 + 2 * 16 + 512)
+    assert q_threads(k4.rows, 8) == 32 * (4 + 1)
+    # K3 is the layerwise chain's only kernel: it takes every batch the
+    # first K3 took (B <= 196); K4 at least K2's largest (24)
+    assert all(seq_q_geometry(192, 480, 96, B, 132).admissible(132)
+               for B in range(1, 197))
+    assert max(B for B in range(1, 1024)
+               if seq_q_geometry(192, 480, 96, B, 132).admissible(132)) == 208
+    k4_max = max(B for B in range(1, 1024)
+                 if stack_q_geometry(480, 96, 3, B, 132).admissible(132))
+    assert k4_max == 96
+    assert q_threads(16, k4_max) == 32 * (1 + 8)
+    # above K4's largest, ``auto`` on the card picks the layerwise chain
+    monkeypatch.setattr(torch.cuda, 'get_device_properties',
+                        lambda dev: type('P', (), {
+                            'multi_processor_count': 132})())
+    pick = lambda B: tlstm.select_quantized_stack_backend(
+        421, 3, 16, B, device='cuda', tile=96)
+    assert pick(8) == pick(k4_max) == 'fused'
+    assert pick(k4_max + 1) == 'layerwise'
 
 
 def test_step_counters_one_zeroed_buffer_per_stream():
