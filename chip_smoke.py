@@ -20,7 +20,23 @@ weights from a seed) and checks them:
    ``cuda_seq``, ``cuda_seq_fused`` and ``torch_scan``: the streams must
    agree across backends and with the monolithic ``forward``, and the
    launch counters must show L K1 launches per engine step on ``cuda_seq``
-   and one K2 launch per step on ``cuda_seq_fused``;
+   and one K2 launch per step on ``cuda_seq_fused``; then serves them again
+   on both kernel backends with async dispatch, and with the chunk-size
+   policy (boundaries stepping down 16, 8, 4, ...) sync and async: every
+   stream bit-equal to the sync fixed-chunk run, the launches per step
+   unchanged, no speculation squashed, and chunks launched before the one
+   ahead was committed in async mode only (``count_overlap``, which also
+   counts those launched before the chunk ahead's read-back completed);
+   then times the engine sync against async on both kernel backends, in
+   ``ENGINE_PAIRS`` pairs of turns, order alternating (``engine_timing``),
+   and, after 4a, on ``cuda_seq`` at 105 slots over 110 utterances of
+   50-300 frames;
+4a. F4, batch blocks (``f4_checks``): K1 at B = 105 and K2 at B = 25 (one
+   stream past their largest single launch) allclose to their plain
+   versions, every row bit-equal to a B = 8 launch that holds it; K3 on the
+   inner plan at B = 121 and K4 at B = 97 ``torch.equal`` to theirs; each
+   call two launches; and ``StreamingEngine(max_streams=105)`` on ``auto``
+   built and drained, every stream allclose to ``forward``;
 
 and then the int8 silicon path (the deployment of the reference's
 ``examples/speech_ctc.py``) on the same f32 weights, each layer quantized
@@ -92,7 +108,10 @@ counter set to 0 just before and read just after:
     ``split`` with n_splits), and a case in 128-row tiles also its time in
     64-row tiles.
 
-``--profile`` also traces one engine drain per f32 kernel backend, several
+``--profile`` also traces one engine drain per f32 kernel backend, sync
+and async (with ``readback_overlap``: the host's waits, and the chunks
+whose successor's LSTM kernel was enqueued before their log-prob copy
+completed), and at 105 slots on ``cuda_seq``, several
 int8 deploy passes per int8 backend, and one train step per kernel backend
 with ``torch.profiler``.  Two measurement modes run instead of the phases:
 ``--ab PARENT_SRC`` times K1 and K2 at the serving and training shapes
@@ -133,6 +152,14 @@ ENGINE_ATOL = 1e-4            # log-probs across backends / vs forward
 ENGINE_RTOL = 1e-4
 SLOTS, CHUNK = 8, 16          # the serving shape: B = slots, T = chunk
 REQUESTS, SEED = 12, 0        # utterances of 50-300 frames, weights seed
+ENGINE_DRAINS = 5             # timed drains per turn of ``engine_timing``
+ENGINE_PAIRS = 10             # (sync, async) pairs of turns, order alternating
+# F4: one stream past each kernel's largest single launch at N_h 421 (K1
+# 104, K2 24; K3 on the inner plan 120, K4 96), and an engine past K1's
+F4_BATCH = {'lstm_seq': 105, 'lstm_stack_seq_kernel': 25,
+            'lstm_seq_quantized': 121, 'lstm_stack_seq_kernel_q': 97}
+F4_SLOTS, F4_UTTERANCES = 105, 110
+F4_PAIRS = 5                  # engine_timing pairs at F4_SLOTS slots
 INT8_UTTERANCES = 8           # int8 deploy phase: utterances of 50-300 frames
 INT8_REPEATS = 7              # timed int8 deploy passes per backend
 INT8_PROFILE_PASSES = 10      # int8 deploy passes per traced window
@@ -384,63 +411,160 @@ def chunked_checks(params, B: int, chunk: int, rng, dev):
         check(same, f'chunked != monolithic on {backend}')
 
 
-def engine_runs(cfg, params, slots: int, chunk: int, utts):
-    """Serve the same utterances on the three backends; returns per-backend
-    results with the launch counts of the run."""
+def count_overlap(engine):
+    """Wrap ``engine``'s ``_launch`` and ``_commit`` to count, over a drain,
+    the chunks launched while the chunk launched just before was not yet
+    committed (the pipeline at work: under async dispatch every chunk but
+    the first of a fill; in sync mode none), and of those, the ones
+    launched while its log-prob copy had not yet completed on the device
+    (its event not fired: host issue overlapped device work).  Returns the
+    live counts."""
+    launch, commit = engine._launch, engine._commit
+    state = dict(prev=None, launched=0, pipelined=0, before_readback=0)
+
+    def counted_launch(*args, **kw):
+        rec = launch(*args, **kw)
+        prev = state['prev']
+        if prev is not None and not getattr(prev, 'committed', False):
+            state['pipelined'] += 1
+            state['before_readback'] += (prev.done is not None
+                                         and not prev.done.query())
+        state['prev'] = rec
+        state['launched'] += 1
+        return rec
+
+    def counted_commit(rec):
+        rec.committed = True
+        return commit(rec)
+
+    engine._launch, engine._commit = counted_launch, counted_commit
+    return state
+
+
+def serve_once(cfg, params, backend: str, utts, slots: int, chunk: int,
+               async_dispatch: bool = False, policy: bool = False):
+    """One drain of ``utts`` through ``launch.serve.StreamServer`` on
+    ``backend`` (``policy``: the chunk-size policy with an infinite budget,
+    ``ChunkSizePolicy(chunk_max=chunk, slack=1e9, patience=2)``, whose
+    boundaries step down 16, 8, 4, ...), the launch counters set to 0 just
+    before the drain and read just after.  Returns (log-probs per stream,
+    the run's numbers)."""
     from repro_torch.kernels.lstm_seq import lstm_seq, lstm_stack_seq_kernel
     from repro_torch.launch.serve import StreamServer
+    from repro_torch.runtime import ChunkSizePolicy
+    pol = (ChunkSizePolicy(chunk_max=chunk, slack=1e9, patience=2)
+           if policy else None)
+    server = StreamServer(cfg.replace(lstm_backend=backend), params,
+                          num_slots=slots, chunk=chunk,
+                          async_dispatch=async_dispatch, chunk_policy=pol)
+    eng = server.engine
+    check(eng.backend == backend, f'engine pinned {eng.backend}, asked for '
+          f'{backend}')
+    check(eng.async_dispatch == async_dispatch, 'engine dispatch mode')
+    overlap = count_overlap(eng) if backend != 'torch_scan' else None
+    sessions = [server.submit(u) for u in utts]
+    torch.cuda.synchronize()
+    lstm_seq.launches = 0
+    lstm_stack_seq_kernel.launches = 0
+    t0 = time.perf_counter()
+    server.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(lstm_seq=lstm_seq.launches,
+                    lstm_stack_seq_kernel=lstm_stack_seq_kernel.launches)
+    stats = eng.stats()
+    lps = [s.full_log_probs() for s in sessions]
+    for s, u, lp in zip(sessions, utts, lps):
+        check(lp.shape == (len(u), cfg.n_outputs) and
+              bool(np.isfinite(lp).all()), f'stream {s.sid} output')
+    res = dict(launches=launches, steps=stats['steps'],
+               frames=stats['frames'], wall_s=wall,
+               frames_per_s=stats['frames'] / wall,
+               p50_chunk_ms=stats['p50_chunk_s'] * 1e3,
+               events=stats['event_counts'])
+    if overlap is not None:
+        res.update(chunks_launched=overlap['launched'],
+                   launched_before_previous_commit=overlap['pipelined'],
+                   launched_before_previous_readback=overlap[
+                       'before_readback'])
+    if policy:
+        res['chunk_lens'] = sorted({c for c, _ in eng._policy.history},
+                                   reverse=True)
+    label = ('async' if async_dispatch else 'sync') + (
+        ', policy' if policy else '')
+    print(f'engine [{backend}, {label}]: {len(utts)} utterances, '
+          f'{stats["frames"]} frames, {slots} slots, chunk {chunk}, '
+          f'{stats["steps"]} steps in {wall:.3f} s: '
+          f'{stats["frames"] / wall:.1f} frames/s, p50 chunk '
+          f'{stats["p50_chunk_s"] * 1e3:.3f} ms, launches {launches}, '
+          f'events {stats["event_counts"]}'
+          + (f', chunk lengths {res["chunk_lens"]}' if policy else '')
+          + (f'; of {overlap["launched"]} chunks, {overlap["pipelined"]} '
+             f'launched before the previous one was committed, '
+             f'{overlap["before_readback"]} before its read-back completed'
+             if overlap is not None else ''), flush=True)
+    return lps, res
+
+
+def engine_runs(cfg, params, slots: int, chunk: int, utts):
+    """Serve the same utterances on the three backends (sync), then on
+    both kernel backends async, and with the chunk-size policy sync and
+    async: async == sync and policy == fixed chunk bit for bit, the launch
+    counts per engine step unchanged, no speculation squashed.  Returns
+    per-run results with the launch counts of each run."""
     from repro_torch.models import chipmunk_net
-    runs = {}
+    runs, lps = {}, {}
     for backend in ('cuda_seq', 'cuda_seq_fused', 'torch_scan'):
-        server = StreamServer(cfg.replace(lstm_backend=backend), params,
-                              num_slots=slots, chunk=chunk)
-        check(server.engine.backend == backend, f'engine pinned '
-              f'{server.engine.backend}, asked for {backend}')
-        sessions = [server.submit(u) for u in utts]
-        torch.cuda.synchronize()
-        lstm_seq.launches = 0
-        lstm_stack_seq_kernel.launches = 0
-        t0 = time.perf_counter()
-        server.drain()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(lstm_seq=lstm_seq.launches,
-                        lstm_stack_seq_kernel=lstm_stack_seq_kernel.launches)
-        stats = server.engine.stats()
-        lps = [s.full_log_probs() for s in sessions]
-        for s, u, lp in zip(sessions, utts, lps):
-            check(lp.shape == (len(u), cfg.n_outputs) and
-                  bool(np.isfinite(lp).all()), f'stream {s.sid} output')
-        runs[backend] = dict(lps=lps, launches=launches, steps=stats['steps'],
-                             frames=stats['frames'], wall_s=wall,
-                             frames_per_s=stats['frames'] / wall,
-                             p50_chunk_ms=stats['p50_chunk_s'] * 1e3)
-        print(f'engine [{backend}]: {len(utts)} utterances, '
-              f'{stats["frames"]} frames, {slots} slots, chunk {chunk}, '
-              f'{stats["steps"]} steps in {wall:.3f} s: '
-              f'{stats["frames"] / wall:.1f} frames/s, p50 chunk '
-              f'{stats["p50_chunk_s"] * 1e3:.3f} ms, launches {launches}',
-              flush=True)
-    L, steps = cfg.n_layers, runs['cuda_seq']['steps']
-    check(runs['cuda_seq']['launches'] == dict(
-        lstm_seq=L * steps, lstm_stack_seq_kernel=0),
+        lps[backend], runs[backend] = serve_once(cfg, params, backend, utts,
+                                                 slots, chunk)
+    L = cfg.n_layers
+    per_step = {'cuda_seq': lambda n: dict(lstm_seq=L * n,
+                                           lstm_stack_seq_kernel=0),
+                'cuda_seq_fused': lambda n: dict(lstm_seq=0,
+                                                 lstm_stack_seq_kernel=n)}
+    check(runs['cuda_seq']['launches'] == per_step['cuda_seq'](
+        runs['cuda_seq']['steps']),
         'cuda_seq must launch K1 L times per engine step')
-    steps = runs['cuda_seq_fused']['steps']
-    check(runs['cuda_seq_fused']['launches'] == dict(
-        lstm_seq=0, lstm_stack_seq_kernel=steps),
+    check(runs['cuda_seq_fused']['launches'] == per_step['cuda_seq_fused'](
+        runs['cuda_seq_fused']['steps']),
         'cuda_seq_fused must launch K2 once per engine step')
     check(runs['torch_scan']['launches'] == dict(
         lstm_seq=0, lstm_stack_seq_kernel=0), 'torch_scan launched a kernel')
+
+    for backend in ('cuda_seq', 'cuda_seq_fused'):
+        for name, mode, policy in (('async', True, False),
+                                   ('sync, policy', False, True),
+                                   ('async, policy', True, True)):
+            got, r = serve_once(cfg, params, backend, utts, slots, chunk,
+                                async_dispatch=mode, policy=policy)
+            runs[f'{backend} {name}'] = r
+            same = all(np.array_equal(a, b)
+                       for a, b in zip(got, lps[backend]))
+            check(same, f'{backend} {name} differs from sync at a fixed '
+                        f'chunk')
+            check(r['launches'] == per_step[backend](r['steps']),
+                  f'{backend} {name}: launches per engine step changed')
+            check(r['events'].get('squash', 0) == 0,
+                  f'{backend} {name}: a speculation was squashed')
+            check((r['launched_before_previous_commit'] > 0) == mode,
+                  f'{backend} {name}: chunks launched before the previous '
+                  f'one was committed: {r["launched_before_previous_commit"]}'
+                  f' (async pipelines, sync never)')
+            if policy:
+                check(len(r['chunk_lens']) > 2, f'{backend} {name}: the '
+                      f'policy never moved the chunk boundaries')
+        print(f'engine [{backend}]: async == sync and policy == fixed chunk, '
+              f'bit for bit on every stream', flush=True)
 
     fwd_cfg = cfg.replace(lstm_backend='cuda_seq_fused')
     worst = {}
     for i, u in enumerate(utts):
         frames = torch.from_numpy(u)[None].to(params.layers[0].w_h.device)
         mono = chipmunk_net.forward(fwd_cfg, params, frames)[:, 0].cpu().numpy()
-        ref = runs['cuda_seq_fused']['lps'][i]
+        ref = lps['cuda_seq_fused'][i]
         for name, other in (('forward', mono),
-                            ('cuda_seq', runs['cuda_seq']['lps'][i]),
-                            ('torch_scan', runs['torch_scan']['lps'][i])):
+                            ('cuda_seq', lps['cuda_seq'][i]),
+                            ('torch_scan', lps['torch_scan'][i])):
             worst[name] = max(worst.get(name, 0.0),
                               float(np.abs(ref - other).max()))
             check(np.allclose(ref, other, rtol=ENGINE_RTOL, atol=ENGINE_ATOL),
@@ -448,17 +572,44 @@ def engine_runs(cfg, params, slots: int, chunk: int, utts):
     print('engine streams allclose (rtol/atol '
           f'{ENGINE_RTOL}/{ENGINE_ATOL}), max abs diff vs cuda_seq_fused: '
           + ', '.join(f'{k} {v:.3e}' for k, v in worst.items()), flush=True)
-    for r in runs.values():
-        del r['lps']
     return runs, worst
 
 
-def trace(fn, label: str):
+def readback_overlap(events):
+    """From the trace of one engine drain (``torch.profiler`` events): the
+    host's CUDA runtime calls by name (its waits are the calls named
+    ``*Synchronize``), and, pairing chunk k's log-prob copy to the host
+    (its device ``Memcpy DtoH``, one a chunk) with chunk k+1's first K1/K2
+    launch (its host ``cudaLaunchCooperativeKernel``, L or 1 a chunk), the
+    chunks whose successor's LSTM kernel was enqueued before the copy
+    completed (None where the launches do not divide evenly by chunk)."""
+    from torch.autograd import DeviceType
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and e.name.startswith('cuda')]
+    calls: dict = {}
+    for e in host:
+        calls[e.name] = calls.get(e.name, 0) + 1
+    copies = sorted(e.time_range.end for e in events
+                    if e.device_type == DeviceType.CUDA and 'DtoH' in e.name)
+    launches = sorted(e.time_range.start for e in host
+                      if e.name == 'cudaLaunchCooperativeKernel')
+    n = len(copies)
+    per = len(launches) // n if n else 0
+    early = (sum(launches[(k + 1) * per] < copies[k] for k in range(n - 1))
+             if n > 1 and per and len(launches) == per * n else None)
+    return dict(chunks=n, runtime_calls=calls,
+                host_waits={k: v for k, v in calls.items()
+                            if 'Synchronize' in k},
+                next_kernel_before_readback=early)
+
+
+def trace(fn, label: str, readback: bool = False):
     """One traced call of ``fn`` (after a warm call): device busy time from
     ``torch.profiler`` over the host wall time of the traced call, device
     time by kernel name, and the host ms under each ``record_function``
-    label (a train step's phases, ``launch.train.PHASES``).  The tracer's
-    own cost inflates the wall time, so the idle share is an upper bound."""
+    label (a train step's phases, ``launch.train.PHASES``); with
+    ``readback`` (an engine drain), ``readback_overlap``.  The tracer's own
+    cost inflates the wall time, so the idle share is an upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -489,12 +640,21 @@ def trace(fn, label: str):
                     for k, t, n in by_name[:10]],
                phases_host_ms={e.key: e.cpu_time_total / 1e3 for e in events
                                if marked(e)
-                               and e.device_type == DeviceType.CPU})
+                               and e.device_type == DeviceType.CPU},
+               readback=(readback_overlap(prof.events()) if readback
+                         else None))
     print(f'profile [{label}]: wall {res["wall_ms"]:.2f} ms, device busy '
           f'{res["device_busy_ms"]:.2f} ms in {res["device_ops"]} device '
           f'ops, idle share {res["idle_share"]:.3f}; top: ' + '; '.join(
               f'{r["name"][:40]} {r["device_ms"]:.2f} ms x{r["count"]}'
               for r in res['top'][:5]), flush=True)
+    if res['readback'] is not None:
+        rb = res['readback']
+        print(f'profile [{label}]: of {rb["chunks"]} chunks, '
+              f'{rb["next_kernel_before_readback"]} had the next chunk\'s '
+              f'LSTM kernel enqueued before their log-prob copy completed; '
+              f'host waits {rb["host_waits"]}; runtime calls '
+              f'{rb["runtime_calls"]}', flush=True)
     if res['phases_host_ms']:
         print(f'profile [{label}]: host ms by phase: ' + ', '.join(
             f'{k} {v:.3f}' for k, v in res['phases_host_ms'].items()),
@@ -502,18 +662,21 @@ def trace(fn, label: str):
     return res
 
 
-def profile_engine(cfg, params, slots: int, chunk: int, utts, backend: str):
-    """One traced engine drain on ``backend`` (``trace``)."""
+def profile_engine(cfg, params, slots: int, chunk: int, utts, backend: str,
+                   async_dispatch: bool = False):
+    """One traced engine drain on ``backend``, sync or async (``trace``)."""
     from repro_torch.launch.serve import StreamServer
 
     def drain():
         server = StreamServer(cfg.replace(lstm_backend=backend), params,
-                              num_slots=slots, chunk=chunk)
+                              num_slots=slots, chunk=chunk,
+                              async_dispatch=async_dispatch)
         for u in utts:
             server.submit(u)
         server.drain()
 
-    return trace(drain, backend)
+    return trace(drain, backend + (' async' if async_dispatch else ''),
+                 readback=True)
 
 
 def quantize_stack(params):
@@ -849,6 +1012,108 @@ def int8_deploy(cfg, params, qps, chunk: int, utts, dev,
           f'{res["decode_agreement"] * 100:.0f}% across {B} utterances '
           f'(frame argmax agreement {res["frame_argmax_agreement"]:.3f}; '
           f'random weights: reported, not asserted)', flush=True)
+    return res
+
+
+def f4_checks(cfg, params, qps, rng, dev):
+    """Batch blocks past each kernel's largest single launch (``F4_BATCH``,
+    T = ``CHUNK``): K1 and K2 allclose to their plain versions (atol
+    ``KERNEL_ATOL``) with every row bit-equal to the same row of a B = 8
+    launch that holds it, K3 (inner plan) and K4 ``torch.equal`` to theirs;
+    each call two launches.  Then ``StreamingEngine(max_streams=
+    F4_SLOTS)`` on ``auto`` builds (K1 in two blocks a layer) and drains
+    ``F4_UTTERANCES`` utterances, each stream allclose to the monolithic
+    ``forward``.  The launch counters are set to 0 just before each call
+    and read just after."""
+    from repro_torch.kernels import lstm_seq as ks
+    from repro_torch.models import chipmunk_net
+    from repro_torch.serving import StreamingEngine
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    res = {}
+    for name in ('lstm_seq', 'lstm_stack_seq_kernel'):
+        B = F4_BATCH[name]
+        wts, pre_x, mask, h0, c0 = seq_inputs(params, CHUNK, B, g, dev)
+        if name == 'lstm_seq':
+            lp = params.layers[0]
+            fn, ref, bdim = ks.lstm_seq, ks.lstm_seq_ref, 0
+            args = [pre_x, lp.w_h, lp.w_peep, lp.b, h0[0], c0[0], mask]
+        else:
+            fn, ref, bdim = (ks.lstm_stack_seq_kernel, ks.lstm_stack_seq_ref,
+                             1)
+            args = [pre_x, wts.w_in, wts.w_h, wts.peep, wts.b, h0, c0, mask]
+        fn.launches = 0
+        got = fn(*args)
+        torch.cuda.synchronize()
+        launches = fn.launches
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(got, ref(*args)))
+        rows_equal = True
+        for lo in sorted({*range(0, B - 8, 8), B - 8}):
+            part = list(args)
+            part[0], part[-1] = args[0][:, lo:lo + 8], args[-1][:, lo:lo + 8]
+            for i in (-3, -2):
+                part[i] = args[i].narrow(bdim, lo, 8)
+            part = [a.contiguous() for a in part]
+            rows_equal &= all(torch.equal(a.narrow(bdim + 1, lo, 8), b)
+                              for a, b in zip(got, fn(*part)))
+        res[name] = dict(batch=B, launches=launches, max_abs_err=err,
+                         rows_equal_b8=rows_equal)
+        print(f'F4 {name}: B={B} T={CHUNK} in {launches} launches: max_abs_err '
+              f'{err:.3e} (tol {KERNEL_ATOL}), every row equal to a B=8 '
+              f'launch: {rows_equal}', flush=True)
+        check(launches == 2 and err <= KERNEL_ATOL and rows_equal,
+              f'F4: {name} at B={B}')
+    for name in ('lstm_seq_quantized', 'lstm_stack_seq_kernel_q'):
+        B = F4_BATCH[name]
+        k3, k4 = int8_inputs(qps, CHUNK, B, rng, dev)
+        plan, args, kw = k3[1] if name == 'lstm_seq_quantized' else k4
+        fn = getattr(ks, name)
+        ref = (ks.lstm_seq_quantized_ref if name == 'lstm_seq_quantized'
+               else ks.lstm_stack_seq_quantized_ref)
+        fn.launches = 0
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        launches = fn.launches
+        equal = all(torch.equal(a, b) for a, b in zip(got, ref(*args, **kw)))
+        res[name] = dict(batch=B, launches=launches, equal=equal,
+                         plan=f'n_x={plan.n_x} padded_x={plan.padded_x}')
+        print(f'F4 {name}: B={B} T={CHUNK} ({res[name]["plan"]}) in '
+              f'{launches} launches: torch.equal to plain version {equal}',
+              flush=True)
+        check(launches == 2 and equal, f'F4: {name} at B={B}')
+
+    eng = StreamingEngine(cfg, params, max_streams=F4_SLOTS, chunk=CHUNK)
+    check(eng.backend == 'cuda_seq', f'F4 engine on auto pinned '
+          f'{eng.backend}')
+    utts = [(rng.randn(rng.randint(8, 48), cfg.lstm_inputs) * 0.5).astype(
+        np.float32) for _ in range(F4_UTTERANCES)]
+    sess = [eng.submit(u) for u in utts]
+    torch.cuda.synchronize()
+    ks.lstm_seq.launches = ks.lstm_stack_seq_kernel.launches = 0
+    eng.run()
+    torch.cuda.synchronize()
+    launches = ks.lstm_seq.launches
+    steps = eng.stats()['steps']
+    check(launches == 2 * cfg.n_layers * steps and
+          ks.lstm_stack_seq_kernel.launches == 0,
+          f'F4 engine: {launches} K1 launches in {steps} steps')
+    fwd = cfg.replace(lstm_backend='cuda_seq_fused')
+    worst = 0.0
+    for s, u in zip(sess, utts):
+        mono = chipmunk_net.forward(fwd, params, torch.from_numpy(u)[None]
+                                    .to(dev))[:, 0].cpu().numpy()
+        lp = s.full_log_probs()
+        check(lp.shape == mono.shape and np.allclose(
+            lp, mono, rtol=ENGINE_RTOL, atol=ENGINE_ATOL),
+            f'F4 engine: stream {s.sid} differs from forward')
+        worst = max(worst, float(np.abs(lp - mono).max()))
+    res['engine'] = dict(slots=F4_SLOTS, utterances=len(utts), steps=steps,
+                         backend=eng.backend, k1_launches=launches,
+                         max_abs_diff_forward=worst)
+    print(f'F4 engine: StreamingEngine(max_streams={F4_SLOTS}) on auto -> '
+          f'{eng.backend}, {len(utts)} utterances in {steps} steps, '
+          f'{launches} K1 launches (2 blocks x {cfg.n_layers} layers a '
+          f'step), max abs diff vs forward {worst:.3e}', flush=True)
     return res
 
 
@@ -1419,16 +1684,19 @@ def attention_checks(dev):
     return row
 
 
-def engine_case(cfg, params, backend: str, utts, drains: int = 5):
-    """The f32 engine on ``backend`` (``SLOTS`` slots, chunks of
-    ``CHUNK``): one warm drain of ``utts``, then ``drains`` timed ones, each
-    ending in a synchronize; the medians of the drains' p50 chunk ms and
-    frames/s.  Only calls that the parent tree has too."""
+def engine_case(cfg, params, backend: str, utts, drains: int = 5,
+                async_dispatch: bool = False, slots: int = SLOTS):
+    """The f32 engine on ``backend`` (``slots`` slots, chunks of
+    ``CHUNK``, sync or ``async_dispatch``): one warm drain of ``utts``, then
+    ``drains`` timed ones, each ending in a synchronize; the medians of the
+    drains' p50 chunk ms and frames/s.  In sync mode only calls that the
+    parent tree has too."""
     from repro_torch.launch.serve import StreamServer
+    mode = dict(async_dispatch=True) if async_dispatch else {}
     p50, rate = [], []
     for i in range(drains + 1):
         server = StreamServer(cfg.replace(lstm_backend=backend), params,
-                              num_slots=SLOTS, chunk=CHUNK)
+                              num_slots=slots, chunk=CHUNK, **mode)
         for u in utts:
             server.submit(u)
         torch.cuda.synchronize()
@@ -1440,11 +1708,59 @@ def engine_case(cfg, params, backend: str, utts, drains: int = 5):
         if i:
             p50.append(stats['p50_chunk_s'] * 1e3)
             rate.append(stats['frames'] / wall)
-    return dict(kernel=f'engine {backend}',
+    return dict(kernel=f'engine {backend}' + (' async' if async_dispatch
+                                              else ''),
                 shape=f'{len(utts)} utterances, {stats["frames"]} frames, '
                       f'{stats["steps"]} chunks',
                 p50_chunk_ms=float(np.median(p50)),
                 frames_per_s=float(np.median(rate)))
+
+
+def engine_timing(cfg, params, utts, slots: int = SLOTS,
+                  backends=('cuda_seq_fused', 'cuda_seq'),
+                  pairs: int = ENGINE_PAIRS):
+    """The f32 engine sync against async on each of ``backends`` in
+    ``pairs`` pairs of turns, sync first in even pairs and async first in
+    odd ones, each turn ``engine_case`` over ``ENGINE_DRAINS`` drains: per
+    mode the median and quartiles of the turns' frames/s and p50 chunk ms,
+    and the pairs in which async served more frames a second."""
+    out = {}
+    for backend in backends:
+        turns = {False: [], True: []}
+        for i in range(pairs):
+            for mode in ((False, True) if i % 2 == 0 else (True, False)):
+                turns[mode].append(engine_case(cfg, params, backend, utts,
+                                               ENGINE_DRAINS, mode, slots))
+        res = dict(shape=f'{turns[False][0]["shape"]}, {slots} slots',
+                   pairs=pairs)
+        for name, mode in (('sync', False), ('async', True)):
+            rate = [t['frames_per_s'] for t in turns[mode]]
+            p50 = [t['p50_chunk_ms'] for t in turns[mode]]
+            res[name] = dict(
+                frames_per_s=float(np.median(rate)),
+                frames_per_s_quartiles=[float(q) for q in
+                                        np.percentile(rate, [25, 75])],
+                p50_chunk_ms=float(np.median(p50)),
+                p50_chunk_ms_quartiles=[float(q) for q in
+                                        np.percentile(p50, [25, 75])],
+                turns_frames_per_s=rate, turns_p50_chunk_ms=p50)
+        res['async_wins'] = sum(
+            a > b for a, b in zip(res['async']['turns_frames_per_s'],
+                                  res['sync']['turns_frames_per_s']))
+        out[backend] = res
+        print(f'engine timing [{backend}] ({res["shape"]}; {pairs} pairs '
+              f'of turns of {ENGINE_DRAINS} drains, order alternating): '
+              + '; '.join(
+                  f'{name} {res[name]["frames_per_s"]:.1f} frames/s '
+                  f'(quartiles {res[name]["frames_per_s_quartiles"][0]:.1f}'
+                  f'-{res[name]["frames_per_s_quartiles"][1]:.1f}), p50 '
+                  f'chunk {res[name]["p50_chunk_ms"]:.3f} ms (quartiles '
+                  f'{res[name]["p50_chunk_ms_quartiles"][0]:.3f}-'
+                  f'{res[name]["p50_chunk_ms_quartiles"][1]:.3f})'
+                  for name in ('sync', 'async'))
+              + f'; async served more frames/s in {res["async_wins"]} of '
+                f'{pairs} pairs', flush=True)
+    return out
 
 
 def int8_times(cfg, params, dev):
@@ -1740,9 +2056,21 @@ def main(argv=None) -> int:
     utts = [(rng.randn(rng.randint(50, 301), cfg.lstm_inputs) * 0.5
              ).astype(np.float32) for _ in range(REQUESTS)]
     runs, worst = engine_runs(cfg, params, SLOTS, CHUNK, utts)
-    profiles = [profile_engine(cfg, params, SLOTS, CHUNK, utts, b)
+    timing = engine_timing(cfg, params, utts)
+    profiles = [profile_engine(cfg, params, SLOTS, CHUNK, utts, b, mode)
                 for b in (('cuda_seq_fused', 'cuda_seq') if args.profile
-                          else ())]
+                          else ()) for mode in (False, True)]
+    f4_rng = np.random.RandomState(SEED + 1)
+    f4 = f4_checks(cfg, params, quantize_stack(params), f4_rng, dev)
+    # the same engine with utterances of the main cell's lengths: the
+    # device's share per chunk grows with the batch (K1 in two blocks)
+    wide = [(f4_rng.randn(f4_rng.randint(50, 301), cfg.lstm_inputs) * 0.5
+             ).astype(np.float32) for _ in range(F4_UTTERANCES)]
+    timing.update({f'{b} {F4_SLOTS} slots': r for b, r in engine_timing(
+        cfg, params, wide, F4_SLOTS, ('cuda_seq',), F4_PAIRS).items()})
+    profiles += [profile_engine(cfg, params, F4_SLOTS, CHUNK, wide,
+                                'cuda_seq', mode)
+                 for mode in ((False, True) if args.profile else ())]
 
     qps = quantize_stack(params)
     q_rows, q_stacking = int8_kernel_checks(qps, SLOTS, CHUNK, rng, dev)
@@ -1790,7 +2118,8 @@ def main(argv=None) -> int:
             card=card, build_s=build_s, slots=SLOTS, chunk=CHUNK,
             torch=torch.__version__, cuda=torch.version.cuda,
             kernels=rows, stack_kernel_weights=stacking, engine=runs,
-            engine_max_abs_diff=worst, profiles=profiles,
+            engine_max_abs_diff=worst, engine_timing=timing, f4=f4,
+            profiles=profiles,
             stack_kernel_weights_q=q_stacking, int8_deploy=deploy,
             train_grad_rel_err=grad_err, train=train, train_cli=cli),
             indent=1))

@@ -41,8 +41,10 @@ products.
 ``auto`` does not copy the TPU's VMEM rule.  On CPU tensors it picks
 ``torch_scan``.  On CUDA tensors it picks ``cuda_seq_fused`` when the stack
 is homogeneous (``stack_fused_compatible``), has at least two layers, and
-the wavefront kernel's launch geometry is admissible (shared memory per CTA
-within the card's limit, every CTA co-resident); otherwise ``cuda_seq``.
+one wavefront launch takes the whole batch (shared memory per CTA within
+the card's limit, every CTA co-resident); otherwise ``cuda_seq``.  K1-K4
+run a batch larger than their geometry admits in blocks of the largest
+admitted B, so the batch alone never makes a kernel backend inadmissible.
 ``cuda_step`` is a plain launch, so its admission is the shared-memory
 bound of its launcher only; K5 has no masked form, so it is not a serving
 backend on the card (a masked chunk on CUDA tensors raises).  A stack
@@ -51,8 +53,9 @@ or a single layer) resolves an explicit ``cuda_seq_fused`` to ``cuda_seq``,
 the reference's rule (``_resolve_stack_backend``): dispatch between two of
 the port's own kernels.  Any other explicitly chosen backend that is not
 admissible raises, ``cuda_seq_fused`` on a compatible stack whose launch
-geometry the card refuses included; it is never quietly replaced.  On CPU
-tensors the kernel backends run their kernels' plain PyTorch versions.
+geometry the card refuses even for one stream included; it is never
+quietly replaced.  On CPU tensors the kernel backends run their kernels'
+plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -517,7 +520,13 @@ def resolve_serving_backend(params: LSTMStackParams, backend: str, T: int,
     admissible there — pure dispatch, no numerics of its own.  ``masked``
     says the call carries a ``valid_len`` (every serving chunk does);
     ``cuda_step`` on CUDA is admissible only unmasked, the training path.
-    Raises ``ValueError`` for an explicit backend that is not admissible."""
+    On CUDA, ``auto`` is ``cuda_seq_fused`` when one K2 launch takes the
+    whole batch, else ``cuda_seq``.  K1 and K2 run a batch larger than
+    their geometry admits in blocks (``run_in_blocks`` in
+    ``kernels/lstm_seq/kernel.py``), so B alone never makes a kernel
+    backend inadmissible.  Raises ``ValueError`` for a backend that is not
+    admissible, which for K1 and K2 means a geometry that does not fit even
+    one stream."""
     from ..kernels.lstm_seq import (seq_geometry, stack_fused_compatible,
                                     stack_geometry)
     if backend not in BACKENDS:
@@ -535,19 +544,23 @@ def resolve_serving_backend(params: LSTMStackParams, backend: str, T: int,
     if backend == 'cuda_step' and masked:
         raise ValueError(_CUDA_STEP_UNMASKED)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    fused = stack_geometry(n_h, L, B, sms)
-    fused_ok = compatible and fused.admissible(sms)
     if backend == 'auto':
-        backend = 'cuda_seq_fused' if fused_ok else 'cuda_seq'
-    if backend == 'cuda_seq_fused' and not fused_ok:
-        raise ValueError(f'cuda_seq_fused is not admissible at N_h={n_h}, '
-                         f'L={L}, B={B}: {fused}')
+        one_launch = stack_geometry(n_h, L, B, sms).admissible(sms)
+        backend = ('cuda_seq_fused' if compatible and one_launch
+                   else 'cuda_seq')
+    if backend == 'cuda_seq_fused':
+        geom = stack_geometry(n_h, L, 1, sms)
+        if not geom.admissible(sms):
+            raise ValueError(f'cuda_seq_fused is not admissible at '
+                             f'N_h={n_h}, L={L}, even for one stream: '
+                             f'{geom}')
     if backend == 'cuda_seq':
         for lp in layers:
-            geom = seq_geometry(lp.n_h, B, sms)
+            geom = seq_geometry(lp.n_h, 1, sms)
             if not geom.admissible(sms):
                 raise ValueError(f'cuda_seq is not admissible at '
-                                 f'N_h={lp.n_h}, B={B}: {geom}')
+                                 f'N_h={lp.n_h}, even for one stream: '
+                                 f'{geom}')
     if backend == 'cuda_step':
         from ..kernels.lstm_gates import gates_rec_geometry
         for lp in layers:
@@ -587,9 +600,11 @@ def select_quantized_stack_backend(n_h: int, n_layers: int, T: int,
     or ``'layerwise'`` (K3 per layer, ``lstm_layer_seq_quantized``).  Both
     are bit-identical; this picks the launch shape only.  The reference's
     cold-cache rule: ``'layerwise'`` if L < 2 or T < 8, else ``'fused'`` if
-    N_h >= 256, else ``'layerwise'``.  On CUDA, ``'fused'`` also needs K4's
-    launch geometry at engine tile ``tile`` (the silicon's 96 by default) to
-    be admissible (``quantized_fused_admissible``)."""
+    N_h >= 256, else ``'layerwise'``.  On CUDA, ``'fused'`` also needs one
+    K4 launch at engine tile ``tile`` (the silicon's 96 by default) to take
+    the whole batch (``quantized_fused_admissible``); above that, both
+    shapes run in batch blocks and the layerwise chain is picked, as it
+    was before blocks existed."""
     if n_layers < 2 or T < _SEQ_MIN_T or n_h < _Q_FUSED_MIN_NH:
         return 'layerwise'
     if (torch.device(device).type == 'cuda' and not

@@ -11,12 +11,19 @@ K3/K4: ``q_exchange_planes``, int8 codes on 16-byte rows).  ``seq_geometry`` and
 ``seq_q_geometry`` are the launch geometries as pure functions of shapes,
 which backend selection reads to decide admissibility without touching the
 card.
+
+A batch larger than the geometry admits (shared memory grows with B; the
+CTA count does not) runs in blocks of the largest admitted B
+(``largest_batch``, ``batch_blocks``, ``run_in_blocks``), the counterpart of
+the reference kernels' batch-block grid axis: one launch per block on the
+current stream, each with its own exchange scratch.  Rows never mix, so a
+row of a blocked call has the bits of the same row in one launch.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,6 +53,61 @@ class LaunchGeometry:
 
 def _round_up(n: int, to: int) -> int:
     return -(-n // to) * to
+
+
+def largest_batch(geometry: Callable[[int], LaunchGeometry], batch: int,
+                  max_coresident: Optional[int] = None) -> int:
+    """The largest b <= ``batch`` whose ``geometry(b)`` is admissible, or 0
+    when not even b = 1 is (the launch fails for a reason other than B).
+    Admissibility only falls as b grows (shared memory grows with it, the
+    CTA count does not), so a bisection finds it."""
+    if geometry(batch).admissible(max_coresident):
+        return batch
+    if not geometry(1).admissible(max_coresident):
+        return 0
+    lo, hi = 1, batch - 1
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if geometry(mid).admissible(max_coresident):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def batch_blocks(batch: int, block: int) -> List[Tuple[int, int]]:
+    """Row ranges ``(lo, hi)`` of blocks of at most ``block`` streams that
+    cover ``range(batch)`` once, in order."""
+    if block < 1:
+        raise ValueError(f'a batch block needs at least one stream, got '
+                         f'{block}')
+    return [(lo, min(lo + block, batch)) for lo in range(0, batch, block)]
+
+
+def run_in_blocks(launch: Callable, block: int, ins: Sequence,
+                  in_dims: Sequence[Optional[int]], outs: Sequence,
+                  out_dims: Sequence[int]) -> None:
+    """Call ``launch(ins, outs)`` once per batch block of at most ``block``
+    streams.  ``in_dims`` / ``out_dims`` give each tensor's batch axis
+    (None: not batched, passed whole).  A single block passes the tensors
+    themselves; otherwise each block gets contiguous copies of its input
+    rows and fresh outputs, which are copied into its rows of ``outs``
+    after its launch, all on the current stream."""
+    batch = outs[0].shape[out_dims[0]]
+    blocks = batch_blocks(batch, block)
+    if len(blocks) == 1:
+        launch(list(ins), list(outs))
+        return
+    for lo, hi in blocks:
+        rows = lambda x, d: x.narrow(d, lo, hi - lo)
+        ins_b = [x if d is None else rows(x, d).contiguous()
+                 for x, d in zip(ins, in_dims)]
+        outs_b = [torch.empty(rows(o, d).shape, dtype=o.dtype,
+                              device=o.device)
+                  for o, d in zip(outs, out_dims)]
+        launch(ins_b, outs_b)
+        for o, ob, d in zip(outs, outs_b, out_dims):
+            rows(o, d).copy_(ob)
 
 
 def seq_splits(rows: int) -> int:
@@ -186,23 +248,31 @@ def lstm_seq(pre_x: torch.Tensor, w_h: torch.Tensor, peep: torch.Tensor,
     cs = torch.empty_like(hs)
     lib = _build.load('lstm_seq', _SIGNATURES)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    geom = seq_geometry(N, B, sms)
-    if not geom.admissible(coresident_ctas(lib, 'lstm_seq_occupancy',
-                                           device, geom, B, N)):
+    block = largest_batch(lambda b: seq_geometry(N, b, sms), B, sms)
+    geom = seq_geometry(N, max(block, 1), sms)
+    if not block or not geom.admissible(coresident_ctas(
+            lib, 'lstm_seq_occupancy', device, geom, block, N)):
         raise RuntimeError(f'lstm_seq: launch geometry {geom} does not fit '
                            f'the card (N_h={N}, B={B})')
     stream = torch.cuda.current_stream(device).cuda_stream
-    # held until the launch is queued: freed earlier, its block could
-    # become the stream's new counters
-    xs = exchange_planes(1, T, B, N, device)
-    err = lib.lstm_seq_launch(
-        device.index, pre_x.data_ptr(), w_h.data_ptr(), peep.data_ptr(),
-        bias.data_ptr(), h0.data_ptr(), c0.data_ptr(), mask.data_ptr(),
-        hs.data_ptr(), cs.data_ptr(), xs.data_ptr(),
-        step_counters(device, stream, 1).data_ptr(), T, B, N, geom.rows,
-        stream)
-    _build.check(lib, err, 'lstm_seq launch')
-    lstm_seq.launches += 1
+    counters = step_counters(device, stream, 1)
+
+    def launch(ins, outs):
+        pre_b, h0_b, c0_b, mask_b = ins
+        b = mask_b.shape[1]
+        # held until the launch is queued: freed earlier, its block could
+        # become the stream's new counters
+        xs = exchange_planes(1, T, b, N, device)
+        err = lib.lstm_seq_launch(
+            device.index, pre_b.data_ptr(), w_h.data_ptr(), peep.data_ptr(),
+            bias.data_ptr(), h0_b.data_ptr(), c0_b.data_ptr(),
+            mask_b.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+            xs.data_ptr(), counters.data_ptr(), T, b, N, geom.rows, stream)
+        _build.check(lib, err, 'lstm_seq launch')
+        lstm_seq.launches += 1
+
+    run_in_blocks(launch, block, (pre_x, h0, c0, mask), (1, 0, 0, 1),
+                  (hs, cs), (1, 1))
     return hs, cs
 
 
@@ -353,25 +423,35 @@ def lstm_seq_quantized(xs_q: torch.Tensor, w_q: torch.Tensor,
     cs = torch.empty_like(hs)
     lib = _build.load('lstm_seq_q', _SIGNATURES_Q)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    geom = seq_q_geometry(p_x, p_h, tile, B, sms)
-    if not geom.admissible(coresident_ctas(lib, 'lstm_seq_q_occupancy', dev,
-                                           geom, B, p_x, p_h, tile)):
+    block = largest_batch(
+        lambda b: seq_q_geometry(p_x, p_h, tile, b, sms), B, sms)
+    geom = seq_q_geometry(p_x, p_h, tile, max(block, 1), sms)
+    if not block or not geom.admissible(coresident_ctas(
+            lib, 'lstm_seq_q_occupancy', dev, geom, block, p_x, p_h, tile)):
         raise RuntimeError(f'lstm_seq_quantized: launch geometry {geom} does '
                            f'not fit the card (padded_h={p_h}, B={B})')
     stream = torch.cuda.current_stream(dev).cuda_stream
-    # held until the launch is queued: freed earlier, a block could become
-    # the stream's new counters
-    xs_w, w_w = word_aligned(xs_q), word_aligned(w_q)
-    xch = q_exchange_planes(1, T, B, p_h, dev)
-    err = lib.lstm_seq_q_launch(
-        dev.index, xs_w.data_ptr(), w_w.data_ptr(), peep_q.data_ptr(),
-        bias_q.data_ptr(), sig_lut.data_ptr(), tanh_lut.data_ptr(),
-        h0_q.data_ptr(), c0_q.data_ptr(), mask.data_ptr(), hs.data_ptr(),
-        cs.data_ptr(), xch.data_ptr(),
-        step_counters(dev, stream, 1).data_ptr(), T, B, p_x, p_h, tile,
-        geom.rows, stream)
-    _build.check(lib, err, 'lstm_seq_quantized launch')
-    lstm_seq_quantized.launches += 1
+    counters = step_counters(dev, stream, 1)
+    w_w = word_aligned(w_q)
+
+    def launch(ins, outs):
+        xs_b, h0_b, c0_b, mask_b = ins
+        b = mask_b.shape[1]
+        # held until the launch is queued: freed earlier, a block could
+        # become the stream's new counters
+        xs_w = word_aligned(xs_b)
+        xch = q_exchange_planes(1, T, b, p_h, dev)
+        err = lib.lstm_seq_q_launch(
+            dev.index, xs_w.data_ptr(), w_w.data_ptr(), peep_q.data_ptr(),
+            bias_q.data_ptr(), sig_lut.data_ptr(), tanh_lut.data_ptr(),
+            h0_b.data_ptr(), c0_b.data_ptr(), mask_b.data_ptr(),
+            outs[0].data_ptr(), outs[1].data_ptr(), xch.data_ptr(),
+            counters.data_ptr(), T, b, p_x, p_h, tile, geom.rows, stream)
+        _build.check(lib, err, 'lstm_seq_quantized launch')
+        lstm_seq_quantized.launches += 1
+
+    run_in_blocks(launch, block, (xs_q, h0_q, c0_q, mask), (1, 0, 0, 1),
+                  (hs, cs), (1, 1))
     return hs, cs
 
 

@@ -14,8 +14,8 @@ form is for serving, as in the reference.
 chunk carry and the valid-length mask.  Its dense weight layout
 (``QuantizedLayerWeights``, ``_dense_from_tiles``) is a copy: a caller that
 runs many chunks builds it once per quantized layer and passes it in.  The
-reference's ``bb`` batch block is a TPU grid knob and has no counterpart
-here.
+reference's ``bb`` batch block is a TPU grid axis; its counterpart here is
+the wrappers' batch blocks (``kernel.run_in_blocks``).
 """
 from __future__ import annotations
 

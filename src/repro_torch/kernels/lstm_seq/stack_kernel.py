@@ -8,7 +8,8 @@ and run their plain versions (``ref``) on CPU tensors.  ``stack_geometry``
 and ``stack_q_geometry`` are the launch geometries as pure functions of
 shapes.  Outputs are layer-major (L, T, B, ·): the TPU kernels'
 diagonal-major layout and its re-index existed for Pallas output blocks
-only.
+only.  A batch larger than the geometry admits runs in blocks
+(``kernel.run_in_blocks``), as K1's and K3's does.
 """
 from __future__ import annotations
 
@@ -18,9 +19,9 @@ import torch
 
 from .. import _build
 from .kernel import (Q_GROUP, LaunchGeometry, check_inputs, check_tile,
-                     coresident_ctas, exchange_planes, q_exchange_planes,
-                     q_smem_bytes, seq_smem_bytes, step_counters,
-                     word_aligned)
+                     coresident_ctas, exchange_planes, largest_batch,
+                     q_exchange_planes, q_smem_bytes, run_in_blocks,
+                     seq_smem_bytes, step_counters, word_aligned)
 from .ref import lstm_stack_seq_quantized_ref, lstm_stack_seq_ref
 
 
@@ -78,23 +79,32 @@ def lstm_stack_seq_kernel(pre_x: torch.Tensor, w_in: torch.Tensor,
     cs = torch.empty_like(hs)
     lib = _build.load('lstm_stack_seq', _SIGNATURES)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    geom = stack_geometry(N, L, B, sms)
-    if not geom.admissible(coresident_ctas(lib, 'lstm_stack_seq_occupancy',
-                                           device, geom, B, N)):
+    block = largest_batch(lambda b: stack_geometry(N, L, b, sms), B, sms)
+    geom = stack_geometry(N, L, max(block, 1), sms)
+    if not block or not geom.admissible(coresident_ctas(
+            lib, 'lstm_stack_seq_occupancy', device, geom, block, N)):
         raise RuntimeError(f'lstm_stack_seq_kernel: launch geometry {geom} '
                            f'does not fit the card (N_h={N}, L={L}, B={B})')
     stream = torch.cuda.current_stream(device).cuda_stream
-    # held until the launch is queued: freed earlier, its block could
-    # become the stream's new counters
-    xs = exchange_planes(L, T, B, N, device)
-    err = lib.lstm_stack_seq_launch(
-        device.index, pre_x.data_ptr(), w_in.data_ptr(), w_h.data_ptr(),
-        peep.data_ptr(), bias.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-        mask.data_ptr(), hs.data_ptr(), cs.data_ptr(), xs.data_ptr(),
-        step_counters(device, stream, L).data_ptr(), T, B, N, L, geom.rows,
-        stream)
-    _build.check(lib, err, 'lstm_stack_seq_kernel launch')
-    lstm_stack_seq_kernel.launches += 1
+    counters = step_counters(device, stream, L)
+
+    def launch(ins, outs):
+        pre_b, h0_b, c0_b, mask_b = ins
+        b = mask_b.shape[1]
+        # held until the launch is queued: freed earlier, its block could
+        # become the stream's new counters
+        xs = exchange_planes(L, T, b, N, device)
+        err = lib.lstm_stack_seq_launch(
+            device.index, pre_b.data_ptr(), w_in.data_ptr(), w_h.data_ptr(),
+            peep.data_ptr(), bias.data_ptr(), h0_b.data_ptr(),
+            c0_b.data_ptr(), mask_b.data_ptr(), outs[0].data_ptr(),
+            outs[1].data_ptr(), xs.data_ptr(), counters.data_ptr(), T, b, N,
+            L, geom.rows, stream)
+        _build.check(lib, err, 'lstm_stack_seq_kernel launch')
+        lstm_stack_seq_kernel.launches += 1
+
+    run_in_blocks(launch, block, (pre_x, h0, c0, mask), (1, 1, 1, 1),
+                  (hs, cs), (2, 2))
     return hs, cs
 
 
@@ -181,28 +191,39 @@ def lstm_stack_seq_kernel_q(acc_x: torch.Tensor, w_in: torch.Tensor,
     cs = torch.empty_like(hs)
     lib = _build.load('lstm_stack_seq_q', _SIGNATURES_Q)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    geom = stack_q_geometry(p_h, tile, L, B, sms)
-    if not geom.admissible(coresident_ctas(lib, 'lstm_stack_seq_q_occupancy',
-                                           dev, geom, B, p_h, tile, L)):
+    block = largest_batch(
+        lambda b: stack_q_geometry(p_h, tile, L, b, sms), B, sms)
+    geom = stack_q_geometry(p_h, tile, L, max(block, 1), sms)
+    if not block or not geom.admissible(coresident_ctas(
+            lib, 'lstm_stack_seq_q_occupancy', dev, geom, block, p_h, tile,
+            L)):
         raise RuntimeError(f'lstm_stack_seq_kernel_q: launch geometry {geom} '
                            f'does not fit the card (padded_h={p_h}, L={L}, '
                            f'B={B})')
     stream = torch.cuda.current_stream(dev).cuda_stream
-    # held until the launch is queued: freed earlier, a block could become
-    # the stream's new counters
+    counters = step_counters(dev, stream, L)
     w_in_w, w_h_w = word_aligned(w_in), word_aligned(w_h)
-    # staged by bulk copies: a 16-byte aligned copy where it is not
-    acc_w = acc_x if acc_x.data_ptr() % 16 == 0 else acc_x.clone()
-    xch = q_exchange_planes(L, T, B, p_h, dev)
-    err = lib.lstm_stack_seq_q_launch(
-        dev.index, acc_w.data_ptr(), w_in_w.data_ptr(), w_h_w.data_ptr(),
-        peep.data_ptr(), bias.data_ptr(), sig_lut.data_ptr(),
-        tanh_lut.data_ptr(), h0.data_ptr(), c0.data_ptr(), mask.data_ptr(),
-        hs.data_ptr(), cs.data_ptr(), xch.data_ptr(),
-        step_counters(dev, stream, L).data_ptr(), T, B, p_h, tile, L,
-        geom.rows, stream)
-    _build.check(lib, err, 'lstm_stack_seq_kernel_q launch')
-    lstm_stack_seq_kernel_q.launches += 1
+
+    def launch(ins, outs):
+        acc_b, h0_b, c0_b, mask_b = ins
+        b = mask_b.shape[1]
+        # held until the launch is queued: freed earlier, a block could
+        # become the stream's new counters; acc_x is staged by bulk
+        # copies: a 16-byte aligned copy where it is not
+        acc_w = acc_b if acc_b.data_ptr() % 16 == 0 else acc_b.clone()
+        xch = q_exchange_planes(L, T, b, p_h, dev)
+        err = lib.lstm_stack_seq_q_launch(
+            dev.index, acc_w.data_ptr(), w_in_w.data_ptr(), w_h_w.data_ptr(),
+            peep.data_ptr(), bias.data_ptr(), sig_lut.data_ptr(),
+            tanh_lut.data_ptr(), h0_b.data_ptr(), c0_b.data_ptr(),
+            mask_b.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+            xch.data_ptr(), counters.data_ptr(), T, b, p_h, tile, L,
+            geom.rows, stream)
+        _build.check(lib, err, 'lstm_stack_seq_kernel_q launch')
+        lstm_stack_seq_kernel_q.launches += 1
+
+    run_in_blocks(launch, block, (acc_x, h0, c0, mask), (1, 1, 1, 1),
+                  (hs, cs), (2, 2))
     return hs, cs
 
 

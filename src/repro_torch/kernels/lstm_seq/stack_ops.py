@@ -255,7 +255,9 @@ def lstm_stack_seq_quantized_auto(qps: Sequence[QuantizedPackedLSTM],
     that K4 cannot take on this device raises ``ValueError``, never
     replaced.  Bit-identical either way, and both speak the STACK state
     layout (``(h_q, c_q)``, each (L, B, padded_h) int8), so a chunked caller
-    can carry state across chunks whichever shape each chunk ran.
+    can carry state across chunks whichever shape each chunk ran.  K3 and
+    K4 run a batch larger than their geometry admits in blocks, so an
+    explicit shape raises only when it does not fit even one stream.
     ``weights``: ``stack_kernel_weights_q(qps)``, which both shapes read
     (built per call when None)."""
     if xs_q.ndim != 3:
@@ -270,10 +272,10 @@ def lstm_stack_seq_quantized_auto(qps: Sequence[QuantizedPackedLSTM],
                          f"{backend!r}")
     if backend == 'fused':
         if (xs_q.device.type == 'cuda' and not quantized_fused_admissible(
-                p0.n_h, len(qps), B, xs_q.device, p0.tile)):
+                p0.n_h, len(qps), 1, xs_q.device, p0.tile)):
             raise ValueError(f'the fused int8 stack is not admissible on '
-                             f'{xs_q.device}: N_h={p0.n_h}, L={len(qps)}, '
-                             f'B={B}, tile={p0.tile}')
+                             f'{xs_q.device} even for one stream: '
+                             f'N_h={p0.n_h}, L={len(qps)}, tile={p0.tile}')
         return lstm_stack_seq_quantized(
             qps, xs_q, state=state, valid_len=valid_len,
             return_state=return_state, weights=weights)

@@ -149,14 +149,25 @@ def test_engine_backends_agree_on_card(dev):
 
 
 def test_auto_picks_fused_on_card_and_explicit_inadmissible_raises(dev):
+    """``auto`` picks K2 where one launch takes the batch, else K1; an
+    explicit K2 past its single launch runs in batch blocks; only a
+    geometry that fails for one stream (here a hidden width whose row
+    slice overflows shared memory) raises."""
     cfg = configs.get_config('chipmunk-ctc')
     params = _params(cfg, dev)
     assert tlstm.resolve_serving_backend(params, 'auto', 16, 8, dev) == \
         'cuda_seq_fused'
     assert tlstm.resolve_serving_backend(params, 'auto', 16, 64, dev) == \
         'cuda_seq'
+    assert tlstm.resolve_serving_backend(params, 'cuda_seq_fused', 16, 64,
+                                         dev) == 'cuda_seq_fused'
+    meta = lambda *s: torch.empty(s, device='meta')
+    n = 4096
+    wide = tlstm.LSTMStackParams(tuple(
+        tlstm.LSTMParams(meta(4, n, n), meta(4, n, n), meta(3, n),
+                         meta(4, n)) for _ in range(2)), None, None)
     with pytest.raises(ValueError):
-        tlstm.resolve_serving_backend(params, 'cuda_seq_fused', 16, 64, dev)
+        tlstm.resolve_serving_backend(wide, 'cuda_seq_fused', 16, 1, dev)
 
 
 # ------------------------------------- K1 and K2 at full width: new hazards
@@ -918,3 +929,162 @@ def test_mha_on_card_launches_once(dev):
     torch.testing.assert_close(
         got, attention_ref(q, k, v, causal=True, window=16), rtol=0,
         atol=1e-4)
+
+
+# --------------------------- F4: batch blocks past a kernel's single launch
+def _single_launch_max(kernel, dev):
+    return (_max_batch(kernel, dev) if kernel in SEQ_KERNELS
+            else _q_max_batch(kernel, dev, n_x=421 if kernel == 'k3' else 123))
+
+
+@pytest.mark.parametrize('kernel,B', [('k1', 105), ('k2', 25)])
+def test_seq_kernels_in_batch_blocks(dev, kernel, B):
+    """K1 at B = 105 and K2 at B = 25 (one stream past their largest single
+    launch at N_h 421): two launches, allclose to the plain version (atol
+    1e-4), and every row bit-equal to the same row of a B = 8 launch that
+    holds it (rows never mix)."""
+    assert _max_batch(kernel, dev) == B - 1
+    fn, ref, args = _seq_args(kernel, 16, B, dev, seed=B)
+    n0 = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 2
+    for g, w in zip(got, ref(*args)):
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+    bdim = 0 if kernel == 'k1' else 1       # h0/c0's batch axis
+    for lo in sorted({*range(0, B - 8, 8), B - 8}):
+        part = list(args)
+        part[0], part[-1] = args[0][:, lo:lo + 8], args[-1][:, lo:lo + 8]
+        for i in (-3, -2):
+            part[i] = args[i].narrow(bdim, lo, 8)
+        part = [a.contiguous() for a in part]
+        for g, w in zip(got, fn(*part)):
+            assert torch.equal(g.narrow(bdim + 1, lo, 8), w)
+
+
+@pytest.mark.parametrize('kernel,B', [('k3', 121), ('k4', 97)])
+def test_int8_kernels_in_batch_blocks(dev, kernel, B):
+    """K3 on the inner plan at B = 121 and K4 at B = 97 (one stream past
+    their largest single launch): two launches, ``torch.equal`` to the
+    plain version."""
+    n_x = 421 if kernel == 'k3' else 123
+    assert _q_max_batch(kernel, dev, n_x=n_x) == B - 1
+    fn, ref, args, kw = _q_args(kernel, 16, B, dev, seed=B, n_x=n_x)
+    n0 = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 2
+    for g, w in zip(got, ref(*args, **kw)):
+        assert g.dtype == torch.int8 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize('kernel', SEQ_KERNELS + Q_KERNELS)
+def test_blocked_launches_in_a_row_and_on_two_streams(dev, kernel):
+    """Two blocked calls in a row on one stream share its step counters
+    between every block (each launch leaves them zero), and two blocked
+    calls on two streams each use their own: every result has the bits of
+    the same call alone, and the counters are zero afterwards."""
+    from repro_torch.kernels.lstm_seq.kernel import _COUNTERS
+    B = _single_launch_max(kernel, dev) + 3
+    if kernel in SEQ_KERNELS:
+        fn, _, args = _seq_args(kernel, 16, B, dev, seed=11)
+        kw = {}
+        other = [args[0] * 0.5] + args[1:]
+    else:
+        fn, _, args, kw = _q_args(kernel, 16, B, dev, seed=11,
+                                  n_x=421 if kernel == 'k3' else 123)
+        other = args[:-3] + [-args[-3]] + args[-2:]
+    alone = []
+    for a in (args, other):
+        alone.append(fn(*a, **kw))
+        torch.cuda.synchronize()
+    n0 = fn.launches
+    in_a_row = [fn(*a, **kw) for a in (args, other)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    both = []
+    for s, a in zip(streams, (args, other)):
+        with torch.cuda.stream(s):
+            both.append(fn(*a, **kw))
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 8
+    for got in (in_a_row, both):
+        for (h, c), (h1, c1) in zip(alone, got):
+            assert torch.equal(h, h1) and torch.equal(c, c1)
+    assert not any(bool(t.any()) for t in _COUNTERS.values())
+
+
+def test_engine_past_every_single_launch_on_auto(dev):
+    """``StreamingEngine(max_streams=105)`` on ``auto`` at full width builds
+    (K1 in two blocks a layer) and drains, each stream allclose to the
+    monolithic forward."""
+    cfg = configs.get_config('chipmunk-ctc')
+    params = _params(cfg, dev)
+    eng = StreamingEngine(cfg, params, max_streams=105, chunk=16)
+    assert eng.backend == 'cuda_seq'
+    rng = np.random.RandomState(12)
+    utts = [(rng.randn(rng.randint(8, 40), cfg.lstm_inputs) * 0.5).astype(
+        np.float32) for _ in range(110)]
+    sess = [eng.submit(u) for u in utts]
+    n0 = lstm_seq.launches
+    eng.run()
+    assert lstm_seq.launches - n0 == 2 * cfg.n_layers * eng.stats()['steps']
+    fwd = cfg.replace(lstm_backend='cuda_seq_fused')
+    for s, u in zip(sess, utts):
+        mono = chipmunk_net.forward(fwd, params, torch.from_numpy(u)[None]
+                                    .to(dev))[:, 0].cpu().numpy()
+        np.testing.assert_allclose(s.full_log_probs(), mono, rtol=1e-4,
+                                   atol=ATOL)
+
+
+# ------------------------------------------------ async dispatch on the card
+def _serve(cfg, params, utts, backend, async_mode, policy=None, slots=8,
+           chunk=16):
+    from repro_torch.runtime import ChunkSizePolicy
+    pol = (ChunkSizePolicy(chunk_max=chunk, slack=1e9, patience=2)
+           if policy else None)
+    eng = StreamingEngine(cfg.replace(lstm_backend=backend), params,
+                          max_streams=slots, chunk=chunk,
+                          async_dispatch=async_mode, chunk_policy=pol)
+    sess = [eng.submit(u) for u in utts]
+    eng.run()
+    return [s.full_log_probs() for s in sess], eng
+
+
+@pytest.mark.parametrize('policy', [False, True])
+@pytest.mark.parametrize('backend', ['cuda_seq', 'cuda_seq_fused'])
+def test_async_equals_sync_on_card(dev, backend, policy):
+    """At full width, async == sync bit for bit, and with the chunk-size
+    policy (boundaries at 16, 8, 4, ...) both equal the fixed-chunk sync
+    run; no speculation squashed."""
+    cfg = configs.get_config('chipmunk-ctc')
+    params = _params(cfg, dev)
+    rng = np.random.RandomState(13)
+    utts = [(rng.randn(rng.randint(20, 120), cfg.lstm_inputs) * 0.5).astype(
+        np.float32) for _ in range(12)]
+    fixed, _ = _serve(cfg, params, utts, backend, False)
+    for mode in (False, True):
+        got, eng = _serve(cfg, params, utts, backend, mode, policy)
+        assert eng.stats()['event_counts'].get('squash', 0) == 0
+        if policy:
+            assert len({c for c, _ in eng._policy.history}) > 2
+        for a, b in zip(got, fixed):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize('backend', ['cuda_seq', 'cuda_seq_fused'])
+def test_async_host_buffers_never_rewritten_in_flight(dev, backend):
+    """64 chunks and more back to back under async dispatch, the host
+    packing and launching as fast as it can (chunks of 2 frames, full
+    width): every stream's log-probs equal the sync run's, so no pinned
+    upload or read-back buffer was rewritten while its copy was in
+    flight."""
+    cfg = configs.get_config('chipmunk-ctc')
+    params = _params(cfg, dev)
+    rng = np.random.RandomState(14)
+    utts = [(rng.randn(rng.randint(100, 160), cfg.lstm_inputs) * 0.5)
+            .astype(np.float32) for _ in range(6)]
+    want, _ = _serve(cfg, params, utts, backend, False, slots=4, chunk=2)
+    got, eng = _serve(cfg, params, utts, backend, True, slots=4, chunk=2)
+    assert eng.stats()['steps'] >= 64
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
