@@ -37,6 +37,23 @@ weights from a seed) and checks them:
    inner plan at B = 121 and K4 at B = 97 ``torch.equal`` to theirs; each
    call two launches; and ``StreamingEngine(max_streams=105)`` on ``auto``
    built and drained, every stream allclose to ``forward``;
+4b. the serving fault runtime on the main cell (``fault_runs``): the ladder
+   ``cuda_seq_fused`` (K2) -> ``cuda_seq`` (K1) -> ``torch_scan`` by two
+   permanent engine failures and back by two heals (``FAULT_LADDER``),
+   under the bitwise canary, under ``canary_rtol`` and without the canary,
+   sync and async: every chunk call logged with its rung and its K1/K2
+   launches (the canary's shadow replays too), no stream lost, every
+   stream allclose to a clean K2 engine and to ``forward``, async == sync
+   (event trail, calls and bits), and the climb back to K2 landing without
+   the canary; a transient fault and a poisoned slot at chunk
+   ``FAULT_STEP`` on K2 and on K1 (one ``fault`` and no ``degrade``; one
+   quarantined stream), every other stream ``torch.equal`` to a clean run;
+   a stream preempted to disk and resumed in a second engine, its suffix
+   ``torch.equal`` to the uninterrupted run; an int8 stream's K4 carries
+   through the stream checkpointer between two chunks, ``torch.equal``;
+   and the non-finite guard's cost: device ops per chunk from one traced
+   drain with and without it, frames/s in ``FAULT_PAIRS`` pairs of turns
+   (``fault_guard``), the bits equal;
 
 and then the int8 silicon path (the deployment of the reference's
 ``examples/speech_ctc.py``) on the same f32 weights, each layer quantized
@@ -83,7 +100,12 @@ the same f32 weights' configuration from seed 0):
 11. runs the trainer's entry point (``launch.train.main``) on ``cuda_step``
     as a user does: six steps with checkpoints every three, then
     ``--resume`` for two more; the losses printed must be finite, the
-    resume must start at step 6, and K5 must launch T*L times per step.
+    resume must start at step 6, K5 must launch T*L times per step, and
+    the runner's heartbeat file must name the last step; then one
+    ``FaultTolerantRunner.run_step`` on ``cuda_seq_fused`` with a fault
+    injected and a ``restore_fn`` (``fault_train``): the restored step
+    bit-equal to the uninterrupted one (else within the gradient
+    tolerance, and it says which).
 
 and then the three kernels that no path of the system reaches, each on its
 public op, each held against its plain version and timed beside its bound
@@ -160,6 +182,15 @@ F4_BATCH = {'lstm_seq': 105, 'lstm_stack_seq_kernel': 25,
             'lstm_seq_quantized': 121, 'lstm_stack_seq_kernel_q': 97}
 F4_SLOTS, F4_UTTERANCES = 105, 110
 F4_PAIRS = 5                  # engine_timing pairs at F4_SLOTS slots
+# the fault phase: the ladder K2 -> K1 -> torch_scan and back on the main
+# cell, a transient fault and a poisoned slot at FAULT_STEP, and the
+# guard's (on / off) timing pairs
+FAULT_LADDER = dict(fail_at={2: 1, 5: 1}, recover_at={8: 1, 14: 1},
+                    promote_hysteresis=2, backoff_s=0.0)
+FAULT_ONE_RUNG = dict(fail_at={2: 1}, recover_at={5: 1},
+                      promote_hysteresis=2, backoff_s=0.0)
+FAULT_STEP = 3
+FAULT_PAIRS = 5
 INT8_UTTERANCES = 8           # int8 deploy phase: utterances of 50-300 frames
 INT8_REPEATS = 7              # timed int8 deploy passes per backend
 INT8_PROFILE_PASSES = 10      # int8 deploy passes per traced window
@@ -636,6 +667,7 @@ def trace(fn, label: str, readback: bool = False):
                device_busy_ms=busy_us / 1e3,
                idle_share=1.0 - busy_us / wall_us,
                device_ops=sum(r[2] for r in by_name),
+               ops_by_name={k: n for k, _, n in by_name},
                top=[dict(name=k[:80], device_ms=t / 1e3, count=n)
                     for k, t, n in by_name[:10]],
                phases_host_ms={e.key: e.cpu_time_total / 1e3 for e in events
@@ -1117,6 +1149,409 @@ def f4_checks(cfg, params, qps, rng, dev):
     return res
 
 
+def fault_engine(cfg, params, backend: str, faults, async_dispatch=False,
+                 slots: int = SLOTS):
+    """A ``StreamingEngine`` on ``backend`` with ``faults`` whose chunk
+    calls are logged: for each call its role (``launch``: a chunk's first
+    attempt; ``retry``: its recompute under the runner; ``canary``: a
+    promotion's shadow replay), the chunk (for a canary, the committed
+    step), the rung, and the K1 and K2 launches it made (counter deltas
+    around the call).  Each canary comparison also records its largest
+    absolute and relative difference (``engine.canary_diffs``), then
+    compares as the engine does.  Returns (engine, log)."""
+    from repro_torch.kernels.lstm_seq import lstm_seq, lstm_stack_seq_kernel
+    from repro_torch.serving import StreamingEngine
+    eng = StreamingEngine(cfg.replace(lstm_backend=backend), params,
+                          max_streams=slots, chunk=CHUNK, faults=faults,
+                          async_dispatch=async_dispatch)
+    log, ctx = [], []
+    make, launch, commit = eng._make_fwd, eng._launch, eng._commit
+    promote = eng._maybe_promote
+
+    def traced(c):
+        fwd = make(c)
+
+        def call(*args):
+            k1, k2 = lstm_seq.launches, lstm_stack_seq_kernel.launches
+            out = fwd(*args)
+            role, chunk = ctx[-1]
+            log.append(dict(role=role, chunk=chunk, backend=c.lstm_backend,
+                            k1=lstm_seq.launches - k1,
+                            k2=lstm_stack_seq_kernel.launches - k2))
+            return out
+        return call
+
+    def within(role, fn, chunk_of):
+        def run(*args):
+            ctx.append((role, chunk_of(*args)))
+            try:
+                return fn(*args)
+            finally:
+                ctx.pop()
+        return run
+
+    equal = eng._canary_equal
+
+    def compared(a, b):
+        x, y = (torch.as_tensor(t).detach().cpu().double() for t in (a, b))
+        diff = (x - y).abs()
+        canary.append((float(diff.max()), float((diff / y.abs()).nan_to_num(
+            0.0, posinf=float('inf')).max())))
+        return equal(a, b)
+
+    canary = []
+    eng._canary_equal = compared
+    eng.canary_diffs = canary
+    eng._make_fwd = traced
+    eng._fwd = traced(eng.cfg)
+    eng._launch = within('launch', launch, lambda s, p, k, n: k)
+    eng._commit = within('retry', commit, lambda rec: rec.chunk_idx)
+    eng._maybe_promote = within('canary', promote, lambda: eng._step_idx)
+    return eng, log
+
+
+def fault_serve(cfg, params, backend: str, utts, faults,
+                async_dispatch=False):
+    """One drain of ``utts`` on ``fault_engine``.  Returns (log-probs per
+    stream, sessions, engine, call log)."""
+    eng, log = fault_engine(cfg, params, backend, faults, async_dispatch)
+    sessions = [eng.submit(u) for u in utts]
+    eng.run()
+    torch.cuda.synchronize()
+    return [s.full_log_probs() for s in sessions], sessions, eng, log
+
+
+def _trail(stats):
+    """The engine's and runner's events without wall times, the wall-time
+    classification (``straggler``) and the async engine's ``squash``."""
+    return [{k: v for k, v in e.items() if k != 'dt'}
+            for e in stats['events']
+            if e['kind'] not in ('straggler', 'squash')]
+
+
+def _calls_per_rung_ok(log, L: int) -> bool:
+    """Every logged call launched what its rung launches: K2 once on
+    ``cuda_seq_fused``, K1 L times on ``cuda_seq``, neither on
+    ``torch_scan``."""
+    want = {'cuda_seq_fused': (0, 1), 'cuda_seq': (L, 0),
+            'torch_scan': (0, 0)}
+    return all((c['k1'], c['k2']) == want[c['backend']] for c in log)
+
+
+def fault_ladder(cfg, params, utts, clean, mono):
+    """The ladder on the K2 home (``FAULT_LADDER``): K2 -> K1 -> torch_scan
+    by two permanent failures, then the two heals, under the bitwise
+    canary, under ``canary_rtol`` = ``ENGINE_RTOL``, and without the
+    canary (where both promotions must land), each sync and async.  Per
+    run: the rung of each chunk call with its launches, the canary's
+    outcome per promotion, no stream lost, every stream allclose to the
+    clean K2 engine and to ``forward``, async == sync (event trail and
+    bits)."""
+    from repro_torch.runtime import ServingFaultConfig
+    L = cfg.n_layers
+    # chunks 0-1 on K2; chunk 2 launched on K2 and recomputed on K1; 3-4 on
+    # K1; chunk 5 launched on K1 and recomputed on the scan; 6-7 on the scan
+    head = ([('launch', k, 'cuda_seq_fused') for k in (0, 1, 2)]
+            + [('retry', 2, 'cuda_seq')]
+            + [('launch', k, 'cuda_seq') for k in (3, 4, 5)]
+            + [('retry', 5, 'torch_scan')]
+            + [('launch', k, 'torch_scan') for k in (6, 7)])
+    # the one-rung schedule (``FAULT_ONE_RUNG``) drops to K1 only, so the
+    # bitwise canary of K1 -> K2 runs too
+    variants = (('bitwise', FAULT_LADDER, {}, head),
+                ('canary_rtol', FAULT_LADDER,
+                 dict(canary_rtol=ENGINE_RTOL), head),
+                ('no_canary', FAULT_LADDER, dict(canary=False), head),
+                ('bitwise, one rung', FAULT_ONE_RUNG, {}, head[:6]))
+    out = {}
+    for name, schedule, extra, want in variants:
+        runs = {}
+        for mode in (False, True):
+            lps, sess, eng, log = fault_serve(
+                cfg, params, 'cuda_seq_fused', utts,
+                ServingFaultConfig(**schedule, **extra), mode)
+            stats = eng.stats()
+            runs[mode] = (lps, stats, log)
+            chunks = [c for c in log if c['role'] != 'canary']
+            check([(c['role'], c['chunk'], c['backend'])
+                   for c in chunks[:len(want)]] == want,
+                  f'ladder [{name}]: chunk calls {chunks[:len(want)]}')
+            check(_calls_per_rung_ok(log, L),
+                  f'ladder [{name}]: launches per call {log}')
+            check(stats['streams'] == len(utts)
+                  and all(s.error is None for s in sess),
+                  f'ladder [{name}]: a stream was lost')
+        (lps, stats, log), (alps, astats, alog) = runs[False], runs[True]
+        same = (_trail(stats) == _trail(astats)
+                and all(np.array_equal(a, b) for a, b in zip(lps, alps))
+                and log == alog)
+        check(same, f'ladder [{name}]: async differs from sync')
+        worst = dict(clean=0.0, forward=0.0)
+        for i, lp in enumerate(lps):
+            for ref_name, ref in (('clean', clean[i]), ('forward', mono[i])):
+                worst[ref_name] = max(worst[ref_name],
+                                      float(np.abs(lp - ref).max()))
+                check(np.allclose(lp, ref, rtol=ENGINE_RTOL,
+                                  atol=ENGINE_ATOL),
+                      f'ladder [{name}]: stream {i} vs {ref_name}')
+        promos = [dict(step=e['step'], kind=e['kind'],
+                       candidate=e['to_backend'],
+                       **({'backoff': e['backoff']}
+                          if 'backoff' in e else {}))
+                  for e in stats['events'] if e['kind'] in (
+                      'promote_canary', 'promote', 'promote_rejected')]
+        canary_calls = [c for c in log if c['role'] == 'canary']
+        per_rung = {}
+        for c in log:
+            if c['role'] != 'canary':
+                r = per_rung.setdefault(c['backend'], dict(calls=0, k1=0,
+                                                           k2=0))
+                r['calls'] += 1
+                r['k1'] += c['k1']
+                r['k2'] += c['k2']
+        out[name] = dict(
+            steps=stats['steps'], final_backend=stats['backend'],
+            event_counts=stats['event_counts'], promotions=promos,
+            canary_calls=canary_calls, canary_diffs=eng.canary_diffs,
+            per_rung=per_rung,
+            chunk_calls=[(c['role'], c['chunk'], c['backend'])
+                         for c in log],
+            max_abs_diff=worst, async_equals_sync=same)
+        print(f'fault ladder [{name}]: {stats["steps"]} steps, ends on '
+              f'{stats["backend"]}; promotions {promos}; canary shadow '
+              f'calls (step, rung, K1, K2) '
+              f'{[(c["chunk"], c["backend"], c["k1"], c["k2"]) for c in canary_calls]}'
+              f', their largest (abs, rel) differences per comparison '
+              f'{[(f"{a:.3e}", f"{r:.3e}") for a, r in eng.canary_diffs]}; '
+              f'chunk calls per rung {per_rung}; max abs diff vs clean '
+              f'K2 {worst["clean"]:.3e}, vs forward {worst["forward"]:.3e}; '
+              f'async == sync {same}', flush=True)
+    check(out['no_canary']['final_backend'] == 'cuda_seq_fused'
+          and out['no_canary']['event_counts'].get('promote') == 2,
+          'ladder without the canary did not climb back to K2')
+    return out
+
+
+def fault_runs(cfg, params, utts, dev):
+    """The serving fault runtime at full width on the main cell (``SLOTS``
+    slots, chunks of ``CHUNK``, ``utts``): the ladder (``fault_ladder``),
+    a transient fault and a poisoned slot at chunk ``FAULT_STEP`` on K2
+    and on K1, sync and async, a cross-engine checkpoint resume on both,
+    an int8 stream's carries through the checkpointer between two K4
+    chunks, and the guard's cost (``fault_guard``)."""
+    import tempfile
+    from repro_torch.models import chipmunk_net
+    from repro_torch.runtime import ServingFaultConfig
+    res, clean = {}, {}
+    for backend in ('cuda_seq_fused', 'cuda_seq'):
+        clean[backend] = fault_serve(cfg, params, backend, utts, None)[0]
+    fwd = cfg.replace(lstm_backend='cuda_seq_fused')
+    mono = [chipmunk_net.forward(fwd, params, torch.from_numpy(u)[None].to(
+        dev))[:, 0].cpu().numpy() for u in utts]
+    res['ladder'] = fault_ladder(cfg, params, utts, clean['cuda_seq_fused'],
+                                 mono)
+
+    for backend in ('cuda_seq_fused', 'cuda_seq'):
+        for name, faults in (
+                ('transient', dict(fail_at={FAULT_STEP: {'transient': True}},
+                                   backoff_s=0.0)),
+                ('quarantine', dict(poison_at={FAULT_STEP: 1}))):
+            for mode in (False, True):
+                lps, sess, eng, log = fault_serve(
+                    cfg, params, backend, utts, ServingFaultConfig(**faults),
+                    mode)
+                stats = eng.stats()
+                counts = stats['event_counts']
+                errored = [i for i, s in enumerate(sess)
+                           if s.error is not None]
+                equal = all(np.array_equal(lp, ref) for i, (lp, ref) in
+                            enumerate(zip(lps, clean[backend]))
+                            if i not in errored)
+                if name == 'transient':
+                    ok = (counts.get('fault') == 1 and 'degrade' not in counts
+                          and not errored and {c['backend'] for c in log}
+                          == {backend} and _calls_per_rung_ok(
+                              log, cfg.n_layers))
+                else:
+                    ok = (counts.get('quarantine') == 1 and len(errored) == 1
+                          and all(bool(torch.isfinite(t).all())
+                                  for pair in eng.states for t in pair))
+                key = f'{name} {backend}' + (' async' if mode else '')
+                res[key] = dict(event_counts=counts, errored=errored,
+                                others_equal_clean=equal,
+                                calls=len(log), steps=stats['steps'])
+                print(f'fault [{key}]: events {counts}, errored streams '
+                      f'{errored}, every other stream torch.equal to a clean '
+                      f'run: {equal}', flush=True)
+                check(ok and equal, f'fault [{key}]')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend in ('cuda_seq_fused', 'cuda_seq'):
+            faults = ServingFaultConfig(checkpoint_dir=f'{tmp}/{backend}')
+            eng, _ = fault_engine(cfg, params, backend, faults)
+            sess = [eng.submit(u) for u in utts]
+            eng.step()
+            eng.step()
+            eng.evict(sess[0].sid)
+            eng.run()
+            second, _ = fault_engine(cfg, params, backend, faults)
+            resumed = second.resume_from_checkpoint(utts[0], sess[0].sid)
+            cursor = resumed.cursor
+            second.run()
+            equal = np.array_equal(resumed.full_log_probs(),
+                                   clean[backend][0][cursor:])
+            res[f'checkpoint {backend}'] = dict(cursor=cursor, equal=equal)
+            print(f'fault [checkpoint {backend}]: stream 0 preempted to disk '
+                  f'at frame {cursor}, resumed in a second engine: suffix '
+                  f'torch.equal to the uninterrupted run: {equal}',
+                  flush=True)
+            check(cursor == 2 * CHUNK and equal,
+                  f'checkpoint resume on {backend}')
+        res['checkpoint int8'] = fault_int8_checkpoint(cfg, params, utts,
+                                                       tmp, dev)
+    res['guard'] = fault_guard(cfg, params, utts)
+    return res
+
+
+def fault_int8_checkpoint(cfg, params, utts, tmp: str, dev):
+    """One int8 stream (the first utterance's first two chunks on the
+    silicon plans of ``quantize_stack``) through K4 in two chunks, its
+    ``(h_q, c_q)`` carries saved and loaded through the stream
+    checkpointer between them: both chunks ``torch.equal`` to one launch
+    over both, the carries int8 and equal after the round trip."""
+    from repro_torch.kernels.lstm_seq import (lstm_stack_seq_kernel_q,
+                                              lstm_stack_seq_quantized_auto,
+                                              stack_kernel_weights_q)
+    from repro_torch.runtime import StreamStateCheckpointer
+    qps = quantize_stack(params)
+    weights = stack_kernel_weights_q(qps)
+    xq, lens = int8_batch(cfg, utts[:1], CHUNK, dev)
+    xq = xq[:2 * CHUNK].contiguous()
+    lens = np.minimum(lens, 2 * CHUNK)
+
+    def run(lo, hi, state=None):
+        vl = torch.from_numpy(np.clip(lens - lo, 0, hi - lo)).to(dev)
+        return lstm_stack_seq_quantized_auto(
+            qps, xq[lo:hi], state=state, valid_len=vl, return_state=True,
+            weights=weights, backend='fused')
+
+    want, _ = run(0, 2 * CHUNK)
+    lstm_stack_seq_kernel_q.launches = 0
+    head, carry = run(0, CHUNK)
+    ckpt = StreamStateCheckpointer(f'{tmp}/int8')
+    ckpt.save(0, (tuple(carry),), cursor=CHUNK)
+    (restored,), cursor = ckpt.load(
+        0, (tuple(torch.zeros_like(t) for t in carry),))
+    tail, _ = run(CHUNK, 2 * CHUNK, tuple(restored))
+    torch.cuda.synchronize()
+    launches = lstm_stack_seq_kernel_q.launches
+    kept = all(r.dtype == torch.int8 and torch.equal(r, t)
+               for r, t in zip(restored, carry))
+    equal = bool(torch.equal(torch.cat([head, tail]), want))
+    print(f'fault [checkpoint int8]: K4 carries {tuple(carry[0].shape)} '
+          f'int8 through the checkpointer at frame {cursor}: kept '
+          f'{kept}; two chunks torch.equal to one launch: {equal}; K4 '
+          f'launches {launches}', flush=True)
+    check(kept and equal and cursor == CHUNK and launches == 2,
+          'int8 carries through the stream checkpointer')
+    return dict(cursor=cursor, carries_kept=kept, equal=equal,
+                k4_launches=launches)
+
+
+def fault_guard_case(cfg, params, backend: str, utts, guard: bool,
+                     drains: int):
+    """``engine_case`` with the guard on (``faults=ServingFaultConfig()``,
+    nothing injected) or off (``faults=None``): one warm drain, then
+    ``drains`` timed ones; the medians of frames/s and p50 chunk ms."""
+    from repro_torch.runtime import ServingFaultConfig
+    from repro_torch.serving import StreamingEngine
+    rate, p50 = [], []
+    for i in range(drains + 1):
+        eng = StreamingEngine(cfg.replace(lstm_backend=backend), params,
+                              max_streams=SLOTS, chunk=CHUNK,
+                              faults=ServingFaultConfig() if guard else None)
+        for u in utts:
+            eng.submit(u)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if i:
+            stats = eng.stats()
+            rate.append(stats['frames'] / wall)
+            p50.append(stats['p50_chunk_s'] * 1e3)
+    return float(np.median(rate)), float(np.median(p50))
+
+
+def fault_guard(cfg, params, utts):
+    """The guard's cost on each kernel backend: the device ops a drain
+    issues with ``faults=None`` and with ``ServingFaultConfig()`` (one
+    traced drain each, ``trace``) and the difference per chunk; frames/s
+    and p50 chunk ms in ``FAULT_PAIRS`` pairs of turns (order alternating,
+    ``ENGINE_DRAINS`` drains a turn) with quartiles; and the two drains'
+    outputs bit for bit."""
+    from repro_torch.runtime import ServingFaultConfig
+    res = {}
+    for backend in ('cuda_seq_fused', 'cuda_seq'):
+        outs, ops = {}, {}
+        for guard in (False, True):
+            faults = ServingFaultConfig() if guard else None
+            outs[guard], _, eng, _ = fault_serve(cfg, params, backend, utts,
+                                                 faults)
+            steps = eng.stats()['steps']
+
+            def drain():
+                fault_serve(cfg, params, backend, utts,
+                            ServingFaultConfig() if guard else None)
+
+            ops[guard] = trace(drain, f'{backend} guard '
+                               + ('on' if guard else 'off'))
+        equal = all(np.array_equal(a, b)
+                    for a, b in zip(outs[False], outs[True]))
+        turns = {False: [], True: []}
+        for i in range(FAULT_PAIRS):
+            for guard in ((False, True) if i % 2 == 0 else (True, False)):
+                turns[guard].append(fault_guard_case(
+                    cfg, params, backend, utts, guard, ENGINE_DRAINS))
+        on, off = ops[True]['ops_by_name'], ops[False]['ops_by_name']
+        added = {k: on.get(k, 0) - off.get(k, 0) for k in {*on, *off}
+                 if on.get(k, 0) != off.get(k, 0)}
+        r = dict(steps=steps, device_ops_off=ops[False]['device_ops'],
+                 device_ops_on=ops[True]['device_ops'],
+                 ops_per_chunk=(ops[True]['device_ops']
+                                - ops[False]['device_ops']) / steps,
+                 ops_added_by_name=added, bits_equal=equal,
+                 pairs=FAULT_PAIRS)
+        for name, guard in (('off', False), ('on', True)):
+            rate = [t[0] for t in turns[guard]]
+            p50 = [t[1] for t in turns[guard]]
+            r[name] = dict(
+                frames_per_s=float(np.median(rate)),
+                frames_per_s_quartiles=[float(q) for q in
+                                        np.percentile(rate, [25, 75])],
+                p50_chunk_ms=float(np.median(p50)),
+                p50_chunk_ms_quartiles=[float(q) for q in
+                                        np.percentile(p50, [25, 75])],
+                turns_frames_per_s=rate)
+        r['on_wins'] = sum(a > b for a, b in zip(
+            r['on']['turns_frames_per_s'], r['off']['turns_frames_per_s']))
+        res[backend] = r
+        print(f'fault guard [{backend}]: {r["device_ops_off"]} device ops '
+              f'a drain without the fault runtime, {r["device_ops_on"]} with '
+              f'the guard on: {r["ops_per_chunk"]:.2f} a chunk over {steps} '
+              f'chunks ({added}); bits equal {equal}; ' + '; '.join(
+                  f'{name} {r[name]["frames_per_s"]:.1f} frames/s '
+                  f'(quartiles {r[name]["frames_per_s_quartiles"][0]:.1f}-'
+                  f'{r[name]["frames_per_s_quartiles"][1]:.1f}), p50 chunk '
+                  f'{r[name]["p50_chunk_ms"]:.3f} ms'
+                  for name in ('off', 'on'))
+              + f'; guard on served more frames/s in {r["on_wins"]} of '
+                f'{FAULT_PAIRS} pairs', flush=True)
+        check(equal, f'guard on changed the bits on {backend}')
+    return res
+
+
 def gates_case(kernel: str, lp, B: int, g, dev):
     """One K5 (``kernel`` 'lstm_gates_rec': layer ``lp``'s W_h, ``pre``) or
     K6 ('lstm_gates': the packed [W_x | W_h] and [x; h]) case at B streams,
@@ -1401,7 +1836,73 @@ def train_cli(cfg):
               'train CLI did not resume from its checkpoint')
         check(CheckpointManager(tmp).latest_step() == end,
               'train CLI did not checkpoint its last step')
+        beat = json.loads(pathlib.Path(tmp, 'heartbeat.json').read_text())
+        res['heartbeat'] = beat
+        print(f'train CLI: heartbeat {beat}', flush=True)
+        check(beat['step'] == end - 1, 'train CLI heartbeat is not at its '
+              'last step')
     return res
+
+
+def fault_train(cfg, dev):
+    """One train step under ``FaultTolerantRunner.run_step`` on
+    ``cuda_seq_fused`` at (``TRAIN_SEQ``, ``TRAIN_BATCH``): a fault
+    injected at step 1 restores the step-1 checkpoint (``restore_fn``) and
+    recomputes the step; its loss, gradient norm and every state leaf
+    against the uninterrupted step's, bit for bit, else by relative
+    Frobenius error (``GRAD_REL_TOL``)."""
+    import functools
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels.lstm_seq import lstm_stack_seq_kernel
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.models import chipmunk_net
+    from repro_torch.optim import cosine_schedule, make_optimizer
+    from repro_torch.runtime import FaultConfig, FaultTolerantRunner
+    from repro_torch.tree import leaves
+    c = cfg.replace(lstm_backend='cuda_seq_fused')
+    opt = make_optimizer(c.optimizer, cosine_schedule(1e-3, 10, TRAIN_STEPS))
+    step_fn = make_train_step(functools.partial(chipmunk_net.loss_fn, c), opt)
+    state = init_train_state(c, opt, dev, seed=SEED)
+    batches = [_train_batch(c, TRAIN_SEQ, TRAIN_BATCH, k, dev)
+               for k in range(2)]
+    state, _ = step_fn(state, batches[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        mgr.save(1, state, blocking=True)
+        want_state, want = step_fn(state, batches[1])
+        runner = FaultTolerantRunner(
+            step_fn, ckpt_manager=mgr,
+            cfg=FaultConfig(backoff_s=0.0,
+                            heartbeat_path=f'{tmp}/heartbeat.json'),
+            restore_fn=lambda: mgr.restore(state),
+            fail_schedule=lambda step: step == 1)
+        torch.cuda.synchronize()
+        lstm_stack_seq_kernel.launches = 0
+        got_state, got = runner.run_step(1, state, batches[1])
+        torch.cuda.synchronize()
+        launches = lstm_stack_seq_kernel.launches
+        beat = json.loads(pathlib.Path(tmp, 'heartbeat.json').read_text())
+    pairs = list(zip(leaves(got_state), leaves(want_state)))
+    pairs += [(got['loss'], want['loss']), (got['grad_norm'],
+                                             want['grad_norm'])]
+    bit_equal = all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+                    for a, b in pairs)
+    rel = max(float(torch.linalg.norm((torch.as_tensor(a) - torch.as_tensor(
+        b)).double()) / max(float(torch.linalg.norm(
+            torch.as_tensor(b).double())), 1e-30)) for a, b in pairs)
+    kinds = [e['kind'] for e in runner.events]
+    print(f'fault train [cuda_seq_fused]: run_step with a fault injected at '
+          f'step 1: events {kinds}, K2 launches {launches}, heartbeat step '
+          f'{beat["step"]}; restored step bit-equal to the uninterrupted '
+          f'one: {bit_equal} (largest relative Frobenius error {rel:.3e})',
+          flush=True)
+    check(kinds == ['fault', 'restore'] and launches == 1
+          and beat['step'] == 1, 'train run_step under the runner')
+    check(bit_equal or rel <= GRAD_REL_TOL,
+          'restored train step disagrees with the uninterrupted one')
+    return dict(events=kinds, k2_launches=launches, bit_equal=bit_equal,
+                max_rel_err=rel, heartbeat_step=beat['step'])
 
 
 def _case_row(name: str, source: str, replaces: str, cases):
@@ -2071,6 +2572,7 @@ def main(argv=None) -> int:
     profiles += [profile_engine(cfg, params, F4_SLOTS, CHUNK, wide,
                                 'cuda_seq', mode)
                  for mode in ((False, True) if args.profile else ())]
+    fault = fault_runs(cfg, params, utts, dev)
 
     qps = quantize_stack(params)
     q_rows, q_stacking = int8_kernel_checks(qps, SLOTS, CHUNK, rng, dev)
@@ -2088,6 +2590,7 @@ def main(argv=None) -> int:
     train, train_profiles = train_runs(train_cfg, dev, profile=args.profile)
     profiles += train_profiles
     cli = train_cli(train_cfg)
+    fault['train'] = fault_train(train_cfg, dev)
 
     # K6-K8 on their public ops (no path of the system reaches them)
     op_rows = [cell_checks(params, CELL_BATCH, dev),
@@ -2119,6 +2622,7 @@ def main(argv=None) -> int:
             torch=torch.__version__, cuda=torch.version.cuda,
             kernels=rows, stack_kernel_weights=stacking, engine=runs,
             engine_max_abs_diff=worst, engine_timing=timing, f4=f4,
+            fault=fault,
             profiles=profiles,
             stack_kernel_weights_q=q_stacking, int8_deploy=deploy,
             train_grad_rel_err=grad_err, train=train, train_cli=cli),

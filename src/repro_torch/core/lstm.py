@@ -71,6 +71,45 @@ PEEP_I, PEEP_F, PEEP_O = 0, 1, 2
 
 BACKENDS = ('auto', 'torch_scan', 'cuda_seq', 'cuda_seq_fused', 'cuda_step')
 
+# Serving degradation ladder (DESIGN.md §10): when an engine is declared
+# dead mid-serve, the fault-tolerant serving runtime re-dispatches to the
+# next backend DOWN this ladder — from the whole-stack wavefront (K2)
+# through the per-layer sequence kernel (K1) to the plain torch scan, which
+# runs on the tensors' own device.  Backends not named on the ladder map
+# onto the nearest rung (``_LADDER_RANK``): the per-step kernel ranks with
+# the sequence kernel.  The reference's top rung, the staged systolic
+# scale-out over a mesh, has no counterpart until the port's multi-device
+# scale-out.
+DEGRADATION_LADDER = ('cuda_seq_fused', 'cuda_seq', 'torch_scan')
+_LADDER_RANK = {'cuda_seq_fused': 0, 'cuda_seq': 1, 'cuda_step': 1,
+                'torch_scan': 2}
+
+
+def next_backend_down(backend: str) -> Optional[str]:
+    """The next backend down the serving ``DEGRADATION_LADDER``, or None at
+    the bottom (``torch_scan`` has no fallback — a fault there is retried,
+    not degraded).  Pure dispatch — selection never changes the chunking /
+    masking contract, only which kernel executes it; a degraded backend's
+    outputs agree with the original to float tolerance (allclose), and
+    bit-equality contracts continue to hold per backend code path."""
+    rank = _LADDER_RANK.get(backend)
+    if rank is None or rank + 1 >= len(DEGRADATION_LADDER):
+        return None
+    return DEGRADATION_LADDER[rank + 1]
+
+
+def next_backend_up(backend: str) -> Optional[str]:
+    """The next backend UP the serving ``DEGRADATION_LADDER``, or None at
+    the top (``cuda_seq_fused``) — the promotion inverse of
+    ``next_backend_down``, consulted by the recovery runtime
+    (``runtime/recovery.py``) when the health tracker reports capacity for
+    a higher rung.  Pure dispatch — promotion is canary-validated by the
+    engine before it takes effect."""
+    rank = _LADDER_RANK.get(backend)
+    if rank is None or rank == 0:
+        return None
+    return DEGRADATION_LADDER[rank - 1]
+
 
 @dataclasses.dataclass
 class LSTMParams:

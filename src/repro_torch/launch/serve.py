@@ -15,6 +15,18 @@ default; the full ``chipmunk-ctc`` configuration is the default and
 computes (DESIGN.md §11); ``--deadline-slo FACTOR`` attaches the chunk-size
 policy, whose budget is chunk x 10 ms frame period x FACTOR.  Both leave
 every stream's outputs bit-equal to sync serving at a fixed chunk.
+
+The fault flags attach a ``runtime.ServingFaultConfig`` (DESIGN.md §10,
+§14): ``--fail-at-step``/``--fail-engines`` inject engine failures that
+step the backend down ``cuda_seq_fused`` -> ``cuda_seq`` -> ``torch_scan``,
+``--recover-at-step`` heals them for a canary-validated climb back
+(``--promote-hysteresis``, ``--no-canary``), ``--poison-slot`` exercises
+the quarantine, ``--stream-ckpt-dir`` the stream checkpoints and
+``--deadline-factor`` the deadline watchdog::
+
+    python -m repro_torch.launch.serve --device cpu --smoke --requests 4 \
+        --slots 2 --chunk 4 --lstm-backend cuda_seq_fused \
+        --fail-engines 1@1 --recover-at-step 1@2 --promote-hysteresis 1
 """
 from __future__ import annotations
 
@@ -27,20 +39,22 @@ import torch
 from .. import configs
 from ..core.lstm import BACKENDS
 from ..models import chipmunk_net
-from ..runtime import ChunkSizePolicy
+from ..runtime import ChunkSizePolicy, ServingFaultConfig
 from ..serving import StreamingEngine
 
 
 class StreamServer:
     """Frame-stream serving front-end over ``serving.StreamingEngine``
-    with incremental CTC decoding switched on; ``async_dispatch`` and
-    ``chunk_policy`` (a ``runtime.ChunkSizePolicy``, None: fixed chunks)
-    pass through to the engine."""
+    with incremental CTC decoding switched on; ``faults`` (a
+    ``runtime.ServingFaultConfig``, None: no fault runtime),
+    ``async_dispatch`` and ``chunk_policy`` (a ``runtime.ChunkSizePolicy``,
+    None: fixed chunks) pass through to the engine."""
 
-    def __init__(self, cfg, params, num_slots=4, chunk=16,
+    def __init__(self, cfg, params, num_slots=4, chunk=16, faults=None,
                  async_dispatch=False, chunk_policy=None):
         self.engine = StreamingEngine(cfg, params, max_streams=num_slots,
                                       chunk=chunk, decode_ctc=True,
+                                      faults=faults,
                                       async_dispatch=async_dispatch,
                                       chunk_policy=chunk_policy)
 
@@ -57,13 +71,72 @@ class StreamServer:
         return self.engine.sched.done
 
 
+def _parse_at_spec(spec: str):
+    """Parse a repeatable ``VALUE@STEP`` injection flag into (step, value)."""
+    value, step = spec.split('@')
+    return int(step), int(value)
+
+
+def _build_fault_config(args):
+    """Assemble a ``runtime.ServingFaultConfig`` from the CLI fault flags;
+    returns None when no fault feature was requested (the engine then runs
+    without the fault runtime)."""
+    fail_at = dict(_parse_at_spec(s) for s in (args.fail_engines or []))
+    if args.fail_at_step is not None and args.fail_at_step not in fail_at:
+        fail_at[args.fail_at_step] = 1
+    poison_at = dict(_parse_at_spec(s) for s in (args.poison_slot or []))
+    recover_at = dict(_parse_at_spec(s) for s in (args.recover_at or []))
+    if not (fail_at or poison_at or recover_at or args.stream_ckpt_dir
+            or args.deadline_factor is not None):
+        return None
+    return ServingFaultConfig(fail_at=fail_at, poison_at=poison_at,
+                              recover_at=recover_at,
+                              promote_hysteresis=args.promote_hysteresis,
+                              canary=args.canary,
+                              backoff_s=0.0,
+                              deadline_factor=args.deadline_factor,
+                              checkpoint_dir=args.stream_ckpt_dir)
+
+
+def _print_fault_summary(stats) -> None:
+    """The fault runtime's counts and its ladder moves, one line each."""
+    counts = stats['event_counts']
+    print(f'fault summary: backend={stats["backend"]} '
+          f'rung={stats["rung"]} '
+          f'degrade={counts.get("degrade", 0)} '
+          f'promote={counts.get("promote", 0)} '
+          f'quarantine={counts.get("quarantine", 0)} '
+          f'deadline_misses={stats["deadline_misses"]} '
+          f'checkpoints={counts.get("checkpoint", 0)} '
+          f'events_dropped={stats["events_dropped"]}')
+    for e in stats['events']:
+        if e['kind'] == 'degrade':
+            print(f'  degrade @step {e["step"]}: {e["from_backend"]} -> '
+                  f'{e["to_backend"]} ({e["n_dead"]} engine(s) dead, '
+                  f'domain {e["domain"]})')
+        elif e['kind'] == 'heal':
+            print(f'  heal @step {e["step"]}: domains {e["domains"]} '
+                  f'healed')
+        elif e['kind'] == 'promote_canary':
+            print(f'  promote_canary @step {e["step"]}: replaying '
+                  f'committed chunk on {e["to_backend"]}')
+        elif e['kind'] == 'promote':
+            print(f'  promote @step {e["step"]}: {e["from_backend"]} -> '
+                  f'{e["to_backend"]} (healthy domains {e["healthy"]})')
+        elif e['kind'] == 'promote_rejected':
+            print(f'  promote_rejected @step {e["step"]}: '
+                  f'{e["to_backend"]} canary mismatch '
+                  f'(backoff -> {e["backoff"]})')
+
+
 def _run_stream_serving(cfg, args):
     params = chipmunk_net.init(cfg, torch.Generator().manual_seed(0),
                                device=args.device)
     policy = (None if args.deadline_slo is None else
               ChunkSizePolicy(chunk_max=args.chunk, slack=args.deadline_slo))
+    faults = _build_fault_config(args)
     server = StreamServer(cfg, params, num_slots=args.slots, chunk=args.chunk,
-                          async_dispatch=args.async_dispatch,
+                          faults=faults, async_dispatch=args.async_dispatch,
                           chunk_policy=policy)
     rng = np.random.RandomState(0)
     t0 = time.time()
@@ -87,10 +160,13 @@ def _run_stream_serving(cfg, args):
     for s in sorted(server.done, key=lambda s: s.sid)[:3]:
         print(f'  stream {s.sid}: {s.length} frames -> '
               f'phonemes {s.decoder.symbols[:8]}')
+    if faults is not None:
+        _print_fault_summary(stats)
     return stats
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
+    """The serve CLI's argument parser."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--arch', default='chipmunk-ctc',
                     choices=sorted(configs.ARCH_MODULES))
@@ -117,7 +193,42 @@ def main(argv=None):
                          'budget = chunk * 10ms frame period * FACTOR '
                          '(the Table-2 arrival rate); chunk length adapts '
                          'to observed launch-to-commit wall times')
-    args = ap.parse_args(argv)
+    ap.add_argument('--fail-at-step', type=int, default=None,
+                    help='declare one engine dead at this engine step '
+                         '(exercises the degradation ladder cuda_seq_fused '
+                         '-> cuda_seq -> torch_scan)')
+    ap.add_argument('--fail-engines', action='append', default=None,
+                    metavar='N@STEP',
+                    help='declare N engines dead at STEP (repeatable)')
+    ap.add_argument('--poison-slot', action='append', default=None,
+                    metavar='SLOT@STEP',
+                    help='poison slot SLOT with NaN state before STEP '
+                         '(repeatable; exercises quarantine)')
+    ap.add_argument('--recover-at-step', dest='recover_at', action='append',
+                    default=None, metavar='N@STEP',
+                    help='heal N failed fault domains at engine step STEP '
+                         '(repeatable; exercises the canary-validated climb '
+                         'back up the ladder)')
+    ap.add_argument('--promote-hysteresis', type=int, default=4,
+                    help='engine steps a promotion must wait after a '
+                         'failure/promotion/rejection; flaps and rejected '
+                         'canaries double it (exponential backoff)')
+    ap.add_argument('--no-canary', dest='canary', action='store_false',
+                    default=True,
+                    help='promote on capacity + hysteresis alone, without '
+                         'the shadow-replay canary validation')
+    ap.add_argument('--stream-ckpt-dir', default=None,
+                    help='directory for per-stream (h, c) + cursor '
+                         'checkpoints (enables preempt/resume across runs)')
+    ap.add_argument('--deadline-factor', type=float, default=None,
+                    help='per-chunk deadline as a multiple of the paper '
+                         'real-time frame budget (records deadline_miss '
+                         'events)')
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     get = configs.get_smoke_config if args.smoke else configs.get_config
     cfg = get(args.arch).replace(lstm_backend=args.lstm_backend)
     return _run_stream_serving(cfg, args)

@@ -4,8 +4,10 @@
 accumulation) -> global-norm clip -> optimizer -> apply, as the reference's
 ``repro.launch.train.make_train_step`` does; the gradients come from the
 hand-written gate-recompute backward of whichever LSTM backend the config
-names.  ``main`` is the CLI: synthetic CTC data -> steps -> async
-checkpoints, with ``--resume``.  It runs on the card unless ``--device cpu``
+names.  ``main`` is the CLI: synthetic CTC data -> steps under the
+``runtime.FaultTolerantRunner`` (retry, restore from the latest checkpoint,
+and a heartbeat in ``<ckpt-dir>/heartbeat.json``) -> async checkpoints,
+with ``--resume``.  It runs on the card unless ``--device cpu``
 is given; the full ``chipmunk-ctc`` configuration is the default and
 ``--smoke`` selects the reduced one::
 
@@ -13,8 +15,7 @@ is given; the full ``chipmunk-ctc`` configuration is the default and
     python -m repro_torch.launch.train --device cpu --smoke --steps 8 \\
         --batch 4 --seq 32
 
-The reference's mesh and sharding have no counterpart here (one card), and
-its ``FaultTolerantRunner`` waits for the port's fault runtime.
+The reference's mesh and sharding have no counterpart here (one card).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from ..data import HostLoader, source_for
 from ..models import chipmunk_net
 from ..optim import (apply_updates, clip_by_global_norm, cosine_schedule,
                      make_optimizer)
+from ..runtime import FaultConfig, FaultTolerantRunner
 from ..tree import leaves, tree_map, unflatten_like
 
 DEFAULT_CKPT_DIR = (pathlib.Path(__file__).resolve().parents[3] / 'build'
@@ -154,9 +156,13 @@ def main(argv=None):
 
     loader = HostLoader(source_for(cfg, shape), shape, args.device,
                         start_step=start)
+    runner = FaultTolerantRunner(
+        step_fn, ckpt_manager=ckpt,
+        cfg=FaultConfig(heartbeat_path=f'{args.ckpt_dir}/heartbeat.json'),
+        restore_fn=lambda: ckpt.restore(state))
     t0 = time.time()
     for i, (step, batch) in zip(range(start, args.steps), loader):
-        state, metrics = step_fn(state, batch)
+        state, metrics = runner.run_step(step, state, batch)
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f'step {step:5d} loss {float(metrics["loss"]):8.4f} '
                   f'gnorm {float(metrics["grad_norm"]):8.3f} '
@@ -164,7 +170,7 @@ def main(argv=None):
         if (step + 1) % args.ckpt_every == 0:
             ckpt.save(step + 1, state)
     ckpt.save(args.steps, state, blocking=True)
-    print('done')
+    print(f'done; events: {runner.events[:5]}')
 
 
 if __name__ == '__main__':

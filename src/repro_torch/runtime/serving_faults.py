@@ -1,17 +1,158 @@
-"""Serving-side deadline policy of the streaming engine (DESIGN.md §10-§11).
+"""Serving-side fault tolerance: the fleet-operation layer (DESIGN.md §10,
+§11).
 
-The first piece of the port's counterpart of ``repro.runtime.serving_faults``
-(which cannot be imported without the JAX package): the per-chunk deadline
-of the paper's real-time model (``chunk_deadline_s``) and the deadline-aware
-chunk sizing of §11 (``ChunkSizePolicy``), copied with their docstrings.
-Both are pure host-side policy on ``core.perf_model``; no tensors.  The
-fault model (``ServingFaultConfig``, ``EngineFailure``, ``finite_slots``,
-``elastic_replace``, ``StreamStateCheckpointer``) comes with the engine's
-fault runtime.
+The port's copy of ``repro.runtime.serving_faults`` (the reference module
+cannot be imported without the JAX package).  This module is the
+policy/state side of fault tolerance for the packed streaming engine
+(``serving/engine.py``); the mechanism side is the generalized
+``FaultTolerantRunner`` (``runtime/fault.py``).  Its capabilities:
+
+  * **stream-state checkpoint/resume** — ``StreamStateCheckpointer``
+    snapshots a preempted/evicted stream's packed per-layer ``(h, c)`` rows
+    (f32 — or the int8 kernels' opaque ``(h_q, c_q)`` carries; the
+    checkpointer is tree-generic) plus its frame cursor through the port's
+    ``CheckpointManager``, so a resubmitted stream restores and continues
+    **bit-equal** to an uninterrupted run instead of being dropped;
+  * **engine-failure injection + graceful degradation** — a deterministic
+    ``fail_at`` schedule raises ``EngineFailure`` mid-serve; the engine
+    reacts by re-dispatching down ``core.lstm.DEGRADATION_LADDER``
+    (``cuda_seq_fused`` -> ``cuda_seq`` -> ``torch_scan``) and re-placing
+    its packed state cache (``elastic_replace``, an exact host round trip),
+    with only a logged latency blip and no stream loss;
+  * **deadline watchdog** — per-chunk deadlines derived from the paper's
+    real-time model (``chunk_deadline_s`` on
+    ``core.perf_model.staged_realtime_frame_s``), recorded as structured
+    events by the runner and exposed via ``StreamingEngine.stats()``;
+  * **poisoned-slot quarantine** — a non-finite guard over the packed state
+    cache (``finite_slots``: four device ops, its ``(S,)`` mask read back
+    behind the chunk's log-probs) detects a slot whose carried
+    state went NaN/Inf so the engine can quarantine exactly that slot —
+    zero its rows, evict the session with a terminal error — while
+    neighbouring slots' outputs stay bit-untouched;
+  * **deadline-aware chunk sizing** (§11) — ``ChunkSizePolicy``, pure
+    host-side policy on ``core.perf_model``.
 """
 from __future__ import annotations
 
+import dataclasses
+import pathlib
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..checkpoint.manager import CheckpointManager
 from ..core.perf_model import FRAME_PERIOD_S, staged_realtime_frame_s
+
+
+class EngineFailure(RuntimeError):
+    """A mesh engine (or group of engines) declared dead mid-serve.
+
+    Raised by the deterministic fault schedule (``ServingFaultConfig.fail_at``
+    via ``FaultTolerantRunner``'s injection hook) — or, on real hardware, by
+    the dispatch layer when a device stops answering.  Handlers react by
+    type AND taxonomy (§14):
+
+      * ``transient=False`` (default) — a PERMANENT loss: the serving engine
+        degrades its backend down the ladder and re-places its packed state cache before retrying the chunk.
+        Permanent failures do not burn the runner's transient retry budget —
+        the fault hook fires on the first attempt.
+      * ``transient=True`` — a recoverable glitch (link hiccup, watchdog
+        blip): the runner retries in place under the ordinary backoff
+        budget; no degradation happens.
+
+    ``domain`` carries the fault-domain id (on the flat ladder, one
+    domain per rung transition); None means "unattributed", which the engine
+    maps to the highest-numbered healthy domain (LIFO — matching the
+    tracker's heal order, so fail/heal schedules compose deterministically).
+    """
+
+    def __init__(self, n_dead: int = 1,
+                 message: Optional[str] = None, *,
+                 transient: bool = False,
+                 domain: Optional[int] = None):
+        self.n_dead = int(n_dead)
+        self.transient = bool(transient)
+        self.domain = None if domain is None else int(domain)
+        kind = 'transient fault on' if transient else 'declared dead'
+        super().__init__(message or f'{n_dead} mesh engine(s) {kind}')
+
+
+@dataclasses.dataclass
+class ServingFaultConfig:
+    """Fault policy for one ``StreamingEngine`` (all features opt-in).
+
+    ``fail_at`` maps engine step -> number of engines lost at that step (the
+    deterministic failure-injection schedule); ``poison_at`` maps engine
+    step -> slot index whose packed state rows are overwritten with NaN
+    before that step's chunk (the quarantine-path injection hook; the
+    engine writes the NaN into copies of the chunk's input states).  The
+    non-finite guard (``guard_nonfinite``, ``finite_slots``) runs on the
+    device right after the chunk call and its mask comes back behind the
+    same event as the log-probs; ``chip_smoke.py`` counts the device ops it
+    adds and times it against ``faults=None``.  ``deadline_s`` pins an
+    explicit per-chunk deadline; ``deadline_factor`` instead derives one
+    from the paper's real-time model (``chunk_deadline_s``).
+    ``checkpoint_dir`` enables stream-state checkpoint/resume through
+    ``StreamStateCheckpointer``.
+
+    Recovery-side knobs (§14): ``fail_at`` values may also be dict specs
+    ``{'n_dead': int, 'transient': bool, 'domain': int}`` to inject the
+    taxonomy; ``recover_at`` maps engine step -> number of fault domains
+    healed at that step (fed to the ``MeshHealthTracker``, which then arms
+    the canary-validated promotion path); ``promote_hysteresis`` is the
+    tracker's base backoff window in engine steps; ``canary`` gates
+    promotion on a bit-equality shadow-chunk replay (``canary_rtol`` relaxes
+    the comparison to allclose for cross-arithmetic-class rungs);
+    ``event_log_cap`` bounds the engine + runner event logs with a ring
+    buffer (``runtime.fault.RingLog``).
+    """
+
+    fail_at: Dict[int, object] = dataclasses.field(default_factory=dict)
+    poison_at: Dict[int, int] = dataclasses.field(default_factory=dict)
+    recover_at: Dict[int, int] = dataclasses.field(default_factory=dict)
+    guard_nonfinite: bool = True
+    max_retries: int = 3
+    backoff_s: float = 0.05
+    deadline_s: Optional[float] = None
+    deadline_factor: Optional[float] = None
+    checkpoint_dir: Optional[str] = None
+    heartbeat_path: Optional[str] = None
+    promote_hysteresis: int = 4
+    canary: bool = True
+    canary_rtol: Optional[float] = None
+    event_log_cap: int = 1024
+
+    def resolve_deadline_s(self, chunk: int) -> Optional[float]:
+        """The per-chunk deadline this config implies: the explicit
+        ``deadline_s`` when set, else ``chunk_deadline_s(chunk,
+        deadline_factor)`` (the paper's staged real-time frame budget times
+        the slack factor), else None (watchdog disabled)."""
+        if self.deadline_s is not None:
+            return self.deadline_s
+        if self.deadline_factor is not None:
+            return chunk_deadline_s(chunk, self.deadline_factor)
+        return None
+
+    def make_fail_schedule(self):
+        """The ``FaultTolerantRunner`` injection hook for this config:
+        ``step -> EngineFailure`` on scheduled steps, else None.  A plain
+        int value is ``n_dead`` (a permanent unattributed loss); a dict value ``{'n_dead', 'transient', 'domain'}`` injects
+        the full §14 taxonomy.  Deterministic by construction — tests and
+        CI replay it exactly."""
+        fail_at = dict(self.fail_at)
+
+        def schedule(step: int):
+            if step not in fail_at:
+                return None
+            spec = fail_at[step]
+            if isinstance(spec, dict):
+                return EngineFailure(spec.get('n_dead', 1),
+                                     transient=spec.get('transient', False),
+                                     domain=spec.get('domain'))
+            return EngineFailure(spec)
+
+        return schedule
 
 
 def chunk_deadline_s(chunk: int, factor: float = 1.0, **kw) -> float:
@@ -91,3 +232,79 @@ class ChunkSizePolicy:
                 self.size = max(self.size // 2, self.chunk_min, self._floor)
         else:
             self._streak = 0
+
+
+def finite_slots(states) -> torch.Tensor:
+    """Per-slot finiteness of a packed state cache: ``(S,) bool`` on the
+    states' device, True iff every layer's ``(h, c)`` row for that slot is
+    entirely finite; integer leaves are finite by definition.  One
+    reduction over all layers at once: the rows are joined and each
+    element times 0 is summed per slot — 0 exactly when the slot's row is
+    finite (``x * 0`` is NaN for an infinite or NaN ``x``, and a sum of
+    zeros cannot overflow).  Four device ops (join, multiply, sum,
+    compare), where ``isfinite().all()`` takes six (``isfinite`` of a
+    float tensor is four kernels).  A False entry is the quarantine
+    trigger — the guard itself mutates nothing."""
+    flat = [x for pair in states for x in pair]
+    rows = [x.reshape(x.shape[0], -1) for x in flat
+            if x.dtype.is_floating_point]
+    if not rows:
+        return torch.ones((flat[0].shape[0],), dtype=torch.bool,
+                          device=flat[0].device)
+    return torch.cat(rows, dim=1).mul(0).sum(dim=1).eq(0)
+
+
+def elastic_replace(tree):
+    """Re-place every tensor of ``tree`` (nested tuples/lists of tensors)
+    via an exact host round trip: a copy to host memory, then back onto
+    its device — the in-memory form of ``CheckpointManager.restore``'s
+    re-placement.  The serving engine runs it on its packed state cache on
+    every rung change, down (degrade) and up (promotion).  Values are
+    bit-preserved: copies only, no arithmetic."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(elastic_replace(x) for x in tree)
+    return tree.detach().to('cpu', copy=True).to(tree.device)
+
+
+class StreamStateCheckpointer:
+    """Per-stream ``(h, c)`` + cursor snapshots through ``CheckpointManager``.
+
+    One checkpoint directory per stream id (``<dir>/stream_<sid:08d>``),
+    each written via the manager's atomic tmp+rename layout with per-leaf
+    checksums and manifest-path validation, keyed by the stream's frame
+    cursor.  The payload is tree-generic: f32 ``(h, c)`` rows and the int8
+    kernels' opaque ``(h_q, c_q)`` carries round-trip equally (exact numpy
+    serialization, dtype kept), so resume is bit-equal / bit-identical on a
+    fixed backend.  ``keep=1``: only a stream's latest preemption point
+    matters.
+    """
+
+    def __init__(self, directory: str):
+        self.dir = pathlib.Path(directory)
+
+    def _manager(self, sid: int) -> CheckpointManager:
+        return CheckpointManager(self.dir / f'stream_{sid:08d}', keep=1)
+
+    def save(self, sid: int, state_rows, cursor: int) -> None:
+        """Checkpoint one stream's packed state rows + frame cursor
+        (blocking — preemption is on the control path, not the hot path)."""
+        payload = {'cursor': np.int64(cursor), 'state': state_rows}
+        self._manager(sid).save(int(cursor), payload, blocking=True)
+
+    def load(self, sid: int, state_like) -> Tuple[tuple, int]:
+        """Restore the latest snapshot of stream ``sid`` into the structure
+        of ``state_like`` (per-layer ``(h, c)`` rows; each restored leaf is
+        a tensor on its target's device, the CPU for a numpy target);
+        returns ``(state_rows, cursor)``.  Manifest paths are validated
+        against the target tree, so loading the wrong stream shape fails
+        loudly."""
+        out = self._manager(sid).restore(
+            {'cursor': np.int64(0), 'state': state_like})
+        return out['state'], int(out['cursor'])
+
+    def has(self, sid: int) -> bool:
+        """True iff a committed checkpoint exists for stream ``sid``."""
+        d = self.dir / f'stream_{sid:08d}'
+        return d.is_dir() and any(
+            p.is_dir() and not p.name.endswith('.tmp')
+            for p in d.glob('step_*'))

@@ -1,7 +1,8 @@
-"""Packed multi-stream stateful streaming engine, sync or double-buffered.
+"""Packed multi-stream stateful streaming engine, sync or double-buffered,
+with the fault runtime (DESIGN.md §7, §10, §11, §14).
 
-Counterpart of ``repro.serving.engine.StreamingEngine`` with its async
-dispatch and chunk-size policy (DESIGN.md §11), without its fault runtime.
+Counterpart of ``repro.serving.engine.StreamingEngine``: async dispatch,
+the chunk-size policy and the fault runtime, on one device.
 Every active stream's ``(h, c)`` LSTM state lives in one packed per-layer
 state cache of shape ``(max_streams, N_h)`` on the engine's device, and
 each ``step`` runs ONE batched chunked call (``models.chipmunk_net
@@ -24,6 +25,23 @@ work overlaps device time.  Admissions for the speculative launch are
 applied to copies of those states, so a squashed speculation leaves the
 tensors the commit adopts untouched.  Both modes share one code path and
 give the same bits.
+
+Fault tolerance (``runtime/serving_faults.py``, ``runtime/recovery.py``):
+with a ``ServingFaultConfig`` attached, every commit is driven by the
+``FaultTolerantRunner``.  A permanent ``EngineFailure`` steps the backend
+down ``core.lstm.DEGRADATION_LADDER`` (``cuda_seq_fused`` -> ``cuda_seq``
+-> ``torch_scan``), re-places the packed cache by an exact host round trip
+(``elastic_replace``) and recomputes the chunk from committed state; a
+transient one retries in place; any other error is retried under the
+transient budget and then raised, never degraded.  Healed capacity
+(``recover_at``) climbs back one rung at a time, each promotion validated
+by a canary: the last committed chunk replayed as a shadow on the
+candidate backend, compared with what was committed.  A non-finite guard
+(``finite_slots``: four device ops a chunk and the copy of its mask, read
+back behind the log-probs' event) quarantines exactly a poisoned slot, and preempted
+streams checkpoint their rows and cursor so another engine resumes them
+bit-equal.  Without a fault config none of this runs: the engine issues
+the same device ops as without the runtime.
 """
 from __future__ import annotations
 
@@ -37,7 +55,10 @@ import torch
 from ..core.lstm import resolve_serving_backend
 from ..kernels.lstm_seq import stack_kernel_weights
 from ..models import chipmunk_net
-from ..runtime import ChunkSizePolicy, RingLog
+from ..runtime import (ChunkSizePolicy, EngineFailure, FaultConfig,
+                       FaultTolerantRunner, MeshHealthTracker, RingLog,
+                       ServingFaultConfig, StreamStateCheckpointer,
+                       build_rungs, elastic_replace, finite_slots)
 from .scheduler import SlotScheduler
 from .session import IncrementalCTCDecoder, StreamSession
 
@@ -49,7 +70,8 @@ _HOST_RING = 3
 
 class _HostBuffers:
     """One chunk's host staging, sized for the engine's packing width:
-    frames and valid counts going up, log-probs coming down.  Pinned on the
+    frames and valid counts going up, log-probs (and the non-finite guard's
+    per-slot mask, when the guard is on) coming down.  Pinned on the
     card, so the copies are asynchronous.  ``event`` (None on the CPU) is
     recorded behind the last copy of the chunk that used the set last; that
     chunk's commit waits on it, and the set is next used (and the event
@@ -61,6 +83,7 @@ class _HostBuffers:
         self.frames = torch.zeros(slots * chunk * n_in, **f32)
         self.valid = torch.zeros(slots, dtype=torch.int64, pin_memory=pin)
         self.lp = torch.zeros(slots * chunk * n_out, **f32)
+        self.finite = torch.zeros(slots, dtype=torch.bool, pin_memory=pin)
         self.event = torch.cuda.Event() if pin else None
 
     def wait(self) -> None:
@@ -74,18 +97,48 @@ class _HostBuffers:
 @dataclasses.dataclass
 class _InFlight:
     """One launched, uncommitted chunk: its active (slot, session) rows,
-    the valid frame counts, the host copy of its log-probs, complete once
+    the valid frame counts, its host buffer set with the host copies of its
+    log-probs and guard mask (None without the guard), complete once
     ``done`` has fired (None on the CPU, where the copy is synchronous),
-    and its output states (on the device) with the states it was fed."""
+    its output states (on the device) with the states it was fed, and what
+    a retry needs to recompute it from committed state: the frames and
+    valid counts on the device and the injected poison slot.  ``error``
+    holds an exception the chunk call raised at launch (fault runtime
+    only); the commit raises it under the runner."""
     chunk_idx: int
     active: List[Tuple[int, StreamSession]]
     valid: np.ndarray
-    host_lp: torch.Tensor
+    buf: _HostBuffers
+    host_lp: Optional[torch.Tensor]
+    host_finite: Optional[torch.Tensor]
     done: Optional[torch.cuda.Event]
-    new_states: tuple
+    new_states: Optional[tuple]
     t_launch: float
     chunk_len: int
-    states_in: tuple = ()
+    states_in: tuple
+    frames_d: torch.Tensor
+    valid_d: torch.Tensor
+    poison_slot: Optional[int] = None
+    error: Optional[BaseException] = None
+
+
+def _poisoned(states: tuple, slot: int) -> tuple:
+    """Copies of ``states`` with ``slot``'s rows set to NaN (the quarantine
+    path's injection); ``states`` itself is never written."""
+    out = []
+    for h, c in states:
+        h, c = h.clone(), c.clone()
+        h[slot] = float('nan')
+        c[slot] = float('nan')
+        out.append((h, c))
+    return tuple(out)
+
+
+def _host(x) -> np.ndarray:
+    """A host array of a tensor (copied off the device) or of an array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 class StreamingEngine:
@@ -103,6 +156,13 @@ class StreamingEngine:
     (``core.lstm.resolve_serving_backend``); on ``cuda_seq_fused`` the
     kernel's stacked weights are built then too.
 
+    ``faults`` (a ``runtime.ServingFaultConfig``) opts into the §10/§14
+    fault model: engine-failure injection with ladder degradation and
+    canary-validated promotion, the per-chunk deadline watchdog, non-finite
+    slot quarantine, and stream checkpoint/resume through the port's
+    ``CheckpointManager``.  Without it the engine runs no guard and no
+    runner, and issues the same device ops per chunk.
+
     ``async_dispatch`` enables §11 double buffering (launch of chunk k+1
     overlapped with device compute of chunk k); ``chunk_policy`` (a
     ``runtime.ChunkSizePolicy``) makes the per-step chunk length adapt to
@@ -111,7 +171,9 @@ class StreamingEngine:
     """
 
     def __init__(self, cfg, params, *, max_streams: int = 4, chunk: int = 16,
-                 decode_ctc: bool = False, async_dispatch: bool = False,
+                 decode_ctc: bool = False,
+                 faults: Optional[ServingFaultConfig] = None,
+                 async_dispatch: bool = False,
                  chunk_policy: Optional[ChunkSizePolicy] = None):
         if cfg.family != 'lstm':
             raise ValueError('StreamingEngine serves the recurrent family')
@@ -130,6 +192,7 @@ class StreamingEngine:
         self.backend = resolve_serving_backend(
             params, cfg.lstm_backend, chunk, max_streams, self.device)
         self.cfg = cfg.replace(lstm_backend=self.backend)
+        # built once; on a fault runtime they serve a promotion back to K2
         self.stack_weights = (stack_kernel_weights(params)
                               if self.backend == 'cuda_seq_fused' else None)
         self.sched: SlotScheduler[StreamSession] = SlotScheduler(max_streams)
@@ -142,8 +205,63 @@ class StreamingEngine:
         self._next_sid = 0
         self._step_idx = 0
         self._pending: Optional[_InFlight] = None
+        self._poison_recorded: set = set()
         self.chunk_walls: List[float] = []   # per-chunk launch-to-commit s
-        self.events = RingLog()
+        self.events = RingLog(faults.event_log_cap
+                              if faults is not None else None)
+
+        self.faults = faults
+        self._guard = False
+        self._ckpt: Optional[StreamStateCheckpointer] = None
+        self._runner: Optional[FaultTolerantRunner] = None
+        self._rungs: tuple = ()
+        self._tracker: Optional[MeshHealthTracker] = None
+        if faults is not None:
+            self._guard = faults.guard_nonfinite
+            if faults.checkpoint_dir:
+                self._ckpt = StreamStateCheckpointer(faults.checkpoint_dir)
+            self._runner = FaultTolerantRunner(
+                cfg=FaultConfig(max_retries=faults.max_retries,
+                                backoff_s=faults.backoff_s,
+                                deadline_s=faults.resolve_deadline_s(chunk),
+                                heartbeat_path=faults.heartbeat_path,
+                                event_log_cap=faults.event_log_cap),
+                fail_schedule=faults.make_fail_schedule())
+            # §14: the flat ladder from the pinned backend down, one fault
+            # domain per rung transition
+            self._rungs = build_rungs(self.backend)
+            self._tracker = MeshHealthTracker(
+                n_domains=self._rungs[0].need,
+                hysteresis=faults.promote_hysteresis)
+        self._rung_idx = 0
+        self._healed_steps: set = set()
+        self._last_commit: Optional[dict] = None   # canary replay material
+        self._fwd = self._make_fwd(self.cfg)
+
+    def _make_fwd(self, cfg):
+        """The packed chunk call on ``cfg``'s backend: ``(states, frames,
+        valid) -> (log-probs, new states, finite)``, where ``finite`` is the
+        non-finite guard's ``(S,)`` mask on the device (``finite_slots``,
+        the guard on) or None (no device op).  Also the factory the
+        promotion canary uses to build the CANDIDATE backend's call without
+        touching the incumbent's."""
+        guard, params, weights = self._guard, self.params, self.stack_weights
+
+        def fwd(states, frames, valid):
+            lp, new_states = chipmunk_net.stream_forward(
+                cfg, params, states, frames, valid_len=valid,
+                stack_weights=weights)
+            return lp, new_states, (finite_slots(new_states) if guard
+                                    else None)
+
+        return fwd
+
+    def _set_backend(self, backend: str, fwd=None) -> None:
+        """Move the engine to ``backend`` (a rung change): its config and
+        its chunk call (``fwd`` when already built, as the canary's)."""
+        self.backend = backend
+        self.cfg = self.cfg.replace(lstm_backend=backend)
+        self._fwd = fwd if fwd is not None else self._make_fwd(self.cfg)
 
     # ------------------------------------------------------------ admission
     def submit(self, frames: np.ndarray, sid: Optional[int] = None,
@@ -213,16 +331,20 @@ class StreamingEngine:
     def preempt(self, sid: int, requeue: bool = True
                 ) -> Optional[StreamSession]:
         """Preempt a stream: snapshot its packed per-layer ``(h, c)`` rows
-        onto the session, free its slot, and with ``requeue=True`` put it
-        back at the front of its priority class.  A control-plane op: under
-        async dispatch the in-flight chunk is committed first (``_sync``),
-        so the snapshot reads committed rows.  The resumed stream continues
+        onto the session (and through the stream checkpointer when one is
+        configured), free its slot, and with ``requeue=True`` put it back at
+        the front of its priority class.  A control-plane op: under async
+        dispatch the in-flight chunk is committed first (``_sync``), so the
+        snapshot reads committed rows.  The resumed stream continues
         bit-equal to an uninterrupted run on the same backend.  Returns the
         session, or None when ``sid`` is not active."""
         self._sync()
         for slot, sess in self.sched.active():
             if sess.sid == sid:
                 sess.saved_state = self._snapshot_slot(slot)
+                if self._ckpt is not None:
+                    self._ckpt.save(sess.sid, sess.saved_state, sess.cursor)
+                    self._record('checkpoint', sid=sid, cursor=sess.cursor)
                 self.sched.evict(slot, requeue=requeue)
                 self._record('preempt', sid=sid, slot=slot, requeue=requeue)
                 return sess
@@ -231,13 +353,45 @@ class StreamingEngine:
     def evict(self, sid: int) -> Optional[StreamSession]:
         """Abandon a stream mid-flight; its slot is freed for refill and its
         rows are zeroed on the next admission.  Its state is snapshotted
-        onto the session, so ``resume`` can continue it later, bit-equal."""
+        onto the session (and to disk when a checkpointer is configured),
+        so ``resume`` or ``resume_from_checkpoint`` can continue it later,
+        bit-equal."""
         return self.preempt(sid, requeue=False)
 
     def resume(self, sess: StreamSession) -> StreamSession:
         """Resubmit a preempted or evicted session; on admission it restores
-        its saved packed state and continues from its cursor."""
+        its saved packed state and continues from its cursor.  A
+        quarantined session cannot resume (``ValueError``)."""
+        if sess.error is not None:
+            raise ValueError(f'stream {sess.sid} was quarantined')
         self.sched.submit(sess)
+        return sess
+
+    def resume_from_checkpoint(self, frames: np.ndarray, sid: int
+                               ) -> StreamSession:
+        """Rebuild a stream from its on-disk checkpoint and submit it.
+
+        ``frames`` is the full utterance (inputs are not checkpointed —
+        only the packed per-layer ``(h, c)`` rows and the frame cursor);
+        the session resumes at the checkpointed cursor and its emitted
+        log-probs continue from there, bit-equal to the uninterrupted
+        run's suffix on the same backend."""
+        if self._ckpt is None:
+            raise ValueError('no checkpoint_dir configured')
+        frames = np.asarray(frames, np.float32)
+        n_h = self.cfg.lstm_hidden
+        like = tuple((torch.zeros(n_h, dtype=h.dtype),
+                      torch.zeros(n_h, dtype=c.dtype))
+                     for h, c in self.states)
+        state_rows, cursor = self._ckpt.load(sid, like)
+        dec = IncrementalCTCDecoder() if self.decode_ctc else None
+        sess = StreamSession(sid=sid, frames=frames, decoder=dec,
+                             cursor=cursor, t_enqueue=time.time())
+        sess.saved_state = tuple((rh.numpy(), rc.numpy())
+                                 for rh, rc in state_rows)
+        self._next_sid = max(self._next_sid, sid + 1)
+        self.sched.submit(sess)
+        self._record('resume_from_checkpoint', sid=sid, cursor=cursor)
         return sess
 
     def _record(self, kind: str, **info) -> None:
@@ -250,6 +404,63 @@ class StreamingEngine:
         if slot is not None:
             self.preempt(self.sched.slots[slot].sid)
 
+    # -------------------------------------------------------- fault hooks
+    def _on_engine_fault(self, exc: BaseException, attempt: int) -> None:
+        """Between a failed chunk attempt and its retry: transient faults
+        (any exception but a permanent ``EngineFailure``, so a real kernel
+        error too) just retry; a permanent ``EngineFailure`` marks its fault
+        domain dead in the health tracker, degrades to the highest rung the
+        surviving capacity supports (at least one rung down), and re-places
+        the packed state cache by an exact host round trip before the retry
+        recomputes the SAME chunk.  No stream loses state or frames."""
+        if not isinstance(exc, EngineFailure) or exc.transient:
+            return                          # transient: plain retry
+        killed = self._tracker.fail(self._step_idx, domain=exc.domain,
+                                    n_dead=exc.n_dead)
+        domain = killed[0] if killed else exc.domain
+        n = self._tracker.n_healthy
+        supported = next(
+            (i for i, r in enumerate(self._rungs) if r.need <= n),
+            len(self._rungs) - 1)
+        target = max(self._rung_idx + 1, supported)
+        if target >= len(self._rungs):
+            self._record('degrade_exhausted', backend=self.backend,
+                         n_dead=exc.n_dead)
+            return                          # bottom of the ladder: retry as-is
+        prev = self.backend
+        rung = self._rungs[target]
+        self._set_backend(rung.backend)
+        self.states = elastic_replace(self.states)
+        self._rung_idx = target
+        self._last_commit = None            # stale incumbent evidence
+        self._record('degrade', from_backend=prev, to_backend=rung.backend,
+                     n_dead=exc.n_dead, domain=domain)
+
+    def _quarantine(self, active, finite: torch.Tensor, new_states) -> tuple:
+        """Quarantine every active slot whose new carried state went
+        non-finite: zero exactly that slot's rows, in copies (a squashed
+        speculative launch has read ``new_states``), evict the session with
+        a terminal ``error`` (never retired into ``done``, never requeued),
+        and leave every neighbouring slot's rows and outputs bit-untouched.
+        Returns the scrubbed states."""
+        bad = [(slot, sess) for slot, sess in active if not bool(finite[slot])]
+        if not bad:
+            return new_states
+        out = []
+        for h, c in new_states:
+            h, c = h.clone(), c.clone()
+            for slot, _ in bad:
+                h[slot] = 0
+                c[slot] = 0
+            out.append((h, c))
+        for slot, sess in bad:
+            sess.error = (f'non-finite state quarantined at engine '
+                          f'step {self._step_idx}')
+            sess.saved_state = None
+            self.sched.evict(slot)
+            self._record('quarantine', sid=sess.sid, slot=slot)
+        return tuple(out)
+
     # -------------------------------------------------- launch/commit core
     def _next_chunk_len(self) -> int:
         """Frames the next chunk should carry: the policy's current size
@@ -261,9 +472,12 @@ class StreamingEngine:
     def _deadline_for(self, chunk_len: int) -> Optional[float]:
         """Per-chunk deadline: the chunk-size policy's arrival-rate budget
         when one is attached (so ``deadline_miss`` events and the policy's
-        feedback agree), else None."""
+        feedback agree), else the fault config's ``resolve_deadline_s`` for
+        THIS chunk length, else None."""
         if self._policy is not None:
             return self._policy.budget_s(chunk_len)
+        if self.faults is not None:
+            return self.faults.resolve_deadline_s(chunk_len)
         return None
 
     def _pack(self, plan, chunk_len: int, buf: _HostBuffers):
@@ -284,14 +498,39 @@ class StreamingEngine:
             valid_np[slot] = len(part)
         return frames, buf.valid
 
+    def _read_back(self, buf: _HostBuffers, lp: torch.Tensor,
+                   finite: Optional[torch.Tensor]):
+        """Enqueue the copies of a chunk's log-probs (and guard mask) into
+        ``buf`` and record the set's event behind them.  Returns the host
+        views (the mask's is None without the guard)."""
+        host_lp = buf.lp[:lp.numel()].view(lp.shape)
+        host_lp.copy_(lp, non_blocking=True)
+        host_finite = None
+        if finite is not None:
+            host_finite = buf.finite[:finite.numel()]
+            host_finite.copy_(finite, non_blocking=True)
+        if buf.event is not None:
+            buf.event.record()
+        return host_lp, host_finite
+
     def _launch(self, states_in: tuple, plan, chunk_idx: int,
                 chunk_len: int) -> _InFlight:
-        """Enqueue one chunk without waiting for the device: pack the
-        planned streams into the next host buffers, upload frames and valid
-        counts by asynchronous copies, enqueue the chunk call on
-        ``states_in`` and the copy of its log-probs back to the host, and
-        record one event behind that copy.  Nothing engine-visible
-        changes here."""
+        """Enqueue one chunk without waiting for the device: compose the
+        injected poison edit (``faults.poison_at``, on copies of the input
+        states), pack the planned streams into the next host buffers,
+        upload frames and valid counts by asynchronous copies, enqueue the
+        chunk call on ``states_in`` and the copies of its log-probs (and
+        guard mask) back to the host, and record one event behind them.
+        Nothing engine-visible changes here.  Under the fault runtime an
+        exception of the chunk call is kept in the record and raised by
+        the commit, under the runner."""
+        poison = (self.faults.poison_at.get(chunk_idx)
+                  if self.faults is not None else None)
+        if poison is not None:
+            states_in = _poisoned(states_in, poison)
+            if chunk_idx not in self._poison_recorded:
+                self._poison_recorded.add(chunk_idx)
+                self._record('poison_injected', slot=poison, step=chunk_idx)
         buf = self._host[self._launched % _HOST_RING]
         self._launched += 1
         buf.wait()
@@ -300,47 +539,103 @@ class StreamingEngine:
         t0 = time.time()
         frames_d = frames.to(self.device, non_blocking=True)
         valid_d = valid.to(self.device, non_blocking=True)
-        lp, new_states = chipmunk_net.stream_forward(
-            self.cfg, self.params, states_in, frames_d, valid_len=valid_d,
-            stack_weights=self.stack_weights)
-        host_lp = buf.lp[:lp.numel()].view(lp.shape)
-        host_lp.copy_(lp, non_blocking=True)
-        if buf.event is not None:
-            buf.event.record()
-        return _InFlight(chunk_idx=chunk_idx,
-                         active=[(i, s) for i, s, _ in plan],
-                         valid=valid_host, host_lp=host_lp, done=buf.event,
-                         new_states=new_states, t_launch=t0,
-                         chunk_len=chunk_len, states_in=states_in)
+        rec = _InFlight(chunk_idx=chunk_idx,
+                        active=[(i, s) for i, s, _ in plan],
+                        valid=valid_host, buf=buf, host_lp=None,
+                        host_finite=None, done=buf.event, new_states=None,
+                        t_launch=t0, chunk_len=chunk_len,
+                        states_in=states_in, frames_d=frames_d,
+                        valid_d=valid_d, poison_slot=poison)
+        try:
+            lp, rec.new_states, finite = self._fwd(states_in, frames_d,
+                                                   valid_d)
+        except Exception as e:              # noqa: BLE001 — the runner's
+            if self._runner is None:
+                raise
+            rec.error = e
+            return rec
+        rec.host_lp, rec.host_finite = self._read_back(buf, lp, finite)
+        return rec
 
     def _commit(self, rec: _InFlight) -> bool:
         """Resolve one in-flight chunk and commit it: wait on its event
-        (the log-probs' copy to the host, behind the chunk call), feed the
-        launch-to-commit wall time to the chunk-size policy and the
-        deadline check, then — only now — advance states, cursors, outputs
-        and retirement.  Returns True iff the commit was clean (no fault
-        runtime yet, so always): the async path adopts its speculative
-        launch only then."""
-        if rec.done is not None:
-            rec.done.synchronize()
-        host = rec.host_lp.numpy()
+        (the log-probs' copy to the host, behind the chunk call) — under
+        the fault runner when configured, where a failed attempt is
+        recomputed synchronously from COMMITTED state after the fault hook
+        (``_on_engine_fault``) ran — feed the launch-to-commit wall time to
+        the chunk-size policy and the deadline watchdog, scrub quarantined
+        slots, then — only now — advance states, cursors, outputs and
+        retirement.  Returns True iff the commit was clean (no fault, no
+        quarantine): the async path adopts its speculative launch only
+        then."""
+        deadline = self._deadline_for(rec.chunk_len)
+
+        def resolve():
+            if rec.error is not None:
+                raise rec.error
+            if rec.done is not None:
+                rec.done.synchronize()
+            return rec.host_lp.numpy(), rec.new_states, rec.host_finite
+
+        def retry():
+            # the failed attempt is dead; recompute from the committed cache
+            # (admissions for this chunk are already realized in it; only
+            # the injected poison edit is re-applied).  Its copies go to the
+            # same host set behind the failed attempt's on the same stream,
+            # and the event recorded again covers both.
+            states_in = self.states
+            if rec.poison_slot is not None:
+                states_in = _poisoned(states_in, rec.poison_slot)
+            lp, new_states, finite = self._fwd(states_in, rec.frames_d,
+                                               rec.valid_d)
+            host_lp, host_finite = self._read_back(rec.buf, lp, finite)
+            if rec.done is not None:
+                rec.done.synchronize()
+            return host_lp.numpy(), new_states, host_finite
+
+        faults = []
+        if self._runner is not None:
+            def on_fault(exc, attempt):
+                faults.append(exc)
+                self._on_engine_fault(exc, attempt)
+
+            host, new_states, finite = self._runner.run(
+                rec.chunk_idx, resolve, on_fault=on_fault, retry_fn=retry,
+                launched_at=rec.t_launch, deadline_s=deadline)
+        else:
+            host, new_states, finite = resolve()
         dt = time.time() - rec.t_launch
         self.chunk_walls.append(dt)
         if self._policy is not None:
             self._policy.observe(rec.chunk_len, dt)
-        deadline = self._deadline_for(rec.chunk_len)
-        if deadline is not None and dt > deadline:
+        if self._runner is None and deadline is not None and dt > deadline:
             self._record('deadline_miss', dt=dt, deadline_s=deadline)
+
+        quarantined = finite is not None and not bool(finite.all())
+        if quarantined:
+            new_states = self._quarantine(rec.active, finite, new_states)
         self.states = tuple((h.contiguous(), c.contiguous())
-                            for h, c in rec.new_states)
+                            for h, c in new_states)
         for i, sess in rec.active:
+            if sess.error is not None:      # quarantined this step
+                continue
             # a copy: the host buffer is reused by a later chunk
             sess.consume(host[i, :rec.valid[i]].copy())
             if sess.remaining == 0:
                 sess.t_done = time.time()
                 self.sched.finish(i)
         self._step_idx += 1
-        return True
+        clean = not (quarantined or faults)
+        if clean and self._tracker is not None and self._rung_idx > 0:
+            # canary replay material, captured only while degraded (the
+            # home rung pays nothing): what this commit consumed, on the
+            # device (never written in place), and a host copy of what it
+            # produced
+            self._last_commit = {
+                'states_in': rec.states_in, 'frames': rec.frames_d,
+                'valid': rec.valid_d, 'lp': host.copy(),
+                'new_states': self.states}
+        return clean
 
     def _sync(self) -> None:
         """Async control-plane barrier: commit the in-flight chunk, if any.
@@ -351,6 +646,118 @@ class StreamingEngine:
             rec, self._pending = self._pending, None
             self._commit(rec)
 
+    # ------------------------------------------------- recovery / promotion
+    def _poll_recovery(self) -> None:
+        """Top-of-step recovery poll (§14): apply any scheduled heals
+        (``faults.recover_at``, each engine step at most once) to the
+        health tracker, then attempt a canary-validated promotion when
+        capacity and the hysteresis window allow.  Keyed on the COMMITTED
+        step index in both dispatch modes, so sync and async replay the
+        same recovery trail."""
+        if self._tracker is None:
+            return
+        heal_n = self.faults.recover_at.get(self._step_idx)
+        if heal_n and self._step_idx not in self._healed_steps:
+            self._healed_steps.add(self._step_idx)
+            revived = self._tracker.heal(self._step_idx, heal_n)
+            self._record('heal', domains=list(revived),
+                         n_healed=int(heal_n))
+        if self._rung_idx > 0:
+            self._maybe_promote()
+
+    def _promotion_due(self, step: int) -> bool:
+        """True iff the recovery poll at committed step ``step`` may try a
+        promotion: the engine is degraded, the rung above fits the healthy
+        capacity after that step's scheduled heal, and the hysteresis
+        window is open.  The async path does not speculate across such a
+        step (``_speculate``), so a promotion lands before the same chunk
+        in both dispatch modes.  (The reference's async engine speculates
+        across it and promotes one chunk later than its sync engine.)"""
+        if self._tracker is None or self._rung_idx == 0:
+            return False
+        heal = (0 if step in self._healed_steps
+                else self.faults.recover_at.get(step, 0))
+        healthy = min(self._tracker.n_domains,
+                      self._tracker.n_healthy + heal)
+        return (healthy >= self._rungs[self._rung_idx - 1].need
+                and self._tracker.can_promote(step))
+
+    def _canary_equal(self, a, b) -> bool:
+        """Canary comparison on host copies: bitwise by default
+        (``np.array_equal``), or allclose under an explicit
+        ``canary_rtol`` opt-in for rungs that sum in other orders (K2, K1
+        and the torch scan do on the card)."""
+        rtol = self.faults.canary_rtol
+        if rtol is None:
+            return bool(np.array_equal(_host(a), _host(b)))
+        return bool(np.allclose(_host(a), _host(b), rtol=rtol, atol=0.0))
+
+    def _maybe_promote(self) -> None:
+        """Attempt one climb-back step up the rung ladder (§14).
+
+        Preconditions: the candidate rung (one above current) is within the
+        tracker's healthy capacity, the hysteresis window is open, and —
+        when the canary is armed — a committed chunk exists to validate
+        against.  The pipeline is drained first (``_sync``), so a promotion
+        NEVER lands mid-flight; the drain may itself fault or move rungs,
+        so every precondition is re-checked after it.
+
+        Canary protocol: build the candidate backend's chunk call, replay
+        the last committed chunk as a SHADOW on the committed input state,
+        and compare the replayed log-probs AND new states with the
+        incumbent's committed results on the host.  Equal -> promote:
+        re-place the packed cache (``elastic_replace``), adopt the
+        candidate call, and re-arm the hysteresis window.  Unequal ->
+        reject: emit ``promote_rejected`` and double the backoff.
+        Commit-on-success end to end: no engine-visible state changes
+        unless the canary passes."""
+        step = self._step_idx
+        if (self._tracker.n_healthy < self._rungs[self._rung_idx - 1].need
+                or not self._tracker.can_promote(step)):
+            return
+        if self.faults.canary and self._last_commit is None:
+            return                  # nothing committed to validate against
+        self._sync()                # promotion never lands mid-flight
+        if self._rung_idx == 0:
+            return
+        cand_idx = self._rung_idx - 1
+        cand = self._rungs[cand_idx]
+        if (self._tracker.n_healthy < cand.need
+                or not self._tracker.can_promote(self._step_idx)):
+            return
+        lc = self._last_commit
+        if self.faults.canary and lc is None:
+            return
+        cand_fwd = self._make_fwd(self.cfg.replace(lstm_backend=cand.backend))
+        if self.faults.canary:
+            self._record('promote_canary', from_backend=self.backend,
+                         to_backend=cand.backend, chunk=lc['lp'].shape[-2]
+                         if lc['lp'].ndim >= 2 else 0)
+            lp, st, _ = cand_fwd(lc['states_in'], lc['frames'], lc['valid'])
+            ok = self._canary_equal(lp, lc['lp'])
+            ref_leaves = [x for pair in lc['new_states'] for x in pair]
+            got_leaves = [x for pair in st for x in pair]
+            ok = ok and len(ref_leaves) == len(got_leaves) and all(
+                self._canary_equal(g, r)
+                for g, r in zip(got_leaves, ref_leaves))
+            if not ok:
+                # squash: nothing committed, the incumbent stays
+                self._tracker.note_reject(self._step_idx)
+                self._record('promote_rejected', from_backend=self.backend,
+                             to_backend=cand.backend,
+                             backoff=self._tracker.backoff)
+                return
+        prev = self.backend
+        self._set_backend(cand.backend, cand_fwd)
+        self.states = elastic_replace(self.states)
+        self._rung_idx = cand_idx
+        if cand_idx == 0:
+            self._last_commit = None    # home rung: stop paying capture
+        self._tracker.note_promote(self._step_idx)
+        self._record('promote', from_backend=prev, to_backend=cand.backend,
+                     n_dies=cand.n_dies,
+                     healthy=list(self._tracker.healthy))
+
     def _speculate(self, rec: _InFlight):
         """Plan chunk k+1 while chunk k is still in flight (no mutation).
 
@@ -359,9 +766,16 @@ class StreamingEngine:
         count hit zero, and refill admits the pending queue (already in
         priority order) into free slots in slot order.  Returns ``(plan,
         admissions)`` — plan rows are (slot, session, speculative cursor) —
-        or None when the next step cannot be speculated: nothing to run, or
-        a waiting stream that outranks an active one (the commit-time
-        priority preemption must run serialized)."""
+        or None when the next step cannot be speculated: nothing to run, a
+        scheduled engine failure on the in-flight chunk (its commit will
+        deviate), a promotion that may land at the next step's recovery
+        poll (the next chunk must run on the rung the poll leaves, as in
+        sync mode), or a waiting stream that outranks an active one (the
+        commit-time priority preemption must run serialized)."""
+        if self.faults is not None and (
+                rec.chunk_idx in self.faults.fail_at
+                or self._promotion_due(rec.chunk_idx + 1)):
+            return None
         survivors, freeing = [], []
         for slot, sess in rec.active:
             if sess.remaining - int(rec.valid[slot]) > 0:
@@ -429,13 +843,17 @@ class StreamingEngine:
         return True
 
     def step(self) -> bool:
-        """Advance every active stream by up to one chunk: admit pending
-        streams into free slots (priority first), launch ONE batched call
-        for all of them (padded slots masked out via ``valid_len``), and
-        commit its outputs and retirements.  Synchronous mode launches and
-        immediately commits (a depth-0 pipeline); ``async_dispatch`` defers
-        the commit one step so host packing overlaps device compute
-        (``_step_async``).  Returns False when there was nothing to do."""
+        """Advance every active stream by up to one chunk: poll recovery
+        (heals, a canary-validated promotion), admit pending streams into
+        free slots (priority first), launch ONE batched call for all of
+        them (padded slots masked out via ``valid_len``), and commit its
+        outputs and retirements.  Synchronous mode launches and immediately
+        commits (a depth-0 pipeline); ``async_dispatch`` defers the commit
+        one step so host packing overlaps device compute (``_step_async``).
+        With a fault config the commit runs under the ``FaultTolerantRunner``
+        (``_commit``); nothing commits unless the attempt succeeded.
+        Returns False when there was nothing to do."""
+        self._poll_recovery()
         if self.async_dispatch:
             return self._step_async()
         self._maybe_priority_preempt()
@@ -461,13 +879,25 @@ class StreamingEngine:
         only; an async in-flight chunk is not committed by this call):
         streams, frames, p50 stream latency, p50 chunk wall time, backend,
         step count, dispatch mode, the next chunk length, the structured
-        events with their counts, and the deadline misses."""
+        events (engine, then runner) with their counts and drops, the
+        deadline misses, and the fault runtime's rung, healthy fault
+        domains and last heartbeat (None without a fault config)."""
         done = self.sched.done
         lats = [s.t_done - s.t_enqueue for s in done if s.t_done]
         events = list(self.events)
+        dropped = self.events.dropped
+        if self._runner is not None:
+            events += self._runner.events
+            dropped += self._runner.events.dropped
         counts: dict = {}
         for e in events:
             counts[e['kind']] = counts.get(e['kind'], 0) + 1
+        if self._runner is not None:
+            misses = self._runner.deadline_misses
+        elif self._policy is not None:
+            misses = self._policy.misses
+        else:
+            misses = 0
         return {
             'streams': len(done),
             'frames': sum(s.length for s in done),
@@ -480,7 +910,12 @@ class StreamingEngine:
             'chunk_len': self._next_chunk_len(),
             'events': events,
             'event_counts': counts,
-            'events_dropped': self.events.dropped,
-            'deadline_misses': (self._policy.misses
-                                if self._policy is not None else 0),
+            'events_dropped': dropped,
+            'deadline_misses': misses,
+            'rung': (self._rungs[self._rung_idx].label()
+                     if self._rungs else self.backend),
+            'healthy_domains': (list(self._tracker.healthy)
+                                if self._tracker else None),
+            'heartbeat': (self._runner.last_heartbeat
+                          if self._runner else None),
         }

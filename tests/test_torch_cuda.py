@@ -1088,3 +1088,199 @@ def test_async_host_buffers_never_rewritten_in_flight(dev, backend):
     assert eng.stats()['steps'] >= 64
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------- fault runtime on the card
+def _fault_engine(cfg, params, backend, faults, async_mode=False, slots=4,
+                  chunk=8):
+    """An engine whose chunk calls are logged: (backend, K1 launches, K2
+    launches) per call, the canary's shadow included."""
+    eng = StreamingEngine(cfg.replace(lstm_backend=backend), params,
+                          max_streams=slots, chunk=chunk, faults=faults,
+                          async_dispatch=async_mode)
+    calls = []
+    make = eng._make_fwd
+
+    def traced(c):
+        fwd = make(c)
+
+        def call(*args):
+            k1, k2 = lstm_seq.launches, lstm_stack_seq_kernel.launches
+            out = fwd(*args)
+            calls.append((c.lstm_backend, lstm_seq.launches - k1,
+                          lstm_stack_seq_kernel.launches - k2))
+            return out
+        return call
+
+    eng._make_fwd = traced
+    eng._fwd = traced(eng.cfg)
+    return eng, calls
+
+
+def _fault_drain(eng, utts):
+    sess = [eng.submit(u) for u in utts]
+    eng.run()
+    return [s.full_log_probs() for s in sess], sess
+
+
+def _fault_utts(cfg, n=4, frames=140, seed=21):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(frames, cfg.lstm_inputs) * 0.5).astype(np.float32)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize('async_mode', [False, True])
+def test_fault_ladder_on_card(dev, async_mode):
+    """K2 -> K1 -> torch_scan and back (canary off, so both promotions
+    land): every chunk call on the rung the schedule puts it, K2 once and
+    K1 L times a call, neither on the scan; no stream lost, each allclose
+    to a clean K2 engine; async == sync bit for bit."""
+    from repro_torch.runtime import ServingFaultConfig
+    cfg = configs.get_smoke_config('chipmunk-ctc')
+    params = _params(cfg, dev)
+    utts = _fault_utts(cfg)
+    L = cfg.n_layers
+    F, S, T = ('cuda_seq_fused', 0, 1), ('cuda_seq', L, 0), ('torch_scan',
+                                                           0, 0)
+    # chunks 0-1 on K2, chunk 2 launched on K2 then recomputed on K1, 3-4
+    # on K1, chunk 5 launched on K1 then on the scan, 6-7 on the scan,
+    # promotions at 8 (to K1) and 14 (to K2)
+    want = [F] * 3 + [S] * 4 + [T] * 3 + [S] * 6 + [F] * 4
+    clean, _ = _fault_drain(StreamingEngine(cfg, params, max_streams=4,
+                                            chunk=8), utts)
+    eng, calls = _fault_engine(cfg, params, 'cuda_seq_fused',
+                               ServingFaultConfig(
+                                   fail_at={2: 1, 5: 1},
+                                   recover_at={8: 1, 14: 1},
+                                   promote_hysteresis=2, canary=False,
+                                   backoff_s=0.0), async_mode)
+    got, sess = _fault_drain(eng, utts)
+    assert calls == want
+    st = eng.stats()
+    assert st['backend'] == 'cuda_seq_fused' and st['steps'] == 18
+    assert [e['kind'] for e in st['events'] if e['kind'] in (
+        'degrade', 'heal', 'promote')] == ['degrade', 'degrade', 'heal',
+                                           'promote', 'heal', 'promote']
+    for a, b in zip(got, clean):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=ATOL)
+    if async_mode:
+        eng2, _ = _fault_engine(cfg, params, 'cuda_seq_fused',
+                                ServingFaultConfig(
+                                    fail_at={2: 1, 5: 1},
+                                    recover_at={8: 1, 14: 1},
+                                    promote_hysteresis=2, canary=False,
+                                    backoff_s=0.0))
+        sync, _ = _fault_drain(eng2, utts)
+        for a, b in zip(got, sync):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize('backend', ['cuda_seq_fused', 'cuda_seq'])
+def test_fault_transient_retry_on_card(dev, backend):
+    """A transient fault at chunk 3 is retried on the same kernel: one
+    ``fault``, no ``degrade``, outputs equal to a clean run."""
+    from repro_torch.runtime import ServingFaultConfig
+    cfg = configs.get_smoke_config('chipmunk-ctc')
+    params = _params(cfg, dev)
+    utts = _fault_utts(cfg, frames=60)
+    clean, _ = _fault_drain(StreamingEngine(
+        cfg.replace(lstm_backend=backend), params, max_streams=4, chunk=8),
+        utts)
+    eng, calls = _fault_engine(cfg, params, backend, ServingFaultConfig(
+        fail_at={3: {'transient': True}}, backoff_s=0.0))
+    got, _ = _fault_drain(eng, utts)
+    counts = eng.stats()['event_counts']
+    assert counts['fault'] == 1 and 'degrade' not in counts
+    assert {c[0] for c in calls} == {backend}
+    assert len(calls) == eng.stats()['steps'] + 1
+    for a, b in zip(got, clean):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize('backend', ['cuda_seq_fused', 'cuda_seq'])
+def test_fault_quarantine_on_card(dev, backend):
+    """NaN poisoned into slot 1 before chunk 3: that stream ends with an
+    error; every other stream equals a clean run bit for bit (the NaN row
+    reaches no neighbour through the kernel's exchange)."""
+    from repro_torch.runtime import ServingFaultConfig
+    cfg = configs.get_smoke_config('chipmunk-ctc')
+    params = _params(cfg, dev)
+    utts = _fault_utts(cfg, frames=60)
+    c = cfg.replace(lstm_backend=backend)
+    clean, _ = _fault_drain(StreamingEngine(
+        c, params, max_streams=4, chunk=8, faults=ServingFaultConfig()),
+        utts)
+    eng = StreamingEngine(c, params, max_streams=4, chunk=8,
+                          faults=ServingFaultConfig(poison_at={3: 1}))
+    got, sess = _fault_drain(eng, utts)
+    assert [s.error is not None for s in sess] == [False, True, False,
+                                                   False]
+    for i in (0, 2, 3):
+        np.testing.assert_array_equal(got[i], clean[i])
+    for h, cc in eng.states:
+        assert bool(torch.isfinite(h).all() and torch.isfinite(cc).all())
+
+
+@pytest.mark.parametrize('backend', ['cuda_seq_fused', 'cuda_seq'])
+def test_fault_checkpoint_resume_on_card(dev, backend, tmp_path):
+    """A stream preempted to disk on one engine resumes in a second engine
+    (``resume_from_checkpoint``): its suffix equals the uninterrupted
+    run's bit for bit."""
+    from repro_torch.runtime import ServingFaultConfig
+    cfg = configs.get_smoke_config('chipmunk-ctc')
+    params = _params(cfg, dev)
+    c = cfg.replace(lstm_backend=backend)
+    utts = _fault_utts(cfg, n=3, frames=60)
+    clean, _ = _fault_drain(StreamingEngine(c, params, max_streams=4,
+                                            chunk=8), utts)
+    fc = ServingFaultConfig(checkpoint_dir=str(tmp_path))
+    eng = StreamingEngine(c, params, max_streams=4, chunk=8, faults=fc)
+    sess = [eng.submit(u) for u in utts]
+    eng.step()
+    eng.step()
+    eng.preempt(sess[0].sid, requeue=False)
+    eng.run()
+    second = StreamingEngine(c, params, max_streams=4, chunk=8, faults=fc)
+    resumed = second.resume_from_checkpoint(utts[0], sess[0].sid)
+    assert resumed.cursor == 16
+    second.run()
+    np.testing.assert_array_equal(resumed.full_log_probs(), clean[0][16:])
+
+
+def test_fault_int8_carries_through_checkpointer_on_card(dev, tmp_path):
+    """K4's int8 carries between two chunks round-trip through the stream
+    checkpointer with their dtype; the resumed chunk equals the
+    uninterrupted launch."""
+    from repro_torch.runtime import StreamStateCheckpointer
+    qps = _q_stack(16, 48, 16, 2, dev, seed=5)
+    xq = torch.from_numpy(np.random.RandomState(6).randint(
+        -60, 60, (12, 3, 16)).astype(np.int8)).to(dev)
+    want = lstm_stack_seq_quantized_auto(qps, xq, backend='fused')
+    head, st = lstm_stack_seq_quantized_auto(qps, xq[:5], backend='fused',
+                                             return_state=True)
+    ckpt = StreamStateCheckpointer(str(tmp_path))
+    ckpt.save(0, (tuple(st),), cursor=5)
+    (restored,), cursor = ckpt.load(0, (tuple(torch.zeros_like(s)
+                                              for s in st),))
+    assert cursor == 5 and all(r.dtype == torch.int8 and r.is_cuda
+                               for r in restored)
+    tail = lstm_stack_seq_quantized_auto(qps, xq[5:], backend='fused',
+                                         state=tuple(restored))
+    assert torch.equal(torch.cat([head, tail]), want)
+
+
+@pytest.mark.parametrize('backend', ['cuda_seq_fused', 'cuda_seq'])
+def test_fault_guard_changes_no_bits_on_card(dev, backend):
+    """The guard on (nothing injected) against ``faults=None``: the same
+    bits, the same kernel launches per chunk."""
+    from repro_torch.runtime import ServingFaultConfig
+    cfg = configs.get_smoke_config('chipmunk-ctc')
+    params = _params(cfg, dev)
+    utts = _fault_utts(cfg, frames=60)
+    outs = {}
+    for name, faults in (('off', None), ('on', ServingFaultConfig())):
+        eng, calls = _fault_engine(cfg, params, backend, faults)
+        outs[name] = (_fault_drain(eng, utts)[0], calls)
+    assert outs['on'][1] == outs['off'][1]
+    for a, b in zip(outs['on'][0], outs['off'][0]):
+        np.testing.assert_array_equal(a, b)
