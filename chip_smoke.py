@@ -105,7 +105,25 @@ the same f32 weights' configuration from seed 0):
     ``FaultTolerantRunner.run_step`` on ``cuda_seq_fused`` with a fault
     injected and a ``restore_fn`` (``fault_train``): the restored step
     bit-equal to the uninterrupted one (else within the gradient
-    tolerance, and it says which).
+    tolerance, and it says which);
+11a. measured dispatch (``tune_phase``, ``repro_torch.tune``) at the
+    serving shape: K4 against the K3 chain at tile 96
+    (``tune_quantized_backend``, the candidates ``torch.equal`` before
+    timing; ``TUNE_TRIALS`` trials, and once past K4's single launch at
+    B = 97) and the serving loop at chunk depths 4, 8 and 16
+    (``tune_serving_config``, the streams ``torch.equal`` across depths;
+    ``TUNE_TRIALS // 2`` trials), ``TUNE_ITERS`` interleaved turns each,
+    the medians printed; the last trials' cache
+    saved, loaded to the same JSON and replayed; with it installed the
+    int8 deploy's ``auto`` launches the kernel its entry names (and each
+    backend under a cache naming it), and a ``--deadline-slo`` server's
+    policy takes the tuned ceiling, its streams bit-equal to fixed
+    chunks; then ``python -m repro_torch.tune --measure`` and ``python -m
+    repro_torch.launch.serve --tune --schedule-cache`` as subprocesses;
+11b. the lifecycle examples as subprocesses (``examples_phase``):
+    ``repro_torch.examples.speech_ctc --steps 4`` at full width (train,
+    quantize, int8 deploy equal to the plain chain with its kernel
+    launched, streaming, Table 2) and ``repro_torch.examples.quickstart``.
 
 and then the three kernels that no path of the system reaches, each on its
 public op, each held against its plain version and timed beside its bound
@@ -203,6 +221,13 @@ GRAD_T = 16                   # sequence of the on-card gradient check
 GRAD_REL_TOL = 1e-4           # relative Frobenius error per gradient leaf
 LOSS_RTOL = 1e-4              # loss histories across kernel backends
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+# the tune phase: interleaved turns of each timed trial (K4 against the K3
+# chain; the serving loop at each chunk depth), and the deadline factor of
+# its server and of the serve CLI's run
+TUNE_ITERS = 11
+TUNE_TRIALS = 5               # K4 vs K3 trials (and 3 serving trials) a run
+TUNE_SLO = 1.0
+SUBPROCESS_TIMEOUT_S = 300    # each CLI run of the tune and examples phases
 CELL_BATCH = 8                # K6: the training batch, on layers 0 and 1
 GATES_T = 16                  # steps of the timed K5 chain (``chain_ms``)
 # K7 (label, M, K, N): kernel_bench.py:147 and Mixtral 8x22B's expert
@@ -1905,6 +1930,261 @@ def fault_train(cfg, dev):
                 max_rel_err=rel, heartbeat_step=beat['step'])
 
 
+def _run_cli(label: str, args, cwd: str) -> str:
+    """``python -m <args>`` as a subprocess with this checkout's ``src`` on
+    its path, from ``cwd``, within ``SUBPROCESS_TIMEOUT_S`` (killed past
+    it): fails unless it exits 0; prints its last lines, returns its
+    standard output."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(
+        pathlib.Path(__file__).resolve().parent / 'src'))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-m', *args], cwd=cwd, env=env,
+                          capture_output=True, text=True,
+                          timeout=SUBPROCESS_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-6:]
+    print(f'{label}: `python -m {" ".join(args)}` exit {proc.returncode} in '
+          f'{wall:.1f} s', flush=True)
+    for line in tail:
+        print(f'  | {line}', flush=True)
+    check(proc.returncode == 0, f'{label} failed:\n{proc.stdout[-2000:]}'
+                                f'\n{proc.stderr[-4000:]}')
+    return proc.stdout
+
+
+def _int8_launches(run):
+    """K3 and K4 launches of ``run()``, counted from 0."""
+    from repro_torch.kernels.lstm_seq import (lstm_seq_quantized,
+                                              lstm_stack_seq_kernel_q)
+    lstm_seq_quantized.launches = 0
+    lstm_stack_seq_kernel_q.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, dict(lstm_seq_quantized=lstm_seq_quantized.launches,
+                     lstm_stack_seq_kernel_q=lstm_stack_seq_kernel_q.launches)
+
+
+def tune_phase(cfg, params, qps, q_utts, dev):
+    """Measured dispatch on the card (``repro_torch.tune``) at the serving
+    shape (``CHUNK``, ``SLOTS``) of the full-width model: ``TUNE_TRIALS``
+    K4 against K3-chain trials at tile 96 (``tune_quantized_backend``, the
+    candidates ``torch.equal`` before timing), one more past K4's single
+    launch (B = 97, ``quantized_trial``, no prune), ``TUNE_TRIALS // 2``
+    serving-loop depth trials (``tune_serving_config``: its own int8
+    trial, then depths 4/8/16 with the streams' log-probs ``torch.equal``
+    across depths), each with ``TUNE_ITERS`` interleaved turns; the cache
+    (the last trials' entries) saved, loaded back to the same JSON and
+    replayed; then, with the loaded cache installed, the int8
+    deploy's ``auto`` (over ``q_utts``) launches the kernel its entry names
+    (so does a cache naming each backend in turn), with codes equal to the
+    cold-cache run's, and a ``deadline_policy`` server's ceiling is the
+    tuned depth, with its streams bit-equal to a fixed-chunk server's;
+    last, the tune CLI (``--measure``) and the serve CLI (``--tune
+    --schedule-cache``) as subprocesses."""
+    import tempfile
+    from repro_torch.core.systolic import N_LSTM_SILICON
+    from repro_torch.kernels.lstm_seq import (lstm_stack_seq_kernel,
+                                              stack_kernel_weights_q)
+    from repro_torch.launch.serve import StreamServer, deadline_policy
+    from repro_torch.tune import (ScheduleCache, ScheduleEntry,
+                                  quantized_trial, replay_check,
+                                  serving_depths, tune_quantized_backend,
+                                  tune_serving_config, using_schedule_cache)
+    n_x, n_h, L = cfg.lstm_inputs, cfg.lstm_hidden, cfg.n_layers
+    card = torch.cuda.get_device_name(dev)
+    res = dict(card=card, shape=dict(n_x=n_x, n_h=n_h, n_layers=L, T=CHUNK,
+                                     B=SLOTS, tile=N_LSTM_SILICON),
+               iters=TUNE_ITERS)
+
+    def medians(records):
+        return {(r.params.get('backend') if r.suite == 'q_stack_backend'
+                 else f"tc={r.params['tc']}"): r.metrics['measured_us']
+                for r in records}
+
+    cache = ScheduleCache()
+    res['q_trials'] = []
+    for _ in range(TUNE_TRIALS):
+        q_ent, q_recs = tune_quantized_backend(
+            n_x, n_h, L, CHUNK, SLOTS, tile=N_LSTM_SILICON, cache=cache,
+            iters=TUNE_ITERS, device=dev)
+        res['q_trials'].append(dict(backend=q_ent.backend,
+                                    medians_us=medians(q_recs)))
+        print(f'tune: K4 vs K3 chain at T={CHUNK} B={SLOTS} '
+              f'{n_x}->{L}x{n_h} tile {N_LSTM_SILICON} ({card}; '
+              f'torch.equal before timing; medians of {TUNE_ITERS} '
+              f'interleaved turns, us): {medians(q_recs)} -> '
+              f'{q_ent.backend}', flush=True)
+        check(q_ent.source == 'measured' and len(q_recs) == 2,
+              'tune: the int8 trial did not measure both candidates')
+    # past K4's single launch (96 streams): fused in two batch blocks
+    # against the K3 chain (one launch a layer up to 120), no prune
+    B_past = F4_BATCH['lstm_stack_seq_kernel_q']
+    us_lw, us_fu = quantized_trial(n_x, n_h, L, CHUNK, B_past,
+                                   N_LSTM_SILICON, iters=TUNE_ITERS,
+                                   device=dev)
+    res['q_past_single_launch'] = dict(B=B_past, layerwise_us=us_lw,
+                                       fused_us=us_fu)
+    print(f'tune: K4 in blocks vs K3 chain at B={B_past} (medians, us): '
+          f'layerwise {us_lw:.1f}, fused {us_fu:.1f}', flush=True)
+    res['serving_trials'] = []
+    for _ in range(max(1, TUNE_TRIALS // 2)):
+        entries, recs = tune_serving_config(cfg, chunk=CHUNK, slots=SLOTS,
+                                            cache=cache, iters=TUNE_ITERS,
+                                            params=params, device=dev)
+        q2, sc = entries
+        trial = dict(
+            q_backend=q2.backend, q_medians_us=medians(
+                [r for r in recs if r.suite == 'q_stack_backend']),
+            tc=sc.tc, f32_backend=recs[-1].params['backend'],
+            depth_medians_us=medians([r for r in recs
+                                      if r.suite == 'serving_chunk']))
+        res['serving_trials'].append(trial)
+        print(f'tune: serving config (depths bit-equal before timing): int8 '
+              f'{trial["q_medians_us"]} -> {q2.backend}; serving loop '
+              f'[{trial["f32_backend"]}] {trial["depth_medians_us"]} -> '
+              f'Tc={sc.tc}', flush=True)
+        check([r.params['tc'] for r in recs if r.suite == 'serving_chunk']
+              == list(serving_depths(CHUNK)) and sc.source == 'measured',
+              f'tune: the serving trial did not time depths '
+              f'{serving_depths(CHUNK)}')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        loaded = ScheduleCache.load(cache.save(pathlib.Path(tmp)
+                                               / 'sched.json'))
+        same = loaded.to_json() == cache.to_json()
+        checked, unchecked = replay_check(loaded, device=dev,
+                                          tile=N_LSTM_SILICON)
+        res['cache'] = dict(entries=[dataclasses.asdict(e)
+                                     for e in loaded.entries()],
+                            json_identical=same, replay_checked=checked)
+        print(f'tune: save -> load gives the same JSON: {same}; replay check '
+              f'{checked} of {len(loaded)} entries, {len(unchecked)} '
+              f'unchecked', flush=True)
+        check(same and checked == len(loaded) == 2 and not unchecked,
+              'tune: the cache did not round-trip or replay')
+
+        xq, lens = int8_batch(cfg, q_utts, CHUNK, dev)
+        n_chunks = xq.shape[0] // CHUNK
+        weights = stack_kernel_weights_q(qps)
+        deploy = lambda: int8_chunks(qps, xq, lens, CHUNK, weights,
+                                     'auto')[0]
+        cold, cold_launches = _int8_launches(deploy)
+        want = {'fused': dict(lstm_seq_quantized=0,
+                              lstm_stack_seq_kernel_q=n_chunks),
+                'layerwise': dict(lstm_seq_quantized=L * n_chunks,
+                                  lstm_stack_seq_kernel_q=0)}
+        key = dict(kind='q_stack_backend', n_x=n_x, n_h=n_h, n_layers=L,
+                   T=CHUNK, B=len(q_utts), source='measured')
+        deploys = {}
+        for label, c in (('measured', loaded),
+                         *((f'forced {b}', ScheduleCache([ScheduleEntry(
+                             backend=b, **key)])) for b in want)):
+            named = c.lookup('q_stack_backend', n_x=n_x, n_h=n_h,
+                             n_layers=L, T=CHUNK, B=len(q_utts)).backend
+            with using_schedule_cache(c):
+                codes, launches = _int8_launches(deploy)
+            deploys[label] = dict(backend=named, launches=launches,
+                                  equal=torch.equal(codes, cold))
+            print(f'tune: int8 deploy on auto under the {label} cache '
+                  f'({named}): launches {launches}, codes == cold cache '
+                  f'run: {deploys[label]["equal"]}', flush=True)
+            check(launches == want[named] and deploys[label]['equal'],
+                  f'tune: the int8 deploy under the {label} cache did not '
+                  f'launch {named} alone, or changed its codes')
+        res['int8_deploy'] = dict(cold_launches=cold_launches, **deploys)
+
+        def serve(policy):
+            server = StreamServer(cfg, params, num_slots=SLOTS, chunk=CHUNK,
+                                  chunk_policy=policy)
+            for u in q_utts:
+                server.submit(u)
+            lstm_stack_seq_kernel.launches = 0
+            done = sorted(server.drain(), key=lambda s: s.sid)
+            torch.cuda.synchronize()
+            return server, done, lstm_stack_seq_kernel.launches
+
+        with using_schedule_cache(loaded):
+            policy = deadline_policy(cfg, CHUNK, SLOTS, TUNE_SLO)
+            server, done, k2 = serve(policy)
+        _, fixed, _ = serve(None)
+        bits = len(done) == len(fixed) and all(
+            np.array_equal(a.full_log_probs(), b.full_log_probs())
+            for a, b in zip(done, fixed))
+        stats = server.engine.stats()
+        res['deadline_server'] = dict(
+            chunk_max=policy.chunk_max, tuned_tc=sc.tc, steps=stats['steps'],
+            chunk_len=stats['chunk_len'],
+            deadline_misses=stats['deadline_misses'], k2_launches=k2,
+            bit_equal_to_fixed=bits)
+        print(f'tune: deadline_slo server under the cache: chunk_max '
+              f'{policy.chunk_max} (tuned Tc {sc.tc}), {stats["steps"]} '
+              f'steps, {k2} K2 launches, misses {stats["deadline_misses"]}; '
+              f'streams bit-equal to a fixed-chunk server: {bits}',
+              flush=True)
+        check(policy.chunk_max == min(CHUNK, sc.tc)
+              and server.engine._policy is policy and bits
+              and k2 == stats['steps'],
+              'tune: the deadline server did not take the tuned ceiling')
+
+        out = _run_cli('tune CLI', [
+            'repro_torch.tune', '--measure', '--n-x', str(n_x), '--n-h',
+            str(n_h), '--layers', str(L), '--T', str(CHUNK), '--B',
+            str(SLOTS), '--tile', str(N_LSTM_SILICON), '--out',
+            f'{tmp}/cli.json', '--csv', f'{tmp}/cli.csv'], tmp)
+        cli = ScheduleCache.load(f'{tmp}/cli.json').entries()
+        check(len(cli) == 1 and cli[0].source == 'measured'
+              and 'q_stack_backend -> ' in out, 'tune CLI wrote no entry')
+        out = _run_cli('serve CLI --tune', [
+            'repro_torch.launch.serve', '--tune', '--schedule-cache',
+            f'{tmp}/serve.json', '--slots', str(SLOTS), '--chunk',
+            str(CHUNK), '--requests', str(SLOTS), '--deadline-slo',
+            str(TUNE_SLO)], tmp)
+        saved = ScheduleCache.load(f'{tmp}/serve.json')
+        sc_cli = saved.lookup('serving_chunk', n_x=n_x, n_h=n_h,
+                              n_layers=L, T=CHUNK, B=SLOTS)
+        check(sc_cli is not None and sc_cli.source == 'measured'
+              and f'chunk_max={sc_cli.tc} ' in out,
+              'serve CLI --tune did not save or apply its ceiling')
+        res['cli'] = dict(tune=dataclasses.asdict(cli[0]),
+                          serve=[dataclasses.asdict(e)
+                                 for e in saved.entries()])
+    return res
+
+
+def examples_phase():
+    """The paper's lifecycle examples as users run them, each a process of
+    its own: ``repro_torch.examples.speech_ctc --steps 4`` at full width
+    (its int8 deploy must equal the plain chain, and the kernel it names
+    must have launched) and ``repro_torch.examples.quickstart`` (K3 equal
+    to the plain chain)."""
+    import ast
+    import re
+    import tempfile
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _run_cli('example speech_ctc', [
+            'repro_torch.examples.speech_ctc', '--steps', '4'], tmp)
+        m = re.search(r"int8 deploy on '(\w+)' .*launches (\{[^}]*\})\): "
+                      r"codes == plain chain .*: (True|False)", out)
+        check(m is not None, 'speech_ctc printed no int8 deploy line')
+        backend, launches = m.group(1), ast.literal_eval(m.group(2))
+        kernel = ('lstm_stack_seq_kernel_q' if backend == 'fused'
+                  else 'lstm_seq_quantized')
+        res['speech_ctc'] = dict(backend=backend, launches=launches,
+                                 chain_equal=m.group(3) == 'True',
+                                 lines=out.strip().splitlines())
+        check(res['speech_ctc']['chain_equal'] and launches[kernel] > 0,
+              'speech_ctc: the int8 deploy is not the plain chain, or its '
+              'kernel did not launch')
+        out = _run_cli('example quickstart',
+                       ['repro_torch.examples.quickstart'], tmp)
+        res['quickstart'] = dict(lines=out.strip().splitlines())
+        check('== plain chain: True' in out,
+              'quickstart: K3 disagrees with the plain chain')
+    return res
+
+
 def _case_row(name: str, source: str, replaces: str, cases):
     """A kernels-line row from the measured cases of one kernel: the first
     case's numbers, the worst error and every case under ``cases``."""
@@ -2591,6 +2871,8 @@ def main(argv=None) -> int:
     profiles += train_profiles
     cli = train_cli(train_cfg)
     fault['train'] = fault_train(train_cfg, dev)
+    tuned = tune_phase(cfg, params, qps, q_utts, dev)
+    examples = examples_phase()
 
     # K6-K8 on their public ops (no path of the system reaches them)
     op_rows = [cell_checks(params, CELL_BATCH, dev),
@@ -2625,7 +2907,8 @@ def main(argv=None) -> int:
             fault=fault,
             profiles=profiles,
             stack_kernel_weights_q=q_stacking, int8_deploy=deploy,
-            train_grad_rel_err=grad_err, train=train, train_cli=cli),
+            train_grad_rel_err=grad_err, train=train, train_cli=cli,
+            tune=tuned, examples=examples),
             indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {

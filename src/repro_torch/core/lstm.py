@@ -556,7 +556,11 @@ def resolve_serving_backend(params: LSTMStackParams, backend: str, T: int,
                             B: int, device, *, masked: bool = True) -> str:
     """Resolve ``backend`` (incl. ``auto``) to the concrete backend a
     ``(T, B, N_x)`` chunked call on ``device`` runs, and check that it is
-    admissible there — pure dispatch, no numerics of its own.  ``masked``
+    admissible there — pure dispatch, no numerics of its own.  On ``auto``
+    an installed schedule cache (``repro_torch.tune``, kind
+    ``'stack_backend'``, keyed by the stack's real ``n_x``) decides first,
+    where the backend it names is one of the port's and admissible here
+    (a kernel backend only on CUDA); else the rules below.  ``masked``
     says the call carries a ``valid_len`` (every serving chunk does);
     ``cuda_step`` on CUDA is admissible only unmasked, the training path.
     On CUDA, ``auto`` is ``cuda_seq_fused`` when one K2 launch takes the
@@ -578,6 +582,11 @@ def resolve_serving_backend(params: LSTMStackParams, backend: str, T: int,
     compatible = stack_fused_compatible(params) and L >= 2
     if backend == 'cuda_seq_fused' and not compatible:
         backend = 'cuda_seq'
+    if backend == 'auto':
+        tuned = _tuned_backend('stack_backend', layers[0].n_x, n_h, L, T, B)
+        if _tuned_serving_admissible(params, tuned, T, B, device, masked):
+            return resolve_serving_backend(params, tuned, T, B, device,
+                                           masked=masked)
     if device.type != 'cuda':
         return 'torch_scan' if backend == 'auto' else backend
     if backend == 'cuda_step' and masked:
@@ -610,13 +619,54 @@ def resolve_serving_backend(params: LSTMStackParams, backend: str, T: int,
     return backend
 
 
+def _tuned_backend(kind: str, n_x: int, n_h: int, n_layers: int, T: int,
+                   batch: int) -> Optional[str]:
+    """The backend an installed schedule cache (``repro_torch.tune
+    .install_schedule_cache``) records for this key, or None on a miss or
+    with no cache.  Dispatch-only: every backend an entry can name gives
+    the fallback's results, so a hit changes the launch shape only.  The
+    port has no mesh, so the lookup's placement is ``'any'``."""
+    from ..tune.schedule import current_schedule_cache
+    cache = current_schedule_cache()
+    if cache is None:
+        return None
+    ent = cache.lookup(kind, n_x=n_x, n_h=n_h, n_layers=n_layers, T=T,
+                       B=batch)
+    return ent.backend if ent is not None and ent.backend else None
+
+
+def _tuned_serving_admissible(params: LSTMStackParams, tuned: Optional[str],
+                              T: int, B: int, device, masked: bool) -> bool:
+    """True iff a cached ``stack_backend`` winner can serve here: one of the
+    port's backends (an entry naming a TPU backend is ignored), a kernel
+    backend only on CUDA, and admissible at this shape
+    (``resolve_serving_backend`` does not refuse it).  A stale entry never
+    forces an inadmissible launch."""
+    if tuned is None or tuned == 'auto' or tuned not in BACKENDS:
+        return False
+    if torch.device(device).type != 'cuda':
+        return tuned == 'torch_scan'
+    try:
+        resolve_serving_backend(params, tuned, T, B, device, masked=masked)
+    except ValueError:
+        return False
+    return True
+
+
 # The reference's cold-cache rule for the int8 stack dispatch
 # (``repro.core.lstm``): the wavefront needs at least two layers and a
 # sequence long enough to amortise its residency (``_SEQ_MIN_T``), and below
 # ``_Q_FUSED_MIN_NH`` hidden units the layerwise chain won in the reference's
-# measurements.  The port has no schedule cache yet, so this rule decides.
+# measurements.  A measured schedule-cache entry overrides the width floor.
 _SEQ_MIN_T = 8
 _Q_FUSED_MIN_NH = 256
+
+
+def cold_quantized_backend(n_h: int, n_layers: int, T: int) -> str:
+    """The reference's cold-cache int8 stack rule: ``'fused'`` iff L >= 2,
+    T >= 8 and N_h >= 256, else ``'layerwise'`` (no cache, no card)."""
+    return ('fused' if (n_layers >= 2 and T >= _SEQ_MIN_T
+                        and n_h >= _Q_FUSED_MIN_NH) else 'layerwise')
 
 
 def quantized_fused_admissible(n_h: int, n_layers: int, batch: int, device,
@@ -633,23 +683,33 @@ def quantized_fused_admissible(n_h: int, n_layers: int, batch: int, device,
 
 
 def select_quantized_stack_backend(n_h: int, n_layers: int, T: int,
-                                   batch: int, *, device='cuda',
-                                   tile: int = 96) -> str:
+                                   batch: int, *, n_x: Optional[int] = None,
+                                   device='cuda', tile: int = 96) -> str:
     """Int8 stack dispatch: ``'fused'`` (K4, ``lstm_stack_seq_quantized``)
     or ``'layerwise'`` (K3 per layer, ``lstm_layer_seq_quantized``).  Both
-    are bit-identical; this picks the launch shape only.  The reference's
-    cold-cache rule: ``'layerwise'`` if L < 2 or T < 8, else ``'fused'`` if
-    N_h >= 256, else ``'layerwise'``.  On CUDA, ``'fused'`` also needs one
-    K4 launch at engine tile ``tile`` (the silicon's 96 by default) to take
-    the whole batch (``quantized_fused_admissible``); above that, both
-    shapes run in batch blocks and the layerwise chain is picked, as it
-    was before blocks existed."""
-    if n_layers < 2 or T < _SEQ_MIN_T or n_h < _Q_FUSED_MIN_NH:
+    are bit-identical; this picks the launch shape only.  The structural
+    guards come first and no cache overrides them: ``'layerwise'`` if
+    L < 2 or T < 8.  On CUDA, ``'fused'`` also needs one K4 launch at
+    engine tile ``tile`` (the silicon's 96 by default) to take the whole
+    batch (``quantized_fused_admissible``); above that, both shapes run in
+    batch blocks and the layerwise chain is picked, as it was before
+    blocks existed.  Past the guards, a measured winner from the installed
+    schedule cache (kind ``'q_stack_backend'``) decides, looked up under
+    ``n_x`` (the stack's input width, which the tuner records; ``n_h``
+    when None, the reference's key), and on a miss the reference's cold
+    rule (``cold_quantized_backend``).  The reference looks its entry up
+    under ``n_x = n_h`` only, so its tuned entry misses for a stack whose
+    ``n_x != n_h`` (ROADMAP R3); the port keys both sides alike."""
+    if n_layers < 2 or T < _SEQ_MIN_T:
         return 'layerwise'
     if (torch.device(device).type == 'cuda' and not
             quantized_fused_admissible(n_h, n_layers, batch, device, tile)):
         return 'layerwise'
-    return 'fused'
+    tuned = _tuned_backend('q_stack_backend', n_h if n_x is None else n_x,
+                           n_h, n_layers, T, batch)
+    if tuned in ('fused', 'layerwise'):
+        return tuned
+    return cold_quantized_backend(n_h, n_layers, T)
 
 
 def lstm_stack_chunk(params: LSTMStackParams, xs: torch.Tensor, states=None,

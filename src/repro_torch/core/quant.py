@@ -10,7 +10,9 @@ indexed with ``code + 128``.  The arbitrary-scale symmetric int8 helpers
 (``abs_max_scale``, ``quantize_scaled``, ``int8_matmul``) serve the int8
 linear op of K7 (``kernels.quant_matmul``); ``quantize_scaled`` divides by
 the scale, as the reference does, so its codes are the reference's bit for
-bit.  Quantization-aware training (``fake_quant``) is not ported here.
+bit.  ``fake_quant`` is the quantization-aware-training op (a clipped
+straight-through gradient) and ``requantize`` the accumulator-to-code
+shift of the paper's datapath, both as in the reference.
 """
 from __future__ import annotations
 
@@ -67,6 +69,30 @@ def dequantize(q: torch.Tensor, fmt: QFormat = STATE_FMT) -> torch.Tensor:
     return q.to(torch.float32) * fmt.scale
 
 
+class _FakeQuant(torch.autograd.Function):
+    """``dequantize(quantize(x, fmt))`` forward; the clipped
+    straight-through estimator backward: the gradient passes where
+    ``fmt.min_val <= x <= fmt.max_val`` and is 0 elsewhere."""
+
+    @staticmethod
+    def forward(ctx, x, fmt):
+        ctx.save_for_backward(x)
+        ctx.fmt = fmt
+        return dequantize(quantize(x, fmt), fmt)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        fmt = ctx.fmt
+        mask = (x >= fmt.min_val) & (x <= fmt.max_val)
+        return g * mask.to(g.dtype), None
+
+
+def fake_quant(x: torch.Tensor, fmt: QFormat = STATE_FMT) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through gradient (for QAT)."""
+    return _FakeQuant.apply(x, fmt)
+
+
 def saturating_add_int16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Saturating 16-bit add — the semantics of Chipmunk's partial-sum hops.
     Returns int32 values in the int16 range."""
@@ -107,6 +133,21 @@ def apply_lut(lut: torch.Tensor, q: torch.Tensor, in_fmt: QFormat
     """Apply a 2**bits entry LUT to integer codes ``q``."""
     idx = q.to(torch.int64) + 2 ** (in_fmt.bits - 1)
     return lut[idx]
+
+
+def requantize(acc: torch.Tensor, acc_fmt: QFormat, out_fmt: QFormat
+               ) -> torch.Tensor:
+    """Shift an integer accumulator (``acc_fmt``) into ``out_fmt`` codes:
+    a rounding right shift (half up, arithmetic on a signed tensor) when
+    ``acc_fmt`` has more fraction bits, a left shift when it has fewer,
+    then a clip to ``out_fmt``'s range; the dtype of ``acc`` is kept."""
+    shift = acc_fmt.frac_bits - out_fmt.frac_bits
+    if shift >= 0:
+        rounded = (acc + (1 << shift >> 1)) >> shift if shift > 0 else acc
+    else:
+        rounded = acc << (-shift)
+    return torch.clamp(rounded, -(2 ** (out_fmt.bits - 1)),
+                       2 ** (out_fmt.bits - 1) - 1)
 
 
 _SIGMOID = lambda z: 1.0 / (1.0 + np.exp(-z))

@@ -251,7 +251,9 @@ def lstm_stack_seq_quantized_auto(qps: Sequence[QuantizedPackedLSTM],
     """Shape-dispatched whole-stack int8 execution: the fused wavefront
     (``lstm_stack_seq_quantized``, K4) or the layerwise chain of
     ``lstm_layer_seq_quantized`` (K3) calls.  ``auto`` asks
-    ``core.lstm.select_quantized_stack_backend``; an explicit ``'fused'``
+    ``core.lstm.select_quantized_stack_backend`` under the stack's real
+    input width (an installed schedule cache, then the cold rule); an
+    explicit ``'fused'``
     that K4 cannot take on this device raises ``ValueError``, never
     replaced.  Bit-identical either way, and both speak the STACK state
     layout (``(h_q, c_q)``, each (L, B, padded_h) int8), so a chunked caller
@@ -266,7 +268,8 @@ def lstm_stack_seq_quantized_auto(qps: Sequence[QuantizedPackedLSTM],
     p0 = qps[0].plan
     if backend == 'auto':
         backend = select_quantized_stack_backend(
-            p0.n_h, len(qps), T, B, device=xs_q.device, tile=p0.tile)
+            p0.n_h, len(qps), T, B, n_x=p0.n_x, device=xs_q.device,
+            tile=p0.tile)
     if backend not in ('fused', 'layerwise'):
         raise ValueError(f"backend must be auto|fused|layerwise, got "
                          f"{backend!r}")

@@ -27,6 +27,17 @@ the quarantine, ``--stream-ckpt-dir`` the stream checkpoints and
     python -m repro_torch.launch.serve --device cpu --smoke --requests 4 \
         --slots 2 --chunk 4 --lstm-backend cuda_seq_fused \
         --fail-engines 1@1 --recover-at-step 1@2 --promote-hysteresis 1
+
+``--schedule-cache PATH`` installs a measured-schedule cache
+(``repro_torch.tune``) that dispatch consults before its cold rules: the
+int8 stack backend, the f32 stack backend of ``auto``, and the deadline
+policy's chunk ceiling (``serving.tuned_chunk_ceiling``); ``--tune`` runs
+``tune.tune_serving_config`` for this configuration first (a timed K4
+against K3 trial, and the serving loop timed at each chunk depth) and
+saves the entries to ``--schedule-cache`` when given::
+
+    python -m repro_torch.launch.serve --tune --schedule-cache sched.json \
+        --slots 8 --chunk 16 --deadline-slo 1.0
 """
 from __future__ import annotations
 
@@ -40,7 +51,7 @@ from .. import configs
 from ..core.lstm import BACKENDS
 from ..models import chipmunk_net
 from ..runtime import ChunkSizePolicy, ServingFaultConfig
-from ..serving import StreamingEngine
+from ..serving import StreamingEngine, tuned_chunk_ceiling
 
 
 class StreamServer:
@@ -69,6 +80,15 @@ class StreamServer:
     @property
     def done(self):
         return self.engine.sched.done
+
+
+def deadline_policy(cfg, chunk: int, slots: int, slo: float
+                    ) -> ChunkSizePolicy:
+    """The ``--deadline-slo`` chunk-size policy: budget ``chunk`` x 10 ms x
+    ``slo``, its ceiling the tuned chunk depth of an installed schedule
+    cache (``tuned_chunk_ceiling``; ``chunk`` on a miss)."""
+    return ChunkSizePolicy(chunk_max=tuned_chunk_ceiling(cfg, chunk, slots),
+                           slack=slo)
 
 
 def _parse_at_spec(spec: str):
@@ -133,7 +153,7 @@ def _run_stream_serving(cfg, args):
     params = chipmunk_net.init(cfg, torch.Generator().manual_seed(0),
                                device=args.device)
     policy = (None if args.deadline_slo is None else
-              ChunkSizePolicy(chunk_max=args.chunk, slack=args.deadline_slo))
+              deadline_policy(cfg, args.chunk, args.slots, args.deadline_slo))
     faults = _build_fault_config(args)
     server = StreamServer(cfg, params, num_slots=args.slots, chunk=args.chunk,
                           faults=faults, async_dispatch=args.async_dispatch,
@@ -155,7 +175,8 @@ def _run_stream_serving(cfg, args):
           f'{stats["p50_latency_s"]:.3f}s, p50 chunk '
           f'{stats["p50_chunk_s"] * 1e3:.2f}ms')
     if args.deadline_slo is not None:
-        print(f'deadline slo: chunk_len={stats["chunk_len"]} '
+        print(f'deadline slo: chunk_max={policy.chunk_max} '
+              f'chunk_len={stats["chunk_len"]} '
               f'deadline_misses={stats["deadline_misses"]}')
     for s in sorted(server.done, key=lambda s: s.sid)[:3]:
         print(f'  stream {s.sid}: {s.length} frames -> '
@@ -224,6 +245,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help='per-chunk deadline as a multiple of the paper '
                          'real-time frame budget (records deadline_miss '
                          'events)')
+    ap.add_argument('--schedule-cache', default=None, metavar='PATH',
+                    help='install a measured-schedule cache '
+                         '(repro_torch.tune JSON; empty if PATH does not '
+                         'exist): dispatch consults its winners before the '
+                         'cold rules; dispatch-only, numerics unchanged')
+    ap.add_argument('--tune', action='store_true',
+                    help='before serving, tune this configuration: a timed '
+                         'K4 against K3 trial at (chunk, slots) and the '
+                         'serving loop timed at each chunk depth (outputs '
+                         'bit-equal across depths), recorded in the '
+                         'installed cache and saved to --schedule-cache '
+                         'when given')
     return ap
 
 
@@ -231,7 +264,38 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     get = configs.get_smoke_config if args.smoke else configs.get_config
     cfg = get(args.arch).replace(lstm_backend=args.lstm_backend)
+    if args.schedule_cache or args.tune:
+        _install_schedule_cache(cfg, args)
     return _run_stream_serving(cfg, args)
+
+
+def _install_schedule_cache(cfg, args) -> None:
+    """``--schedule-cache`` / ``--tune``: install the cache (loaded, or
+    empty), tune into it, save it."""
+    import pathlib
+    from ..tune import (ScheduleCache, install_schedule_cache,
+                        tune_serving_config)
+    path = pathlib.Path(args.schedule_cache) if args.schedule_cache else None
+    cache = install_schedule_cache(ScheduleCache.load(path)
+                                   if path is not None and path.exists()
+                                   else ScheduleCache())
+    print(f'installed schedule cache: {len(cache)} entries'
+          + (f' from {path}' if path is not None and path.exists() else ''))
+    if not args.tune:
+        return
+    entries, records = tune_serving_config(cfg, chunk=args.chunk,
+                                           slots=args.slots, cache=cache,
+                                           device=args.device)
+    for r in records:
+        what = r.params.get('backend') if r.suite == 'q_stack_backend' \
+            else f"Tc={r.params['tc']}"
+        print(f'  trial {r.suite}: {what} {r.metrics["measured_us"]:.1f} us')
+    for e in entries:
+        what = e.backend or f'Tc={e.tc}'
+        print(f'tuned {e.kind}: {what} ({e.source})')
+    if path is not None:
+        cache.save(path)
+        print(f'saved {len(cache)} entries -> {path}')
 
 
 if __name__ == '__main__':

@@ -141,6 +141,35 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def tuned_chunk_ceiling(cfg, chunk: int, max_streams: int) -> int:
+    """Chunk-length ceiling for the deadline policy, cache-first (the
+    reference's ``serving.engine.tuned_chunk_ceiling``).
+
+    ``ChunkSizePolicy`` adapts the chunk length at run time and grows back
+    toward a ceiling, the engine's packing width ``chunk`` by default.  An
+    installed schedule cache (``repro_torch.tune``) clamps it to a tuned
+    depth.  Two kinds, most trustworthy first: ``'serving_chunk'``, the
+    end-to-end serving-loop measurement that ``tune_serving_config``
+    records, then ``'stack_f32'``, a kernel-level depth (no port tuner
+    writes one yet; a loaded cache may hold it).  Exact ``(T, B)`` keys
+    beat wildcards; the placement is ``'any'`` (one card).  Never above
+    ``chunk``; ``chunk`` unchanged on a miss or a ``tc=0`` entry.
+    Scheduling-only: outputs are bit-equal wherever chunk boundaries fall.
+    """
+    from ..tune.schedule import current_schedule_cache
+    cache = current_schedule_cache()
+    if cache is None:
+        return chunk
+    key = dict(n_x=cfg.lstm_inputs, n_h=cfg.lstm_hidden,
+               n_layers=cfg.n_layers, T=chunk, B=max_streams)
+    ent = cache.lookup('serving_chunk', **key)
+    if ent is None or not ent.tc:
+        ent = cache.lookup('stack_f32', **key)
+    if ent is not None and ent.tc:
+        return max(1, min(chunk, int(ent.tc)))
+    return chunk
+
+
 class StreamingEngine:
     """Continuous streaming over a packed slot grid of recurrent state.
 

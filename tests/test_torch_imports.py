@@ -1,7 +1,7 @@
 """Import guard of the port: ``src/repro_torch`` and ``chip_smoke.py`` import
 neither ``jax`` nor the JAX package ``repro``, and importing the serving
-and training paths and every kernel package leaves ``jax`` out of
-``sys.modules``."""
+and training paths, every kernel package, the tuner and the examples
+leaves ``jax`` out of ``sys.modules``."""
 import ast
 import os
 import pathlib
@@ -42,6 +42,9 @@ def test_serving_path_import_leaves_jax_unloaded():
             'import repro_torch.data, repro_torch.checkpoint\n'
             'import repro_torch.kernels.quant_matmul\n'
             'import repro_torch.kernels.flash_attention\n'
+            'import repro_torch.tune, repro_torch.tune.__main__\n'
+            'import repro_torch.examples.speech_ctc\n'
+            'import repro_torch.examples.quickstart\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "repro")]\n'
             'print(bad)\n'
