@@ -123,7 +123,23 @@ the same f32 weights' configuration from seed 0):
 11b. the lifecycle examples as subprocesses (``examples_phase``):
     ``repro_torch.examples.speech_ctc --steps 4`` at full width (train,
     quantize, int8 deploy equal to the plain chain with its kernel
-    launched, streaming, Table 2) and ``repro_torch.examples.quickstart``.
+    launched, streaming, Table 2) and ``repro_torch.examples.quickstart``;
+11c. the paper's systolic scale-out with every engine on the card
+    (``systolic_phase``): at T = 16, B = 8 the layerwise f32
+    ``systolic_lstm_seq`` on ``2x2`` and ``5x7`` allclose to K1 (its
+    masked chunks bit-equal to one masked call), the int8 form on ``5x5``
+    ``torch.equal`` to K3, on ``graves-75`` the staged f32 form allclose
+    to K2 (outputs, every layer's h_T and c_T) and placed once bit-equal
+    to placed per call, the staged int8 form ``torch.equal`` to K4, and
+    each form on the all-1
+    ``single`` preset launching its single-engine kernel once; the f32
+    engine cell with ``graves-75`` installed on ``auto`` (which must
+    resolve to ``cuda_seq_fused_systolic``, launching no K1-K4) allclose
+    to the ``cuda_seq_fused`` engine, with frames/s, p50 chunk ms and the
+    device launches of one traced chunk, then its fault ladder down onto
+    K2 and K1; the gradients of ``loss_fn`` under ``2x2`` (layerwise) and
+    ``graves-75`` (staged) against ``cuda_seq_fused``'s; and ``python -m repro_torch.launch.serve
+    --systolic-topology graves-75 --requests 2`` as a subprocess.
 
 and then the three kernels that no path of the system reaches, each on its
 public op, each held against its plain version and timed beside its bound
@@ -268,6 +284,14 @@ ATTN_CASES = (
 # K8 kernel vs plain version.  Both compute in f32 and round the output to
 # q's dtype, so in bf16 they may differ by one rounding of the output
 # (2**-7 relative) and by the f32 arithmetic's own slack (under 1e-6 in f32)
+# the systolic phase: the scale-outs at the serving shape, full width
+SYSTOLIC_T, SYSTOLIC_B = 16, 8
+SYSTOLIC_TOL = 1e-4           # scale-out vs K1/K2, f32 hidden and cell state
+SYSTOLIC_LAYERWISE = ('2x2', '5x7')
+SYSTOLIC_STAGED = 'graves-75'
+SYSTOLIC_DRAINS = 3           # timed drains of the graves-75 engine cell
+SYSTOLIC_TURNS = 3            # timed calls of each scale-out after a warm one
+SYSTOLIC_LADDER = dict(fail_at={2: 1, 4: 1})   # staged -> K2 -> K1
 ATTN_TOL = {'float32': dict(rtol=0.0, atol=1e-4),
             'bfloat16': dict(rtol=2.0 ** -7, atol=1e-5)}
 
@@ -1953,16 +1977,20 @@ def _run_cli(label: str, args, cwd: str) -> str:
     return proc.stdout
 
 
-def _int8_launches(run):
-    """K3 and K4 launches of ``run()``, counted from 0."""
-    from repro_torch.kernels.lstm_seq import (lstm_seq_quantized,
+def _kernel_launches(run):
+    """``run()`` with the K1-K4 launch counters set to 0 just before and
+    read just after: (its result, the counts)."""
+    from repro_torch.kernels.lstm_seq import (lstm_seq, lstm_seq_quantized,
+                                              lstm_stack_seq_kernel,
                                               lstm_stack_seq_kernel_q)
-    lstm_seq_quantized.launches = 0
-    lstm_stack_seq_kernel_q.launches = 0
+    kernels = (lstm_seq, lstm_stack_seq_kernel, lstm_seq_quantized,
+               lstm_stack_seq_kernel_q)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
     out = run()
     torch.cuda.synchronize()
-    return out, dict(lstm_seq_quantized=lstm_seq_quantized.launches,
-                     lstm_stack_seq_kernel_q=lstm_stack_seq_kernel_q.launches)
+    return out, {k.__name__: k.launches for k in kernels}
 
 
 def tune_phase(cfg, params, qps, q_utts, dev):
@@ -2069,10 +2097,11 @@ def tune_phase(cfg, params, qps, q_utts, dev):
         weights = stack_kernel_weights_q(qps)
         deploy = lambda: int8_chunks(qps, xq, lens, CHUNK, weights,
                                      'auto')[0]
-        cold, cold_launches = _int8_launches(deploy)
-        want = {'fused': dict(lstm_seq_quantized=0,
+        cold, cold_launches = _kernel_launches(deploy)
+        f32 = dict(lstm_seq=0, lstm_stack_seq_kernel=0)
+        want = {'fused': dict(f32, lstm_seq_quantized=0,
                               lstm_stack_seq_kernel_q=n_chunks),
-                'layerwise': dict(lstm_seq_quantized=L * n_chunks,
+                'layerwise': dict(f32, lstm_seq_quantized=L * n_chunks,
                                   lstm_stack_seq_kernel_q=0)}
         key = dict(kind='q_stack_backend', n_x=n_x, n_h=n_h, n_layers=L,
                    T=CHUNK, B=len(q_utts), source='measured')
@@ -2083,7 +2112,7 @@ def tune_phase(cfg, params, qps, q_utts, dev):
             named = c.lookup('q_stack_backend', n_x=n_x, n_h=n_h,
                              n_layers=L, T=CHUNK, B=len(q_utts)).backend
             with using_schedule_cache(c):
-                codes, launches = _int8_launches(deploy)
+                codes, launches = _kernel_launches(deploy)
             deploys[label] = dict(backend=named, launches=launches,
                                   equal=torch.equal(codes, cold))
             print(f'tune: int8 deploy on auto under the {label} cache '
@@ -2182,6 +2211,345 @@ def examples_phase():
         res['quickstart'] = dict(lines=out.strip().splitlines())
         check('== plain chain: True' in out,
               'quickstart: K3 disagrees with the plain chain')
+    return res
+
+
+def _wall_ms(run):
+    """One call of ``run`` on the host clock, ending in a synchronize:
+    (its result, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _turns_ms(runs: dict, turns: int = SYSTOLIC_TURNS):
+    """Each of ``runs`` (name -> call) once to warm, then ``turns`` rounds
+    of one call each, the order alternating between rounds, on the host
+    clock (each call ending in a synchronize): (name -> the last result,
+    name -> the median ms)."""
+    out, times = {}, {k: [] for k in runs}
+    for run in runs.values():
+        run()
+    names = list(runs)
+    for i in range(turns):
+        for k in (names if i % 2 == 0 else names[::-1]):
+            out[k], ms = _wall_ms(runs[k])
+            times[k].append(ms)
+    return out, {k: float(np.median(v)) for k, v in times.items()}
+
+
+def _max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def systolic_checks(params, qps, rng, dev):
+    """The scale-outs at (``SYSTOLIC_T``, ``SYSTOLIC_B``), full width, every
+    engine on the card, against K1-K4 on the same inputs: the layerwise
+    f32 ``systolic_lstm_seq`` on each of ``SYSTOLIC_LAYERWISE`` allclose
+    to K1 (h and c, ``SYSTOLIC_TOL``), its masked chunks bit-equal to its
+    monolithic masked call and an all-ones mask to the unmasked call; the
+    int8 ``systolic_lstm_seq_quantized`` on ``5x5`` ``torch.equal`` to K3;
+    on ``graves-75`` the staged f32 ``systolic_lstm_stack_seq`` allclose
+    to K2 (the top layer's outputs, every layer's h_T and c_T), its masked
+    chunks bit-equal to one masked call, a stack placed once
+    (``place_stack``) bit-equal to placing per call, and the staged int8
+    form ``torch.equal`` to K4; on the all-1 ``single`` preset each form
+    runs its single-engine kernel once.  Each form timed on the host clock
+    after a warm call (``_turns_ms``); one staged call traced for its
+    device ops (launches per time step), placed per call and placed
+    once."""
+    from repro_torch.core import quant, systolic as sy
+    from repro_torch.kernels import lstm_seq as ks
+    from repro_torch.launch.mesh import make_systolic_topology
+    T, B = SYSTOLIC_T, SYSTOLIC_B
+    lp = params.layers[0]
+    xs = torch.from_numpy((rng.randn(T, B, lp.n_x) * 0.5).astype(
+        np.float32)).to(dev)
+    lens = torch.from_numpy(ragged_lens(rng, T, B)).to(dev)
+    full = torch.full((B,), T, device=dev)
+    pieces = ((0, 5), (5, 10), (10, T))
+
+    def chunked(call):
+        """``call(lo, hi, state, valid_len)`` over ``pieces``, the masked
+        carry threaded: (outputs concatenated, last state)."""
+        outs, st = [], None
+        for lo, hi in pieces:
+            o, st = call(lo, hi, st,
+                         torch.clamp(lens - lo, 0, hi - lo))
+            outs.append(o)
+        return torch.cat(outs), st
+
+    res = {}
+    (k1, (_, k1_c)), k1_n = _kernel_launches(
+        lambda: ks.lstm_layer_seq(lp, xs))
+    for name in SYSTOLIC_LAYERWISE:
+        mesh = make_systolic_topology(name, devices=dev)
+        out, ms = _turns_ms({name: lambda: sy.systolic_lstm_seq(lp, mesh,
+                                                                 xs)})
+        (hs, (_, c_T)), ms = out[name], ms[name]
+        err = max(_max_err(hs, k1), _max_err(c_T, k1_c))
+        mono = sy.systolic_lstm_seq(lp, mesh, xs, valid_len=lens)
+        got, st = chunked(lambda lo, hi, s, vl: sy.systolic_lstm_seq(
+            lp, mesh, xs[lo:hi], *(s or ()), valid_len=vl))
+        ones = sy.systolic_lstm_seq(lp, mesh, xs, valid_len=full)
+        res[name] = dict(max_abs_err_vs_k1=err, ms=ms,
+                         chunked_equal=bool(torch.equal(got, mono[0])
+                                            and torch.equal(st[1], mono[1][1])),
+                         all_ones_equal=bool(torch.equal(ones[0], hs)))
+        print(f'systolic [{name} f32 layerwise]: T={T} B={B} vs K1 max abs '
+              f'err {err:.3e} (tol {SYSTOLIC_TOL}), {ms:.1f} ms a call; '
+              f'chunked == monolithic {res[name]["chunked_equal"]}, '
+              f'all-ones mask == unmasked {res[name]["all_ones_equal"]}',
+              flush=True)
+        check(err <= SYSTOLIC_TOL, f'{name}: systolic_lstm_seq vs K1')
+        check(res[name]['chunked_equal'] and res[name]['all_ones_equal'],
+              f'{name}: chunked or masked != monolithic')
+
+    xq = quant.quantize(xs)
+    k3, k3_n = _kernel_launches(lambda: ks.lstm_layer_seq_quantized(qps[0],
+                                                                    xq))
+    mesh = make_systolic_topology('5x5', devices=dev)
+    out, ms = _turns_ms({'5x5': lambda: sy.systolic_lstm_seq_quantized(
+        qps[0], mesh, xq)})
+    got, ms = out['5x5'], ms['5x5']
+    res['5x5 int8'] = dict(equal_k3=bool(torch.equal(got, k3)), ms=ms)
+    print(f'systolic [5x5 int8 layerwise]: == K3 '
+          f'{res["5x5 int8"]["equal_k3"]}, {ms:.1f} ms a call', flush=True)
+    check(res['5x5 int8']['equal_k3'], '5x5: int8 scale-out != K3')
+
+    mesh = make_systolic_topology(SYSTOLIC_STAGED, devices=dev)
+    (k2, k2_fin), k2_n = _kernel_launches(lambda: ks.lstm_stack_seq(params,
+                                                                    xs))
+    placement = sy.place_stack(params, mesh, staged=True, T=T, batch=B)
+    out, f32_ms = _turns_ms({
+        'placed per call': lambda: sy.systolic_lstm_stack_seq(params, mesh,
+                                                              xs),
+        'placed once': lambda: sy.systolic_lstm_stack_seq(
+            params, mesh, xs, placement=placement)})
+    ys_, fs = out['placed per call']
+    err = max([_max_err(ys_, k2)]
+              + [max(_max_err(a[0], b[0]), _max_err(a[1], b[1]))
+                 for a, b in zip(fs, k2_fin)])
+    mono = sy.systolic_lstm_stack_seq(params, mesh, xs, valid_len=lens)
+    got, st = chunked(lambda lo, hi, s, vl: sy.systolic_lstm_stack_seq(
+        params, mesh, xs[lo:hi], s, valid_len=vl))
+    pgot, pst = chunked(lambda lo, hi, s, vl: sy.systolic_lstm_stack_seq(
+        params, mesh, xs[lo:hi], s, valid_len=vl, placement=placement))
+    ops = trace(lambda: sy.systolic_lstm_stack_seq(params, mesh, xs),
+                f'{SYSTOLIC_STAGED} f32 staged call, placed per call')
+    pops = trace(lambda: sy.systolic_lstm_stack_seq(params, mesh, xs,
+                                                    placement=placement),
+                 f'{SYSTOLIC_STAGED} f32 staged call, placed once')
+    res[f'{SYSTOLIC_STAGED} f32'] = dict(
+        max_abs_err_vs_k2=err, ms=f32_ms,
+        chunked_equal=bool(torch.equal(got, mono[0]) and all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(st, mono[1]))),
+        placed_equal=bool(torch.equal(pgot, got) and torch.equal(
+            out['placed once'][0], ys_) and all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(pst, st))),
+        device_ops=ops['device_ops'], device_ops_placed=pops['device_ops'],
+        launches_per_step=pops['device_ops'] / T,
+        idle_share=pops['idle_share'],
+        device_busy_ms=pops['device_busy_ms'], wall_ms=pops['wall_ms'])
+    r = res[f'{SYSTOLIC_STAGED} f32']
+    print(f'systolic [{SYSTOLIC_STAGED} f32 staged]: vs K2 max abs err '
+          f'{err:.3e} (tol {SYSTOLIC_TOL}, ys and every layer\'s h_T, c_T), '
+          f'chunked == monolithic {r["chunked_equal"]}, placed once == '
+          f'placed per call {r["placed_equal"]}; ms a call '
+          + ', '.join(f'{m} {v:.1f}' for m, v in r['ms'].items())
+          + f'; device ops a call of {T} steps: placed per call '
+          f'{r["device_ops"]}, placed once {r["device_ops_placed"]} '
+          f'({r["launches_per_step"]:.1f} a step)', flush=True)
+    check(err <= SYSTOLIC_TOL, f'{SYSTOLIC_STAGED}: staged f32 vs K2')
+    check(r['chunked_equal'], f'{SYSTOLIC_STAGED}: chunked != monolithic')
+    check(r['placed_equal'], f'{SYSTOLIC_STAGED}: placed once != per call')
+
+    k4, k4_n = _kernel_launches(lambda: ks.lstm_stack_seq_quantized(qps, xq))
+    out, q = _turns_ms({'int8': lambda: sy.systolic_lstm_stack_seq_quantized(
+        qps, mesh, xq)})
+    check(torch.equal(out['int8'], k4), f'{SYSTOLIC_STAGED} int8 != K4')
+    res[f'{SYSTOLIC_STAGED} int8'] = dict(equal_k4=True, ms=q['int8'])
+    print(f'systolic [{SYSTOLIC_STAGED} int8 staged]: == K4; '
+          f'{q["int8"]:.1f} ms a call', flush=True)
+
+    # the all-1 preset runs the single-engine kernels, one launch each
+    single = make_systolic_topology('single', devices=dev)
+    n = {}
+    for label, run in (
+            ('f32 layer', lambda: sy.systolic_lstm_seq(lp, single, xs)),
+            ('int8 layer', lambda: sy.systolic_lstm_seq_quantized(
+                qps[0], single, xq)),
+            ('f32 stack', lambda: sy.systolic_lstm_stack_seq(params, single,
+                                                             xs)),
+            ('int8 stack', lambda: sy.systolic_lstm_stack_seq_quantized(
+                qps, single, xq))):
+        n[label] = _kernel_launches(run)[1]
+    res['single'] = n
+    print(f'systolic [single]: launches {n}', flush=True)
+    for (label, kernel), want in zip(n.items(), (k1_n, k3_n, k2_n, k4_n)):
+        check(kernel == want, f'single {label}: launches {kernel}, the '
+                              f'kernel alone {want}')
+    return res
+
+
+def systolic_engine(cfg, params, utts, dev):
+    """The f32 engine cell (``SLOTS`` slots, chunk ``CHUNK``, the 12
+    utterances) with ``graves-75`` installed on the card, through
+    ``launch.serve.StreamServer`` on ``auto``, which must resolve to
+    ``cuda_seq_fused_systolic``: no K1-K4 launch in the drain, every
+    stream allclose to a ``cuda_seq_fused`` engine's; frames/s and p50
+    chunk ms (median of ``SYSTOLIC_DRAINS`` drains after a warm one) and
+    one chunk call traced for its device ops.  Then the fault ladder from
+    the systolic rung (``SYSTOLIC_LADDER``): down to K2 and to K1, both
+    launched, every stream still allclose."""
+    from repro_torch.core import systolic as sy
+    from repro_torch.launch.mesh import install_systolic_topology
+    from repro_torch.launch.serve import StreamServer
+    from repro_torch.models import chipmunk_net
+    from repro_torch.runtime import ServingFaultConfig
+    want, base = serve_once(cfg, params, 'cuda_seq_fused', utts, SLOTS, CHUNK)
+    mesh = install_systolic_topology(SYSTOLIC_STAGED, devices=dev)
+    try:
+        def drain(faults=None):
+            server = StreamServer(cfg.replace(lstm_backend='auto'), params,
+                                  num_slots=SLOTS, chunk=CHUNK, faults=faults)
+            sess = [server.submit(u) for u in utts]
+            (_, ms) = _wall_ms(server.drain)
+            return server.engine, [s.full_log_probs() for s in sess], ms
+
+        eng, _, _ = drain()
+        check(eng.backend == 'cuda_seq_fused_systolic',
+              f'auto under {SYSTOLIC_STAGED} resolved to {eng.backend}')
+        rates, p50s = [], []
+        for _ in range(SYSTOLIC_DRAINS):
+            (eng, got, ms), n = _kernel_launches(drain)
+            stats = eng.stats()
+            rates.append(stats['frames'] / ms * 1e3)
+            p50s.append(stats['p50_chunk_s'] * 1e3)
+        worst = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+        check(all(np.allclose(a, b, rtol=ENGINE_RTOL, atol=ENGINE_ATOL)
+                  for a, b in zip(got, want)),
+              f'{SYSTOLIC_STAGED} engine vs cuda_seq_fused engine')
+        check(not any(n.values()), f'the staged drain launched {n}')
+        st = chipmunk_net.init_state(cfg, SLOTS, dev)
+        frames = torch.from_numpy(np.stack([
+            utts[i % len(utts)][:CHUNK] for i in range(SLOTS)])).to(dev)
+        valid = torch.full((SLOTS,), CHUNK, device=dev)
+        check(eng.placement is not None
+              and eng.placement.mesh is mesh, 'the engine has no placement')
+        ops = trace(lambda: eng._fwd(st, frames, valid),
+                    f'{SYSTOLIC_STAGED} engine chunk')
+        per_call = trace(lambda: chipmunk_net.stream_forward(
+            cfg.replace(lstm_backend='cuda_seq_fused_systolic'), params, st,
+            frames, valid_len=valid),
+            f'{SYSTOLIC_STAGED} chunk, stack placed per call')
+        res = dict(backend=eng.backend, steps=stats['steps'],
+                   frames=stats['frames'],
+                   frames_per_s=float(np.median(rates)),
+                   p50_chunk_ms=float(np.median(p50s)),
+                   drains_frames_per_s=rates,
+                   max_abs_diff_vs_cuda_seq_fused=worst,
+                   device_ops_per_chunk=ops['device_ops'],
+                   device_ops_per_chunk_placed_per_call=per_call[
+                       'device_ops'],
+                   launches_per_step=ops['device_ops'] / CHUNK,
+                   chunk_trace=dict(wall_ms=ops['wall_ms'],
+                                    device_busy_ms=ops['device_busy_ms'],
+                                    idle_share=ops['idle_share']),
+                   cuda_seq_fused=dict(frames_per_s=base['frames_per_s'],
+                                       p50_chunk_ms=base['p50_chunk_ms']))
+        print(f'systolic engine [{SYSTOLIC_STAGED}, auto -> {eng.backend}]: '
+              f'{len(utts)} utterances, {stats["frames"]} frames, '
+              f'{stats["steps"]} chunks: {res["frames_per_s"]:.1f} frames/s, '
+              f'p50 chunk {res["p50_chunk_ms"]:.2f} ms (cuda_seq_fused '
+              f'{base["frames_per_s"]:.1f} frames/s, p50 chunk '
+              f'{base["p50_chunk_ms"]:.3f} ms); {ops["device_ops"]} device '
+              f'launches a chunk ({res["launches_per_step"]:.1f} a step; '
+              f'{per_call["device_ops"]} with the stack placed per call); '
+              f'max abs diff vs cuda_seq_fused {worst:.3e}', flush=True)
+
+        faults = ServingFaultConfig(backoff_s=0.0, **SYSTOLIC_LADDER)
+        (eng, got, _), n = _kernel_launches(lambda: drain(faults))
+        moves = [e['to_backend'] for e in eng.events
+                 if e['kind'] == 'degrade']
+        check(all(np.allclose(a, b, rtol=ENGINE_RTOL, atol=ENGINE_ATOL)
+                  for a, b in zip(got, want)), 'the ladder lost a stream')
+        check(moves == ['cuda_seq_fused', 'cuda_seq']
+              and n['lstm_stack_seq_kernel'] > 0 and n['lstm_seq'] > 0,
+              f'ladder from the systolic rung: {moves}, launches {n}')
+        res['ladder'] = dict(moves=moves, launches=n)
+        print(f'systolic engine ladder {SYSTOLIC_LADDER}: moves {moves}, '
+              f'launches {n}, every stream allclose', flush=True)
+        check(sy.current_mesh() is None, 'the K1 rung left a mesh installed')
+    finally:
+        sy.clear_mesh()
+    return res
+
+
+def systolic_grads(cfg, dev):
+    """Every leaf's gradient of ``loss_fn`` (``GRAD_T``, ``TRAIN_BATCH``)
+    through the layerwise scale-out under ``2x2`` and the staged one under
+    ``graves-75`` (their gate-recompute backwards) against
+    ``cuda_seq_fused``'s, by relative Frobenius error.  Returns the worst
+    error of each."""
+    from repro_torch.core import systolic as sy
+    from repro_torch.launch.mesh import install_systolic_topology
+    from repro_torch.launch.train import _grads_of, init_train_state
+    from repro_torch.models import chipmunk_net
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.tree import flatten_with_paths
+    params = init_train_state(cfg, adamw(cosine_schedule(1e-3, 1, 2)),
+                              dev, seed=SEED)['params']
+    batch = _train_batch(cfg, GRAD_T, TRAIN_BATCH, 0, dev)
+    def grads_of(backend):
+        loss_fn = lambda p, x, c=cfg.replace(lstm_backend=backend): \
+            chipmunk_net.loss_fn(c, p, x)
+        return flatten_with_paths(_grads_of(loss_fn, params, batch)[1])
+
+    want = grads_of('cuda_seq_fused')
+    worst = {}
+    for topology, backend in (('2x2', 'cuda_seq_systolic'),
+                              (SYSTOLIC_STAGED, 'cuda_seq_fused_systolic')):
+        install_systolic_topology(topology, devices=dev)
+        try:
+            got = grads_of(backend)
+        finally:
+            sy.clear_mesh()
+        rel = [float(torch.linalg.vector_norm(g - r)
+                     / torch.linalg.vector_norm(r))
+               for (_, g), (_, r) in zip(got, want)]
+        finite = all(bool(torch.isfinite(g).all()) for _, g in got)
+        print(f'systolic grads [{topology} {backend}] vs cuda_seq_fused: '
+              f'T={GRAD_T} B={TRAIN_BATCH}, {len(rel)} leaves: max relative '
+              f'Frobenius error {max(rel):.3e} (tol {GRAD_REL_TOL}), finite '
+              f'{finite}', flush=True)
+        check(finite and max(rel) <= GRAD_REL_TOL,
+              f'{backend} gradients disagree with cuda_seq_fused')
+        worst[f'{topology} {backend}'] = max(rel)
+    return worst
+
+
+def systolic_phase(cfg, params, qps, utts, dev):
+    """The paper's systolic scale-out on the card (``systolic_checks``,
+    ``systolic_engine``, ``systolic_grads``) and the serve CLI with
+    ``--systolic-topology graves-75`` as a subprocess."""
+    import tempfile
+    res = dict(checks=systolic_checks(params, qps,
+                                      np.random.RandomState(SEED + 2), dev),
+               engine=systolic_engine(cfg, params, utts, dev),
+               grad_rel_err=systolic_grads(cfg, dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _run_cli('serve graves-75', [
+            'repro_torch.launch.serve', '--systolic-topology',
+            SYSTOLIC_STAGED, '--requests', '2'], tmp)
+    check(f'installed systolic topology {SYSTOLIC_STAGED}' in out
+          and '[cuda_seq_fused_systolic]' in out,
+          'serve --systolic-topology did not serve on the staged scale-out')
+    res['serve_cli'] = out.strip().splitlines()
     return res
 
 
@@ -2873,6 +3241,7 @@ def main(argv=None) -> int:
     fault['train'] = fault_train(train_cfg, dev)
     tuned = tune_phase(cfg, params, qps, q_utts, dev)
     examples = examples_phase()
+    systolic = systolic_phase(cfg, params, qps, utts, dev)
 
     # K6-K8 on their public ops (no path of the system reaches them)
     op_rows = [cell_checks(params, CELL_BATCH, dev),
@@ -2908,7 +3277,7 @@ def main(argv=None) -> int:
             profiles=profiles,
             stack_kernel_weights_q=q_stacking, int8_deploy=deploy,
             train_grad_rel_err=grad_err, train=train, train_cli=cli,
-            tune=tuned, examples=examples),
+            tune=tuned, examples=examples, systolic=systolic),
             indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -26,6 +26,12 @@ Backends (``BACKENDS``) and their TPU counterparts in the JAX package:
   ``cuda_step``       ``pallas_step``         K5, one recurrent step
                                               (``csrc/lstm_gates_rec.cu``),
                                               T launches per layer call
+  ``cuda_seq_         ``pallas_seq_           the layerwise scale-out over
+  systolic``          systolic``              the installed mesh
+                                              (``core.systolic
+                                              .systolic_lstm_seq``)
+  ``cuda_seq_fused_   ``pallas_seq_fused_     the staged scale-out
+  systolic``          systolic``              (``systolic_lstm_stack_seq``)
   ==================  ======================  ==============================
 
 Every backend is trainable: ``lstm_layer_fused`` and ``lstm_stack_apply``
@@ -38,11 +44,19 @@ product (``lstm_bwd_recompute_gates``, and across the stack
 kernel, so the backward is plain PyTorch with ``torch.einsum`` for its wide
 products.
 
-``auto`` does not copy the TPU's VMEM rule.  On CPU tensors it picks
-``torch_scan``.  On CUDA tensors it picks ``cuda_seq_fused`` when the stack
-is homogeneous (``stack_fused_compatible``), has at least two layers, and
-one wavefront launch takes the whole batch (shared memory per CTA within
-the card's limit, every CTA co-resident); otherwise ``cuda_seq``.  K1-K4
+With a systolic mesh installed (``core.systolic.install_mesh``,
+``launch.mesh`` presets), ``auto`` follows the reference's mesh rule on any
+device type, the CPU included: a stage-aware admission
+(``seq_scaleout_admissible`` with ``n_layers``) of a homogeneous stack
+gives ``cuda_seq_fused_systolic``, a stage-1 admission of the layer gives
+``cuda_seq_systolic``, and T < ``_SEQ_MIN_T`` never scales out.  A
+``None`` or all-1 mesh makes both systolic backends run the single-engine
+kernels (K1, K2).  Otherwise ``auto`` does not copy the TPU's VMEM rule.
+On CPU tensors it picks ``torch_scan``.  On CUDA tensors it picks
+``cuda_seq_fused`` when the stack is homogeneous
+(``stack_fused_compatible``), has at least two layers, and one wavefront
+launch takes the whole batch (shared memory per CTA within the card's
+limit, every CTA co-resident); otherwise ``cuda_seq``.  K1-K4
 run a batch larger than their geometry admits in blocks of the largest
 admitted B, so the batch alone never makes a kernel backend inadmissible.
 ``cuda_step`` is a plain launch, so its admission is the shared-memory
@@ -69,20 +83,24 @@ GATES = 4  # i, f, g, o
 I, F, G, O = 0, 1, 2, 3
 PEEP_I, PEEP_F, PEEP_O = 0, 1, 2
 
-BACKENDS = ('auto', 'torch_scan', 'cuda_seq', 'cuda_seq_fused', 'cuda_step')
+BACKENDS = ('auto', 'torch_scan', 'cuda_seq', 'cuda_seq_fused', 'cuda_step',
+            'cuda_seq_systolic', 'cuda_seq_fused_systolic')
+_SYSTOLIC = ('cuda_seq_systolic', 'cuda_seq_fused_systolic')
 
 # Serving degradation ladder (DESIGN.md §10): when an engine is declared
 # dead mid-serve, the fault-tolerant serving runtime re-dispatches to the
-# next backend DOWN this ladder — from the whole-stack wavefront (K2)
-# through the per-layer sequence kernel (K1) to the plain torch scan, which
-# runs on the tensors' own device.  Backends not named on the ladder map
-# onto the nearest rung (``_LADDER_RANK``): the per-step kernel ranks with
-# the sequence kernel.  The reference's top rung, the staged systolic
-# scale-out over a mesh, has no counterpart until the port's multi-device
-# scale-out.
-DEGRADATION_LADDER = ('cuda_seq_fused', 'cuda_seq', 'torch_scan')
-_LADDER_RANK = {'cuda_seq_fused': 0, 'cuda_seq': 1, 'cuda_step': 1,
-                'torch_scan': 2}
+# next backend DOWN this ladder — from the staged systolic scale-out over
+# the installed mesh through the whole-stack wavefront (K2) and the
+# per-layer sequence kernel (K1) to the plain torch scan, which runs on the
+# tensors' own device.  Backends not named on the ladder map onto the
+# nearest rung (``_LADDER_RANK``): the layerwise scale-out ranks with the
+# staged one (both die with the mesh), the per-step kernel with the
+# sequence kernel.
+DEGRADATION_LADDER = ('cuda_seq_fused_systolic', 'cuda_seq_fused', 'cuda_seq',
+                      'torch_scan')
+_LADDER_RANK = {'cuda_seq_fused_systolic': 0, 'cuda_seq_systolic': 0,
+                'cuda_seq_fused': 1, 'cuda_seq': 2, 'cuda_step': 2,
+                'torch_scan': 3}
 
 
 def next_backend_down(backend: str) -> Optional[str]:
@@ -100,7 +118,7 @@ def next_backend_down(backend: str) -> Optional[str]:
 
 def next_backend_up(backend: str) -> Optional[str]:
     """The next backend UP the serving ``DEGRADATION_LADDER``, or None at
-    the top (``cuda_seq_fused``) — the promotion inverse of
+    the top (the staged scale-out) — the promotion inverse of
     ``next_backend_down``, consulted by the recovery runtime
     (``runtime/recovery.py``) when the health tracker reports capacity for
     a higher rung.  Pure dispatch — promotion is canary-validated by the
@@ -369,6 +387,74 @@ def recompute_gates_layer(forward_fn: Callable, w_h, w_peep, b, pre_x, h0,
     return hs, (hs[-1], c_T)
 
 
+class _RecomputeStackGates(torch.autograd.Function):
+    """A homogeneous stack whose forward ``forward_fn(w_in, w_h, peep, b,
+    pre_x, h0s, c0s) -> (hs, cs)`` (each (L, T, B, N_h)) keeps its gates
+    on chip — K2, or the staged scale-out — and whose backward is
+    ``lstm_stack_bwd_recompute_gates`` from the saved trajectories.
+    Returns (ys = the top layer's hs, h_T, c_T), the finals (L, B, N_h)."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, w_in, w_h, peep, b, pre_x, h0s, c0s):
+        hs, cs = forward_fn(w_in, w_h, peep, b, pre_x, h0s, c0s)
+        ctx.save_for_backward(w_in, w_h, peep, b, pre_x, hs, cs, h0s, c0s)
+        return hs[-1], hs[:, -1].clone(), cs[:, -1].clone()
+
+    @staticmethod
+    def backward(ctx, d_ys, d_hT, d_cT):
+        return (None,) + lstm_stack_bwd_recompute_gates(
+            *ctx.saved_tensors, (d_ys, (d_hT, d_cT)))
+
+
+def recompute_stack_gates(forward_fn: Callable, w_in, w_h, peep, b, pre_x,
+                          h0s, c0s):
+    """``forward_fn``'s stack (see ``_RecomputeStackGates``) made
+    differentiable with the cross-layer gate-recompute backward.  Returns
+    (ys (T, B, N_h), (h_T, c_T) each (L, B, N_h))."""
+    ys, h_T, c_T = _RecomputeStackGates.apply(forward_fn, w_in, w_h, peep,
+                                              b, pre_x, h0s, c0s)
+    return ys, (h_T, c_T)
+
+
+def _layer_scales_out(n_h: int, T: int) -> bool:
+    """The reference's per-layer mesh rule (``select_lstm_backend``): True
+    iff a systolic mesh is installed, T >= ``_SEQ_MIN_T``, and the mesh
+    admits the layer (the single-layer ``seq_scaleout_admissible``)."""
+    from .systolic import current_mesh, seq_scaleout_admissible
+    mesh = current_mesh()
+    return (mesh is not None and T >= _SEQ_MIN_T
+            and seq_scaleout_admissible(n_h, mesh))
+
+
+def _degrade_staged_single_layer(n_h: int) -> str:
+    """One layer cannot stage-pipeline: ``cuda_seq_fused_systolic`` on a
+    layer is the layerwise scale-out where the installed mesh admits the
+    layer on its row and col axes alone, else K1 (``cuda_seq``)."""
+    from .systolic import current_mesh, seq_scaleout_admissible
+    return ('cuda_seq_systolic'
+            if seq_scaleout_admissible(n_h, current_mesh()) else 'cuda_seq')
+
+
+def _mesh_backend(params: LSTMStackParams, T: int, B: int,
+                  compatible: bool, mesh) -> Optional[str]:
+    """The reference's mesh rule for a stack (``select_stack_backend``,
+    then ``select_lstm_backend``), on any device type: the staged
+    scale-out for a homogeneous stack the mesh admits stage-aware, else the
+    layerwise one where it admits layer 0, else None; never below
+    ``_SEQ_MIN_T`` steps."""
+    if mesh is None or T < _SEQ_MIN_T:
+        return None
+    from .systolic import seq_scaleout_admissible
+    l0 = params.layers[0]
+    if compatible and seq_scaleout_admissible(
+            l0.n_h, mesh, n_layers=len(params.layers), n_x=l0.n_x, T=T,
+            batch=B):
+        return 'cuda_seq_fused_systolic'
+    if seq_scaleout_admissible(l0.n_h, mesh):
+        return 'cuda_seq_systolic'
+    return None
+
+
 def lstm_layer_fused(params: LSTMParams, xs: torch.Tensor,
                      h0: Optional[torch.Tensor] = None,
                      c0: Optional[torch.Tensor] = None, *,
@@ -377,20 +463,29 @@ def lstm_layer_fused(params: LSTMParams, xs: torch.Tensor,
     xs: (T, ..., N_x) -> (hs (T, ..., N_h), (h_T, c_T)), h0 and c0 (...,
     N_h).  ``backend``: ``torch_scan`` (``lstm_scan_fused``), ``cuda_seq``
     (K1, ``kernels.lstm_seq.lstm_layer_seq``), ``cuda_step`` (T launches of
-    K5, ``kernels.lstm_gates.lstm_layer_fused``); ``cuda_seq_fused`` on one
-    layer is ``cuda_seq``.  ``torch_scan`` and ``cuda_step`` flatten the
-    batch dims and restore them afterwards, as the reference does;
-    ``cuda_seq`` takes (T, B, N_x) only.  ``auto`` is ``torch_scan`` on CPU
-    tensors and on CUDA tensors ``cuda_seq`` for (T, B, N_x), else
-    ``cuda_step``.  Forward allclose across backends, backward through the
-    same gate-recompute family."""
+    K5, ``kernels.lstm_gates.lstm_layer_fused``), ``cuda_seq_systolic``
+    (the layerwise scale-out over the installed mesh); ``cuda_seq_fused``
+    on one layer is ``cuda_seq``, and ``cuda_seq_fused_systolic`` the
+    layerwise scale-out where the mesh admits the layer, else ``cuda_seq``
+    (``_degrade_staged_single_layer``).  ``torch_scan``, ``cuda_step`` and
+    the scale-out flatten the batch dims and restore them afterwards, as
+    the reference does; ``cuda_seq`` takes (T, B, N_x) only.  ``auto`` is
+    the layerwise scale-out where an installed mesh admits the layer and
+    T >= ``_SEQ_MIN_T``, else ``torch_scan`` on CPU tensors and on CUDA
+    tensors ``cuda_seq`` for (T, B, N_x), else ``cuda_step``.  Forward
+    allclose across backends, backward through the same gate-recompute
+    family."""
     if backend not in BACKENDS:
         raise ValueError(f'unknown backend {backend!r}; one of {BACKENDS}')
     if xs.ndim < 3:
         raise ValueError('lstm_layer_fused expects (T, ..., N_x) input')
     if backend == 'auto':
-        backend = ('torch_scan' if not xs.is_cuda
+        backend = ('cuda_seq_systolic' if _layer_scales_out(params.n_h,
+                                                            xs.shape[0])
+                   else 'torch_scan' if not xs.is_cuda
                    else 'cuda_seq' if xs.ndim == 3 else 'cuda_step')
+    if backend == 'cuda_seq_fused_systolic':
+        backend = _degrade_staged_single_layer(params.n_h)
     if backend == 'cuda_seq_fused':
         backend = 'cuda_seq'        # a 1-layer stack IS the sequence kernel
     if backend == 'cuda_seq':
@@ -409,6 +504,10 @@ def lstm_layer_fused(params: LSTMParams, xs: torch.Tensor,
     if backend == 'cuda_step':
         from ..kernels.lstm_gates import lstm_layer_fused as step_layer
         hs, (h_T, c_T) = step_layer(params, xs, h0, c0, return_state=True)
+    elif backend == 'cuda_seq_systolic':
+        from .systolic import current_mesh, systolic_lstm_seq
+        hs, (h_T, c_T) = systolic_lstm_seq(params, current_mesh(), xs, h0,
+                                           c0)
     else:
         hs, (h_T, c_T) = lstm_scan_fused(params.w_h, params.w_peep,
                                          params.b,
@@ -497,23 +596,29 @@ def lstm_layer_chunk(params: LSTMParams, xs: torch.Tensor,
     sequence chunk by chunk is bit-equal to one monolithic call on the same
     backend.  Without ``valid_len`` this is ``lstm_layer_fused``
     (differentiable).  ``backend``: ``torch_scan`` | ``cuda_seq`` |
-    ``cuda_step`` | ``auto`` (CPU tensors: ``torch_scan``; CUDA tensors:
-    ``cuda_seq``).  K5 has no masked form: ``cuda_step`` with a
+    ``cuda_step`` | ``cuda_seq_systolic`` | ``cuda_seq_fused_systolic``
+    (``_degrade_staged_single_layer``) | ``auto`` (the layerwise scale-out
+    where the installed mesh admits the layer and T >= ``_SEQ_MIN_T``, else
+    CPU tensors: ``torch_scan``; CUDA tensors: ``cuda_seq``).  K5 has no
+    masked form: ``cuda_step`` with a
     ``valid_len`` on CPU tensors runs the masked torch scan, the reference's
     dispatch rule for ``pallas_step`` (``repro.core.lstm.lstm_layer_chunk``);
     on CUDA tensors it raises, since the plain scan on the card would serve
     under a kernel backend's name.  Returns (hs (T, B, N_h), (h_T, c_T)).
     """
-    if backend not in ('auto', 'torch_scan', 'cuda_seq', 'cuda_step'):
-        raise ValueError(f'layer backend must be auto|torch_scan|cuda_seq|'
-                         f'cuda_step, got {backend!r}')
+    if backend not in _LAYER_BACKENDS:
+        raise ValueError(f'layer backend must be one of {_LAYER_BACKENDS}, '
+                         f'got {backend!r}')
     if xs.ndim != 3:
         raise ValueError('lstm_layer_chunk expects (T, B, N_x) input')
     if valid_len is None:
         return lstm_layer_fused(params, xs, h0, c0, backend=backend)
     T, B = xs.shape[0], xs.shape[1]
     if backend == 'auto':
-        backend = 'cuda_seq' if xs.is_cuda else 'torch_scan'
+        backend = ('cuda_seq_systolic' if _layer_scales_out(params.n_h, T)
+                   else 'cuda_seq' if xs.is_cuda else 'torch_scan')
+    if backend == 'cuda_seq_fused_systolic':
+        backend = _degrade_staged_single_layer(params.n_h)
     if backend == 'cuda_step' and xs.is_cuda:
         raise ValueError(_CUDA_STEP_UNMASKED)
     zeros = xs.new_zeros((B, params.n_h))
@@ -522,6 +627,10 @@ def lstm_layer_chunk(params: LSTMParams, xs: torch.Tensor,
     if backend == 'cuda_seq':
         from ..kernels.lstm_seq import lstm_layer_seq
         return lstm_layer_seq(params, xs, h0, c0, valid_len=valid_len)
+    if backend == 'cuda_seq_systolic':
+        from .systolic import current_mesh, systolic_lstm_seq
+        return systolic_lstm_seq(params, current_mesh(), xs, h0, c0,
+                                 valid_len=valid_len)
     mask = valid_len_mask(T, valid_len, B)
     return _lstm_scan_masked(params.w_h, params.w_peep, params.b,
                              hoisted_input(params.w_x, xs), h0, c0, mask)
@@ -547,6 +656,8 @@ def stack_carry_arrays(states, n_layers: int, batch: int, n_h: int,
     return gather(0), gather(1)
 
 
+_LAYER_BACKENDS = ('auto', 'torch_scan', 'cuda_seq', 'cuda_step',
+                   'cuda_seq_systolic', 'cuda_seq_fused_systolic')
 _CUDA_STEP_UNMASKED = ('cuda_step is not a serving backend on the card: K5 '
                        'has no masked form (serve with cuda_seq or '
                        'cuda_seq_fused)')
@@ -558,9 +669,14 @@ def resolve_serving_backend(params: LSTMStackParams, backend: str, T: int,
     ``(T, B, N_x)`` chunked call on ``device`` runs, and check that it is
     admissible there — pure dispatch, no numerics of its own.  On ``auto``
     an installed schedule cache (``repro_torch.tune``, kind
-    ``'stack_backend'``, keyed by the stack's real ``n_x``) decides first,
-    where the backend it names is one of the port's and admissible here
-    (a kernel backend only on CUDA); else the rules below.  ``masked``
+    ``'stack_backend'``, keyed by the stack's real ``n_x`` and the
+    installed mesh's signature) decides first, where the backend it names
+    is one of the port's and admissible here (a kernel backend only on
+    CUDA, a systolic one only under a mesh that admits it); then an
+    installed systolic mesh (``_mesh_backend``, the reference's rule on any
+    device type); else the rules below.  The systolic backends run torch
+    products on their engines' devices and K1/K2 on a ``None`` mesh, so
+    they are admissible on any device.  ``masked``
     says the call carries a ``valid_len`` (every serving chunk does);
     ``cuda_step`` on CUDA is admissible only unmasked, the training path.
     On CUDA, ``auto`` is ``cuda_seq_fused`` when one K2 launch takes the
@@ -578,15 +694,23 @@ def resolve_serving_backend(params: LSTMStackParams, backend: str, T: int,
     layers = params.layers
     n_h, L = layers[0].n_h, len(layers)
     # structural admission, the reference's: a heterogeneous or one-layer
-    # stack cannot run the wavefront, so cuda_seq_fused is cuda_seq there
+    # stack cannot run the wavefront, so cuda_seq_fused (and the staged
+    # scale-out) is cuda_seq there
     compatible = stack_fused_compatible(params) and L >= 2
-    if backend == 'cuda_seq_fused' and not compatible:
+    if (backend in ('cuda_seq_fused', 'cuda_seq_fused_systolic')
+            and not compatible):
         backend = 'cuda_seq'
     if backend == 'auto':
-        tuned = _tuned_backend('stack_backend', layers[0].n_x, n_h, L, T, B)
+        from .systolic import current_mesh
+        mesh = current_mesh()
+        tuned = _tuned_backend('stack_backend', layers[0].n_x, n_h, L, T, B,
+                               mesh=mesh)
         if _tuned_serving_admissible(params, tuned, T, B, device, masked):
             return resolve_serving_backend(params, tuned, T, B, device,
                                            masked=masked)
+        backend = _mesh_backend(params, T, B, compatible, mesh) or backend
+    if backend in _SYSTOLIC:
+        return backend
     if device.type != 'cuda':
         return 'torch_scan' if backend == 'auto' else backend
     if backend == 'cuda_step' and masked:
@@ -620,30 +744,40 @@ def resolve_serving_backend(params: LSTMStackParams, backend: str, T: int,
 
 
 def _tuned_backend(kind: str, n_x: int, n_h: int, n_layers: int, T: int,
-                   batch: int) -> Optional[str]:
+                   batch: int, mesh=None) -> Optional[str]:
     """The backend an installed schedule cache (``repro_torch.tune
-    .install_schedule_cache``) records for this key, or None on a miss or
-    with no cache.  Dispatch-only: every backend an entry can name gives
-    the fallback's results, so a hit changes the launch shape only.  The
-    port has no mesh, so the lookup's placement is ``'any'``."""
-    from ..tune.schedule import current_schedule_cache
+    .install_schedule_cache``) records for this key under ``mesh``'s
+    signature (``'any'`` for None), or None on a miss or with no cache.
+    Dispatch-only: every backend an entry can name gives the fallback's
+    results, so a hit changes the launch shape only."""
+    from ..tune.schedule import current_schedule_cache, mesh_signature
     cache = current_schedule_cache()
     if cache is None:
         return None
     ent = cache.lookup(kind, n_x=n_x, n_h=n_h, n_layers=n_layers, T=T,
-                       B=batch)
+                       B=batch, mesh=mesh_signature(mesh))
     return ent.backend if ent is not None and ent.backend else None
 
 
 def _tuned_serving_admissible(params: LSTMStackParams, tuned: Optional[str],
                               T: int, B: int, device, masked: bool) -> bool:
     """True iff a cached ``stack_backend`` winner can serve here: one of the
-    port's backends (an entry naming a TPU backend is ignored), a kernel
-    backend only on CUDA, and admissible at this shape
-    (``resolve_serving_backend`` does not refuse it).  A stale entry never
-    forces an inadmissible launch."""
+    port's backends (an entry naming a TPU backend is ignored), a systolic
+    backend only under an installed mesh that admits it (the reference's
+    ``_stack_backend_admissible``), a kernel backend only on CUDA, and
+    admissible at this shape (``resolve_serving_backend`` does not refuse
+    it).  A stale entry never forces an inadmissible launch."""
     if tuned is None or tuned == 'auto' or tuned not in BACKENDS:
         return False
+    if tuned in _SYSTOLIC:
+        # a mesh admits at most one of the two (the staged rule needs a
+        # live stage axis, the layerwise one none)
+        from ..kernels.lstm_seq import stack_fused_compatible
+        from .systolic import current_mesh
+        compatible = (stack_fused_compatible(params)
+                      and len(params.layers) >= 2)
+        return _mesh_backend(params, T, B, compatible,
+                             current_mesh()) == tuned
     if torch.device(device).type != 'cuda':
         return tuned == 'torch_scan'
     try:
@@ -714,7 +848,8 @@ def select_quantized_stack_backend(n_h: int, n_layers: int, T: int,
 
 def lstm_stack_chunk(params: LSTMStackParams, xs: torch.Tensor, states=None,
                      *, valid_len: Optional[torch.Tensor] = None,
-                     backend: str = 'auto', stack_weights=None):
+                     backend: str = 'auto', stack_weights=None,
+                     placement=None):
     """Stateful chunked stack application — ``lstm_stack_apply`` for
     serving.  One chunk of ``T`` frames through every layer, composing the
     per-layer ``(h, c)`` carries; the same ``valid_len`` masks every layer,
@@ -725,12 +860,27 @@ def lstm_stack_chunk(params: LSTMStackParams, xs: torch.Tensor, states=None,
     CUDA tensors (``lstm_layer_chunk``).  On ``cuda_seq_fused``
     the whole chunk runs every layer in one wavefront launch, from
     ``stack_weights`` (``kernels.lstm_seq.stack_kernel_weights(params)``,
-    built per call when None; other backends ignore it).  Returns
-    (ys (T, B, N_out or N_h), new per-layer states)."""
+    built per call when None; other backends ignore it); on
+    ``cuda_seq_fused_systolic`` it runs the staged scale-out
+    (``core.systolic.systolic_lstm_stack_seq``), and on
+    ``cuda_seq_systolic`` each layer the layerwise one
+    (``systolic_lstm_seq``), both on ``placement``'s mesh and blocks (a
+    ``core.systolic.place_stack`` of ``params`` for that backend, built
+    once by a server) or else on the installed mesh, placed per call.
+    Returns (ys (T, B, N_out or N_h), new per-layer states)."""
     T, B = xs.shape[0], xs.shape[1]
     backend = resolve_serving_backend(params, backend, T, B, xs.device,
                                       masked=valid_len is not None)
-    if backend == 'cuda_seq_fused':
+    if backend in _SYSTOLIC:
+        from .systolic import current_mesh
+        mesh = current_mesh() if placement is None else placement.mesh
+    if backend == 'cuda_seq_fused_systolic':
+        from .systolic import systolic_lstm_stack_seq
+        h, finals = systolic_lstm_stack_seq(params, mesh, xs, states,
+                                            valid_len=valid_len,
+                                            placement=placement,
+                                            weights=stack_weights)
+    elif backend == 'cuda_seq_fused':
         from ..kernels.lstm_seq import lstm_stack_seq
         h, finals = lstm_stack_seq(params, xs, states, valid_len=valid_len,
                                    weights=stack_weights)
@@ -739,9 +889,17 @@ def lstm_stack_chunk(params: LSTMStackParams, xs: torch.Tensor, states=None,
         finals = []
         for l, lp in enumerate(params.layers):
             h0c0 = states[l] if states is not None else (None, None)
-            h, (h_T, c_T) = lstm_layer_chunk(lp, h, *h0c0,
-                                             valid_len=valid_len,
-                                             backend=backend)
+            if backend == 'cuda_seq_systolic':
+                from .systolic import systolic_lstm_seq
+                placed = (None if placement is None or placement.layers is None
+                          else placement.layers[l])
+                h, (h_T, c_T) = systolic_lstm_seq(lp, mesh, h, *h0c0,
+                                                  valid_len=valid_len,
+                                                  placed=placed)
+            else:
+                h, (h_T, c_T) = lstm_layer_chunk(lp, h, *h0c0,
+                                                 valid_len=valid_len,
+                                                 backend=backend)
             finals.append((h_T, c_T))
         finals = tuple(finals)
     if params.w_out is not None:
@@ -756,7 +914,7 @@ def lstm_stack_apply(params: LSTMStackParams, xs: torch.Tensor,
     read-out (logits) — the training path.  xs: (T, B, N_x).  The unmasked
     case of ``lstm_stack_chunk``, and differentiable on every backend:
     layer by layer through ``lstm_layer_fused``, or on ``cuda_seq_fused``
-    through one K2 launch under ``kernels.lstm_seq.lstm_stack_seq``'s
-    cross-layer gate-recompute backward.  Returns (ys, final per-layer
+    (``cuda_seq_fused_systolic``) through one K2 launch (the staged
+    scale-out) under the cross-layer gate-recompute backward.  Returns (ys, final per-layer
     states)."""
     return lstm_stack_chunk(params, xs, states, backend=backend)

@@ -30,8 +30,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ...core.lstm import (LSTMStackParams, hoisted_input,
-                          lstm_stack_bwd_recompute_gates,
-                          quantized_fused_admissible,
+                          quantized_fused_admissible, recompute_stack_gates,
                           select_quantized_stack_backend, stack_carry_arrays,
                           valid_len_mask)
 from ...core.systolic import (QuantizedPackedLSTM, SystolicPlan,
@@ -82,31 +81,18 @@ def stack_kernel_weights(params: LSTMStackParams) -> StackWeights:
                         b=torch.stack([l.b for l in layers]))
 
 
-class _StackSeqFused(torch.autograd.Function):
-    """K2 over the whole stack, unmasked; backward
-    ``core.lstm.lstm_stack_bwd_recompute_gates`` from the saved layer-major
-    trajectories.  Returns (ys = top layer's hs, h_T, c_T), the finals
-    (L, B, N_h)."""
-
-    @staticmethod
-    def forward(ctx, w_in, w_h, peep, b, pre_x, h0s, c0s):
-        hs, cs = lstm_stack_seq_kernel(pre_x, w_in, w_h, peep, b, h0s, c0s)
-        ctx.save_for_backward(w_in, w_h, peep, b, pre_x, hs, cs, h0s, c0s)
-        return hs[-1], hs[:, -1].clone(), cs[:, -1].clone()
-
-    @staticmethod
-    def backward(ctx, d_ys, d_hT, d_cT):
-        return lstm_stack_bwd_recompute_gates(*ctx.saved_tensors,
-                                              (d_ys, (d_hT, d_cT)))
+def _stack_forward(w_in, w_h, peep, b, pre_x, h0s, c0s):
+    return lstm_stack_seq_kernel(pre_x, w_in, w_h, peep, b, h0s, c0s)
 
 
 def lstm_stack_seq_fused(w_in, w_h, peep, b, pre_x, h0s, c0s):
-    """The fused stack with the cross-layer gate-recompute backward: the
+    """K2 over the whole stack, unmasked, with the cross-layer
+    gate-recompute backward (``core.lstm.recompute_stack_gates``): the
     counterpart of the reference's ``lstm_stack_seq_fused`` custom VJP, in
     the port's layout (``w_in`` (L-1, 4, N_h, N_h)).  Returns (ys (T, B,
     N_h), (h_T, c_T) each (L, B, N_h))."""
-    ys, h_T, c_T = _StackSeqFused.apply(w_in, w_h, peep, b, pre_x, h0s, c0s)
-    return ys, (h_T, c_T)
+    return recompute_stack_gates(_stack_forward, w_in, w_h, peep, b, pre_x,
+                                 h0s, c0s)
 
 
 def lstm_stack_seq(params: LSTMStackParams, xs: torch.Tensor,

@@ -11,6 +11,15 @@ default; the full ``chipmunk-ctc`` configuration is the default and
     python -m repro_torch.launch.serve --async --deadline-slo 1.0
     python -m repro_torch.launch.serve --device cpu --smoke --requests 4
 
+``--systolic-topology NAME`` installs a ``launch.mesh`` preset on
+``--device`` first, so that ``auto`` scales out over its engines: the
+staged ``cuda_seq_fused_systolic`` on ``graves-75``, the paper's 3x(5x5)
+(DESIGN.md §9), the layerwise ``cuda_seq_systolic`` on a stage-1 grid::
+
+    python -m repro_torch.launch.serve --systolic-topology graves-75
+    python -m repro_torch.launch.serve --device cpu --smoke \
+        --systolic-topology 2x2
+
 ``--async`` packs and launches the next chunk while the one in flight
 computes (DESIGN.md §11); ``--deadline-slo FACTOR`` attaches the chunk-size
 policy, whose budget is chunk x 10 ms frame period x FACTOR.  Both leave
@@ -18,7 +27,8 @@ every stream's outputs bit-equal to sync serving at a fixed chunk.
 
 The fault flags attach a ``runtime.ServingFaultConfig`` (DESIGN.md §10,
 §14): ``--fail-at-step``/``--fail-engines`` inject engine failures that
-step the backend down ``cuda_seq_fused`` -> ``cuda_seq`` -> ``torch_scan``,
+step the backend down the ladder (``cuda_seq_fused_systolic`` ->
+``cuda_seq_fused`` -> ``cuda_seq`` -> ``torch_scan``),
 ``--recover-at-step`` heals them for a canary-validated climb back
 (``--promote-hysteresis``, ``--no-canary``), ``--poison-slot`` exercises
 the quarantine, ``--stream-ckpt-dir`` the stream checkpoints and
@@ -52,6 +62,7 @@ from ..core.lstm import BACKENDS
 from ..models import chipmunk_net
 from ..runtime import ChunkSizePolicy, ServingFaultConfig
 from ..serving import StreamingEngine, tuned_chunk_ceiling
+from .mesh import SYSTOLIC_TOPOLOGIES, install_systolic_topology
 
 
 class StreamServer:
@@ -203,6 +214,12 @@ def build_parser() -> argparse.ArgumentParser:
                          'masked form)')
     ap.add_argument('--device', default='cuda',
                     help='torch device of weights and states (cuda, cpu)')
+    ap.add_argument('--systolic-topology', default=None,
+                    choices=sorted(SYSTOLIC_TOPOLOGIES),
+                    help='install a systolic mesh preset (every engine on '
+                         '--device) before serving: stage-1 presets make '
+                         'auto pick cuda_seq_systolic, stage>1 presets the '
+                         'staged cuda_seq_fused_systolic')
     ap.add_argument('--async', dest='async_dispatch', action='store_true',
                     help='double-buffered dispatch (DESIGN.md §11): the '
                          'next chunk is packed and launched while the '
@@ -216,8 +233,9 @@ def build_parser() -> argparse.ArgumentParser:
                          'to observed launch-to-commit wall times')
     ap.add_argument('--fail-at-step', type=int, default=None,
                     help='declare one engine dead at this engine step '
-                         '(exercises the degradation ladder cuda_seq_fused '
-                         '-> cuda_seq -> torch_scan)')
+                         '(exercises the degradation ladder '
+                         'cuda_seq_fused_systolic -> cuda_seq_fused -> '
+                         'cuda_seq -> torch_scan)')
     ap.add_argument('--fail-engines', action='append', default=None,
                     metavar='N@STEP',
                     help='declare N engines dead at STEP (repeatable)')
@@ -260,8 +278,21 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def install_topology(name: str, device) -> None:
+    """``--systolic-topology``: install the preset with every engine on
+    ``device`` and print its shape and the device each stage sits on."""
+    mesh = install_systolic_topology(name, devices=device)
+    where = ', '.join(
+        f'stage {s} on ' + '/'.join(sorted({
+            str(mesh.engine(s, r, c)) for r in range(mesh.rows)
+            for c in range(mesh.cols)})) for s in range(mesh.stage))
+    print(f'installed systolic topology {name}: {mesh.shape} ({where})')
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.systolic_topology:
+        install_topology(args.systolic_topology, args.device)
     get = configs.get_smoke_config if args.smoke else configs.get_config
     cfg = get(args.arch).replace(lstm_backend=args.lstm_backend)
     if args.schedule_cache or args.tune:

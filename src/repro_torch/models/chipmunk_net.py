@@ -56,13 +56,14 @@ def init_state(cfg: ArchConfig, batch: int, device='cuda'):
 
 
 def stream_forward(cfg: ArchConfig, params: LSTMStackParams, states, frames,
-                   valid_len=None, stack_weights=None):
+                   valid_len=None, stack_weights=None, placement=None):
     """A chunk of streaming frames through the network — the model half of
     the serving engine.  frames: (B, T, n_in); states: per-layer ``(h, c)``;
     ``valid_len``: optional (B,) per-stream valid frame counts (steps
     ``t >= valid_len[b]`` are identity on every layer's state);
-    ``stack_weights``: the fused kernel's weights, built once by the caller
-    (``core.lstm.lstm_stack_chunk``).  Returns
+    ``stack_weights``: the fused kernel's weights, and ``placement``: a
+    systolic backend's placed stack with its mesh, each built once by the
+    caller (``core.lstm.lstm_stack_chunk``).  Returns
     (log-probs (B, T, n_out), new states).  Feeding chunks back to back is
     bit-equal to one whole-sequence call on the same backend, and the
     composition from zero state is allclose to ``forward``."""
@@ -70,5 +71,6 @@ def stream_forward(cfg: ArchConfig, params: LSTMStackParams, states, frames,
     ys, new_states = lstm_stack_chunk(params, xs, states,
                                       valid_len=valid_len,
                                       backend=cfg.lstm_backend,
-                                      stack_weights=stack_weights)
+                                      stack_weights=stack_weights,
+                                      placement=placement)
     return torch.log_softmax(ys, dim=-1).transpose(0, 1), new_states

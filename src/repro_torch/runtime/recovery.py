@@ -4,8 +4,9 @@ validated climb BACK UP the degradation ladder (DESIGN.md §14).
 The port's copy of the single-device part of ``repro.runtime.recovery``
 (pure Python; the reference module cannot be imported without the JAX
 package).  Injected ``EngineFailure``s step serving down
-``core.lstm.DEGRADATION_LADDER`` (``cuda_seq_fused`` -> ``cuda_seq`` ->
-``torch_scan``); this module is the recovery half:
+``core.lstm.DEGRADATION_LADDER`` (``cuda_seq_fused_systolic`` ->
+``cuda_seq_fused`` -> ``cuda_seq`` -> ``torch_scan``); this module is the
+recovery half:
 
   * ``Rung`` / ``build_rungs`` — the degradation ladder materialised as an
     explicit rung list, from the engine's home backend down to
@@ -13,7 +14,8 @@ package).  Injected ``EngineFailure``s step serving down
     needs, which is what makes capacity a pure function of tracker state.
     The reference's die-mesh rungs (the same staged backend on
     progressively fewer dies of a two-level mesh) wait for the port's
-    multi-device scale-out; until then every ladder is flat.
+    ``DieMesh``; until then every ladder is flat, a systolic home at its
+    top.
   * ``MeshHealthTracker`` — per-domain health fed by the injection
     schedules (``ServingFaultConfig.fail_at`` / ``recover_at``), with
     exponential-backoff hysteresis: a failure landing inside the
@@ -71,10 +73,12 @@ def build_rungs(home_backend: str) -> Tuple[Rung, ...]:
     changes never change what a stream computes, only which kernel
     computes it.
 
-    The reference also takes a two-level die mesh (and the stack's shape,
-    for the die rungs' admission) and puts the same systolic dispatch on
-    progressively fewer dies at the top of the ladder; the port has no die
-    mesh yet, so every ladder is flat."""
+    A systolic home (``cuda_seq_fused_systolic`` or
+    ``cuda_seq_systolic``) heads the ladder, the reference's flat ladder
+    without a die mesh.  The reference also takes a two-level die mesh
+    (and the stack's shape, for the die rungs' admission) and puts the
+    same systolic dispatch on progressively fewer dies at the top of the
+    ladder; the port has no die mesh yet, so every ladder is flat."""
     from ..core.lstm import DEGRADATION_LADDER, next_backend_down
     flat = [home_backend]
     while True:

@@ -2,7 +2,8 @@
 with the fault runtime (DESIGN.md §7, §10, §11, §14).
 
 Counterpart of ``repro.serving.engine.StreamingEngine``: async dispatch,
-the chunk-size policy and the fault runtime, on one device.
+the chunk-size policy and the fault runtime, on one device or over the
+installed systolic mesh's engines.
 Every active stream's ``(h, c)`` LSTM state lives in one packed per-layer
 state cache of shape ``(max_streams, N_h)`` on the engine's device, and
 each ``step`` runs ONE batched chunked call (``models.chipmunk_net
@@ -10,7 +11,12 @@ each ``step`` runs ONE batched chunked call (``models.chipmunk_net
 the valid-length masking contract: a slot's padded tail steps are identity
 on its carried state, so admission, eviction and refill never perturb
 neighbouring streams.  On ``cuda_seq`` a step is one K1 launch per layer;
-on ``cuda_seq_fused`` it is one K2 launch for the whole stack.
+on ``cuda_seq_fused`` it is one K2 launch for the whole stack; on
+``cuda_seq_fused_systolic`` it is the staged scale-out over the installed
+(stage, row, col) mesh (``core.systolic.systolic_lstm_stack_seq``), which
+the engine takes at construction as its home mesh: the stack is placed on
+it once (``core.systolic.place_stack``) and every systolic chunk call runs
+on that placement, whatever the process registry holds later.
 
 Every step is split into a LAUNCH and a later COMMIT.  The launch packs
 the chunk into host buffers (pinned on the card), uploads frames and valid
@@ -29,8 +35,10 @@ give the same bits.
 Fault tolerance (``runtime/serving_faults.py``, ``runtime/recovery.py``):
 with a ``ServingFaultConfig`` attached, every commit is driven by the
 ``FaultTolerantRunner``.  A permanent ``EngineFailure`` steps the backend
-down ``core.lstm.DEGRADATION_LADDER`` (``cuda_seq_fused`` -> ``cuda_seq``
--> ``torch_scan``), re-places the packed cache by an exact host round trip
+down ``core.lstm.DEGRADATION_LADDER`` (``cuda_seq_fused_systolic`` ->
+``cuda_seq_fused`` -> ``cuda_seq`` -> ``torch_scan``; a flat rung clears
+the process mesh, a systolic rung re-installs the home mesh), re-places the
+packed cache by an exact host round trip
 (``elastic_replace``) and recomputes the chunk from committed state; a
 transient one retries in place; any other error is retried under the
 transient budget and then raised, never degraded.  Healed capacity
@@ -53,6 +61,8 @@ import numpy as np
 import torch
 
 from ..core.lstm import resolve_serving_backend
+from ..core.systolic import (clear_mesh, current_mesh, install_mesh,
+                             place_stack)
 from ..kernels.lstm_seq import stack_kernel_weights
 from ..models import chipmunk_net
 from ..runtime import (ChunkSizePolicy, EngineFailure, FaultConfig,
@@ -152,16 +162,18 @@ def tuned_chunk_ceiling(cfg, chunk: int, max_streams: int) -> int:
     end-to-end serving-loop measurement that ``tune_serving_config``
     records, then ``'stack_f32'``, a kernel-level depth (no port tuner
     writes one yet; a loaded cache may hold it).  Exact ``(T, B)`` keys
-    beat wildcards; the placement is ``'any'`` (one card).  Never above
-    ``chunk``; ``chunk`` unchanged on a miss or a ``tc=0`` entry.
+    beat wildcards; the placement is the installed mesh's signature
+    (``'any'`` without one).  Never above ``chunk``; ``chunk`` unchanged
+    on a miss or a ``tc=0`` entry.
     Scheduling-only: outputs are bit-equal wherever chunk boundaries fall.
     """
-    from ..tune.schedule import current_schedule_cache
+    from ..tune.schedule import current_schedule_cache, mesh_signature
     cache = current_schedule_cache()
     if cache is None:
         return chunk
     key = dict(n_x=cfg.lstm_inputs, n_h=cfg.lstm_hidden,
-               n_layers=cfg.n_layers, T=chunk, B=max_streams)
+               n_layers=cfg.n_layers, T=chunk, B=max_streams,
+               mesh=mesh_signature(current_mesh()))
     ent = cache.lookup('serving_chunk', **key)
     if ent is None or not ent.tc:
         ent = cache.lookup('stack_f32', **key)
@@ -182,8 +194,12 @@ class StreamingEngine:
     call shape is fixed, and rows never mix), whatever ``async_dispatch``
     is, and wherever the chunk-size policy puts chunk boundaries.  The
     backend is resolved and pinned once at construction
-    (``core.lstm.resolve_serving_backend``); on ``cuda_seq_fused`` the
-    kernel's stacked weights are built then too.
+    (``core.lstm.resolve_serving_backend``), under the installed systolic
+    mesh, which the engine keeps as its home mesh; on ``cuda_seq_fused``
+    (and a staged home, whose ladder steps down onto K2) the kernel's
+    stacked weights are built then too, and on a systolic backend the
+    stack's blocks placed on the home mesh, which its chunk calls are
+    bound to.
 
     ``faults`` (a ``runtime.ServingFaultConfig``) opts into the §10/§14
     fault model: engine-failure injection with ladder degradation and
@@ -221,9 +237,18 @@ class StreamingEngine:
         self.backend = resolve_serving_backend(
             params, cfg.lstm_backend, chunk, max_streams, self.device)
         self.cfg = cfg.replace(lstm_backend=self.backend)
+        self._home_mesh = current_mesh()   # re-installed on systolic rungs
         # built once; on a fault runtime they serve a promotion back to K2
-        self.stack_weights = (stack_kernel_weights(params)
-                              if self.backend == 'cuda_seq_fused' else None)
+        self.stack_weights = (stack_kernel_weights(params) if self.backend
+                              in ('cuda_seq_fused', 'cuda_seq_fused_systolic')
+                              else None)
+        # a systolic home's blocks, placed once on the home mesh, which its
+        # chunk calls are bound to (the registry is not read per chunk)
+        self.placement = (place_stack(
+            params, self._home_mesh,
+            staged=self.backend == 'cuda_seq_fused_systolic', T=chunk,
+            batch=max_streams) if self.backend.endswith('_systolic')
+            else None)
         self.sched: SlotScheduler[StreamSession] = SlotScheduler(max_streams)
         self.states = chipmunk_net.init_state(cfg, max_streams, self.device)
         self._pin = self.device.type == 'cuda'
@@ -275,15 +300,28 @@ class StreamingEngine:
         promotion canary uses to build the CANDIDATE backend's call without
         touching the incumbent's."""
         guard, params, weights = self._guard, self.params, self.stack_weights
+        placement = (self.placement if cfg.lstm_backend.endswith('_systolic')
+                     else None)
 
         def fwd(states, frames, valid):
             lp, new_states = chipmunk_net.stream_forward(
                 cfg, params, states, frames, valid_len=valid,
-                stack_weights=weights)
+                stack_weights=weights, placement=placement)
             return lp, new_states, (finite_slots(new_states) if guard
                                     else None)
 
         return fwd
+
+    def _install_rung_mesh(self, backend: str) -> None:
+        """Point the process mesh registry at a rung's topology: the home
+        mesh (taken at construction) for a systolic rung, no mesh for a
+        flat one, so ``auto`` dispatch elsewhere in the process sees the
+        rung's topology.  The chunk calls do not read the registry: a
+        systolic rung's call is bound to the home placement."""
+        if backend.endswith('_systolic'):
+            install_mesh(self._home_mesh)
+        else:
+            clear_mesh()
 
     def _set_backend(self, backend: str, fwd=None) -> None:
         """Move the engine to ``backend`` (a rung change): its config and
@@ -458,6 +496,7 @@ class StreamingEngine:
             return                          # bottom of the ladder: retry as-is
         prev = self.backend
         rung = self._rungs[target]
+        self._install_rung_mesh(rung.backend)
         self._set_backend(rung.backend)
         self.states = elastic_replace(self.states)
         self._rung_idx = target
@@ -757,6 +796,8 @@ class StreamingEngine:
         lc = self._last_commit
         if self.faults.canary and lc is None:
             return
+        prev_mesh = current_mesh()
+        self._install_rung_mesh(cand.backend)
         cand_fwd = self._make_fwd(self.cfg.replace(lstm_backend=cand.backend))
         if self.faults.canary:
             self._record('promote_canary', from_backend=self.backend,
@@ -770,7 +811,11 @@ class StreamingEngine:
                 self._canary_equal(g, r)
                 for g, r in zip(got_leaves, ref_leaves))
             if not ok:
-                # squash: nothing committed, the incumbent stays
+                # squash: the incumbent's topology back, nothing committed
+                if prev_mesh is not None:
+                    install_mesh(prev_mesh)
+                else:
+                    clear_mesh()
                 self._tracker.note_reject(self._step_idx)
                 self._record('promote_rejected', from_backend=self.backend,
                              to_backend=cand.backend,

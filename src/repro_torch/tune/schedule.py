@@ -19,8 +19,8 @@ Contract, as in the reference:
   is kept, the staged and geometry ones too).
 * **Keyed by shape and placement.** ``(kind, n_x, n_h, n_layers, T, B,
   mesh)``; ``T=0`` / ``B=0`` are wildcards and ``mesh='any'`` matches
-  every placement.  The port has one card and no mesh yet, so its own
-  lookups use ``'any'``.
+  every placement.  Lookups under an installed systolic mesh use its
+  signature (``mesh_signature``), else ``'any'``.
 * **Provenance, not key.** ``host`` names the machine and device a
   measured entry came from; a cache is valid dispatch anywhere.
 """
@@ -46,8 +46,11 @@ import torch
 #: ``serving_chunk`` carries the measured end-to-end serving-loop chunk
 #: ceiling (``tc``); ``stack_lb`` carries the §8 single-engine
 #: layer-block streaming factor (``lb``).  The port's tuner writes
-#: ``q_stack_backend`` and ``serving_chunk``; the staged, geometry and
-#: ``lb`` kinds load and round-trip, and wait for the multi-device port.
+#: ``q_stack_backend`` and ``serving_chunk``; the staged scale-out reads
+#: the ``tc`` and ``blocks`` of ``stack_f32`` / ``stack_int8`` entries
+#: (``core.systolic.resolve_staged_chunk`` / ``_blocks``) and not their
+#: ``in_stage``, since it runs one in-stage order; the geometry and ``lb``
+#: kinds load and round-trip, and no port tuner writes the staged ones yet.
 KINDS = ('stack_f32', 'stack_int8', 'stack_backend', 'q_stack_backend',
          'geometry', 'serving_chunk', 'stack_lb')
 
@@ -64,14 +67,19 @@ ANY_MESH = 'any'
 
 def mesh_signature(mesh) -> str:
     """Canonical placement signature for cache keys: ``None`` -> ``'any'``
-    (one card, no scale-out); a string (e.g. ``'stage:2,row:5,col:5'``)
-    passes through unchanged.  The port has no mesh object yet."""
+    (one engine, no scale-out); a mesh (``core.systolic.SystolicMesh``, or
+    anything with a ``shape`` dict) -> its axis sizes in axis order, e.g.
+    ``'stage:3,row:5,col:5'``, the reference's string; a string passes
+    through unchanged; anything else raises ``TypeError``."""
     if mesh is None:
         return ANY_MESH
     if isinstance(mesh, str):
         return mesh
-    raise TypeError(f'mesh signature of {type(mesh).__name__}: the port '
-                    f'takes None or a signature string')
+    shape = getattr(mesh, 'shape', None)
+    if not isinstance(shape, dict):
+        raise TypeError(f'mesh signature of {type(mesh).__name__}: takes '
+                        f'None, a signature string or a mesh')
+    return ','.join(f'{name}:{dim}' for name, dim in shape.items())
 
 
 def host_fingerprint(device=None) -> str:

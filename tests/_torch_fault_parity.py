@@ -34,6 +34,8 @@ RTOL, ATOL = 1e-5, 1e-6
 # reference backend -> the port's counterpart
 NAME_MAP = {'pallas_seq_fused': 'cuda_seq_fused', 'pallas_seq': 'cuda_seq',
             'pallas_step': 'cuda_step', 'xla_scan': 'torch_scan',
+            'pallas_seq_systolic': 'cuda_seq_systolic',
+            'pallas_seq_fused_systolic': 'cuda_seq_fused_systolic',
             'auto': 'auto'}
 TIMED_KINDS = ('straggler',)
 

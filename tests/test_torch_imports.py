@@ -37,6 +37,7 @@ def test_serving_path_import_leaves_jax_unloaded():
             'import repro_torch.launch.serve, repro_torch.convert\n'
             'import repro_torch.kernels.lstm_seq, repro_torch.kernels._build\n'
             'import repro_torch.core.quant, repro_torch.core.systolic\n'
+            'import repro_torch.core.pipeline, repro_torch.launch.mesh\n'
             'import repro_torch.launch.train, repro_torch.kernels.lstm_gates\n'
             'import repro_torch.core.ctc, repro_torch.optim, repro_torch.tree\n'
             'import repro_torch.data, repro_torch.checkpoint\n'

@@ -290,20 +290,23 @@ def test_ladder_moves_equal_reference(backend):
     ref = TO_REF[backend]
     down, up = jlstm.next_backend_down(ref), jlstm.next_backend_up(ref)
     assert tlstm.next_backend_down(backend) == fp.NAME_MAP.get(down)
-    # the reference's systolic top rung has no counterpart: None
     assert tlstm.next_backend_up(backend) == fp.NAME_MAP.get(up)
 
 
 def test_ladder_is_the_reference_ladder_without_its_systolic_top():
+    # named when the port lacked the systolic top rung; it now holds the
+    # port to the reference's whole ladder, systolic top included
     assert tlstm.DEGRADATION_LADDER == tuple(
-        fp.NAME_MAP[b] for b in jlstm.DEGRADATION_LADDER[1:])
+        fp.NAME_MAP[b] for b in jlstm.DEGRADATION_LADDER)
     for b in tlstm.DEGRADATION_LADDER[1:]:
         assert tlstm.next_backend_down(tlstm.next_backend_up(b)) == b
+    assert tlstm.next_backend_up(tlstm.DEGRADATION_LADDER[0]) is None
 
 
 @pytest.mark.parametrize('n_layers', [2, 3])
-@pytest.mark.parametrize('backend', ['cuda_seq_fused', 'cuda_seq',
-                                     'cuda_step', 'torch_scan'])
+@pytest.mark.parametrize('backend', ['cuda_seq_fused_systolic',
+                                     'cuda_seq_systolic', 'cuda_seq_fused',
+                                     'cuda_seq', 'cuda_step', 'torch_scan'])
 def test_build_rungs_equals_reference(backend, n_layers):
     got = trecovery.build_rungs(backend)
     want = jrecovery.build_rungs(TO_REF[backend], n_layers=n_layers, n_h=32)
