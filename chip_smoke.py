@@ -139,7 +139,26 @@ the same f32 weights' configuration from seed 0):
     device launches of one traced chunk, then its fault ladder down onto
     K2 and K1; the gradients of ``loss_fn`` under ``2x2`` (layerwise) and
     ``graves-75`` (staged) against ``cuda_seq_fused``'s; and ``python -m repro_torch.launch.serve
-    --systolic-topology graves-75 --requests 2`` as a subprocess.
+    --systolic-topology graves-75 --requests 2`` as a subprocess;
+11d. die fault domains and the staged tuner (``die_phase``), every engine
+    on the card: ``build_rungs`` for ``graves-3x25`` at full width held to
+    3d, 2d, the layerwise 1d rung, K2, K1, the scan (needs 3, 2, 1, 0, 0,
+    0); the f32 engine cell on ``auto`` under ``graves-3x25`` unfaulted,
+    then with die 2 lost at chunk 2 and healed at 5 (hysteresis 2), sync
+    and async: the trail degrade, heal, promote_canary, promote, the
+    degrade onto the 2-stage mesh (no K1-K4 launch there), every stream
+    ``torch.equal`` to the unfaulted drain, async event counts equal to
+    sync; all three dies lost (onto K2, then K1 at chunk 4, both launched
+    and counted); two dies lost and one healed, the canary from the 1d
+    rung back to 2d printed (a rejection is an outcome); ms a chunk and
+    the device ops of one traced chunk on each die rung; then
+    ``tune_staged_stack`` measured on ``graves-75``, the reference's
+    arithmetic class probed (bit-equal to (3, 5, 5) or not),
+    ``tune_geometry`` measured at 75 engines with ref (3, 5, 5) (in the
+    port's class and with ``allow_reassoc``), the winner's cache installed
+    and one chunk served on its mesh (its split and Tc taken), and
+    ``python -m repro_torch.tune --staged-devices 75 --geometry`` as a
+    subprocess.
 
 and then the three kernels that no path of the system reaches, each on its
 public op, each held against its plain version and timed beside its bound
@@ -292,6 +311,27 @@ SYSTOLIC_STAGED = 'graves-75'
 SYSTOLIC_DRAINS = 3           # timed drains of the graves-75 engine cell
 SYSTOLIC_TURNS = 3            # timed calls of each scale-out after a warm one
 SYSTOLIC_LADDER = dict(fail_at={2: 1, 4: 1})   # staged -> K2 -> K1
+# the die phase: graves-3x25's ladder at full width on one card (L2 / the
+# engines of each rung: 699,050 B a 3d engine, 1,048,576 a 2d one, 2,097,152
+# a 1d one), its fault schedules on the f32 engine cell, and the tuner
+DIE_TOPOLOGY = 'graves-3x25'
+DIE_RUNGS = (('cuda_seq_fused_systolic@3d', 3), ('cuda_seq_fused_systolic@2d',
+                                                 2),
+             ('cuda_seq_systolic@1d', 1), ('cuda_seq_fused', 0),
+             ('cuda_seq', 0), ('torch_scan', 0))
+# die 2 lost at chunk 2, healed at chunk 5: 3d -> 2d -> canary -> 3d
+DIE_SCHEDULE = dict(fail_at={2: {'n_dead': 1, 'domain': 2}},
+                    recover_at={5: 1}, promote_hysteresis=2, backoff_s=0.0)
+# all three dies lost at chunk 2 (onto K2), one more fault at 4 (onto K1)
+DIE_TAIL = dict(fail_at={2: {'n_dead': 3}, 4: 1}, backoff_s=0.0)
+# two dies lost at chunk 2 (onto the layerwise 1d rung), one healed at 5:
+# the canary from 1d back to 2d
+DIE_ONE = dict(fail_at={2: {'n_dead': 2}}, recover_at={5: 1},
+               promote_hysteresis=2, backoff_s=0.0)
+DIE_TUNE_ITERS = 5            # interleaved turns of the staged trials
+# the geometries the reference's class (n_h_p, bk) puts with graves-75's
+# (3, 5, 5) at 421 hidden: a row split of one changes bn (85 -> 425)
+DIE_CLASS_PROBE = ((3, 5, 5), (3, 1, 5), (2, 1, 5))
 ATTN_TOL = {'float32': dict(rtol=0.0, atol=1e-4),
             'bfloat16': dict(rtol=2.0 ** -7, atol=1e-5)}
 
@@ -1208,25 +1248,35 @@ def fault_engine(cfg, params, backend: str, faults, async_dispatch=False,
     around the call).  Each canary comparison also records its largest
     absolute and relative difference (``engine.canary_diffs``), then
     compares as the engine does.  Returns (engine, log)."""
-    from repro_torch.kernels.lstm_seq import lstm_seq, lstm_stack_seq_kernel
+    from repro_torch.kernels.lstm_seq import (lstm_seq, lstm_seq_quantized,
+                                              lstm_stack_seq_kernel,
+                                              lstm_stack_seq_kernel_q)
     from repro_torch.serving import StreamingEngine
     eng = StreamingEngine(cfg.replace(lstm_backend=backend), params,
                           max_streams=slots, chunk=CHUNK, faults=faults,
                           async_dispatch=async_dispatch)
+    kernels = (lstm_seq, lstm_stack_seq_kernel, lstm_seq_quantized,
+               lstm_stack_seq_kernel_q)
     log, ctx = [], []
     make, launch, commit = eng._make_fwd, eng._launch, eng._commit
     promote = eng._maybe_promote
 
-    def traced(c):
-        fwd = make(c)
+    def traced(c, *placement):
+        fwd = make(c, *placement)
+        # the stages of a systolic call's mesh (its own placement's, else
+        # the home one's; None on a flat rung)
+        pl = (placement[0] if placement and placement[0] is not None
+              else eng.placement)
+        stages = (pl.mesh.stage if c.lstm_backend.endswith('_systolic')
+                  and pl is not None else None)
 
         def call(*args):
-            k1, k2 = lstm_seq.launches, lstm_stack_seq_kernel.launches
+            before = [k.launches for k in kernels]
             out = fwd(*args)
+            k1, k2, k3, k4 = (k.launches - b for k, b in zip(kernels, before))
             role, chunk = ctx[-1]
             log.append(dict(role=role, chunk=chunk, backend=c.lstm_backend,
-                            k1=lstm_seq.launches - k1,
-                            k2=lstm_stack_seq_kernel.launches - k2))
+                            stages=stages, k1=k1, k2=k2, k3=k3, k4=k4))
             return out
         return call
 
@@ -2060,7 +2110,7 @@ def tune_phase(cfg, params, qps, q_utts, dev):
         entries, recs = tune_serving_config(cfg, chunk=CHUNK, slots=SLOTS,
                                             cache=cache, iters=TUNE_ITERS,
                                             params=params, device=dev)
-        q2, sc = entries
+        q2, _, sc = entries     # the int8, predicted staged, serving
         trial = dict(
             q_backend=q2.backend, q_medians_us=medians(
                 [r for r in recs if r.suite == 'q_stack_backend']),
@@ -2089,7 +2139,10 @@ def tune_phase(cfg, params, qps, q_utts, dev):
         print(f'tune: save -> load gives the same JSON: {same}; replay check '
               f'{checked} of {len(loaded)} entries, {len(unchecked)} '
               f'unchecked', flush=True)
-        check(same and checked == len(loaded) == 2 and not unchecked,
+        # the predicted staged entry is for any mesh: reported, unchecked
+        check(same and checked == 2 and len(loaded) == 3
+              and [(e.kind, e.mesh) for e in unchecked] == [('stack_f32',
+                                                              'any')],
               'tune: the cache did not round-trip or replay')
 
         xq, lens = int8_batch(cfg, q_utts, CHUNK, dev)
@@ -2161,7 +2214,8 @@ def tune_phase(cfg, params, qps, q_utts, dev):
             str(n_h), '--layers', str(L), '--T', str(CHUNK), '--B',
             str(SLOTS), '--tile', str(N_LSTM_SILICON), '--out',
             f'{tmp}/cli.json', '--csv', f'{tmp}/cli.csv'], tmp)
-        cli = ScheduleCache.load(f'{tmp}/cli.json').entries()
+        cli = [e for e in ScheduleCache.load(f'{tmp}/cli.json').entries()
+               if e.kind == 'q_stack_backend']
         check(len(cli) == 1 and cli[0].source == 'measured'
               and 'q_stack_backend -> ' in out, 'tune CLI wrote no entry')
         out = _run_cli('serve CLI --tune', [
@@ -2551,6 +2605,332 @@ def systolic_phase(cfg, params, qps, utts, dev):
           'serve --systolic-topology did not serve on the staged scale-out')
     res['serve_cli'] = out.strip().splitlines()
     return res
+
+
+def die_rungs(params, dev):
+    """``build_rungs`` for ``DIE_TOPOLOGY`` at full width on the card, held
+    to ``DIE_RUNGS``, with each die rung's resident bytes an engine beside
+    its budget (``engine_budget`` of the rung's submesh)."""
+    from repro_torch.core import systolic as sy
+    from repro_torch.launch.mesh import make_die_topology
+    from repro_torch.runtime import build_rungs
+    dm = make_die_topology(DIE_TOPOLOGY, devices=dev)
+    lp = params.layers[0]
+    L = len(params.layers)
+    rungs = build_rungs('cuda_seq_fused_systolic', n_layers=L, n_h=lp.n_h,
+                        die_mesh=dm, n_x=lp.n_x, T=CHUNK, batch=SLOTS)
+    got = [(r.label(), r.need) for r in rungs]
+    sizes = []
+    for r in rungs:
+        if r.n_dies is None:
+            continue
+        sub = dm.submesh(range(r.n_dies))
+        _, bn, bk = sy._scaleout_blocks(lp.n_h, sub.rows, sub.cols)
+        layers = (-(-L // sub.stage) if r.backend.endswith('fused_systolic')
+                  else 1)
+        fams = 2 if r.backend.endswith('fused_systolic') else 1
+        sizes.append(dict(rung=r.label(), engines=len(sub.devices),
+                          resident_bytes=layers * (fams * 4 * bn * bk * 4
+                                                   + 7 * bn * 4),
+                          budget_bytes=sy.engine_budget(sub)))
+    print(f'die rungs [{DIE_TOPOLOGY}, n_h {lp.n_h}, every engine on '
+          f'{dev}]: {got}; resident bytes an engine vs budget '
+          + ', '.join(f"{x['rung']} {x['resident_bytes']} / "
+                      f"{x['budget_bytes']}" for x in sizes), flush=True)
+    check(got == list(DIE_RUNGS), f'{DIE_TOPOLOGY} rungs {got}')
+    return dict(rungs=got, sizes=sizes)
+
+
+def _die_serve(cfg, params, utts, dev, faults, async_dispatch=False):
+    """One drain of ``utts`` on ``auto`` with ``DIE_TOPOLOGY`` installed on
+    ``dev``, every chunk call logged (``fault_engine``)."""
+    from repro_torch.launch.mesh import install_die_topology
+    install_die_topology(DIE_TOPOLOGY, devices=dev)
+    return fault_serve(cfg, params, 'auto', utts, faults, async_dispatch)
+
+
+def die_engine(cfg, params, utts, dev):
+    """The f32 engine cell on ``auto`` under ``DIE_TOPOLOGY``: an unfaulted
+    drain (the staged scale-out on all 75 engines, no K1-K4), then
+    ``DIE_SCHEDULE`` sync and async: the trail degrade, heal,
+    promote_canary, promote, the degrade onto the 2d rung (its chunk calls
+    on a 2-stage mesh, no K1-K4 launch), every stream ``torch.equal`` to
+    the unfaulted drain, async event counts equal to sync; ``DIE_TAIL``
+    onto K2 and K1 (their launches counted, streams allclose); and
+    ``DIE_ONE``'s canary from the layerwise 1d rung back to 2d (its outcome
+    printed, a rejection is no failure)."""
+    from repro_torch.core import systolic as sy
+    from repro_torch.launch.mesh import clear_die_mesh
+    from repro_torch.runtime import ServingFaultConfig
+    res = {}
+    try:
+        (clean, _, eng, log), n = _kernel_launches(
+            lambda: _die_serve(cfg, params, utts, dev, None))
+        check(eng.backend == 'cuda_seq_fused_systolic'
+              and eng.placement.mesh.stage == 3,
+              f'auto under {DIE_TOPOLOGY}: {eng.backend}')
+        check(not any(n.values()), f'the unfaulted drain launched {n}')
+        trails, counts = {}, {}
+        for mode in (False, True):
+            lps, sess, eng, log = _die_serve(
+                cfg, params, utts, dev, ServingFaultConfig(**DIE_SCHEDULE),
+                mode)
+            stats = eng.stats()
+            trail = [e['kind'] for e in stats['events'] if e['kind'] in (
+                'degrade', 'heal', 'promote_canary', 'promote',
+                'promote_rejected')]
+            deg = next(e for e in stats['events'] if e['kind'] == 'degrade')
+            two = [c for c in log if c['stages'] == 2]
+            equal = all(np.array_equal(a, b) for a, b in zip(lps, clean))
+            trails[mode] = trail
+            counts[mode] = {k: v for k, v in stats['event_counts'].items()
+                            if k != 'squash'}
+            res['async' if mode else 'sync'] = dict(
+                trail=trail, rung=stats['rung'],
+                healthy=stats['healthy_domains'],
+                degrade_to=(deg['to_backend'], deg['domain']),
+                calls_2d=len(two),
+                launches_2d=[sum(c[k] for c in two)
+                             for k in ('k1', 'k2', 'k3', 'k4')],
+                canary_diffs=eng.canary_diffs, equal_unfaulted=equal,
+                event_counts=counts[mode])
+            r = res['async' if mode else 'sync']
+            print(f'die engine [{DIE_TOPOLOGY}, {DIE_SCHEDULE}, '
+                  f'{"async" if mode else "sync"}]: trail {trail}, degrade '
+                  f'onto {deg["to_backend"]} (domain {deg["domain"]}), '
+                  f'{len(two)} chunk calls on the 2-stage mesh launching '
+                  f'K1-K4 {r["launches_2d"]}, ends on {stats["rung"]} '
+                  f'healthy {stats["healthy_domains"]}; canary (abs, rel) '
+                  f'diffs {eng.canary_diffs}; streams == unfaulted {equal}',
+                  flush=True)
+            check(trail == ['degrade', 'heal', 'promote_canary', 'promote'],
+                  f'die trail {trail}')
+            check(deg['to_backend'] == 'cuda_seq_fused_systolic'
+                  and two and not any(r['launches_2d']),
+                  f'the degrade did not land on the 2d rung: {deg}, {two}')
+            check(stats['rung'] == 'cuda_seq_fused_systolic@3d'
+                  and stats['healthy_domains'] == [0, 1, 2],
+                  f'die engine ends on {stats["rung"]}')
+            check(equal, 'a die-faulted stream differs from the unfaulted '
+                         'drain')
+        check(counts[False] == counts[True],
+              f'async event counts {counts[True]} != sync {counts[False]}')
+
+        (lps, sess, eng, log), n = _kernel_launches(lambda: _die_serve(
+            cfg, params, utts, dev, ServingFaultConfig(**DIE_TAIL)))
+        moves = [e['to_backend'] for e in eng.events
+                 if e['kind'] == 'degrade']
+        worst = max(float(np.abs(a - b).max()) for a, b in zip(lps, clean))
+        res['tail'] = dict(moves=moves, launches=n, max_abs_diff=worst)
+        print(f'die engine [{DIE_TAIL}]: moves {moves}, launches {n} (K2 '
+              f'{n["lstm_stack_seq_kernel"]}, K1 {n["lstm_seq"]}), max abs '
+              f'diff vs unfaulted {worst:.3e}', flush=True)
+        check(moves == ['cuda_seq_fused', 'cuda_seq']
+              and n['lstm_stack_seq_kernel'] > 0 and n['lstm_seq'] > 0,
+              f'the die ladder tail: {moves}, {n}')
+        check(all(np.allclose(a, b, rtol=ENGINE_RTOL, atol=ENGINE_ATOL)
+                  for a, b in zip(lps, clean))
+              and all(x.error is None for x in sess),
+              'the die ladder tail lost or changed a stream')
+
+        lps, sess, eng, log = _die_serve(cfg, params, utts, dev,
+                                         ServingFaultConfig(**DIE_ONE))
+        stats = eng.stats()
+        trail = [(e['kind'], e.get('to_backend')) for e in stats['events']
+                 if e['kind'] in ('degrade', 'heal', 'promote_canary',
+                                  'promote', 'promote_rejected')]
+        worst = max(float(np.abs(a - b).max()) for a, b in zip(lps, clean))
+        res['one_die'] = dict(trail=trail, rung=stats['rung'],
+                              canary_diffs=eng.canary_diffs,
+                              max_abs_diff=worst)
+        print(f'die engine [{DIE_ONE}]: trail {trail}, ends on '
+              f'{stats["rung"]}; canary 1d -> 2d '
+              f'{"passed" if ("promote", "cuda_seq_fused_systolic") in trail else "rejected"}'
+              f', (abs, rel) diffs {eng.canary_diffs}; max abs diff vs '
+              f'unfaulted {worst:.3e}', flush=True)
+        check(trail[0] == ('degrade', 'cuda_seq_systolic')
+              and all(x.error is None for x in sess)
+              and all(np.allclose(a, b, rtol=ENGINE_RTOL, atol=ENGINE_ATOL)
+                      for a, b in zip(lps, clean)),
+              f'the 1d rung: {trail}')
+    finally:
+        sy.clear_mesh()
+        clear_die_mesh()
+    return res
+
+
+def die_rung_times(cfg, params, utts, dev):
+    """One engine chunk on each die rung of ``DIE_TOPOLOGY`` (the stack
+    placed once on the rung's submesh, as the engine places it): ms a
+    chunk (median of ``SYSTOLIC_TURNS`` after a warm call), device ops of
+    one traced chunk, K1-K4 launches (none)."""
+    from repro_torch.core import systolic as sy
+    from repro_torch.launch.mesh import make_die_topology
+    from repro_torch.models import chipmunk_net
+    dm = make_die_topology(DIE_TOPOLOGY, devices=dev)
+    st = chipmunk_net.init_state(cfg, SLOTS, dev)
+    frames = torch.from_numpy(np.stack([
+        utts[i % len(utts)][:CHUNK] for i in range(SLOTS)])).to(dev)
+    valid = torch.full((SLOTS,), CHUNK, device=dev)
+    res = {}
+    for label, k in DIE_RUNGS[:3]:
+        backend = label.split('@')[0]
+        pl = sy.place_stack(params, dm.submesh(range(k)),
+                            staged=backend == 'cuda_seq_fused_systolic',
+                            T=CHUNK, batch=SLOTS)
+        c = cfg.replace(lstm_backend=backend)
+        run = lambda: chipmunk_net.stream_forward(c, params, st, frames,
+                                                  valid_len=valid,
+                                                  placement=pl)
+        _, n = _kernel_launches(run)
+        _, ms = _turns_ms({label: run})
+        ops = trace(run, f'{label} chunk')
+        res[label] = dict(ms=ms[label], device_ops=ops['device_ops'],
+                          device_busy_ms=ops['device_busy_ms'],
+                          idle_share=ops['idle_share'], launches=n)
+        print(f'die rung [{label}]: {ms[label]:.2f} ms a chunk of {CHUNK} '
+              f'(median of {SYSTOLIC_TURNS}), {ops["device_ops"]} device ops '
+              f'({ops["device_ops"] / CHUNK:.1f} a step), busy '
+              f'{ops["device_busy_ms"]:.2f} ms, idle {ops["idle_share"]:.3f}'
+              f'; K1-K4 {n}', flush=True)
+        check(not any(n.values()), f'{label} launched {n}')
+    return res
+
+
+def die_tune(cfg, params, dev):
+    """The staged half of the tuner on the card at (``CHUNK``, ``SLOTS``):
+    ``tune_staged_stack`` measured on ``graves-75``; the reference's
+    arithmetic class probed (``DIE_CLASS_PROBE``: bit-equal to (3, 5, 5)
+    or not, and ms a call); ``tune_geometry`` measured at 75 engines with
+    ref (3, 5, 5), in the port's class and with ``allow_reassoc``, the
+    winner beside the balanced reference; that cache installed, an engine
+    on the winner's mesh built and one chunk served (its split, ``Tc``,
+    device ops a step, no K1-K4); and the tune CLI with
+    ``--staged-devices 75 --geometry`` as a subprocess."""
+    import tempfile
+    from repro_torch.core import systolic as sy
+    from repro_torch.launch.mesh import make_systolic_topology
+    from repro_torch.models import chipmunk_net
+    from repro_torch.serving import StreamingEngine
+    from repro_torch.tune import (ScheduleCache, reference_geometry,
+                                  tune_geometry, tune_staged_stack,
+                                  using_schedule_cache)
+    g = torch.Generator().manual_seed(SEED + 3)
+    lp = params.layers[0]
+    L = len(params.layers)
+    xs = (torch.randn((CHUNK, SLOTS, lp.n_x), generator=g) * 0.5).to(dev)
+    res = {}
+    mesh = make_systolic_topology(SYSTOLIC_STAGED, devices=dev)
+    ent, recs = tune_staged_stack(params, mesh, xs, iters=DIE_TUNE_ITERS,
+                                  device=dev)
+    res['staged'] = dict(tc=ent.tc, measured_us=ent.measured_us, trial=[
+        (r.params['tc'], r.metrics['predicted_us'], r.metrics['measured_us'])
+        for r in recs])
+    print(f'tune_staged_stack [{SYSTOLIC_STAGED}, T={CHUNK} B={SLOTS}]: Tc '
+          f'{ent.tc} ({ent.measured_us / 1e3:.2f} ms); (Tc, predicted us, '
+          f'measured us) {res["staged"]["trial"]}', flush=True)
+
+    with torch.no_grad():
+        ref = reference_geometry(lp.n_h, L, CHUNK, DIE_CLASS_PROBE[0])
+        runs, outs = {}, {}
+        for s_, r_, c_ in DIE_CLASS_PROBE:
+            m = sy.make_systolic_mesh(r_, c_, stage=s_, devices=dev)
+            pl = sy.place_stack(params, m, staged=True)
+            runs[(s_, r_, c_)] = (lambda m=m, pl=pl: sy.systolic_lstm_stack_seq(
+                params, m, xs, chunk=ref.tc, placement=pl))
+        outs, ms = _turns_ms(runs)
+    base = outs[DIE_CLASS_PROBE[0]]
+    probe = {}
+    for key, out in outs.items():
+        same = bool(torch.equal(out[0], base[0]) and all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(out[1], base[1])))
+        probe['x'.join(map(str, key))] = dict(
+            equal=same, max_abs_diff=_max_err(out[0], base[0]), ms=ms[key])
+    res['class_probe'] = probe
+    held = all(p['equal'] for p in probe.values())
+    print(f'reference arithmetic class (n_h_p, bk) = (425, 85) on the card: '
+          f'{"held" if held else "did not hold"} bit for bit; vs (3, 5, 5) '
+          f'at Tc {ref.tc}: ' + ', '.join(
+              f"{k} equal {p['equal']} max abs {p['max_abs_diff']:.3e} "
+              f"{p['ms']:.1f} ms" for k, p in probe.items()), flush=True)
+    res['class_held'] = held
+
+    for reassoc in (False, True):
+        cache = ScheduleCache()
+        ent, recs, base_us = tune_geometry(
+            params, xs, devices=75, ref=DIE_CLASS_PROBE[0], cache=cache,
+            iters=DIE_TUNE_ITERS, allow_reassoc=reassoc, device=dev)
+        trial = [(r.params['stages'], r.params['rows'], r.params['cols'],
+                  r.params['blocks'], r.params['tc'],
+                  round(r.metrics['measured_us'] / 1e3, 3))
+                 for r in recs if r.metrics['measured_us'] > 0]
+        key = 'geometry_reassoc' if reassoc else 'geometry'
+        res[key] = dict(winner=(ent.stages, ent.rows, ent.cols, ent.blocks,
+                                ent.tc), ms=ent.measured_us / 1e3,
+                        reference_ms=base_us / 1e3, trial=trial)
+        print(f'tune_geometry [75 engines, ref {DIE_CLASS_PROBE[0]}, '
+              f'allow_reassoc={reassoc}]: winner {ent.stages}x({ent.rows}x'
+              f'{ent.cols}) blocks {ent.blocks} Tc {ent.tc} '
+              f'{ent.measured_us / 1e3:.2f} ms beside the balanced reference '
+              f'{base_us / 1e3:.2f} ms; trial (S, R, C, blocks, Tc, ms) '
+              f'{trial}', flush=True)
+        if reassoc:
+            continue
+        win_mesh = sy.make_systolic_mesh(ent.rows, ent.cols,
+                                         stage=ent.stages, devices=dev)
+        sy.install_mesh(win_mesh)
+        try:
+            with using_schedule_cache(cache):
+                eng = StreamingEngine(cfg.replace(lstm_backend='auto'),
+                                      params, max_streams=SLOTS, chunk=CHUNK)
+                tc = sy.resolve_staged_chunk(
+                    L, CHUNK, ent.stages, n_h=lp.n_h, n_x=lp.n_x,
+                    batch=SLOTS, mesh=win_mesh)
+                st = chipmunk_net.init_state(cfg, SLOTS, dev)
+                frames = xs.transpose(0, 1).contiguous()
+                valid = torch.full((SLOTS,), CHUNK, device=dev)
+                _, n = _kernel_launches(lambda: eng._fwd(st, frames, valid))
+                ops = trace(lambda: eng._fwd(st, frames, valid),
+                            'tuned geometry chunk')
+        finally:
+            sy.clear_mesh()
+        split = ','.join(map(str, eng.placement.split))
+        res['tuned_engine'] = dict(backend=eng.backend, split=split, tc=tc,
+                                   device_ops=ops['device_ops'],
+                                   launches_per_step=ops['device_ops']
+                                   / CHUNK, kernel_launches=n)
+        print(f'tuned engine [{ent.stages}x({ent.rows}x{ent.cols}) on auto '
+              f'-> {eng.backend}]: split {split} (tuned {ent.blocks}), Tc '
+              f'{tc} (tuned {ent.tc}); {ops["device_ops"]} device ops a '
+              f'chunk ({ops["device_ops"] / CHUNK:.1f} a step); K1-K4 {n}',
+              flush=True)
+        check(eng.backend == 'cuda_seq_fused_systolic'
+              and split == ent.blocks and tc == ent.tc
+              and not any(n.values()),
+              'the engine did not take the tuned geometry')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _run_cli('tune --staged-devices 75 --geometry', [
+            'repro_torch.tune', '--staged-devices', '75', '--geometry',
+            '--n-x', str(lp.n_x), '--n-h', str(lp.n_h), '--layers', str(L),
+            '--T', str(CHUNK), '--B', str(SLOTS), '--stages', '3', '--rows',
+            '5', '--cols', '5', '--iters', '3', '--out',
+            str(pathlib.Path(tmp) / 'geo.json')], tmp)
+    check('geometry -> ' in out and '(measured, ' in out
+          and 'replay check: ' in out, 'the tune CLI did not measure')
+    res['cli'] = out.strip().splitlines()
+    return res
+
+
+def die_phase(cfg, params, utts, dev):
+    """Die fault domains and the staged tuner on the card (``die_rungs``,
+    ``die_engine``, ``die_rung_times``, ``die_tune``), every engine on
+    ``cuda``."""
+    return dict(rungs=die_rungs(params, dev),
+                engine=die_engine(cfg, params, utts, dev),
+                rung_times=die_rung_times(cfg, params, utts, dev),
+                tune=die_tune(cfg, params, dev))
 
 
 def _case_row(name: str, source: str, replaces: str, cases):
@@ -3242,6 +3622,7 @@ def main(argv=None) -> int:
     tuned = tune_phase(cfg, params, qps, q_utts, dev)
     examples = examples_phase()
     systolic = systolic_phase(cfg, params, qps, utts, dev)
+    die = die_phase(cfg, params, utts, dev)
 
     # K6-K8 on their public ops (no path of the system reaches them)
     op_rows = [cell_checks(params, CELL_BATCH, dev),
@@ -3277,7 +3658,7 @@ def main(argv=None) -> int:
             profiles=profiles,
             stack_kernel_weights_q=q_stacking, int8_deploy=deploy,
             train_grad_rel_err=grad_err, train=train, train_cli=cli,
-            tune=tuned, examples=examples, systolic=systolic),
+            tune=tuned, examples=examples, systolic=systolic, die=die),
             indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -521,13 +521,16 @@ def engine_budget(mesh) -> Optional[int]:
     """Bytes one engine's resident block may take (rule 3 of DESIGN.md
     §6.2, the port's own): a block re-read every step stays on chip only
     while every block on the card fits its L2, so on a CUDA device the L2
-    divided by the engines placed there (the least over the mesh's cards);
-    None (unbounded) when no engine is on a card."""
-    if not isinstance(mesh, SystolicMesh):
+    divided by the engines placed there (the least over the mesh's cards).
+    Reads the ``devices`` of a ``SystolicMesh`` or of any view of engines
+    (the die mesh's 4-axis view); None (unbounded) when no engine is on a
+    card or the mesh names no devices."""
+    devices = getattr(mesh, 'devices', None)
+    if not devices:
         return None
     budgets = [torch.cuda.get_device_properties(d).L2_cache_size // n
-               for d, n in collections.Counter(mesh.devices).items()
-               if d.type == 'cuda']
+               for d, n in collections.Counter(devices).items()
+               if torch.device(d).type == 'cuda']
     return min(budgets) if budgets else None
 
 
@@ -537,7 +540,7 @@ def seq_scaleout_admissible(n_h: int, mesh, *,
                             budget: Optional[int] = None) -> bool:
     """Tile admission for the systolic scale-outs (DESIGN.md §6.2, §9).
     Reads only ``mesh.axis_names`` and ``mesh.shape`` (and, for the
-    default budget, the devices of a ``SystolicMesh``).
+    default budget, the mesh's ``devices``).
 
     Single-layer form (``n_layers=None``, ``systolic_lstm_seq``): True iff
     the mesh has the ``row`` and ``col`` axes and no other live axis (rule
@@ -1256,13 +1259,14 @@ class StackPlacement(NamedTuple):
 
 
 def place_stack(params, mesh: Optional[SystolicMesh], *, staged: bool,
-                T: int = 0, batch: int = 0) -> StackPlacement:
+                T: int = 0, batch: int = 0,
+                blocks: Optional[Sequence[int]] = None) -> StackPlacement:
     """Place ``params``' layers on ``mesh`` for the staged scale-out
-    (``staged``: layer blocks on the stage axis, the split the schedule
-    cache records for a (T, batch) call, else the balanced one) or the
-    layerwise one (every layer on the (row, col) grid).  Placement only:
-    the calls that take it give the same bits as calls that place per
-    call."""
+    (``staged``: layer blocks on the stage axis — ``blocks``, the per-stage
+    layer counts, when given, else the split the schedule cache records
+    for a (T, batch) call, else the balanced one) or the layerwise one
+    (every layer on the (row, col) grid).  Placement only: the calls that
+    take it give the same bits as calls that place per call."""
     layers = params.layers
     if _degenerate(mesh):
         return StackPlacement(mesh, None, None)
@@ -1270,8 +1274,10 @@ def place_stack(params, mesh: Optional[SystolicMesh], *, staged: bool,
     if staged:
         S, _, _ = _require_staged_axes(mesh)
         l0 = layers[0]
-        ranges = stage_layer_blocks(L, S, resolve_staged_blocks(
-            L, T, S, n_h=l0.n_h, n_x=l0.n_x, batch=batch, mesh=mesh))
+        if blocks is None:
+            blocks = resolve_staged_blocks(L, T, S, n_h=l0.n_h, n_x=l0.n_x,
+                                           batch=batch, mesh=mesh)
+        ranges = stage_layer_blocks(L, S, blocks)
         split = tuple(hi - lo for lo, hi in ranges)
         stage = [_stage_of(ranges, l)[0] for l in range(L)]
     else:

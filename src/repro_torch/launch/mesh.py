@@ -13,10 +13,25 @@ Sec. 4.2, Table 2)::
 
 Every engine of a preset sits on one device unless ``devices`` lists
 them; one process drives them all.
+
+The two-level die hierarchy (DESIGN.md §14): a ``DieMesh`` is a fleet of
+``dies`` fault domains, each holding ``stage`` pipeline stages of
+``rows x cols`` engines.  A die failure removes exactly its engines, and
+the systolic array re-forms on the surviving dies (``submesh``): the
+serving engine's recovery runtime then steps onto a real intermediate rung
+(``graves-3x25``: 75 -> 50 -> 25 engines) instead of a flat kernel::
+
+    python -m repro_torch.launch.serve --die-topology graves-3x25
 """
 from __future__ import annotations
 
-from ..core.systolic import SystolicMesh, install_mesh, make_systolic_mesh
+import dataclasses
+from typing import ClassVar, Dict, Optional, Sequence, Tuple
+
+import torch
+
+from ..core.systolic import (SystolicMesh, _device, install_mesh,
+                             make_systolic_mesh)
 
 # name -> (stage, rows, cols) engine grids from the paper's scaling study.
 SYSTOLIC_TOPOLOGIES = {
@@ -47,3 +62,140 @@ def install_systolic_topology(name: str, devices=None) -> SystolicMesh:
     stacks a stage > 1 mesh admits; an inadmissible preset (the all-1
     ``single``) is installed but never picked by ``auto``."""
     return install_mesh(make_systolic_topology(name, devices))
+
+
+# ---------------------------------------------------------------------------
+# Two-level die/engine fault-domain hierarchy (DESIGN.md §14)
+# ---------------------------------------------------------------------------
+# The Chipmunk follow-up ("Vau da Muntanialas", PAPERS.md) scales the same
+# systolic idea across DIES: the die axis is the fault-domain axis.
+# Execution flattens the healthy dies onto the (stage, row, col) staged
+# path (total stages = healthy dies x stage), so every degraded rung keeps
+# the per-stage (rows x cols) grid and its (bn, bk) blocks.
+
+@dataclasses.dataclass(frozen=True)
+class DieMeshView:
+    """The explicit 4-axis ('die', 'stage', 'row', 'col') view of a
+    ``DieMesh``: what the die-aware admission rule
+    (``core.systolic.seq_scaleout_admissible``, which folds ``die`` into
+    the pipeline depth) and the per-engine budget (``engine_budget``, over
+    ``devices``) read.  No execution runs on it."""
+    dies: int
+    stage: int
+    rows: int
+    cols: int
+    devices: Tuple[torch.device, ...]
+
+    axis_names: ClassVar[Tuple[str, ...]] = ('die', 'stage', 'row', 'col')
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis sizes in axis order, like ``SystolicMesh.shape``."""
+        return {'die': self.dies, 'stage': self.stage, 'row': self.rows,
+                'col': self.cols}
+
+
+@dataclasses.dataclass(frozen=True)
+class DieMesh:
+    """Two-level ('die', 'stage', 'row', 'col') fleet: ``dies`` fault
+    domains, each holding ``stage`` pipeline stages of ``rows x cols``
+    engines.  ``devices`` is die-major (one die's engines are contiguous,
+    so a die failure maps to one contiguous range), each engine a
+    ``torch.device``.  Topology bookkeeping only: execution goes through
+    ``submesh``."""
+    dies: int
+    stage: int
+    rows: int
+    cols: int
+    devices: Tuple[torch.device, ...] = ()
+
+    @property
+    def engines_per_die(self) -> int:
+        """Engines one die contributes (= engines lost when it fails)."""
+        return self.stage * self.rows * self.cols
+
+    @property
+    def n_engines(self) -> int:
+        """Total engines across all dies."""
+        return self.dies * self.engines_per_die
+
+    def die_devices(self, die: int) -> Tuple[torch.device, ...]:
+        """The contiguous engine devices of fault domain ``die``."""
+        k = self.engines_per_die
+        return tuple(self.devices[die * k:(die + 1) * k])
+
+    def submesh(self, healthy: Sequence[int]) -> SystolicMesh:
+        """The healthy dies flattened onto one (stage, row, col) execution
+        mesh: ``len(healthy) * stage`` stages of the same ``rows x cols``
+        grid, the dies in ascending order.  Raises ``ValueError`` on an
+        empty or out-of-range die list."""
+        healthy = sorted(int(d) for d in healthy)
+        if not healthy or not all(0 <= d < self.dies for d in healthy):
+            raise ValueError(f'healthy dies {healthy} are not a non-empty '
+                             f'subset of range({self.dies})')
+        devs = [d for die in healthy for d in self.die_devices(die)]
+        return make_systolic_mesh(self.rows, self.cols,
+                                  stage=len(healthy) * self.stage,
+                                  devices=devs)
+
+    def full_mesh(self) -> DieMeshView:
+        """The 4-axis view over every engine (the fault-domain boundary
+        explicit); execution uses ``submesh``."""
+        return DieMeshView(self.dies, self.stage, self.rows, self.cols,
+                           self.devices)
+
+
+# name -> (dies, stage-per-die, rows, cols).  'graves-3x25' is the paper's
+# 75-engine Table-2 topology as THREE 25-engine dies: the ladder then has
+# real intermediate rungs (75 -> 50 -> 25 engines).
+DIE_TOPOLOGIES = {
+    'die-2x1x1': (2, 1, 1, 1),   # 2 dies of one engine each
+    'die-3x1x1': (3, 1, 1, 1),   # 3 dies of one engine each
+    'die-2x1x2': (2, 1, 1, 2),   # 2 dies of a 1x2 grid
+    'graves-3x25': (3, 1, 5, 5),  # 3 dies of 5x5 = the Table-2 75 engines
+}
+
+_INSTALLED_DIE_MESH: Optional[DieMesh] = None
+
+
+def make_die_topology(name: str, devices=None) -> DieMesh:
+    """The named ``DIE_TOPOLOGIES`` preset as a ``DieMesh``.  ``devices``:
+    None puts every engine on ``cuda``, one device (or its name) puts them
+    all there, a sequence places the first ``dies * stage * rows * cols``
+    die-major; a shorter sequence raises ``ValueError``."""
+    dies, stage, rows, cols = DIE_TOPOLOGIES[name]
+    need = dies * stage * rows * cols
+    if devices is None or isinstance(devices, (str, torch.device)):
+        devs = (_device('cuda' if devices is None else devices),) * need
+    else:
+        devs = tuple(_device(d) for d in devices)
+        if len(devs) < need:
+            raise ValueError(f'die topology {name!r} needs {need} devices, '
+                             f'have {len(devs)}')
+    return DieMesh(dies, stage, rows, cols, devs[:need])
+
+
+def install_die_topology(name: str, devices=None) -> DieMesh:
+    """Build the named preset, register it as the process die mesh, and
+    install its all-dies-healthy ``submesh`` as the systolic mesh.  A
+    serving engine built after this sees the dies as fault domains: an
+    ``EngineFailure`` carrying a die id re-forms the mesh on the surviving
+    dies (one rung down), and a healed die comes back through the
+    canary-validated promotion.  Dispatch and placement only."""
+    global _INSTALLED_DIE_MESH
+    dm = make_die_topology(name, devices)
+    _INSTALLED_DIE_MESH = dm
+    install_mesh(dm.submesh(range(dm.dies)))
+    return dm
+
+
+def current_die_mesh() -> Optional[DieMesh]:
+    """The registered die mesh, or None (flat ladders)."""
+    return _INSTALLED_DIE_MESH
+
+
+def clear_die_mesh() -> None:
+    """Unregister the die mesh (``core.systolic.clear_mesh`` clears the
+    execution mesh)."""
+    global _INSTALLED_DIE_MESH
+    _INSTALLED_DIE_MESH = None

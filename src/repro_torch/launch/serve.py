@@ -20,6 +20,15 @@ staged ``cuda_seq_fused_systolic`` on ``graves-75``, the paper's 3x(5x5)
     python -m repro_torch.launch.serve --device cpu --smoke \
         --systolic-topology 2x2
 
+``--die-topology NAME`` installs a two-level die preset (DESIGN.md §14):
+its dies are the fault domains, so with the fault flags an engine failure
+re-forms the systolic array on the surviving dies (``graves-3x25``: 75 ->
+50 -> 25 engines) before the ladder reaches a flat kernel, and a healed die
+comes back through the canary::
+
+    python -m repro_torch.launch.serve --die-topology graves-3x25 \
+        --fail-engines 1@2 --recover-at-step 1@5 --promote-hysteresis 2
+
 ``--async`` packs and launches the next chunk while the one in flight
 computes (DESIGN.md §11); ``--deadline-slo FACTOR`` attaches the chunk-size
 policy, whose budget is chunk x 10 ms frame period x FACTOR.  Both leave
@@ -62,7 +71,8 @@ from ..core.lstm import BACKENDS
 from ..models import chipmunk_net
 from ..runtime import ChunkSizePolicy, ServingFaultConfig
 from ..serving import StreamingEngine, tuned_chunk_ceiling
-from .mesh import SYSTOLIC_TOPOLOGIES, install_systolic_topology
+from .mesh import (DIE_TOPOLOGIES, SYSTOLIC_TOPOLOGIES, install_die_topology,
+                   install_systolic_topology)
 
 
 class StreamServer:
@@ -220,6 +230,13 @@ def build_parser() -> argparse.ArgumentParser:
                          '--device) before serving: stage-1 presets make '
                          'auto pick cuda_seq_systolic, stage>1 presets the '
                          'staged cuda_seq_fused_systolic')
+    ap.add_argument('--die-topology', default=None,
+                    choices=sorted(DIE_TOPOLOGIES),
+                    help='install a two-level die preset (every engine on '
+                         '--device): dies are fault domains; an engine '
+                         'failure re-forms the systolic mesh on the '
+                         'surviving dies (an intermediate ladder rung) and '
+                         'a healed die is canary-validated back in')
     ap.add_argument('--async', dest='async_dispatch', action='store_true',
                     help='double-buffered dispatch (DESIGN.md §11): the '
                          'next chunk is packed and launched while the '
@@ -293,6 +310,11 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.systolic_topology:
         install_topology(args.systolic_topology, args.device)
+    if args.die_topology:
+        dm = install_die_topology(args.die_topology, devices=args.device)
+        print(f'installed die topology {args.die_topology}: {dm.dies} dies '
+              f'x {dm.engines_per_die} engines '
+              f'({dm.dies}x{dm.stage}x{dm.rows}x{dm.cols})')
     get = configs.get_smoke_config if args.smoke else configs.get_config
     cfg = get(args.arch).replace(lstm_backend=args.lstm_backend)
     if args.schedule_cache or args.tune:

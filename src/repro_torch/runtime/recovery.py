@@ -9,13 +9,13 @@ package).  Injected ``EngineFailure``s step serving down
 recovery half:
 
   * ``Rung`` / ``build_rungs`` — the degradation ladder materialised as an
-    explicit rung list, from the engine's home backend down to
-    ``torch_scan``.  Every rung records how many healthy fault domains it
-    needs, which is what makes capacity a pure function of tracker state.
-    The reference's die-mesh rungs (the same staged backend on
-    progressively fewer dies of a two-level mesh) wait for the port's
-    ``DieMesh``; until then every ladder is flat, a systolic home at its
-    top.
+    explicit rung list: on a two-level ``launch.mesh.DieMesh`` the top
+    rungs are the same systolic dispatch on progressively fewer dies (real
+    intermediate rungs: ``graves-3x25`` runs 75 -> 50 -> 25 engines),
+    below which the ladder continues through the flat single-device
+    backends down to ``torch_scan``.  Every rung records how many healthy
+    fault domains it needs, which is what makes capacity a pure function
+    of tracker state.
   * ``MeshHealthTracker`` — per-domain health fed by the injection
     schedules (``ServingFaultConfig.fail_at`` / ``recover_at``), with
     exponential-backoff hysteresis: a failure landing inside the
@@ -64,33 +64,59 @@ class Rung:
         return f'{self.backend}@{self.n_dies}d'
 
 
-def build_rungs(home_backend: str) -> Tuple[Rung, ...]:
-    """Materialise the degradation ladder for one serving deployment:
-    ``DEGRADATION_LADDER`` from ``home_backend`` down to ``torch_scan``,
-    one fault domain per rung transition (rung ``i`` needs
-    ``len - 1 - i`` healthy domains, the bottom needs none).  Pure
-    selection: every rung runs the same chunking/masking contract, so rung
-    changes never change what a stream computes, only which kernel
-    computes it.
+def build_rungs(home_backend: str, *, n_layers: int, n_h: int,
+                die_mesh=None, n_x: int = 0, T: int = 0,
+                batch: int = 0) -> Tuple[Rung, ...]:
+    """Materialise the degradation ladder for one serving deployment.
 
-    A systolic home (``cuda_seq_fused_systolic`` or
-    ``cuda_seq_systolic``) heads the ladder, the reference's flat ladder
-    without a die mesh.  The reference also takes a two-level die mesh
-    (and the stack's shape, for the die rungs' admission) and puts the
-    same systolic dispatch on progressively fewer dies at the top of the
-    ladder; the port has no die mesh yet, so every ladder is flat."""
+    Without a die mesh this is ``DEGRADATION_LADDER`` from
+    ``home_backend`` down to ``torch_scan``, one fault domain per rung
+    transition (rung ``i`` needs ``len - 1 - i`` healthy domains, the
+    bottom needs none).  With a two-level ``launch.mesh.DieMesh`` and a
+    systolic home, the top of the ladder is the systolic dispatch on
+    k = dies .. 1 dies, each rung checked against the admission rule on
+    its flattened ``submesh``: ``cuda_seq_fused_systolic@kd`` (need k)
+    where k * stage >= 2 and the stage-aware rule admits the stack (with
+    the shape context ``n_x``, ``T``, ``batch``), ``cuda_seq_systolic@kd``
+    where k * stage == 1 and the single-layer rule admits the layer.  The
+    flat ladder continues below the smallest such rung, with need 0 on
+    every rung.  Pure selection: every rung runs the same chunking and
+    masking contract, so rung changes never change what a stream computes,
+    only which engines compute it.  Raises ``ValueError`` for a home that
+    is off the ladder."""
     from ..core.lstm import DEGRADATION_LADDER, next_backend_down
-    flat = [home_backend]
-    while True:
-        nxt = next_backend_down(flat[-1])
-        if nxt is None:
-            break
-        flat.append(nxt)
-    rungs = tuple(Rung(b, need=len(flat) - 1 - i) for i, b in enumerate(flat))
-    if rungs[-1].backend not in DEGRADATION_LADDER:
+    rungs: List[Rung] = []
+    tail_home = home_backend
+    if die_mesh is not None and home_backend.endswith('_systolic'):
+        from ..core.systolic import seq_scaleout_admissible
+        for k in range(die_mesh.dies, 0, -1):
+            sub = die_mesh.submesh(range(k))
+            stages = k * die_mesh.stage
+            if stages >= 2 and seq_scaleout_admissible(
+                    n_h, sub, n_layers=n_layers, n_x=n_x, T=T, batch=batch):
+                rungs.append(Rung('cuda_seq_fused_systolic', n_dies=k,
+                                  need=k))
+            elif stages == 1 and seq_scaleout_admissible(n_h, sub):
+                rungs.append(Rung('cuda_seq_systolic', n_dies=k, need=k))
+        tail_home = next_backend_down(rungs[-1].backend if rungs
+                                      else home_backend)
+    flat: List[str] = []
+    if tail_home is not None:
+        flat = [tail_home]
+        while True:
+            nxt = next_backend_down(flat[-1])
+            if nxt is None:
+                break
+            flat.append(nxt)
+    if rungs:
+        # the flat tail below the die rungs: reachable with zero dies
+        rungs.extend(Rung(b, need=0) for b in flat)
+    else:
+        rungs = [Rung(b, need=len(flat) - 1 - i) for i, b in enumerate(flat)]
+    if not rungs or rungs[-1].backend not in DEGRADATION_LADDER:
         raise ValueError(f'{home_backend!r} is not on the degradation '
                          f'ladder {DEGRADATION_LADDER}')
-    return rungs
+    return tuple(rungs)
 
 
 class MeshHealthTracker:

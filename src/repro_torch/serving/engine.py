@@ -37,7 +37,11 @@ with a ``ServingFaultConfig`` attached, every commit is driven by the
 ``FaultTolerantRunner``.  A permanent ``EngineFailure`` steps the backend
 down ``core.lstm.DEGRADATION_LADDER`` (``cuda_seq_fused_systolic`` ->
 ``cuda_seq_fused`` -> ``cuda_seq`` -> ``torch_scan``; a flat rung clears
-the process mesh, a systolic rung re-installs the home mesh), re-places the
+the process mesh, a systolic rung re-installs the home mesh).  With a
+``launch.mesh.DieMesh`` registered, the top of the ladder is the systolic
+dispatch on fewer dies (``build_rungs``' die rungs): a die rung runs on the
+healthy dies' ``submesh`` with a placement of its own, built the first time
+the rung is used and kept.  A degrade re-places the
 packed cache by an exact host round trip
 (``elastic_replace``) and recomputes the chunk from committed state; a
 transient one retries in place; any other error is retried under the
@@ -64,6 +68,7 @@ from ..core.lstm import resolve_serving_backend
 from ..core.systolic import (clear_mesh, current_mesh, install_mesh,
                              place_stack)
 from ..kernels.lstm_seq import stack_kernel_weights
+from ..launch.mesh import current_die_mesh
 from ..models import chipmunk_net
 from ..runtime import (ChunkSizePolicy, EngineFailure, FaultConfig,
                        FaultTolerantRunner, MeshHealthTracker, RingLog,
@@ -160,8 +165,8 @@ def tuned_chunk_ceiling(cfg, chunk: int, max_streams: int) -> int:
     installed schedule cache (``repro_torch.tune``) clamps it to a tuned
     depth.  Two kinds, most trustworthy first: ``'serving_chunk'``, the
     end-to-end serving-loop measurement that ``tune_serving_config``
-    records, then ``'stack_f32'``, a kernel-level depth (no port tuner
-    writes one yet; a loaded cache may hold it).  Exact ``(T, B)`` keys
+    records, then ``'stack_f32'``, the kernel-level depth it predicts for
+    the staged placement (or a loaded cache holds).  Exact ``(T, B)`` keys
     beat wildcards; the placement is the installed mesh's signature
     (``'any'`` without one).  Never above ``chunk``; ``chunk`` unchanged
     on a miss or a ``tc=0`` entry.
@@ -249,6 +254,11 @@ class StreamingEngine:
             staged=self.backend == 'cuda_seq_fused_systolic', T=chunk,
             batch=max_streams) if self.backend.endswith('_systolic')
             else None)
+        # the die mesh at construction (None: flat ladders) and the die
+        # rungs' placements, keyed by (backend, healthy dies), each built
+        # the first time its rung runs
+        self._die_mesh = current_die_mesh()
+        self._placements: dict = {}
         self.sched: SlotScheduler[StreamSession] = SlotScheduler(max_streams)
         self.states = chipmunk_net.init_state(cfg, max_streams, self.device)
         self._pin = self.device.type == 'cuda'
@@ -281,9 +291,21 @@ class StreamingEngine:
                                 heartbeat_path=faults.heartbeat_path,
                                 event_log_cap=faults.event_log_cap),
                 fail_schedule=faults.make_fail_schedule())
-            # §14: the flat ladder from the pinned backend down, one fault
-            # domain per rung transition
-            self._rungs = build_rungs(self.backend)
+            # §14: the ladder from the pinned backend down — die rungs on
+            # top when a die mesh is registered (rebuilt flat when the
+            # pinned backend is not their top), one fault domain per die,
+            # or per rung transition on a flat ladder
+            shape = dict(n_layers=cfg.n_layers, n_h=cfg.lstm_hidden,
+                         n_x=cfg.lstm_inputs, T=chunk, batch=max_streams)
+            self._rungs = build_rungs(self.backend, die_mesh=self._die_mesh,
+                                      **shape)
+            if self._rungs[0].backend != self.backend:
+                self._rungs = build_rungs(self.backend, **shape)
+            top = self._rungs[0]
+            if (top.n_dies is not None and self._home_mesh
+                    == self._die_mesh.submesh(range(top.n_dies))):
+                self._placements[(top.backend,
+                                  tuple(range(top.n_dies)))] = self.placement
             self._tracker = MeshHealthTracker(
                 n_domains=self._rungs[0].need,
                 hysteresis=faults.promote_hysteresis)
@@ -292,16 +314,19 @@ class StreamingEngine:
         self._last_commit: Optional[dict] = None   # canary replay material
         self._fwd = self._make_fwd(self.cfg)
 
-    def _make_fwd(self, cfg):
+    def _make_fwd(self, cfg, placement=None):
         """The packed chunk call on ``cfg``'s backend: ``(states, frames,
         valid) -> (log-probs, new states, finite)``, where ``finite`` is the
         non-finite guard's ``(S,)`` mask on the device (``finite_slots``,
-        the guard on) or None (no device op).  Also the factory the
-        promotion canary uses to build the CANDIDATE backend's call without
-        touching the incumbent's."""
+        the guard on) or None (no device op).  A systolic backend's call is
+        bound to ``placement`` (None: the home placement).  Also the
+        factory the promotion canary uses to build the CANDIDATE rung's
+        call without touching the incumbent's."""
         guard, params, weights = self._guard, self.params, self.stack_weights
-        placement = (self.placement if cfg.lstm_backend.endswith('_systolic')
-                     else None)
+        if not cfg.lstm_backend.endswith('_systolic'):
+            placement = None
+        elif placement is None:
+            placement = self.placement
 
         def fwd(states, frames, valid):
             lp, new_states = chipmunk_net.stream_forward(
@@ -312,23 +337,50 @@ class StreamingEngine:
 
         return fwd
 
-    def _install_rung_mesh(self, backend: str) -> None:
-        """Point the process mesh registry at a rung's topology: the home
-        mesh (taken at construction) for a systolic rung, no mesh for a
-        flat one, so ``auto`` dispatch elsewhere in the process sees the
-        rung's topology.  The chunk calls do not read the registry: a
-        systolic rung's call is bound to the home placement."""
-        if backend.endswith('_systolic'):
+    def _rung_dies(self, rung) -> Tuple[int, ...]:
+        """The dies a die rung runs on: the first ``n_dies`` healthy ones."""
+        return tuple(self._tracker.healthy[:rung.n_dies])
+
+    def _install_rung_mesh(self, rung) -> None:
+        """Point the process mesh registry at a rung's topology: the
+        healthy dies' ``submesh`` for a die rung, the home mesh (taken at
+        construction) for another systolic rung, no mesh for a flat one,
+        so ``auto`` dispatch elsewhere in the process sees the rung's
+        topology.  The chunk calls do not read the registry: a systolic
+        rung's call is bound to its placement (``_rung_placement``)."""
+        if rung.n_dies is not None:
+            install_mesh(self._die_mesh.submesh(self._rung_dies(rung)))
+        elif rung.backend.endswith('_systolic'):
             install_mesh(self._home_mesh)
         else:
             clear_mesh()
 
-    def _set_backend(self, backend: str, fwd=None) -> None:
+    def _rung_placement(self, rung):
+        """The stack's placement for a systolic rung: the home placement,
+        or for a die rung the one keyed by (backend, healthy dies), placed
+        on that ``submesh`` the first time and kept (a placement is ~150
+        device ops at ``graves-75``); None for a flat rung."""
+        if rung.n_dies is None:
+            return None
+        key = (rung.backend, self._rung_dies(rung))
+        if key not in self._placements:
+            self._placements[key] = place_stack(
+                self.params, self._die_mesh.submesh(key[1]),
+                staged=rung.backend == 'cuda_seq_fused_systolic',
+                T=self.chunk, batch=self.sched.num_slots)
+        return self._placements[key]
+
+    def _rung_fwd(self, rung):
+        """The chunk call of ``rung``: its backend on its placement."""
+        return self._make_fwd(self.cfg.replace(lstm_backend=rung.backend),
+                              self._rung_placement(rung))
+
+    def _set_backend(self, backend: str, fwd) -> None:
         """Move the engine to ``backend`` (a rung change): its config and
-        its chunk call (``fwd`` when already built, as the canary's)."""
+        its chunk call ``fwd``."""
         self.backend = backend
         self.cfg = self.cfg.replace(lstm_backend=backend)
-        self._fwd = fwd if fwd is not None else self._make_fwd(self.cfg)
+        self._fwd = fwd
 
     # ------------------------------------------------------------ admission
     def submit(self, frames: np.ndarray, sid: Optional[int] = None,
@@ -496,8 +548,8 @@ class StreamingEngine:
             return                          # bottom of the ladder: retry as-is
         prev = self.backend
         rung = self._rungs[target]
-        self._install_rung_mesh(rung.backend)
-        self._set_backend(rung.backend)
+        self._install_rung_mesh(rung)
+        self._set_backend(rung.backend, self._rung_fwd(rung))
         self.states = elastic_replace(self.states)
         self._rung_idx = target
         self._last_commit = None            # stale incumbent evidence
@@ -797,8 +849,8 @@ class StreamingEngine:
         if self.faults.canary and lc is None:
             return
         prev_mesh = current_mesh()
-        self._install_rung_mesh(cand.backend)
-        cand_fwd = self._make_fwd(self.cfg.replace(lstm_backend=cand.backend))
+        self._install_rung_mesh(cand)
+        cand_fwd = self._rung_fwd(cand)
         if self.faults.canary:
             self._record('promote_canary', from_backend=self.backend,
                          to_backend=cand.backend, chunk=lc['lp'].shape[-2]
@@ -812,6 +864,7 @@ class StreamingEngine:
                 for g, r in zip(got_leaves, ref_leaves))
             if not ok:
                 # squash: the incumbent's topology back, nothing committed
+                # (its placement untouched)
                 if prev_mesh is not None:
                     install_mesh(prev_mesh)
                 else:

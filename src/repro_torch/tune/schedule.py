@@ -46,11 +46,12 @@ import torch
 #: ``serving_chunk`` carries the measured end-to-end serving-loop chunk
 #: ceiling (``tc``); ``stack_lb`` carries the §8 single-engine
 #: layer-block streaming factor (``lb``).  The port's tuner writes
-#: ``q_stack_backend`` and ``serving_chunk``; the staged scale-out reads
-#: the ``tc`` and ``blocks`` of ``stack_f32`` / ``stack_int8`` entries
-#: (``core.systolic.resolve_staged_chunk`` / ``_blocks``) and not their
-#: ``in_stage``, since it runs one in-stage order; the geometry and ``lb``
-#: kinds load and round-trip, and no port tuner writes the staged ones yet.
+#: ``q_stack_backend``, ``serving_chunk``, ``stack_f32`` and ``geometry``;
+#: the staged scale-out reads the ``tc`` and ``blocks`` of ``stack_f32`` /
+#: ``stack_int8`` entries (``core.systolic.resolve_staged_chunk`` /
+#: ``_blocks``) and not their ``in_stage``, since it runs one in-stage
+#: order (``'sequential'``, which the port's entries record); the ``lb``
+#: kind loads and round-trips.
 KINDS = ('stack_f32', 'stack_int8', 'stack_backend', 'q_stack_backend',
          'geometry', 'serving_chunk', 'stack_lb')
 

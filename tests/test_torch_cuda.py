@@ -1101,8 +1101,8 @@ def _fault_engine(cfg, params, backend, faults, async_mode=False, slots=4,
     calls = []
     make = eng._make_fwd
 
-    def traced(c):
-        fwd = make(c)
+    def traced(c, *placement):
+        fwd = make(c, *placement)
 
         def call(*args):
             k1, k2 = lstm_seq.launches, lstm_stack_seq_kernel.launches
@@ -1284,3 +1284,87 @@ def test_fault_guard_changes_no_bits_on_card(dev, backend):
     assert outs['on'][1] == outs['off'][1]
     for a, b in zip(outs['on'][0], outs['off'][0]):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------- die fault domains, staged tuner
+def test_die_rungs_of_graves_3x25_on_card(dev):
+    """At 421 hidden with every engine on the card (budget L2 / engines):
+    3d, 2d, the layerwise 1d rung, then K2, K1 and the scan."""
+    from repro_torch.launch.mesh import make_die_topology
+    from repro_torch.runtime import build_rungs
+    dm = make_die_topology('graves-3x25', devices=dev)
+    rungs = build_rungs('cuda_seq_fused_systolic', n_layers=3, n_h=421,
+                        die_mesh=dm, n_x=123, T=16, batch=8)
+    assert [(r.label(), r.need) for r in rungs] == [
+        ('cuda_seq_fused_systolic@3d', 3), ('cuda_seq_fused_systolic@2d', 2),
+        ('cuda_seq_systolic@1d', 1), ('cuda_seq_fused', 0), ('cuda_seq', 0),
+        ('torch_scan', 0)]
+
+
+@pytest.mark.parametrize('async_mode', [False, True])
+def test_die_chaos_on_card(dev, async_mode):
+    """die-3x1x1 on the card: die 2 lost at chunk 2 and healed at 5; the
+    trail degrade, heal, promote_canary, promote, no K1-K4 launch, and
+    every stream bit-equal to an unfaulted drain."""
+    from repro_torch.launch.mesh import clear_die_mesh, install_die_topology
+    from repro_torch.runtime import ServingFaultConfig
+    cfg = configs.get_smoke_config('chipmunk-ctc').replace(
+        n_layers=3, lstm_backend='auto')
+    params = _params(cfg, dev)
+    utts = _fault_utts(cfg, n=2, frames=88)
+
+    def drain(faults):
+        install_die_topology('die-3x1x1', devices=dev)
+        eng = StreamingEngine(cfg, params, max_streams=2, chunk=8,
+                              faults=faults, async_dispatch=async_mode)
+        sess = [eng.submit(u) for u in utts]
+        eng.run()
+        return eng, [s.full_log_probs() for s in sess]
+
+    try:
+        _, clean = drain(None)
+        kernels = (lstm_seq, lstm_stack_seq_kernel, lstm_seq_quantized,
+                   lstm_stack_seq_kernel_q)
+        before = [k.launches for k in kernels]
+        eng, got = drain(ServingFaultConfig(
+            fail_at={2: {'n_dead': 1, 'domain': 2}}, recover_at={5: 1},
+            promote_hysteresis=2, backoff_s=0.0))
+        assert [k.launches for k in kernels] == before
+    finally:
+        tsys.clear_mesh()
+        clear_die_mesh()
+    st = eng.stats()
+    assert [e['kind'] for e in st['events'] if e['kind'] in (
+        'degrade', 'heal', 'promote_canary', 'promote')] == [
+        'degrade', 'heal', 'promote_canary', 'promote']
+    assert st['rung'] == 'cuda_seq_fused_systolic@3d'
+    for a, b in zip(got, clean):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_staged_tuners_on_card(dev):
+    """``tune_staged_stack`` and ``tune_geometry`` measured with every
+    engine on the card (their candidates held ``torch.equal`` inside), and
+    the geometry winner's split and Tc taken by ``place_stack`` and
+    ``resolve_staged_chunk`` under the recorded cache."""
+    from repro_torch.tune import (ScheduleCache, tune_geometry,
+                                  tune_staged_stack, using_schedule_cache)
+    stack = tlstm.stack_params_to(tlstm.init_lstm_stack(
+        16, 40, 3, None, torch.Generator().manual_seed(7)), dev)
+    xs = torch.randn((16, 4, 16), generator=torch.Generator().manual_seed(8)
+                     ).to(dev) * 0.5
+    mesh = tsys.make_systolic_mesh(2, 2, stage=3, devices=dev)
+    ent, _ = tune_staged_stack(stack, mesh, xs, iters=2)
+    assert ent.source == 'measured' and ent.host.split('/')[1].startswith(
+        'cuda')
+    cache = ScheduleCache()
+    geo, _, base = tune_geometry(stack, xs, devices=12, ref=(3, 2, 2),
+                                 cache=cache, iters=2)
+    assert base > 0 and geo.source == 'measured'
+    win = tsys.make_systolic_mesh(geo.rows, geo.cols, stage=geo.stages,
+                                  devices=dev)
+    with using_schedule_cache(cache):
+        assert ','.join(map(str, tsys.place_stack(
+            stack, win, staged=True, T=16, batch=4).split)) == geo.blocks
+        assert tsys.resolve_staged_chunk(3, 16, geo.stages, n_h=40, n_x=16,
+                                         batch=4, mesh=win) == geo.tc

@@ -54,3 +54,31 @@ def test_serving_path_import_leaves_jax_unloaded():
     out = subprocess.run([sys.executable, '-c', code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_die_mesh_and_staged_tuner_import_without_jax_and_default_to_cuda():
+    """``DieMesh`` and its presets, the staged and geometry shmoo spaces and
+    the staged tuners import without ``jax``; a die preset without
+    ``devices`` puts every engine on ``cuda``, and the entry points'
+    devices default to ``cuda``."""
+    code = ('import sys, inspect\n'
+            'from repro_torch.launch.mesh import (DieMesh, DIE_TOPOLOGIES,\n'
+            '    make_die_topology, install_die_topology)\n'
+            'from repro_torch.tune import (tune_staged_stack, tune_geometry,\n'
+            '    enumerate_staged_candidates, enumerate_geometry_candidates)\n'
+            'from repro_torch.tune.__main__ import main\n'
+            'from repro_torch.launch.serve import build_parser\n'
+            'bad = [m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "jaxlib", "repro")]\n'
+            'assert not bad, bad\n'
+            'dm = make_die_topology("graves-3x25")\n'
+            'assert {d.type for d in dm.devices} == {"cuda"}, dm.devices\n'
+            'assert dm.n_engines == 75 and dm.submesh([0, 2]).stage == 2\n'
+            'assert build_parser().parse_args([]).device == "cuda"\n'
+            'src = inspect.getsource(main)\n'
+            'assert "default=\'cuda\'" in src\n'
+            'print("ok")\n')
+    env = dict(os.environ, PYTHONPATH=str(ROOT / 'src'))
+    out = subprocess.run([sys.executable, '-c', code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

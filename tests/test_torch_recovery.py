@@ -308,13 +308,13 @@ def test_ladder_is_the_reference_ladder_without_its_systolic_top():
                                      'cuda_seq_systolic', 'cuda_seq_fused',
                                      'cuda_seq', 'cuda_step', 'torch_scan'])
 def test_build_rungs_equals_reference(backend, n_layers):
-    got = trecovery.build_rungs(backend)
+    got = trecovery.build_rungs(backend, n_layers=n_layers, n_h=32)
     want = jrecovery.build_rungs(TO_REF[backend], n_layers=n_layers, n_h=32)
     assert [(r.backend, r.n_dies, r.need, r.label()) for r in got] == \
         [(fp.NAME_MAP[r.backend], r.n_dies, r.need,
           fp.NAME_MAP[r.label()]) for r in want]
     with pytest.raises(ValueError):
-        trecovery.build_rungs('auto')
+        trecovery.build_rungs('auto', n_layers=n_layers, n_h=32)
 
 
 # ---------------------------------------------- engine against reference

@@ -351,22 +351,33 @@ def test_predicted_entry_on_the_card_prunes_inadmissible_fused(h100):
 
 
 def test_replay_check_accepts_committed_cache_and_catches_drift():
-    """The committed cache's entries of this slice's kinds replay, except
-    the reference's int8 prediction at 421 hidden: the reference pruned it
-    to layerwise by its TPU VMEM estimate, the port's rule re-derives
-    fused, and the check says so.  Staged and geometry entries are
-    reported as not checkable, never passed."""
+    """The committed cache's entries replay, except two predictions the
+    port's rules re-derive otherwise, and the check says so: the
+    reference's int8 prediction at 421 hidden (pruned to layerwise by its
+    TPU VMEM estimate; the port's rule gives fused) and its staged
+    prediction in the ``'batched'`` in-stage order (the port runs one
+    order, shmoo deviation (b)).  The measured geometry and staged entries
+    lie in the port's spaces; entries no space re-derives (a staged entry
+    for any mesh, ``stack_lb``) are reported as not checkable, never
+    passed."""
     committed = ScheduleCache.load(REPO / 'tuned_schedules.json')
     vmem = [e for e in committed.entries() if e.kind == 'q_stack_backend'
             and e.source == 'predicted']
     assert [(e.n_h, e.backend) for e in vmem] == [(421, 'layerwise')]
     with pytest.raises(AssertionError, match='drifted'):
         replay_check(committed, device='cpu')
-    rest = ScheduleCache(e for e in committed.entries() if e not in vmem)
+    batched = [e for e in committed.entries() if e.in_stage == 'batched'
+               and e.mesh != ANY_MESH]
+    assert [(e.kind, e.mesh) for e in batched] == [
+        ('stack_f32', 'stage:2,row:2,col:2')]
+    with pytest.raises(AssertionError, match='one order'):
+        replay_check(_cache(*batched), device='cpu')
+    rest = ScheduleCache(e for e in committed.entries()
+                         if e not in vmem + batched)
     checked, unchecked = replay_check(rest, device='cpu')
-    assert checked == 3
-    assert sorted({e.kind for e in unchecked}) == ['geometry', 'stack_f32',
-                                                   'stack_lb']
+    assert checked == 5
+    assert sorted({(e.kind, e.mesh) for e in unchecked}) == [
+        ('stack_f32', ANY_MESH), ('stack_lb', ANY_MESH)]
     assert len(unchecked) == len(rest) - checked
     for bad in (ScheduleEntry(kind='serving_chunk', n_x=1, n_h=2,
                               n_layers=3, T=16, B=4, tc=12),
@@ -426,16 +437,20 @@ def test_measured_serving_config_drives_dispatch():
     entries, records = tune_serving_config(cfg, chunk=8, slots=2,
                                            cache=cache, iters=1,
                                            device='cpu')
-    q, sc = entries
+    q, staged, sc = entries
     assert (q.kind, q.source, q.n_x, q.n_h, q.T, q.B) == (
         'q_stack_backend', 'measured', 13, 32, 8, 2)
+    assert (staged.kind, staged.source, staged.mesh, staged.T, staged.B,
+            staged.in_stage) == ('stack_f32', 'predicted', ANY_MESH, 0, 2,
+                                 'sequential')
     assert (sc.kind, sc.source) == ('serving_chunk', 'measured')
     assert sc.tc in serving_depths(8) and sc.measured_us > 0
     assert [r.params['tc'] for r in records
             if r.suite == 'serving_chunk'] == [4, 8]
     assert {r.params['tile'] for r in records
             if r.suite == 'q_stack_backend'} == {96}
-    assert len(cache) == 2 and replay_check(cache, device='cpu') == (2, [])
+    assert len(cache) == 3 and replay_check(cache, device='cpu') == (
+        2, [staged])
     with using_schedule_cache(cache):
         assert tlstm.select_quantized_stack_backend(
             32, 2, 8, 2, n_x=13, device='cpu') == q.backend
@@ -444,7 +459,7 @@ def test_measured_serving_config_drives_dispatch():
         assert policy.chunk_max == sc.tc
     predicted, _ = tune_serving_config(cfg, chunk=8, slots=2, measure=False,
                                        device='cpu')
-    assert [e.source for e in predicted] == ['predicted']
+    assert [e.source for e in predicted] == ['predicted', 'predicted']
 
 
 # ------------------------------------------------- the CLIs, under tmp_path
@@ -454,14 +469,16 @@ def test_tune_cli_writes_under_tmp_path(tmp_path, capsys):
             '--B', '2', '--tile', '8', '--device', 'cpu', '--out', str(out)]
     assert tune_main(tiny + ['--measure', '--iters', '1',
                              '--csv', str(csv)]) == 0
-    assert len(ScheduleCache.load(out)) == 1
-    assert csv.read_text().splitlines()[0] == (
-        'suite,B,T,backend,n_h,n_layers,n_x,tile,measured_us')
+    # the int8 entry and the staged prediction of the 2x(2x2) placement
+    assert len(ScheduleCache.load(out)) == 2
+    assert csv.with_suffix('.q.csv').read_text().splitlines()[0] == (
+        'suite,B,T,backend,n_h,n_layers,n_x,tile,measured_us,predicted_us')
+    assert csv.read_text().splitlines()[0].startswith('suite,B,T,bk,bn,')
     # a second run at another shape refines the file, never forgets
     assert tune_main(tiny[:-2] + ['--out', str(out), '--T', '16']) == 0
-    assert len(ScheduleCache.load(out)) == 2
+    assert len(ScheduleCache.load(out)) == 4
     text = capsys.readouterr().out
-    assert 'q_stack_backend -> ' in text and 'replay check: 2 entries' in text
+    assert 'q_stack_backend -> ' in text and 'replay check: 4 entries' in text
     with pytest.raises(SystemExit):
         tune_main(['--device', 'cpu', '--out',
                    str(REPO / 'tuned_schedules.json')])
@@ -485,5 +502,5 @@ def test_serve_cli_tunes_and_saves_the_schedule_cache(tmp_path, capsys):
     clear_schedule_cache()
     tserve.main(argv)
     text = capsys.readouterr().out
-    assert 'installed schedule cache: 2 entries' in text
+    assert 'installed schedule cache: 3 entries' in text
     assert 'tuned ' not in text and f'chunk_max={sc.tc} ' in text
