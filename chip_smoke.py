@@ -5,7 +5,8 @@
 
 Drives the port's serving and training paths at the full CTC-3L-421H-UNI
 width (123 MFCC features -> 3x421 peephole LSTM -> 62 CTC outputs, random
-weights from a seed) and checks them:
+weights from a seed), and serves Qwen3-14B at full width (11e), and checks
+them:
 
 1. builds every CUDA kernel of the path from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and prints the build time;
@@ -158,12 +159,38 @@ the same f32 weights' configuration from seed 0):
     port's class and with ``allow_reassoc``), the winner's cache installed
     and one chunk served on its mesh (its split and Tc taken), and
     ``python -m repro_torch.tune --staged-devices 75 --geometry`` as a
-    subprocess.
+    subprocess;
+11e. the dense LM family (``lm_phase``, TF32 and bf16 reduced-precision
+    reductions off): Qwen3-14B built at full width on the card from a
+    seeded CUDA generator (40 layers, d_model 5120, 40 heads on 8 kv
+    heads, bf16; its 14,768,307,200 parameters and 29.54 GB checked
+    against its shapes); K8 against its plain version on q, k, v captured
+    from its layer 0 (decode rows at positions 127, 63 and 0 of a 128-key
+    cache, the split schedule; a 64-token prefill, tiled), bf16 tolerance;
+    64 tokens through ``forward_lm`` and through ``decode_step`` on
+    ``attn_backend`` 'auto' (K8) and 'torch' (the plain attention), every
+    logit row within ``LM_LOGIT_REL`` of the logit scale, argmax agreement
+    printed; the main path with every kernel counter set to 0 just before
+    and read just after: 6 requests through ``launch.serve.SlotServer``
+    (4 slots, 16 new tokens, prompts fed token by token, K8's decode),
+    K8 launched 40 times a call and nothing else; then, counted apart,
+    each served sequence scored by ``forward_lm`` (K8's prefill, 40
+    launches a sequence; its argmax must reproduce at least
+    ``LM_AGREE_MIN`` of the served tokens); a decode step's wall, host
+    issue and traced device time on both backends beside its bound; the
+    model freed; ``python -m
+    repro_torch.launch.serve --arch qwen3-14b --requests 6 --slots 4
+    --max-new 16`` as a subprocess (K8 launches > 0); and one replay each
+    of ``qwen2.5-14b`` (qkv bias), ``codeqwen1.5-7b`` (MHA) and
+    ``minicpm-2b`` (tied embeddings) at their smoke size.
 
-and then the three kernels that no path of the system reaches, each on its
-public op, each held against its plain version and timed beside its bound
-and a PyTorch yardstick, each op driven once per shape with its launch
-counter set to 0 just before and read just after:
+and then the two kernels that no path of the system reaches, each on its
+public op, and K8 also on its own, each held against its plain version and
+timed beside its bound and a PyTorch yardstick, each op driven once per
+shape with its launch counter set to 0 just before and read just after
+(K8's row in the ``kernels`` line leads with its Mixtral case, adds the LM
+phase's cases, takes ``launches`` from the LM's serve path and reports the
+re-score's prefill launches as ``prefill_launches``):
 
 12. K6 (``lstm_gates``, the fused cell) on layer 0 (N_in = 123 + 421) and
     an inner layer (421 + 421) at B = 8, atol 1e-4, with the geometry
@@ -334,6 +361,28 @@ DIE_TUNE_ITERS = 5            # interleaved turns of the staged trials
 DIE_CLASS_PROBE = ((3, 5, 5), (3, 1, 5), (2, 1, 5))
 ATTN_TOL = {'float32': dict(rtol=0.0, atol=1e-4),
             'bfloat16': dict(rtol=2.0 ** -7, atol=1e-5)}
+# the dense LM phase: Qwen3-14B at full width (40 layers, d_model 5120,
+# 40 heads on 8 kv heads, head_dim 128, d_ff 17408, vocab 151,936, bf16;
+# nothing cut), then the other dense configs at their smoke size
+# (qkv_bias; MHA with qkv_bias; tied embeddings)
+LM_ARCH = 'qwen3-14b'
+LM_SMOKE = ('qwen2.5-14b', 'codeqwen1.5-7b', 'minicpm-2b')
+LM_PREFILL = 64               # tokens of K8's prefill case and the replay
+LM_MAX_SEQ = 128              # SlotServer's cache (the reference's default)
+LM_DECODE_POS = (0, 63, 127)  # K8's decode rows against that cache
+LM_REQUESTS, LM_SLOTS, LM_MAX_NEW = 6, 4, 16
+LM_SMOKE_TOKENS = 16
+LM_STEP_REPS = 10             # timed decode steps a backend
+# logits with bf16 activations, K8 against its plain version and decode
+# against forward: max |difference| within this share of the logit scale
+# (max |logit|). bf16 keeps 8 bits and K8 multiplies P in bf16; decode
+# (one row) and forward (a block) reach cuBLAS at other shapes, so every
+# layer rounds differently and 40 layers carry it on
+LM_LOGIT_REL = 5e-2
+# forward_lm's argmax must reproduce at least this share of the served
+# greedy tokens: a sanity floor (a broken cache or position gives ~1/V);
+# bf16 rounding flips near-ties, so not 1
+LM_AGREE_MIN = 0.5
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -2933,6 +2982,331 @@ def die_phase(cfg, params, utts, dev):
                 tune=die_tune(cfg, params, dev))
 
 
+def lm_param_count(cfg) -> int:
+    """Parameters of a dense LM config, counted from its shapes (SwiGLU,
+    RMSNorm): what ``init_lm`` must allocate."""
+    d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    h, hk = cfg.n_heads, cfg.n_kv_heads
+    attn = 2 * d * h * hd + 2 * d * hk * hd
+    attn += (h + 2 * hk) * hd if cfg.qkv_bias else 0
+    attn += 2 * hd if cfg.qk_norm else 0
+    block = attn + 3 * d * ff + 2 * d
+    embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    return embed + cfg.n_layers * block + d
+
+
+def _kernel_counters():
+    """Every kernel wrapper of the port (K1-K8), each with its launch
+    counter."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.lstm_gates import lstm_gates, lstm_gates_rec
+    from repro_torch.kernels.lstm_seq import (lstm_seq, lstm_seq_quantized,
+                                              lstm_stack_seq_kernel,
+                                              lstm_stack_seq_kernel_q)
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    return (lstm_seq, lstm_stack_seq_kernel, lstm_seq_quantized,
+            lstm_stack_seq_kernel_q, lstm_gates_rec, lstm_gates,
+            quant_matmul, flash_attention)
+
+
+def lm_attention_cases(cfg, params, dev):
+    """K8 against its plain version (``attn_measure``, bf16 tolerance
+    ``ATTN_TOL``) at the model's own shapes, on q, k, v captured from layer
+    0 over ``LM_MAX_SEQ`` seeded tokens: decode rows at each
+    ``LM_DECODE_POS`` against the whole cache (``kv_len = pos + 1, offset
+    = pos``, as ``attention_decode`` calls it) and the causal prefill of
+    the first ``LM_PREFILL`` tokens; each with the schedule it ran."""
+    from repro_torch.kernels.flash_attention import attention_geometry
+    from repro_torch.models import layers, transformer
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(dev).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_MAX_SEQ), generator=g,
+                           device=dev)
+    blk = transformer.layer(params, 0)
+    x = layers.apply_norm(cfg, blk['ln1'],
+                          layers.embed(cfg, params['embed'], tokens))
+    cos_sin = layers.rope_cos_sin(torch.arange(LM_MAX_SEQ, device=dev),
+                                  cfg.resolved_head_dim, cfg.rope_theta)
+    q, k, v = (t.transpose(1, 2).contiguous()
+               for t in layers._project_qkv(blk['attn'], x, cos_sin))
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    cases = []
+    for pos in sorted(LM_DECODE_POS, reverse=True):
+        case = attn_measure(f'{LM_ARCH} decode pos={pos} bfloat16',
+                            q[:, :, pos:pos + 1].contiguous(), k, v,
+                            offset=pos, kv_len=pos + 1)
+        geom = attention_geometry(1, H, Hkv, 1, LM_MAX_SEQ, None, pos + 1,
+                                  pos, D, sms)
+        cases.append((case, geom))
+    qp, kp, vp = (t[:, :, :LM_PREFILL].contiguous() for t in (q, k, v))
+    case = attn_measure(f'{LM_ARCH} prefill bfloat16', qp, kp, vp)
+    cases.append((case, attention_geometry(1, H, Hkv, LM_PREFILL,
+                                           LM_PREFILL, None, None, 0, D,
+                                           sms)))
+    for case, geom in cases:
+        case['geometry'] = dataclasses.asdict(geom)
+        _print_attn_case(case, geom)
+        check(case['ok'], f'flash_attention disagrees with its plain version '
+                          f'at {case["shape"]}')
+    return [case for case, _ in cases]
+
+
+def _logit_diff(a, b, scale: float):
+    """max |a - b| over the logit scale, and the share of rows whose argmax
+    agrees."""
+    return dict(max_abs=float((a - b).abs().max()),
+                rel=float((a - b).abs().max()) / scale,
+                argmax_agree=float((a.argmax(-1) == b.argmax(-1)).float()
+                                   .mean()))
+
+
+def lm_replay(cfg, params, tokens, dev):
+    """``tokens`` (1, S) through ``forward_lm`` and through ``decode_step``
+    token by token from an empty cache, every logit row, on
+    ``attn_backend`` 'auto' (K8) and 'torch' (its plain version) with the
+    same weights: each pair's max-abs difference relative to the logit
+    scale (max |logit| of the plain forward) and its argmax agreement;
+    every pair within ``LM_LOGIT_REL``, every logit finite."""
+    from repro_torch.models import transformer
+    S = tokens.shape[1]
+    out = {}
+    for backend in ('auto', 'torch'):
+        c = cfg.replace(attn_backend=backend)
+        full = transformer.forward_lm(c, params, tokens)[0][0].float()
+        cache = transformer.init_cache(c, 1, max(S, LM_MAX_SEQ), dev)
+        dec = torch.stack([transformer.decode_step(
+            c, params, cache, tokens[:, t:t + 1], t)[0][0, 0].float()
+            for t in range(S)])
+        out[backend] = (full, dec)
+    scale = float(out['torch'][0].abs().max())
+    pairs = {'decode vs forward (K8)': (out['auto'][1], out['auto'][0]),
+             'decode vs forward (plain)': (out['torch'][1], out['torch'][0]),
+             'decode: K8 vs plain': (out['auto'][1], out['torch'][1]),
+             'forward: K8 vs plain': (out['auto'][0], out['torch'][0])}
+    res = dict(tokens=S, logit_scale=scale, tol_rel=LM_LOGIT_REL,
+               finite=all(bool(torch.isfinite(t).all())
+                          for p in out.values() for t in p),
+               pairs={k: _logit_diff(a, b, scale)
+                      for k, (a, b) in pairs.items()})
+    print(f'{cfg.name} replay of {S} tokens (logit scale {scale:.4f}, tol '
+          f'{LM_LOGIT_REL} of it): ' + '; '.join(
+              f'{k} {v["rel"]:.3e} (argmax {v["argmax_agree"]:.3f})'
+              for k, v in res['pairs'].items()), flush=True)
+    check(res['finite'] and all(v['rel'] <= LM_LOGIT_REL
+                                for v in res['pairs'].values()),
+          f'{cfg.name}: decode replay outside {LM_LOGIT_REL} of the logit '
+          f'scale, or not finite')
+    return res
+
+
+def lm_serve(cfg, params, dev):
+    """The LM's main path, with every kernel counter set to 0 just before
+    and read just after: ``LM_REQUESTS`` seeded prompts of 3-7 tokens
+    served through ``SlotServer`` (``LM_SLOTS`` slots, ``LM_MAX_NEW``
+    tokens each; K8's split decode).  Then, counted apart, each served
+    sequence scored whole by ``forward_lm`` (K8's tiled prefill), whose
+    argmax must reproduce the served tokens at a share of at least
+    ``LM_AGREE_MIN``.  Returns (numbers, the serve's launches by kernel,
+    the re-score's)."""
+    from repro_torch.launch.serve import Request, SlotServer
+    from repro_torch.models import transformer
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(1, cfg.vocab_size, size=rng.randint(3, 8)).tolist()
+               for _ in range(LM_REQUESTS)]
+    kernels = _kernel_counters()
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    server = SlotServer(cfg, params, num_slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+    for r, prompt in enumerate(prompts):
+        server.submit(Request(rid=r, prompt=prompt, max_new=LM_MAX_NEW))
+    server.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    done = sorted(server.done, key=lambda r: r.rid)
+    agree = []
+    for r in done:
+        seq = torch.tensor([r.prompt + r.out[:-1]], device=dev)
+        logits = transformer.forward_lm(cfg, params, seq)[0][0]
+        best = logits[len(r.prompt) - 1:].argmax(-1).cpu().numpy()
+        agree += (best == np.array(r.out)).tolist()
+    torch.cuda.synchronize()
+    rescore = {k.__name__: k.launches - launches[k.__name__]
+               for k in kernels}
+    toks = sum(len(r.out) for r in done)
+    calls = sum(len(r.prompt) + len(r.out) - 1 for r in done)
+    lat = [r.t_done - r.t_enqueue for r in done]
+    res = dict(requests=len(done), tokens=toks, decode_calls=calls,
+               wall_s=wall, tok_per_s=toks / wall,
+               p50_latency_s=float(np.median(lat)),
+               ms_per_decode_call=wall / calls * 1e3,
+               greedy_agree=float(np.mean(agree)),
+               outputs={r.rid: r.out for r in done})
+    print(f'{cfg.name} SlotServer: {len(done)} requests, {toks} tokens in '
+          f'{wall:.2f} s ({res["tok_per_s"]:.2f} tok/s, '
+          f'{res["ms_per_decode_call"]:.2f} ms a decode call over {calls} '
+          f'calls); p50 latency {res["p50_latency_s"]:.3f} s; forward_lm '
+          f'argmax == served token at {res["greedy_agree"]:.3f}; serve '
+          f'launches {launches}; re-score launches {rescore}', flush=True)
+    check(toks == LM_REQUESTS * LM_MAX_NEW
+          and all(0 <= t < cfg.vocab_size for r in done for t in r.out),
+          f'{cfg.name}: served {toks} tokens')
+    for what, got, want in (('serve', launches, calls * cfg.n_layers),
+                            ('re-score', rescore, len(done) * cfg.n_layers)):
+        check(got['flash_attention'] == want and sum(got.values()) == want,
+              f'{cfg.name}: {what} launched {got}, expected {want} of K8')
+    check(res['greedy_agree'] >= LM_AGREE_MIN,
+          f'{cfg.name}: forward_lm reproduces {res["greedy_agree"]:.3f} of '
+          f'the served tokens')
+    return res, launches, rescore
+
+
+def lm_step_times(cfg, params, dev, nbytes: int):
+    """One decode step at position ``LM_PREFILL`` of an ``LM_MAX_SEQ``-slot
+    cache on 'auto' (K8) and 'torch': the wall of a synchronized step
+    (median of ``LM_STEP_REPS``, the backends in turns), the host's issue
+    ms (``host_ms``) and one traced step (``trace``: device busy ms, device
+    ops, idle share), beside the bound of the bytes a step must read
+    (``nbytes``: every weight but the embedding table, one table row, the
+    cache's live rows).  Device time comes from the trace: a step issues
+    ~2,600 kernels, more than the launch queue holds, so ``cuda_ms``'s
+    queued run would time the host's issue instead."""
+    from repro_torch.models import transformer
+    tok = torch.tensor([[1]], device=dev)
+    steps = {}
+    for backend in ('auto', 'torch'):
+        c = cfg.replace(attn_backend=backend)
+        cache = transformer.init_cache(c, 1, LM_MAX_SEQ, dev)
+        steps[backend] = lambda c=c, cache=cache: transformer.decode_step(
+            c, params, cache, tok, LM_PREFILL)
+    walls = {b: [] for b in steps}
+    for i in range(LM_STEP_REPS):
+        for b in (steps if i % 2 == 0 else reversed(list(steps))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps[b]()
+            torch.cuda.synchronize()
+            walls[b].append((time.perf_counter() - t0) * 1e3)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    res = dict(bound_ms=bound_ms, bytes=nbytes)
+    for b, fn in steps.items():
+        t = trace(fn, f'{cfg.name} decode step [{b}]')
+        res[b] = dict(wall_ms=float(np.median(walls[b])),
+                      host_issue_ms=host_ms(fn, LM_STEP_REPS),
+                      device_busy_ms=t['device_busy_ms'],
+                      device_ops=t['device_ops'],
+                      idle_share=t['idle_share'], top=t['top'])
+    print(f'{cfg.name} decode step (bound {bound_ms:.3f} ms: '
+          f'{nbytes / 1e9:.3f} GB at 3.35 TB/s): ' + '; '.join(
+              f'{b}: wall {res[b]["wall_ms"]:.3f} ms, host issue '
+              f'{res[b]["host_issue_ms"]:.3f} ms, device busy '
+              f'{res[b]["device_busy_ms"]:.3f} ms in '
+              f'{res[b]["device_ops"]} ops' for b in steps), flush=True)
+    return res
+
+
+def lm_smoke_replay(name: str, dev):
+    """``name``'s smoke configuration (bf16 activations, f32 weights,
+    seeded) on the card: ``lm_replay`` of ``LM_SMOKE_TOKENS`` tokens."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    cfg = configs.get_smoke_config(name)
+    params = transformer.init_lm(cfg, torch.Generator(dev).manual_seed(SEED),
+                                 dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_SMOKE_TOKENS),
+                           generator=torch.Generator(dev).manual_seed(SEED),
+                           device=dev)
+    return lm_replay(cfg, params, tokens, dev)
+
+
+def lm_phase(dev):
+    """The dense LM family on the card: ``LM_ARCH`` built at full width
+    from a seeded CUDA generator (parameters and resident bytes checked
+    against its shapes), K8 at its shapes (``lm_attention_cases``), a
+    decode replay against ``forward_lm`` on K8 and on the plain attention
+    (``lm_replay``), the served main path (``lm_serve``), a decode step's
+    times (``lm_step_times``, one step traced a backend); the model freed;
+    the serve CLI at full width as a subprocess; and a replay of each
+    ``LM_SMOKE`` config at its smoke size.  TF32 is off for all of it and
+    bf16 reduced-precision reductions in this process (the flag is
+    restored after the phase; the CLI subprocess runs on the defaults)."""
+    flags = torch.backends.cuda.matmul
+    saved = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        return _lm_phase(dev)
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = saved
+
+
+def _lm_phase(dev):
+    import gc
+    import re
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.models import get_bundle
+    from repro_torch.tree import leaves
+    cfg = configs.get_config(LM_ARCH)
+    bundle = get_bundle(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = bundle.param_count(params)
+    nbytes = sum(p.numel() * p.element_size() for p in leaves(params))
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    print(f'{LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, '
+          f'{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab '
+          f'{cfg.vocab_size}, {cfg.param_dtype}: {n} parameters, {nbytes} '
+          f'bytes resident ({nbytes / 1e9:.2f} GB), init {init_s:.2f} s, '
+          f'peak {peak / 1e9:.2f} GB', flush=True)
+    check(n == lm_param_count(cfg) and all(
+        p.dtype == torch.bfloat16 and p.device.type == 'cuda'
+        for p in leaves(params)), f'{LM_ARCH}: {n} parameters')
+    res = dict(arch=LM_ARCH, params=n, bytes=nbytes, init_s=init_s,
+               init_peak_bytes=peak)
+    res['attn_cases'] = lm_attention_cases(cfg, params, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_PREFILL),
+                           generator=torch.Generator(dev).manual_seed(SEED),
+                           device=dev)
+    res['replay'] = lm_replay(cfg, params, tokens, dev)
+    res['serve'], res['launches'], res['rescore_launches'] = lm_serve(
+        cfg, params, dev)
+    table = params['embed']['table']
+    step_bytes = (nbytes - table.numel() * table.element_size()
+                  + cfg.d_model * table.element_size()
+                  + 2 * cfg.n_layers * cfg.n_kv_heads * (LM_PREFILL + 1)
+                  * cfg.resolved_head_dim * 2)
+    res['step'] = lm_step_times(cfg, params, dev, step_bytes)
+    del params, table
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _run_cli('serve qwen3-14b', [
+            'repro_torch.launch.serve', '--arch', LM_ARCH, '--requests',
+            str(LM_REQUESTS), '--slots', str(LM_SLOTS), '--max-new',
+            str(LM_MAX_NEW)], tmp)
+    m = re.search(r'served (\d+) requests, (\d+) tokens in ([0-9.]+)s '
+                  r'\(([0-9.]+) tok/s\); p50 latency ([0-9.]+)s', out)
+    k8 = re.search(r'K8 launches (\d+)', out)
+    check(m is not None and k8 is not None and int(m.group(2))
+          == LM_REQUESTS * LM_MAX_NEW and int(k8.group(1)) > 0,
+          'serve --arch qwen3-14b did not serve on K8')
+    res['cli'] = dict(tokens=int(m.group(2)), wall_s=float(m.group(3)),
+                      tok_per_s=float(m.group(4)),
+                      p50_latency_s=float(m.group(5)),
+                      k8_launches=int(k8.group(1)),
+                      lines=out.strip().splitlines())
+    res['smoke'] = {name: lm_smoke_replay(name, dev) for name in LM_SMOKE}
+    return res
+
+
 def _case_row(name: str, source: str, replaces: str, cases):
     """A kernels-line row from the measured cases of one kernel: the first
     case's numbers, the worst error and every case under ``cases``."""
@@ -3081,10 +3455,10 @@ def quant_matmul_checks(dev):
     return row
 
 
-def _needed(sq: int, sk: int, offset: int, window):
+def _needed(sq: int, sk: int, offset: int, window, kv_len=None):
     """(valid query-key pairs, keys any query sees) of one causal head."""
     pos = np.arange(sq) + offset
-    hi = np.minimum(sk, pos + 1)
+    hi = np.minimum(sk if kv_len is None else min(sk, kv_len), pos + 1)
     lo = np.zeros_like(pos) if window is None else np.maximum(
         0, pos - window + 1)
     seen = np.zeros(sk + 1, np.int64)
@@ -3098,20 +3472,31 @@ def _needed(sq: int, sk: int, offset: int, window):
 def attn_case(label: str, B: int, H: int, Hkv: int, Sq: int, Sk: int,
               D: int, window, dt: str, g, dev):
     """One K8 case with ``mha``'s arguments (causal, offset Sk - Sq) on
-    normal data drawn from ``g``: its error against the plain version and
-    the share of the tolerance used, the kernel's ms, its plain version's,
-    that of ``scaled_dot_product_attention`` with ``enable_gqa`` and an
-    explicit boolean mask (its ``is_causal`` is top-left aligned, wrong for
-    Sq != Sk) and the bound.  Only public calls that the parent tree has
-    too, so ``--ab`` runs it on either.  Returns (case, inputs)."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention)
+    normal data drawn from ``g`` (``attn_measure``).  Only public calls
+    that the parent tree has too, so ``--ab`` runs it on either.  Returns
+    (case, inputs)."""
     dtype = getattr(torch, dt)
     q = torch.randn(B, H, Sq, D, generator=g, device=dev).to(dtype)
     k, v = (torch.randn(B, Hkv, Sk, D, generator=g, device=dev).to(dtype)
             for _ in range(2))
-    kw = dict(causal=True, window=window, offset=Sk - Sq)
+    return attn_measure(f'{label} {dt}', q, k, v, window=window,
+                        offset=Sk - Sq), (q, k, v, window)
+
+
+def attn_measure(label: str, q, k, v, window=None, offset=0, kv_len=None):
+    """K8 on q, k, v (causal; ``window``, ``offset``, ``kv_len``): its
+    error against the plain version and the share of the tolerance used,
+    the kernel's ms, its plain version's, that of
+    ``scaled_dot_product_attention`` with ``enable_gqa`` and an explicit
+    boolean mask (its ``is_causal`` is top-left aligned, wrong for Sq !=
+    Sk) and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    dt = str(q.dtype).split('.')[-1]
+    kw = dict(causal=True, window=window, offset=offset, kv_len=kv_len)
     got = flash_attention(q, k, v, **kw).float()
     want = attention_ref(q, k, v, **kw).float()
     err = float((got - want).abs().max())
@@ -3120,20 +3505,23 @@ def attn_case(label: str, B: int, H: int, Hkv: int, Sq: int, Sk: int,
     # the largest share of the limit any element uses (<= 1 passes)
     used = float(((got - want).abs() / (
         tol['atol'] + tol['rtol'] * want.abs())).max())
-    pos = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
-    key = torch.arange(Sk, device=dev)[None, :]
+    pos = torch.arange(Sq, device=q.device)[:, None] + offset
+    key = torch.arange(Sk, device=q.device)[None, :]
     mask = pos >= key
     if window is not None:
         mask &= (pos - key) < window
+    if kv_len is not None:
+        mask &= key < kv_len
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
     lib_err = float((sdpa().float() - want).abs().max())
-    pairs, keys = _needed(Sq, Sk, Sk - Sq, window)
+    pairs, keys = _needed(Sq, Sk, offset, window, kv_len)
     big = pairs * H > 1e8
     es = q.element_size()
+    extra = '' if kv_len is None else f' kv_len={kv_len} offset={offset}'
     case = dict(
-        shape=f'{label} {dt} B={B} H={H} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} '
-              f'window={window}', max_abs_err=err, tol=tol, ok=ok,
+        shape=f'{label} B={B} H={H} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} '
+              f'window={window}{extra}', max_abs_err=err, tol=tol, ok=ok,
         tol_used=used,
         ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), 3 if big else 20),
         plain_ms=cuda_ms(lambda: attention_ref(q, k, v, **kw),
@@ -3149,14 +3537,31 @@ def attn_case(label: str, B: int, H: int, Hkv: int, Sq: int, Sk: int,
         case['bytes'], case['flops'],
         BF16_FLOPS_PER_S if dt == 'bfloat16' else F32_FLOPS_PER_S)
     case['bound_f32_cores_ms'] = bound(case['bytes'], case['flops'])[0]
-    return case, (q, k, v, window)
+    return case
 
 
-def attention_checks(dev):
+def _print_attn_case(case, geom, narrow: str = '') -> None:
+    print(f"flash_attention: {case['shape']}: max_abs_err "
+          f"{case['max_abs_err']:.3e} (tol {case['tol']}, "
+          f"{case['tol_used']:.3f} of the limit), kernel "
+          f"{case['ms']:.4f} ms{narrow}, plain {case['plain_ms']:.4f} "
+          f"ms, sdpa {case['library_ms']:.4f} ms (max abs diff "
+          f"{case['library_max_abs_diff']:.3e}), bound "
+          f"{case['bound_ms']:.5f} ms ({case['bound_by']}: "
+          f"{case['flops'] / 1e9:.2f} GFLOP, {case['bytes'] / 1e6:.2f} "
+          f"MB; at the f32 CUDA-core peak "
+          f"{case['bound_f32_cores_ms']:.5f} ms); schedule {geom.path} "
+          f"({geom.tile_rows} rows a tile, n_splits {geom.n_splits})",
+          flush=True)
+
+
+def attention_checks(dev, lm):
     """K8 (``flash_attention``) at each ``ATTN_CASES`` case (``attn_case``),
     with its schedule, and where that is 128-row tiles also the time of
     the 64-row tiles on the same inputs; then drives the public op ``mha``
-    once per case with the launch counter set to 0."""
+    once per case with the launch counter set to 0.  The kernels-line row
+    leads with the LM phase's cases (``lm``: Qwen3-14B's decode and
+    prefill, its main path) and takes its launches from that path."""
     from unittest import mock
     from repro_torch.kernels.flash_attention import (attention_geometry,
                                                      flash_attention, mha)
@@ -3179,18 +3584,7 @@ def attention_checks(dev):
                 case['ms_64_rows'] = cuda_ms(lambda: flash_attention(
                     q, k, v, causal=True, window=window), 3)
             narrow = f", {case['ms_64_rows']:.4f} ms in 64-row tiles"
-        print(f"flash_attention: {case['shape']}: max_abs_err "
-              f"{case['max_abs_err']:.3e} (tol {case['tol']}, "
-              f"{case['tol_used']:.3f} of the limit), kernel "
-              f"{case['ms']:.4f} ms{narrow}, plain {case['plain_ms']:.4f} "
-              f"ms, sdpa {case['library_ms']:.4f} ms (max abs diff "
-              f"{case['library_max_abs_diff']:.3e}), bound "
-              f"{case['bound_ms']:.5f} ms ({case['bound_by']}: "
-              f"{case['flops'] / 1e9:.2f} GFLOP, {case['bytes'] / 1e6:.2f} "
-              f"MB; at the f32 CUDA-core peak "
-              f"{case['bound_f32_cores_ms']:.5f} ms); schedule {geom.path} "
-              f"({geom.tile_rows} rows a tile, n_splits {geom.n_splits})",
-              flush=True)
+        _print_attn_case(case, geom, narrow)
         check(case['ok'], f'flash_attention disagrees with its plain version '
                           f'at {case["shape"]}')
         cases.append(case)
@@ -3208,8 +3602,11 @@ def attention_checks(dev):
     check(launches == len(inputs), 'mha must launch K8 once')
     row = _case_row('flash_attention',
                     'src/repro_torch/csrc/flash_attention.cu',
-                    'src/repro/kernels/flash_attention/kernel.py:79', cases)
-    row['launches'] = launches
+                    'src/repro/kernels/flash_attention/kernel.py:79',
+                    cases + lm['attn_cases'])
+    row['launches'] = lm['launches']['flash_attention']
+    row['prefill_launches'] = lm['rescore_launches']['flash_attention']
+    row['mha_launches'] = launches
     return row
 
 
@@ -3624,9 +4021,13 @@ def main(argv=None) -> int:
     systolic = systolic_phase(cfg, params, qps, utts, dev)
     die = die_phase(cfg, params, utts, dev)
 
-    # K6-K8 on their public ops (no path of the system reaches them)
+    # the dense LM served at full width, its attention on K8
+    lm = lm_phase(dev)
+
+    # K6 and K7 on their public ops (no path of the system reaches them);
+    # K8 at Mixtral's shapes and on mha beside the LM path's cases
     op_rows = [cell_checks(params, CELL_BATCH, dev),
-               quant_matmul_checks(dev), attention_checks(dev)]
+               quant_matmul_checks(dev), attention_checks(dev, lm)]
 
     launches = dict(lstm_seq=runs['cuda_seq']['launches']['lstm_seq'],
                     lstm_stack_seq_kernel=runs['cuda_seq_fused']['launches']
@@ -3658,7 +4059,8 @@ def main(argv=None) -> int:
             profiles=profiles,
             stack_kernel_weights_q=q_stacking, int8_deploy=deploy,
             train_grad_rel_err=grad_err, train=train, train_cli=cli,
-            tune=tuned, examples=examples, systolic=systolic, die=die),
+            tune=tuned, examples=examples, systolic=systolic, die=die,
+            lm=lm),
             indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {

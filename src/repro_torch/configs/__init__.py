@@ -1,36 +1,92 @@
-"""Architecture and shape configuration for the ported LSTM family.
+"""Architecture and shape configuration registry of the port.
 
-The subset of ``repro.configs.ArchConfig`` that the paper's CTC LSTM uses
-(name, family, layer count, widths, parameter dtype, backend, optimizer),
-``ShapeConfig`` (a batch's sequence length and size), and the registry
-lookups ``get_config`` / ``get_smoke_config``.  The backend names are the
-port's (``core.lstm.BACKENDS``), not the TPU ones.
+``ArchConfig`` carries the reference's field list (``repro.configs``), so a
+configuration file copies across, with these differences for the card: the
+backend names are the port's (``lstm_backend`` takes
+``core.lstm.BACKENDS``), ``attn_backend`` takes the place of the
+reference's ``use_pallas`` switch for attention (``models.layers``), and
+the training and blocking knobs that nothing of the port reads (``remat``,
+``scan_layers``, ``attn_chunk``) are left out.  ``adtype()``/``dtype()``
+return torch dtypes.  ``ARCH_MODULES`` holds the families the port runs:
+the paper's CTC LSTM and the four dense LMs; the other reference
+configurations come with the slices that port their families (ROADMAP
+queue 1, item 3).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Optional, Tuple
 
 import torch
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int                      # per-expert hidden dim
+    capacity_factor: float = 1.25
+    router_dtype: str = 'float32'
+
+
+ATTN_BACKENDS = ('auto', 'torch')
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # only 'lstm' is ported
+    family: str                    # dense | moe | ssm | hybrid | audio | vlm | lstm
     n_layers: int
-    lstm_hidden: int
-    lstm_inputs: int
-    n_outputs: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None          # default d_model // n_heads
+    moe: Optional[MoEConfig] = None
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    sliding_window: Optional[int] = None    # SWA width (mixtral, hymba)
+    global_layer_ids: Tuple[int, ...] = ()  # full-attn layers in SWA models
+    cross_attn_every: Optional[int] = None  # vlm: 1 cross layer per N
+    n_source_tokens: int = 0                # audio/vlm stub frontend length
+    rope_theta: float = 10_000.0
+    norm: str = 'rmsnorm'                   # rmsnorm | layernorm
+    act: str = 'silu'                       # silu (SwiGLU) | gelu
+    tie_embeddings: bool = False
+    # recurrent families
+    ssm_state: int = 0                      # mamba state dim (hybrid)
+    xlstm_slstm_every: int = 0              # ssm family: 1 sLSTM per N blocks
+    conv_kernel: int = 4
+    # encoder-decoder (audio)
+    n_encoder_layers: int = 0
+    # paper-native LSTM family
+    lstm_hidden: int = 0
+    lstm_inputs: int = 0
+    n_outputs: int = 0
+    # numerics / execution
     param_dtype: str = 'float32'
-    # auto | torch_scan | cuda_seq | cuda_seq_fused | cuda_step
-    # (core.lstm.BACKENDS)
+    activation_dtype: str = 'bfloat16'
+    # auto: K8 (kernels.flash_attention) on CUDA tensors, its plain version
+    # on CPU ones | torch: the plain version on any device
+    attn_backend: str = 'auto'
+    # auto | torch_scan | cuda_seq | cuda_seq_fused | cuda_step |
+    # cuda_seq_systolic | cuda_seq_fused_systolic (core.lstm.BACKENDS)
     lstm_backend: str = 'auto'
     optimizer: str = 'adamw'       # optim.make_optimizer; only adamw ported
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
 
     def dtype(self) -> torch.dtype:
         """The parameter / state dtype as a torch dtype."""
         return getattr(torch, self.param_dtype)
+
+    def adtype(self) -> torch.dtype:
+        """The activation (and KV cache) dtype as a torch dtype."""
+        return getattr(torch, self.activation_dtype)
 
     def replace(self, **kw) -> 'ArchConfig':
         """A copy with the given fields replaced (the config is frozen)."""
@@ -47,7 +103,13 @@ class ShapeConfig:
     global_batch: int
 
 
-ARCH_MODULES = {'chipmunk-ctc': 'chipmunk_ctc'}
+ARCH_MODULES = {
+    'qwen3-14b': 'qwen3_14b',
+    'minicpm-2b': 'minicpm_2b',
+    'codeqwen1.5-7b': 'codeqwen15_7b',
+    'qwen2.5-14b': 'qwen25_14b',
+    'chipmunk-ctc': 'chipmunk_ctc',
+}
 
 
 def get_config(name: str) -> ArchConfig:
@@ -58,3 +120,4 @@ def get_config(name: str) -> ArchConfig:
 def get_smoke_config(name: str) -> ArchConfig:
     """The reduced same-family configuration of ``name`` for CPU tests."""
     return importlib.import_module(f'.{ARCH_MODULES[name]}', __package__).SMOKE
+

@@ -9,6 +9,9 @@ Layouts are kept as they are: ``w_x`` (4, N_h, N_x), ``w_h`` (4, N_h, N_h),
 layer (``QuantizedPackedLSTM``), keeping its integer dtypes.
 ``train_state_from_numpy`` carries a whole train state — the reference's
 ``{'params', 'opt', 'step'}`` with AdamW's moments — into the port's.
+``lm_params_from_numpy`` carries the dense LM's nested dict of parameters
+leaf for leaf in each leaf's own dtype (bf16 included), and
+``lm_cache_from_numpy`` its KV cache into the port's layout.
 Nothing here imports JAX; the values are copied bit for bit.
 """
 from __future__ import annotations
@@ -87,3 +90,34 @@ def train_state_from_numpy(state, device='cuda'):
                               stack_params_from_numpy(_field(opt, 'v'),
                                                       device)),
             'step': _step(_field(state, 'step'))}
+
+
+def _exact(a, device) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype on ``device``.  A bf16
+    array (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses)
+    goes across as its 16-bit pattern, so no value is widened or
+    rounded."""
+    a = np.asarray(a)
+    if a.dtype.name == 'bfloat16':
+        bits = np.array(a, order='C', copy=True).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, order='C', copy=True)).to(device)
+
+
+def lm_params_from_numpy(tree, device='cuda'):
+    """The port's LM parameters from ``jax.tree.map(np.asarray, params)``
+    of the reference's (``transformer.init_lm``): the same nested dict
+    (``embed``, ``blocks`` stacked over layers, ``final_norm``), every leaf
+    bit for bit in its own dtype, on ``device``."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    return _exact(tree, device)
+
+
+def lm_cache_from_numpy(cache, device='cuda'):
+    """The port's KV cache from a numpy copy of the reference's linear one:
+    ``k``/``v`` (layers, B, W, Hkv, hd) -> (layers, B, Hkv, W, hd)
+    (``transformer.init_cache``'s layout); the reference's ``pos`` array
+    is dropped (the port's cache is linear, slot = position)."""
+    return {n: _exact(np.swapaxes(np.asarray(cache[n]), 2, 3), device)
+            for n in ('k', 'v')}

@@ -2,7 +2,8 @@
 
     python -m repro_torch.examples.quickstart
     python -m repro_torch.examples.speech_ctc --steps 60
+    python -m repro_torch.examples.serve_lm --arch qwen3-14b
 
 They live in the package because the repository's ``examples/`` holds the
-reference's own.  Both run on the card unless ``--device cpu`` is given.
+reference's own.  All three run on the card unless ``--device cpu`` is given.
 """

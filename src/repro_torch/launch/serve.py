@@ -1,9 +1,25 @@
-"""Streaming server for the paper's CTC LSTM on the packed engine.
+"""Serving entry point of the port: streams for the paper's CTC LSTM, tokens
+for the dense LMs.
 
-Utterances of MFCC frames in, per-frame CTC log-probs and incrementally
-decoded phonemes out.  Every engine step advances all active streams
-through one batched chunked call; on ``--lstm-backend cuda_seq_fused`` that
-call is one kernel launch for the whole stack.  Runs on the card by
+``--arch`` picks the front end by family.  A dense LM (``qwen3-14b``,
+``qwen2.5-14b``, ``codeqwen1.5-7b``, ``minicpm-2b``) is served by
+``SlotServer``: a fixed number of decode slots, each with its own KV cache,
+refilled from the queue as requests finish (continuous batching), greedy
+sampling, the prompt fed token by token through ``decode_step`` as the
+reference does; its attention runs on K8 on the card.  The full
+configuration is the default (Qwen3-14B: 40 layers, d_model 5120, bf16,
+random weights from seed 0)::
+
+    python -m repro_torch.launch.serve --arch qwen3-14b --requests 6 \
+        --slots 4 --max-new 16
+    python -m repro_torch.launch.serve --arch qwen3-14b --smoke \
+        --device cpu
+
+The paper's CTC LSTM streams utterances of MFCC frames in, and per-frame
+CTC log-probs and incrementally decoded phonemes out.  Every engine step
+advances all active streams through one batched chunked call; on
+``--lstm-backend cuda_seq_fused`` that call is one kernel launch for the
+whole stack.  Runs on the card by
 default; the full ``chipmunk-ctc`` configuration is the default and
 ``--smoke`` selects the reduced one::
 
@@ -61,18 +77,100 @@ saves the entries to ``--schedule-cache`` when given::
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from .. import configs
 from ..core.lstm import BACKENDS
-from ..models import chipmunk_net
+from ..kernels.flash_attention import flash_attention
+from ..models import chipmunk_net, get_bundle
 from ..runtime import ChunkSizePolicy, ServingFaultConfig
-from ..serving import StreamingEngine, tuned_chunk_ceiling
+from ..serving import SlotScheduler, StreamingEngine, tuned_chunk_ceiling
 from .mesh import (DIE_TOPOLOGIES, SYSTOLIC_TOPOLOGIES, install_die_topology,
                    install_systolic_topology)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new: int = 16
+    out: Optional[List[int]] = None
+    t_enqueue: float = 0.0
+    t_first: Optional[float] = None
+    t_done: Optional[float] = None
+    # prompt tokens not yet fed into the slot's cache (reset on admission)
+    _prefill_left: List[int] = dataclasses.field(default_factory=list)
+
+
+class SlotServer:
+    """``num_slots`` concurrent decodes of a dense LM; greedy sampling;
+    per-slot refill (the reference's ``SlotServer``).
+
+    Each slot owns its own cache (batch 1), so a refill never perturbs a
+    neighbour; a prompt goes through ``decode_step`` token by token.  Slot
+    bookkeeping lives in ``serving.SlotScheduler``; this class owns the
+    caches, on the parameters' device."""
+
+    def __init__(self, cfg, params, num_slots=4, max_seq=128):
+        self.cfg = cfg
+        self.bundle = get_bundle(cfg)
+        self.params = params
+        self.max_seq = max_seq
+        self.device = params['embed']['table'].device
+        self.sched: SlotScheduler[Request] = SlotScheduler(num_slots)
+        self.caches = [self._fresh_cache() for _ in range(num_slots)]
+        self.pos = [0] * num_slots
+
+    def _fresh_cache(self):
+        return self.bundle.init_cache(1, self.max_seq, self.device)
+
+    @property
+    def done(self) -> List[Request]:
+        return self.sched.done
+
+    def submit(self, req: Request):
+        req.t_enqueue = time.time()
+        req.out = []
+        self.sched.submit(req)
+
+    def _admit(self, i: int, req: Request):
+        # fresh cache per admission: a recycled slot never leaks state
+        self.caches[i] = self._fresh_cache()
+        self.pos[i] = 0
+        req._prefill_left = list(req.prompt)
+
+    def step(self):
+        """One decode step across all active slots."""
+        self.sched.refill(self._admit)
+        for i, req in self.sched.active():
+            if req._prefill_left:
+                tok = req._prefill_left.pop(0)
+                emit = not req._prefill_left
+            else:
+                tok = req.out[-1]
+                emit = True
+            logits, self.caches[i] = self.bundle.decode_step(
+                self.params, self.caches[i],
+                torch.tensor([[tok]], device=self.device), self.pos[i])
+            self.pos[i] += 1
+            if emit:
+                nxt = int(torch.argmax(logits[0, -1]))
+                if req.t_first is None:
+                    req.t_first = time.time()
+                req.out.append(nxt)
+                if (len(req.out) >= req.max_new
+                        or self.pos[i] >= self.max_seq - 1):
+                    req.t_done = time.time()
+                    self.sched.finish(i)
+
+    def drain(self):
+        while self.sched.busy:
+            self.step()
 
 
 class StreamServer:
@@ -110,6 +208,39 @@ def deadline_policy(cfg, chunk: int, slots: int, slo: float
     cache (``tuned_chunk_ceiling``; ``chunk`` on a miss)."""
     return ChunkSizePolicy(chunk_max=tuned_chunk_ceiling(cfg, chunk, slots),
                            slack=slo)
+
+
+def _run_token_serving(cfg, args):
+    """Serve ``args.requests`` random prompts (3-7 tokens, numpy seed 0)
+    through ``SlotServer`` on ``args.device`` with weights from seed 0;
+    prints the reference's summary line, then the device, the attention
+    backend and K8's launches.  Returns the numbers and the requests."""
+    bundle = get_bundle(cfg)
+    params = bundle.init(torch.Generator(args.device).manual_seed(0),
+                         args.device)
+    server = SlotServer(cfg, params, num_slots=args.slots)
+    rng = np.random.RandomState(0)
+    launches = flash_attention.launches
+    t0 = time.time()
+    for r in range(args.requests):
+        prompt = rng.randint(1, cfg.vocab_size,
+                             size=rng.randint(3, 8)).tolist()
+        server.submit(Request(rid=r, prompt=prompt, max_new=args.max_new))
+    server.drain()
+    wall = time.time() - t0
+    launches = flash_attention.launches - launches
+    toks = sum(len(r.out) for r in server.done)
+    lat = [r.t_done - r.t_enqueue for r in server.done]
+    print(f'served {len(server.done)} requests, {toks} tokens in {wall:.2f}s '
+          f'({toks / wall:.1f} tok/s); p50 latency {np.median(lat):.2f}s')
+    print(f'{cfg.name} on {args.device}: {bundle.param_count(params)} '
+          f'parameters, attention {cfg.attn_backend}, K8 launches '
+          f'{launches}')
+    for r in sorted(server.done, key=lambda r: r.rid)[:3]:
+        print(f'  req {r.rid}: prompt {r.prompt[:4]}... -> {r.out}')
+    return dict(requests=len(server.done), tokens=toks, wall_s=wall,
+                tok_per_s=toks / wall, p50_latency_s=float(np.median(lat)),
+                k8_launches=launches, done=server.done)
 
 
 def _parse_at_spec(spec: str):
@@ -217,8 +348,10 @@ def build_parser() -> argparse.ArgumentParser:
                          'one')
     ap.add_argument('--requests', type=int, default=6)
     ap.add_argument('--slots', type=int, default=4)
+    ap.add_argument('--max-new', type=int, default=8,
+                    help='tokens generated per request (token families)')
     ap.add_argument('--chunk', type=int, default=16,
-                    help='frames per engine step')
+                    help='frames per engine step (LSTM streaming)')
     ap.add_argument('--lstm-backend', default='auto', choices=BACKENDS,
                     help='cuda_step serves on the CPU only (K5 has no '
                          'masked form)')
@@ -317,6 +450,8 @@ def main(argv=None):
               f'({dm.dies}x{dm.stage}x{dm.rows}x{dm.cols})')
     get = configs.get_smoke_config if args.smoke else configs.get_config
     cfg = get(args.arch).replace(lstm_backend=args.lstm_backend)
+    if cfg.family != 'lstm':
+        return _run_token_serving(cfg, args)
     if args.schedule_cache or args.tune:
         _install_schedule_cache(cfg, args)
     return _run_stream_serving(cfg, args)

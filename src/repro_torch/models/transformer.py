@@ -1,0 +1,167 @@
+"""Decoder-only dense LM of the port: init, full-sequence forward, loss, KV
+cache and one-token decode.
+
+Counterpart of the decoder-only part of ``repro.models.transformer``.
+Block parameters are stacked over a leading layer axis, as the reference's
+scanned stack is, so carrying weights across is a copy; the reference's
+``lax.scan`` over layers is a Python loop over that axis here.  ``remat``
+does not apply to a serving forward.  The encoder-decoder and
+cross-attention paths (``_encoder``, ``_cross_block``,
+``precompute_cross_kv``) and the MoE block come with their families
+(ROADMAP queue 1, item 3).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import torch
+
+from ..configs import ArchConfig
+from ..tree import tree_map
+from . import layers as L
+
+Params = Dict[str, Any]
+
+
+def _dense_only(cfg: ArchConfig) -> None:
+    if (cfg.moe is not None or cfg.cross_attn_every
+            or cfg.n_encoder_layers):
+        raise NotImplementedError(
+            f'{cfg.name}: MoE, cross-attention and encoder-decoder stacks '
+            f'are not ported yet (ROADMAP queue 1, item 3)')
+
+
+# ------------------------------------------------------------------ init
+def _init_block(cfg: ArchConfig, gen: torch.Generator) -> Params:
+    dtype = cfg.dtype()
+    return {'ln1': L.init_norm(cfg, dtype, gen.device),
+            'attn': L.init_attention(cfg, gen, dtype),
+            'ln2': L.init_norm(cfg, dtype, gen.device),
+            'mlp': L.init_mlp(cfg, gen, dtype)}
+
+
+def _stack_init(init_fn: Callable[[], Params], n: int) -> Params:
+    """``n`` draws of ``init_fn()`` stacked over a new leading axis,
+    written slice by slice into tensors allocated once, so that the stack
+    is never held twice (at Qwen3-14B's width one stacked ``w_gate`` is
+    7.1 GB in bf16)."""
+    first = init_fn()
+    stack = tree_map(lambda a: a.new_empty((n,) + a.shape), first)
+    for i in range(n):
+        blk = first if i == 0 else init_fn()
+        tree_map(lambda s, a: s[i].copy_(a), stack, blk)
+        del blk
+    return stack
+
+
+def init_lm(cfg: ArchConfig, generator: torch.Generator = None,
+            device='cuda') -> Params:
+    """Random weights for ``cfg`` drawn on ``device`` from ``generator``
+    (which lives there; a fresh one seeded 0 when None): ``{'embed',
+    'blocks', 'final_norm'}`` with the reference's names and layouts.
+    (The reference also returns logical sharding axes; one card has
+    none.)"""
+    _dense_only(cfg)
+    dev = torch.device(device)
+    gen = (torch.Generator(dev).manual_seed(0) if generator is None
+           else generator)
+    if gen.device.type != dev.type:
+        raise ValueError(f'init_lm: generator on {gen.device}, weights on '
+                         f'{dev}')
+    return {'embed': L.init_embedding(cfg, gen, cfg.dtype()),
+            'blocks': _stack_init(lambda: _init_block(cfg, gen),
+                                  cfg.n_layers),
+            'final_norm': L.init_norm(cfg, cfg.dtype(), gen.device)}
+
+
+def layer(params: Params, i: int) -> Params:
+    """Layer ``i``'s block parameters: views into the stack."""
+    return tree_map(lambda a: a[i], params['blocks'])
+
+
+# ------------------------------------------------------------------ blocks
+def _self_block(cfg: ArchConfig, p: Params, x: torch.Tensor, cos_sin,
+                window):
+    dt = x.dtype
+    h = L.apply_norm(cfg, p['ln1'], x)
+    x = (x + L.attention_block(cfg, p['attn'], h, cos_sin=cos_sin,
+                               causal=True, window=window)).to(dt)
+    h = L.apply_norm(cfg, p['ln2'], x)
+    return (x + L.mlp_block(cfg, p['mlp'], h)).to(dt)
+
+
+def forward_lm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+               source=None):
+    """Full-sequence forward (train / prefill): tokens (B, S) -> (logits
+    (B, S, V), aux loss 0.0).  Attention runs causal on
+    ``cfg.attn_backend`` (K8's prefill on CUDA tensors under ``auto``)."""
+    _dense_only(cfg)
+    if source is not None:
+        raise NotImplementedError('forward_lm: a source (audio frames, '
+                                  'image patches) needs the cross-attention '
+                                  'families (ROADMAP queue 1, item 3)')
+    x = L.embed(cfg, params['embed'], tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    cos_sin = L.rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        x = _self_block(cfg, layer(params, i), x, cos_sin,
+                        cfg.sliding_window)
+    x = L.apply_norm(cfg, params['final_norm'], x)
+    return L.unembed(cfg, params['embed'], x), 0.0
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch) -> torch.Tensor:
+    logits, aux = forward_lm(cfg, params, batch['tokens'],
+                             source=batch.get('source'))
+    return L.softmax_xent(logits, batch['labels']) + 0.01 * aux
+
+
+# ------------------------------------------------------------------ serving
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+               device='cuda') -> Params:
+    """The KV cache: ``{'k', 'v'}``, each (layers, B, Hkv, max_seq, hd) in
+    the activation dtype, zero.
+
+    Layout deviation from the reference's (layers, B, W, Hkv, hd) plus its
+    slot -> position array ``pos``: K8 reads (B, Hkv, Sk, hd) contiguous,
+    so the port stores that layout and ``attention_decode`` writes each
+    new row in place (a transpose of the reference's layout would copy the
+    whole cache every layer and step).  The cache is linear (slot =
+    position), and keys j <= pos are the valid ones, which is what the
+    reference's ``pos`` array says for a cache filled in order; so the
+    port keeps no ``pos``.  Sliding-window ring caches wait for the
+    MoE/hybrid slice (``_cache_window`` with them)."""
+    _dense_only(cfg)
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(f'{cfg.name}: ring caches (sliding '
+                                  f'window) are not ported yet (ROADMAP '
+                                  f'queue 1, item 3)')
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq,
+             cfg.resolved_head_dim)
+    return {'k': torch.zeros(shape, dtype=cfg.adtype(), device=device),
+            'v': torch.zeros(shape, dtype=cfg.adtype(), device=device)}
+
+
+def decode_step(cfg: ArchConfig, params: Params, cache: Params,
+                tokens: torch.Tensor, pos: int):
+    """One decode step: tokens (B, 1) at position ``pos`` (a Python int,
+    the same for every row).  Writes the new K/V rows into ``cache`` in
+    place and returns (logits (B, 1, V), cache)."""
+    pos = int(pos)
+    adt = cfg.adtype()
+    x = L.embed(cfg, params['embed'], tokens)
+    positions = torch.full((1,), pos, dtype=torch.float32,
+                           device=tokens.device)
+    cos_sin = L.rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        blk = layer(params, i)
+        h = L.apply_norm(cfg, blk['ln1'], x)
+        o = L.attention_decode(cfg, blk['attn'], h,
+                               {'k': cache['k'][i], 'v': cache['v'][i]},
+                               pos=pos, cos_sin=cos_sin,
+                               window=cfg.sliding_window)
+        x = (x + o).to(adt)
+        h = L.apply_norm(cfg, blk['ln2'], x)
+        x = (x + L.mlp_block(cfg, blk['mlp'], h)).to(adt)
+    x = L.apply_norm(cfg, params['final_norm'], x)
+    return L.unembed(cfg, params['embed'], x), cache

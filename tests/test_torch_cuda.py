@@ -1368,3 +1368,44 @@ def test_staged_tuners_on_card(dev):
             stack, win, staged=True, T=16, batch=4).split)) == geo.blocks
         assert tsys.resolve_staged_chunk(3, 16, geo.stages, n_h=40, n_x=16,
                                          batch=4, mesh=win) == geo.tc
+
+
+# ------------------------------------------------- the dense LM on the card
+@pytest.mark.parametrize('name', ['qwen3-14b', 'qwen2.5-14b', 'minicpm-2b'])
+@pytest.mark.parametrize('adtype', ['float32', 'bfloat16'])
+def test_lm_decode_on_k8_matches_plain_attention(dev, name, adtype,
+                                                 monkeypatch):
+    """``decode_step`` with K8 (``attn_backend='auto'``, the split schedule
+    at these shapes) against the same weights with ``attention_ref``
+    (``'torch'``) over 24 tokens, every logit row; and ``forward_lm``
+    (K8's tiled prefill) the same way.  f32: atol 1e-4 (K8's own bound,
+    through two layers); bf16: 3e-2 of the logit scale (K8 multiplies P
+    in bf16 on the tensor cores)."""
+    from repro_torch.models import transformer
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        'allow_bf16_reduced_precision_reduction', False)
+    cfg = configs.get_smoke_config(name).replace(activation_dtype=adtype)
+    params = transformer.init_lm(cfg, torch.Generator(dev).manual_seed(0),
+                                 dev)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 24))).to(dev)
+
+    def run(backend):
+        c = cfg.replace(attn_backend=backend)
+        cache = transformer.init_cache(c, 2, 32, dev)
+        rows = [transformer.decode_step(c, params, cache, tokens[:, t:t + 1],
+                                        t)[0] for t in range(24)]
+        return (torch.cat(rows, 1).float(),
+                transformer.forward_lm(c, params, tokens)[0].float())
+
+    n0 = flash_attention.launches
+    dec, full = run('auto')
+    assert flash_attention.launches == n0 + 24 * cfg.n_layers + cfg.n_layers
+    want_dec, want_full = run('torch')
+    assert flash_attention.launches == n0 + 25 * cfg.n_layers
+    scale = float(want_full.abs().max())
+    tol = 1e-4 if adtype == 'float32' else 3e-2 * scale
+    assert float((dec - want_dec).abs().max()) <= tol
+    assert float((full - want_full).abs().max()) <= tol
+    assert float((dec - full).abs().max()) <= (2e-3 if adtype == 'float32'
+                                               else 3e-2 * scale)

@@ -7,7 +7,8 @@ weights carried from the reference by ``convert.stack_params_from_numpy``:
 the int8 codes ``torch.equal`` and the greedy decodes the same, on each
 int8 backend (no tolerance: the datapath is bit-exact, and decodes are
 symbols).  Both examples also run end to end at narrow widths
-(``--small --steps 2``), where their plain versions run.
+(``--small --steps 2``), where their plain versions run, and ``serve_lm``
+serves the Qwen3 smoke configuration.
 """
 import math
 
@@ -26,7 +27,7 @@ from repro.models import get_bundle  # noqa: E402
 from repro_torch import tune  # noqa: E402
 from repro_torch.convert import stack_params_from_numpy  # noqa: E402
 from repro_torch.core.ctc import ctc_greedy_decode  # noqa: E402
-from repro_torch.examples import quickstart, speech_ctc  # noqa: E402
+from repro_torch.examples import quickstart, serve_lm, speech_ctc  # noqa: E402
 
 T, B, N_H = 12, 3, 96
 
@@ -110,3 +111,12 @@ def test_quickstart_runs_on_cpu(capsys):
     assert res['int8_mean_err'] < 0.05
     assert abs(res['exec_time_ms'] - 0.09) < 0.001
     assert 'peak efficiency' in capsys.readouterr().out
+
+
+def test_serve_lm_runs_smoke_on_cpu(capsys):
+    res = serve_lm.main(['--smoke', '--device', 'cpu', '--requests', '3',
+                         '--slots', '2', '--max-new', '3'])
+    assert res['requests'] == 3 and res['tokens'] == 9
+    assert all(len(r.out) == 3 for r in res['done'])
+    out = capsys.readouterr().out
+    assert 'served 3 requests, 9 tokens' in out and 'qwen3-smoke' in out

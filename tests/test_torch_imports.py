@@ -82,3 +82,34 @@ def test_die_mesh_and_staged_tuner_import_without_jax_and_default_to_cuda():
     out = subprocess.run([sys.executable, '-c', code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_dense_lm_path_imports_without_jax_and_defaults_to_cuda():
+    """The dense LM slice (every config module, ``models.layers``,
+    ``models.transformer``, ``models.registry``, the token path of
+    ``launch.serve`` and ``examples.serve_lm``) imports without ``jax``;
+    its entry points put weights and caches on ``cuda`` unless asked."""
+    code = ('import sys, inspect\n'
+            'from repro_torch import configs\n'
+            'for name in configs.ARCH_MODULES:\n'
+            '    configs.get_config(name), configs.get_smoke_config(name)\n'
+            'from repro_torch.models import layers, transformer, registry\n'
+            'from repro_torch.launch.serve import (Request, SlotServer,\n'
+            '    _run_token_serving, build_parser)\n'
+            'from repro_torch.examples import serve_lm\n'
+            'from repro_torch.convert import lm_params_from_numpy\n'
+            'bad = [m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "jaxlib", "repro")]\n'
+            'assert not bad, bad\n'
+            'args = build_parser().parse_args(["--arch", "qwen3-14b"])\n'
+            'assert args.device == "cuda" and not args.smoke\n'
+            'for fn in (transformer.init_lm, transformer.init_cache,\n'
+            '           lm_params_from_numpy):\n'
+            '    dev = inspect.signature(fn).parameters["device"].default\n'
+            '    assert dev == "cuda", (fn, dev)\n'
+            'assert "default=\'cuda\'" in inspect.getsource(serve_lm.main)\n'
+            'print("ok")\n')
+    env = dict(os.environ, PYTHONPATH=str(ROOT / 'src'))
+    out = subprocess.run([sys.executable, '-c', code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
