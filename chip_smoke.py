@@ -5,8 +5,8 @@
 
 Drives the port's serving and training paths at the full CTC-3L-421H-UNI
 width (123 MFCC features -> 3x421 peephole LSTM -> 62 CTC outputs, random
-weights from a seed), and serves Qwen3-14B at full width (11e), and checks
-them:
+weights from a seed), serves Qwen3-14B at full width (11e) and trains
+MiniCPM-2B at full width (11f), and checks them:
 
 1. builds every CUDA kernel of the path from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and prints the build time;
@@ -182,15 +182,40 @@ the same f32 weights' configuration from seed 0):
     repro_torch.launch.serve --arch qwen3-14b --requests 6 --slots 4
     --max-new 16`` as a subprocess (K8 launches > 0); and one replay each
     of ``qwen2.5-14b`` (qkv bias), ``codeqwen1.5-7b`` (MHA) and
-    ``minicpm-2b`` (tied embeddings) at their smoke size.
+    ``minicpm-2b`` (tied embeddings) at their smoke size;
+11f. the dense LM trained (``lm_train_phase``, after Qwen3-14B is freed):
+    K8's forward with its log-sum-exp and its two backward kernels
+    (``flash_attention_bwd_kv``: dk, dv; ``flash_attention_bwd_q``: dq)
+    against their plain versions at MiniCPM-2B's shape (B 2, 36 heads, S
+    4096, D 64, f32) and Qwen3-14B's (40 on 8 heads, D 128, S 1024, bf16,
+    causal and with a window of 256), each timed beside its bound and
+    SDPA (forward; backward from a kept graph); MiniCPM-2B built at full
+    width from a seeded CUDA generator (2,724,880,896 parameters, f32,
+    checked against its shapes); one batch's gradients on K8 against the
+    plain attention within ``LM_GRAD_REL``; the main path with every
+    kernel counter set to 0 just before and read just after: three
+    donating ``make_train_step`` steps (AdamW + WSD, remat 'full') under
+    ``FaultTolerantRunner`` over ``HostLoader`` and ``SyntheticLM`` at 2 x
+    4096 tokens (the repo's train_4k shape with batch cut from 256), each
+    step's loss and gradient norm finite, its wall ms and launches (K8
+    forward twice a layer, each backward kernel once, nothing else), the
+    resident state and the peak memory; a traced step; ``lm_100m`` of
+    ``examples.train_lm`` 2 + 2 steps through a checkpoint ``torch.equal``
+    to 4 straight; and the train CLI (``--arch minicpm-2b --smoke``, then
+    ``--resume``) and ``examples.train_lm --tiny`` as subprocesses (K8's
+    forward and backward launched; the small sizes because a full-width
+    final checkpoint is 32.7 GB).
 
 and then the two kernels that no path of the system reaches, each on its
 public op, and K8 also on its own, each held against its plain version and
 timed beside its bound and a PyTorch yardstick, each op driven once per
 shape with its launch counter set to 0 just before and read just after
 (K8's row in the ``kernels`` line leads with its Mixtral case, adds the LM
-phase's cases, takes ``launches`` from the LM's serve path and reports the
-re-score's prefill launches as ``prefill_launches``):
+phase's cases and the training phase's forward cases, takes ``launches``
+from the LM's serve path and reports the re-score's prefill launches as
+``prefill_launches`` and MiniCPM-2B's training launches as
+``train_launches``; the backward kernels' rows follow, with their
+launches on MiniCPM-2B's training path):
 
 12. K6 (``lstm_gates``, the fused cell) on layer 0 (N_in = 123 + 421) and
     an inner layer (421 + 421) at B = 8, atol 1e-4, with the geometry
@@ -383,6 +408,27 @@ LM_LOGIT_REL = 5e-2
 # greedy tokens: a sanity floor (a broken cache or position gives ~1/V);
 # bf16 rounding flips near-ties, so not 1
 LM_AGREE_MIN = 0.5
+# the LM training phase: MiniCPM-2B at full width (40 layers, d_model
+# 2304, 36 heads, head_dim 64, d_ff 5760, vocab 122,753, tied embeddings,
+# f32 weights, a bf16 residual stream, remat 'full'); the repo's train_4k
+# shape is 256 x 4096 tokens, cut to batch 2 (8,192 tokens a step)
+LM_TRAIN_ARCH = 'minicpm-2b'
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 4096, 3
+# K8's training kernels: (label, B, H, Hkv, S, D, window, dtype), causal
+LM_TRAIN_ATTN = (('minicpm-2b', 2, 36, 36, 4096, 64, None, 'float32'),
+                 ('qwen3-14b', 1, 40, 8, 1024, 128, None, 'bfloat16'),
+                 ('qwen3-14b windowed', 1, 40, 8, 1024, 128, 256,
+                  'bfloat16'))
+# K8's backward against its plain version: max |error| over the gradient's
+# scale (max |want|); f32 sums of up to S terms in another order, and in
+# bf16 one rounding of the output (2**-8) with room for a tie
+BWD_TOL = {'float32': 1e-4, 'bfloat16': 2.0 ** -7}
+LSE_ATOL = 1e-5               # the log-sum-exp: f32 logs of other-order sums
+# one step's gradients on K8 against attn_backend='torch', relative
+# Frobenius error per leaf: the two attentions differ at ~1e-6, but the
+# residual stream and its gradient are bf16, so an f32 difference flips a
+# rounding (2**-8 relative) now and then, and 40 layers carry the flips
+LM_GRAD_REL = 2.0 ** -7
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -2996,9 +3042,11 @@ def lm_param_count(cfg) -> int:
 
 
 def _kernel_counters():
-    """Every kernel wrapper of the port (K1-K8), each with its launch
-    counter."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    """Every kernel wrapper of the port (K1-K8 and K8's two backward
+    kernels), each with its launch counter."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd_kv,
+                                                     flash_attention_bwd_q)
     from repro_torch.kernels.lstm_gates import lstm_gates, lstm_gates_rec
     from repro_torch.kernels.lstm_seq import (lstm_seq, lstm_seq_quantized,
                                               lstm_stack_seq_kernel,
@@ -3006,7 +3054,8 @@ def _kernel_counters():
     from repro_torch.kernels.quant_matmul import quant_matmul
     return (lstm_seq, lstm_stack_seq_kernel, lstm_seq_quantized,
             lstm_stack_seq_kernel_q, lstm_gates_rec, lstm_gates,
-            quant_matmul, flash_attention)
+            quant_matmul, flash_attention, flash_attention_bwd_kv,
+            flash_attention_bwd_q)
 
 
 def lm_attention_cases(cfg, params, dev):
@@ -3307,6 +3356,390 @@ def _lm_phase(dev):
     return res
 
 
+# ------------------------------------------------------------- LM training
+def train_attn_case(label: str, B: int, H: int, Hkv: int, S: int, D: int,
+                    window, dt: str, g, dev):
+    """K8's training kernels on normal data drawn from ``g`` (causal, offset
+    0): the forward with its log-sum-exp against ``attention_ref`` (output
+    at ``ATTN_TOL``, lse at ``LSE_ATOL``) and the two backward kernels
+    against ``attention_bwd_ref`` (max |error| within ``BWD_TOL`` of the
+    gradient's scale), from the plain forward's o and lse; each timed
+    (CUDA events) beside its plain version, its bound and SDPA (forward,
+    and its backward alone from a kept graph).  Returns one case a
+    kernel: (forward, dk/dv, dq)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref, attention_delta, attention_ref, flash_attention,
+        flash_attention_bwd_kv, flash_attention_bwd_q)
+    dtype = getattr(torch, dt)
+    q, do = (torch.randn(B, H, S, D, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, Hkv, S, D, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    kw = dict(causal=True, window=window, offset=0)
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    o_r, lse_r = attention_ref(q, k, v, return_lse=True, **kw)
+    delta = attention_delta(o_r, do)
+    args = (q, k, v, do, lse_r, delta)
+    dq = flash_attention_bwd_q(*args, **kw)
+    dk, dv = flash_attention_bwd_kv(*args, **kw)
+    want = attention_bwd_ref(*args, **kw)
+    torch.cuda.synchronize()
+    big = S >= 4096
+    reps = 3 if big else 10
+    pos = torch.arange(S, device=dev)
+    mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    sdpa = lambda *t: F.scaled_dot_product_attention(*t, attn_mask=mask,
+                                                     enable_gqa=True)
+    lq, lk, lv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = sdpa(lq, lk, lv)
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (lq, lk, lv), do, retain_graph=True), reps)
+    del out
+    pairs, keys = _needed(S, S, 0, window)
+    es, n_q, n_kv, rows = q.element_size(), B * H * S * D, B * Hkv, B * H * S
+    peak = BF16_FLOPS_PER_S if dt == 'bfloat16' else F32_FLOPS_PER_S
+    shape = (f'{label} {dt} B={B} H={H} Hkv={Hkv} S={S} D={D} '
+             f'window={window}')
+    plain_bwd_ms = cuda_ms(lambda: attention_bwd_ref(*args, **kw), 1,
+                           warmup=1)
+    cases = []
+    # (name, got, want, tol, ms of a launch, bytes, flops): bytes read and
+    # written once, flops 4 D a valid pair forward, 8 D for dk/dv (s, dp,
+    # dv, dk) and 6 D for dq (s, dp, dq)
+    fwd_err = float((o.float() - o_r.float()).abs().max())
+    fin = lse_r > -1e29
+    lse_err = float((lse[fin] - lse_r[fin]).abs().max()) if bool(
+        fin.any()) else 0.0
+    fwd = dict(
+        kernel='flash_attention (training, with lse)', shape=shape,
+        max_abs_err=fwd_err, lse_max_abs_err=lse_err,
+        tol=dict(ATTN_TOL[dt], lse_atol=LSE_ATOL),
+        ok=bool(torch.allclose(o.float(), o_r.float(), **ATTN_TOL[dt]))
+        and lse_err <= LSE_ATOL and bool(torch.equal(lse[~fin],
+                                                     lse_r[~fin])),
+        ms=cuda_ms(lambda: flash_attention(q, k, v, return_lse=True, **kw),
+                   reps),
+        plain_ms=cuda_ms(lambda: attention_ref(q, k, v, return_lse=True,
+                                               **kw), 1, warmup=1),
+        library_ms=cuda_ms(lambda: sdpa(q, k, v), reps),
+        bytes=es * (2 * n_q + 2 * n_kv * keys * D) + 4 * rows,
+        flops=4 * D * pairs * B * H)
+    cases.append(fwd)
+    for name, got, ref, ms, nbytes, flops in (
+            ('flash_attention_bwd_kv', (dk, dv), want[1:],
+             cuda_ms(lambda: flash_attention_bwd_kv(*args, **kw), reps),
+             es * (2 * n_q + 4 * n_kv * keys * D) + 8 * rows,
+             8 * D * pairs * B * H),
+            ('flash_attention_bwd_q', (dq,), want[:1],
+             cuda_ms(lambda: flash_attention_bwd_q(*args, **kw), reps),
+             es * (3 * n_q + 2 * n_kv * keys * D) + 8 * rows,
+             6 * D * pairs * B * H)):
+        errs = [float((a.float() - b.float()).abs().max()) for a, b in
+                zip(got, ref)]
+        scales = [float(b.float().abs().max()) for b in ref]
+        again = (flash_attention_bwd_kv(*args, **kw)
+                 if name.endswith('kv') else
+                 (flash_attention_bwd_q(*args, **kw),))
+        cases.append(dict(
+            kernel=name, shape=shape, max_abs_err=max(errs),
+            err_over_scale=max(e / s for e, s in zip(errs, scales)),
+            tol=dict(rel_to_scale=BWD_TOL[dt]),
+            ok=all(e <= BWD_TOL[dt] * s for e, s in zip(errs, scales)),
+            deterministic=all(bool(torch.equal(a, b))
+                              for a, b in zip(got, again)),
+            ms=ms, plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
+            library='SDPA backward (dq, dk, dv together)', bytes=nbytes,
+            flops=flops))
+    for c in cases:
+        c['pairs'] = pairs * B * H
+        c['bound_ms'], c['bound_by'] = bound(c['bytes'], c['flops'], peak)
+        print(f"{c['kernel']}: {shape}: max_abs_err {c['max_abs_err']:.3e}"
+              + (f" (lse {c['lse_max_abs_err']:.3e})" if 'lse_max_abs_err'
+                 in c else f" ({c['err_over_scale']:.3e} of the scale, "
+                 f"deterministic {c['deterministic']})")
+              + f", kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
+              f"library {c['library_ms']:.4f} ms, bound "
+              f"{c['bound_ms']:.4f} ms ({c['bound_by']}: "
+              f"{c['flops'] / 1e9:.1f} GFLOP, {c['bytes'] / 1e6:.1f} MB)",
+              flush=True)
+        check(c['ok'] and c.get('deterministic', True),
+              f"{c['kernel']} disagrees with its plain version at {shape}")
+    return cases
+
+
+def lm_train_attention(dev):
+    """``train_attn_case`` at each ``LM_TRAIN_ATTN`` shape; with SDPA's
+    forward + backward beside the sum of K8's three launches."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    out = []
+    for case in LM_TRAIN_ATTN:
+        cases = train_attn_case(*case, g, dev)
+        total = sum(c['ms'] for c in cases)
+        lib = cases[0]['library_ms'] + cases[1]['library_ms']
+        print(f'K8 training attention {cases[0]["shape"]}: forward + '
+              f'backward {total:.4f} ms (SDPA {lib:.4f} ms)', flush=True)
+        out.append(cases)
+    return out
+
+
+def _grad_rel_errors(cfg, params, batch):
+    """One batch's gradients on ``cfg.attn_backend`` 'auto' (K8 and its
+    backward kernels) and 'torch' (the plain attention), every leaf's
+    relative Frobenius error; and the 'auto' run's kernel launches."""
+    from repro_torch.launch.train import _grad_leaves, loss_fn_for
+    from repro_torch.tree import flatten_with_paths
+    kernels = _kernel_counters()
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    loss, grads = _grad_leaves(loss_fn_for(cfg), params, batch)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    loss_t, grads_t = _grad_leaves(
+        loss_fn_for(cfg.replace(attn_backend='torch')), params, batch)
+    rel = {}
+    for (path, _), a, b in zip(flatten_with_paths(params), grads, grads_t):
+        rel[path] = float(torch.linalg.vector_norm(a - b)
+                          / torch.linalg.vector_norm(b))
+    return dict(loss=float(loss), loss_torch=float(loss_t), rel=rel,
+                worst=max(rel.values()), launches=launches)
+
+
+def lm_train_run(cfg, dev):
+    """The LM's training main path at full width: ``cfg``'s weights drawn
+    on the card from a seeded generator (parameters and bytes checked
+    against its shapes), one batch's gradients on K8 against the plain
+    attention (``_grad_rel_errors``, within ``LM_GRAD_REL``), then
+    ``LM_TRAIN_STEPS`` donating ``make_train_step`` steps (AdamW + WSD from
+    ``lr_schedule_for``) under ``FaultTolerantRunner`` over ``HostLoader``
+    and ``SyntheticLM`` at ``LM_TRAIN_BATCH`` x ``LM_TRAIN_SEQ``, every
+    kernel counter set to 0 just before and read just after: each step's
+    loss and gradient norm finite, its wall ms and launches (K8's forward
+    twice a layer, its forward and its recompute under remat, and each
+    backward kernel once a layer; nothing else), the peak memory; then
+    one more step traced (``trace``).  No fault is injected and no
+    checkpoint kept (a full-width one is 32.7 GB of host writes), so the
+    runner has no ``restore_fn``."""
+    import gc
+    from repro_torch.data import HostLoader, source_for
+    from repro_torch.launch.train import (loss_fn_for, lr_schedule_for,
+                                          make_train_step)
+    from repro_torch.models import get_bundle
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime import FaultTolerantRunner
+    from repro_torch.tree import leaves
+    from repro_torch import configs
+    shape = configs.ShapeConfig('train_4k, batch cut to 2', 'train',
+                                LM_TRAIN_SEQ, LM_TRAIN_BATCH)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    bundle = get_bundle(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = bundle.param_count(params)
+    nbytes = sum(p.numel() * p.element_size() for p in leaves(params))
+    print(f'{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, '
+          f'{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, '
+          f'{cfg.param_dtype} weights, {cfg.activation_dtype} activations, '
+          f'remat {cfg.remat}: {n} parameters, {nbytes} bytes '
+          f'({nbytes / 1e9:.2f} GB), init {init_s:.2f} s', flush=True)
+    check(n == lm_param_count(cfg) and nbytes == 4 * n and all(
+        p.dtype == torch.float32 and p.device.type == dev.type
+        for p in leaves(params)), f'{cfg.name}: {n} parameters')
+    res = dict(arch=cfg.name, params=n, bytes=nbytes, init_s=init_s,
+               batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+               tokens_per_step=LM_TRAIN_BATCH * LM_TRAIN_SEQ)
+    loader = HostLoader(source_for(cfg, shape, seed=SEED), shape, dev)
+    _, batch0 = next(loader)
+    res['grad_check'] = g = _grad_rel_errors(cfg, params, batch0)
+    print(f'{cfg.name} gradients on K8 vs the plain attention: loss '
+          f'{g["loss"]:.6f} vs {g["loss_torch"]:.6f}, worst leaf relative '
+          f'Frobenius error {g["worst"]:.3e} (tol {LM_GRAD_REL}): '
+          + ', '.join(f'{k} {v:.2e}' for k, v in g['rel'].items())
+          + f'; launches {g["launches"]}', flush=True)
+    check(g['worst'] <= LM_GRAD_REL and np.isfinite(g['loss']),
+          f'{cfg.name}: gradients on K8 off the plain attention\'s by '
+          f'{g["worst"]:.3e}')
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt = make_optimizer(cfg.optimizer, lr_schedule_for(cfg))
+    state = {'params': params, 'opt': opt.init(params),
+             'step': torch.zeros((), dtype=torch.int32)}
+    resident = sum(t.numel() * t.element_size() for t in leaves(state))
+    runner = FaultTolerantRunner(make_train_step(loss_fn_for(cfg), opt,
+                                                 donate=True))
+    kernels = _kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels:
+        k.launches = 0
+    steps, before = [], {k.__name__: 0 for k in kernels}
+    for _, (step, batch) in zip(range(LM_TRAIN_STEPS), loader):
+        t0 = time.perf_counter()
+        state, m = runner.run_step(step, state, batch)
+        loss, gnorm = float(m['loss']), float(m['grad_norm'])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        now = {k.__name__: k.launches for k in kernels}
+        steps.append(dict(step=step, loss=loss, grad_norm=gnorm,
+                          wall_ms=wall, launches={
+                              k: now[k] - before[k] for k in now}))
+        before = now
+        print(f'{cfg.name} train step {step}: loss {loss:.6f}, grad norm '
+              f'{gnorm:.6f}, {wall:.1f} ms, launches '
+              f'{steps[-1]["launches"]}', flush=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    launches = {k.__name__: k.launches for k in kernels}
+    L = cfg.n_layers
+    want = dict(flash_attention=2 * L, flash_attention_bwd_kv=L,
+                flash_attention_bwd_q=L)
+    res.update(resident_bytes=resident, peak_bytes=peak, steps=steps,
+               launches=launches, events=list(runner.events))
+    print(f'{cfg.name}: {LM_TRAIN_STEPS} steps of {LM_TRAIN_BATCH} x '
+          f'{LM_TRAIN_SEQ} tokens: resident state {resident / 1e9:.2f} GB '
+          f'(parameters and AdamW moments), peak {peak / 1e9:.2f} GB '
+          f'above the phase\'s start; launches {launches}', flush=True)
+    check(all(np.isfinite([s['loss'], s['grad_norm']]).all()
+              for s in steps), f'{cfg.name}: a loss or norm not finite')
+    for s in steps:
+        check({k: v for k, v in s['launches'].items() if v} == want,
+              f'{cfg.name} step {s["step"]}: launches {s["launches"]}, '
+              f'expected {want}')
+    _, batch = next(loader)
+    res['trace'] = trace(lambda: runner.run_step(LM_TRAIN_STEPS, state,
+                                                 batch),
+                         f'{cfg.name} train step')
+    del state, params, runner, batch, batch0, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_train_resume(dev):
+    """``examples.train_lm``'s ``lm_100m`` (8 layers, d_model 512, f32) at
+    the example's batch 8 x 256: 4 donating steps straight against 2
+    steps, a checkpoint, a restore into a state drawn from another seed
+    and 2 more; every leaf of the two final states ``torch.equal``."""
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import HostLoader, source_for
+    from repro_torch.examples.train_lm import lm_100m
+    from repro_torch.launch.train import (init_train_state, loss_fn_for,
+                                          make_train_step)
+    from repro_torch.optim import cosine_schedule, make_optimizer
+    from repro_torch.tree import flatten_with_paths
+    cfg = lm_100m()
+    shape = configs.ShapeConfig('lm', 'train', 256, 8)
+    opt = make_optimizer(cfg.optimizer, cosine_schedule(3e-4, 20, 4))
+    step_fn = make_train_step(loss_fn_for(cfg), opt, donate=True)
+
+    def run(state, lo, hi, losses):
+        loader = HostLoader(source_for(cfg, shape), shape, dev,
+                            start_step=lo)
+        for _, (_, batch) in zip(range(lo, hi), loader):
+            state, m = step_fn(state, batch)
+            losses.append(float(m['loss']))
+        return state
+
+    straight, split = [], []
+    full = run(init_train_state(cfg, opt, dev, seed=SEED), 0, 4, straight)
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        mgr.save(2, run(init_train_state(cfg, opt, dev, seed=SEED), 0, 2,
+                        split), blocking=True)
+        fresh = init_train_state(cfg, opt, dev, seed=SEED + 1)
+        resumed = run(mgr.restore(fresh), 2, 4, split)
+    diff = [(path, float((a.double() - b.double()).abs().max()))
+            for (path, a), (_, b) in zip(flatten_with_paths(full),
+                                         flatten_with_paths(resumed))
+            if not torch.equal(a, b)]
+    res = dict(arch=cfg.name, losses_straight=straight, losses_resumed=split,
+               leaves_differing=diff)
+    print(f'{cfg.name} resume: losses straight {straight}, 2 + 2 through a '
+          f'checkpoint {split}; leaves differing {diff[:5]}', flush=True)
+    check(not diff and straight == split,
+          f'{cfg.name}: the resumed run is not bit-equal to the straight '
+          f'one ({len(diff)} leaves differ, first {diff[:3]})')
+    return res
+
+
+def lm_train_clis():
+    """The train CLI on MiniCPM's smoke configuration (4 steps with
+    checkpoints, then ``--resume`` to 6) and ``examples.train_lm --tiny``
+    as subprocesses on the card: losses finite, the resume at step 4, and
+    K8's forward and backward launched.  The smoke and tiny sizes: a
+    full-width MiniCPM-2B's final checkpoint is 32.7 GB of host writes."""
+    import re
+    import tempfile
+    res = {}
+
+    def parse(label, out, steps):
+        losses = [float(x) for x in re.findall(r' loss +(\S+)', out)]
+        k8 = re.search(r'K8 launches: forward (\d+), backward dk/dv (\d+), '
+                       r'dq (\d+)', out)
+        check(len(losses) == steps and all(np.isfinite(losses))
+              and k8 is not None and min(map(int, k8.groups())) > 0,
+              f'{label}: losses {losses}, {k8 and k8.group(0)}')
+        res[label] = dict(losses=losses, k8=list(map(int, k8.groups())),
+                          lines=out.strip().splitlines()[-4:])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        base = ['repro_torch.launch.train', '--arch', LM_TRAIN_ARCH,
+                '--smoke', '--batch', '4', '--seq', '256', '--ckpt-every',
+                '2', '--log-every', '1', '--ckpt-dir', tmp]
+        parse('train --smoke', _run_cli('train minicpm-2b --smoke',
+                                        base + ['--steps', '4'], tmp), 4)
+        out = _run_cli('train minicpm-2b --smoke --resume',
+                       base + ['--steps', '6', '--resume'], tmp)
+        check('resumed at step 4' in out, 'train CLI did not resume')
+        parse('train --smoke --resume', out, 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _run_cli('examples.train_lm --tiny', [
+            'repro_torch.examples.train_lm', '--tiny', '--steps', '4',
+            '--batch', '4', '--seq', '128', '--ckpt-dir', tmp], tmp)
+        parse('train_lm --tiny', out, 2)   # it prints steps 0 and 3
+    return res
+
+
+def lm_train_phase(dev):
+    """The dense LM trained on the card (after ``lm_phase`` has freed
+    Qwen3-14B): K8's training kernels at MiniCPM-2B's and Qwen3-14B's
+    shapes (``lm_train_attention``), MiniCPM-2B's main path at full width
+    (``lm_train_run``), a bit-equal resume (``lm_train_resume``) and the
+    two training entry points as subprocesses (``lm_train_clis``)."""
+    from repro_torch import configs
+    res = dict(attention=lm_train_attention(dev))
+    res['run'] = lm_train_run(configs.get_config(LM_TRAIN_ARCH), dev)
+    res['resume'] = lm_train_resume(dev)
+    res['cli'] = lm_train_clis()
+    return res
+
+
+def _bwd_rows(train):
+    """The kernels-line rows of K8's two backward kernels: their cases at
+    every ``LM_TRAIN_ATTN`` shape (MiniCPM-2B's first) and their launches
+    on MiniCPM-2B's training path."""
+    rows = []
+    for i, name in ((1, 'flash_attention_bwd_kv'),
+                    (2, 'flash_attention_bwd_q')):
+        row = _case_row(name, 'src/repro_torch/csrc/flash_attention_bwd.cu',
+                        'none: the reference\'s backward (_ca_bwd, '
+                        'src/repro/models/layers.py:173) is plain jnp',
+                        [cases[i] for cases in train['attention']])
+        row['launches'] = train['run']['launches'][name]
+        rows.append(row)
+    return rows
+
 def _case_row(name: str, source: str, replaces: str, cases):
     """A kernels-line row from the measured cases of one kernel: the first
     case's numbers, the worst error and every case under ``cases``."""
@@ -3555,13 +3988,16 @@ def _print_attn_case(case, geom, narrow: str = '') -> None:
           flush=True)
 
 
-def attention_checks(dev, lm):
+def attention_checks(dev, lm, train):
     """K8 (``flash_attention``) at each ``ATTN_CASES`` case (``attn_case``),
     with its schedule, and where that is 128-row tiles also the time of
     the 64-row tiles on the same inputs; then drives the public op ``mha``
     once per case with the launch counter set to 0.  The kernels-line row
-    leads with the LM phase's cases (``lm``: Qwen3-14B's decode and
-    prefill, its main path) and takes its launches from that path."""
+    leads with the Mixtral cases, adds the LM phase's cases (``lm``:
+    Qwen3-14B's decode and prefill, its main path) and the training
+    phase's forward-with-lse cases (``train``), takes its launches from
+    the LM's serve path and reports MiniCPM-2B's training launches as
+    ``train_launches``."""
     from unittest import mock
     from repro_torch.kernels.flash_attention import (attention_geometry,
                                                      flash_attention, mha)
@@ -3603,8 +4039,10 @@ def attention_checks(dev, lm):
     row = _case_row('flash_attention',
                     'src/repro_torch/csrc/flash_attention.cu',
                     'src/repro/kernels/flash_attention/kernel.py:79',
-                    cases + lm['attn_cases'])
+                    cases + lm['attn_cases']
+                    + [c[0] for c in train['attention']])
     row['launches'] = lm['launches']['flash_attention']
+    row['train_launches'] = train['run']['launches']['flash_attention']
     row['prefill_launches'] = lm['rescore_launches']['flash_attention']
     row['mha_launches'] = launches
     return row
@@ -4023,11 +4461,14 @@ def main(argv=None) -> int:
 
     # the dense LM served at full width, its attention on K8
     lm = lm_phase(dev)
+    # and trained at MiniCPM-2B's full width, through K8's backward
+    lm_train = lm_train_phase(dev)
 
     # K6 and K7 on their public ops (no path of the system reaches them);
     # K8 at Mixtral's shapes and on mha beside the LM path's cases
     op_rows = [cell_checks(params, CELL_BATCH, dev),
-               quant_matmul_checks(dev), attention_checks(dev, lm)]
+               quant_matmul_checks(dev), attention_checks(dev, lm, lm_train)]
+    op_rows += _bwd_rows(lm_train)
 
     launches = dict(lstm_seq=runs['cuda_seq']['launches']['lstm_seq'],
                     lstm_stack_seq_kernel=runs['cuda_seq_fused']['launches']
@@ -4043,9 +4484,10 @@ def main(argv=None) -> int:
     rows += op_rows
     for r in rows:
         check(r['launches'] > 0, f"{r['name']} never launched on the path")
-    keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
-            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'tol',
-            'ok', 'shape', 'geometry', 'cases')
+    keys = ('name', 'route', 'source', 'replaces', 'launches',
+            'train_launches', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+            'bound_by', 'library_ms', 'tol', 'ok', 'shape', 'geometry',
+            'cases')
     kernels = {'kernels': [{k: r[k] for k in keys if k in r} for r in rows]}
     if args.out:
         out = pathlib.Path(args.out)
@@ -4060,7 +4502,7 @@ def main(argv=None) -> int:
             stack_kernel_weights_q=q_stacking, int8_deploy=deploy,
             train_grad_rel_err=grad_err, train=train, train_cli=cli,
             tune=tuned, examples=examples, systolic=systolic, die=die,
-            lm=lm),
+            lm=lm, lm_train=lm_train),
             indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -5,12 +5,14 @@ configuration file copies across, with these differences for the card: the
 backend names are the port's (``lstm_backend`` takes
 ``core.lstm.BACKENDS``), ``attn_backend`` takes the place of the
 reference's ``use_pallas`` switch for attention (``models.layers``), and
-the training and blocking knobs that nothing of the port reads (``remat``,
-``scan_layers``, ``attn_chunk``) are left out.  ``adtype()``/``dtype()``
-return torch dtypes.  ``ARCH_MODULES`` holds the families the port runs:
-the paper's CTC LSTM and the four dense LMs; the other reference
-configurations come with the slices that port their families (ROADMAP
-queue 1, item 3).
+the blocking knobs that nothing of the port reads (``scan_layers``, a
+Python loop over the stacked layers in its place; ``attn_chunk``, since
+K8 takes any length) are left out.  ``remat`` is the reference's
+(``models.transformer`` applies it to each layer under grad).
+``adtype()``/``dtype()`` return torch dtypes.  ``ARCH_MODULES`` holds the
+families the port runs: the paper's CTC LSTM and the four dense LMs; the
+other reference configurations come with the slices that port their
+families (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -68,13 +70,14 @@ class ArchConfig:
     # numerics / execution
     param_dtype: str = 'float32'
     activation_dtype: str = 'bfloat16'
+    remat: str = 'full'                     # none | full | dots
     # auto: K8 (kernels.flash_attention) on CUDA tensors, its plain version
     # on CPU ones | torch: the plain version on any device
     attn_backend: str = 'auto'
     # auto | torch_scan | cuda_seq | cuda_seq_fused | cuda_step |
     # cuda_seq_systolic | cuda_seq_fused_systolic (core.lstm.BACKENDS)
     lstm_backend: str = 'auto'
-    optimizer: str = 'adamw'       # optim.make_optimizer; only adamw ported
+    optimizer: str = 'adamw'                # adamw | adafactor | sgd
 
     @property
     def resolved_head_dim(self) -> int:

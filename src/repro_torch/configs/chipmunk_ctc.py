@@ -9,7 +9,7 @@ CONFIG = ArchConfig(
     n_layers=3, d_model=421, n_heads=1, n_kv_heads=1, d_ff=0,
     vocab_size=62, lstm_hidden=421, lstm_inputs=123, n_outputs=62,
     param_dtype='float32', activation_dtype='float32',
-    optimizer='adamw',
+    optimizer='adamw', remat='none',
 )
 
 SMOKE = CONFIG.replace(

@@ -11,8 +11,10 @@ layer (``QuantizedPackedLSTM``), keeping its integer dtypes.
 ``{'params', 'opt', 'step'}`` with AdamW's moments — into the port's.
 ``lm_params_from_numpy`` carries the dense LM's nested dict of parameters
 leaf for leaf in each leaf's own dtype (bf16 included), and
-``lm_cache_from_numpy`` its KV cache into the port's layout.
-Nothing here imports JAX; the values are copied bit for bit.
+``lm_cache_from_numpy`` its KV cache into the port's layout, and
+``lm_train_state_from_numpy`` a whole LM train state with any of the three
+optimizers' states.  Nothing here imports JAX; the values are copied bit
+for bit.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 
 from .core.lstm import LSTMParams, LSTMStackParams
 from .core.systolic import QuantizedPackedLSTM
-from .optim import AdamWState
+from .optim import AdafactorState, AdamWState, SGDState
 
 
 def _field(obj, name):
@@ -121,3 +123,28 @@ def lm_cache_from_numpy(cache, device='cuda'):
     is dropped (the port's cache is linear, slot = position)."""
     return {n: _exact(np.swapaxes(np.asarray(cache[n]), 2, 3), device)
             for n in ('k', 'v')}
+
+
+# the reference's optimizer states by their moment fields, and the port's
+_OPT_STATES = ((('m', 'v'), AdamWState), (('vr', 'vc'), AdafactorState),
+               (('mom',), SGDState))
+
+
+def lm_train_state_from_numpy(state, device='cuda'):
+    """The port's LM train state ``{'params', 'opt', 'step'}`` from
+    ``jax.tree.map(np.asarray, state)`` of the reference's: parameters
+    and the optimizer's moments (``AdamWState``, ``AdafactorState`` or
+    ``SGDState``, told apart by their fields) every leaf bit for bit in
+    its own dtype on ``device``, the step counters as 0-d int32 tensors on
+    the CPU."""
+    opt = _field(state, 'opt')
+    for names, cls in _OPT_STATES:
+        if all(hasattr(opt, n) or (isinstance(opt, dict) and n in opt)
+               for n in names):
+            moments = [lm_params_from_numpy(_field(opt, n), device)
+                       for n in names]
+            return {'params': lm_params_from_numpy(_field(state, 'params'),
+                                                   device),
+                    'opt': cls(_step(_field(opt, 'step')), *moments),
+                    'step': _step(_field(state, 'step'))}
+    raise ValueError(f'unknown optimizer state {type(opt).__name__}')

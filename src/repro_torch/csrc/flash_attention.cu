@@ -66,6 +66,13 @@
 // In every schedule, key tiles that the mask empties for a whole query tile
 // are skipped, which is exact: such a tile would leave m, l and the
 // accumulator unchanged (alpha = 1 or all zero).
+//
+// Training: both tiled schedules also write each row's log-sum-exp (f32,
+// (B, H, Sq)) when given an `lse` pointer, with the reference's
+// conventions (`_attn_fwd_scan`): lse = m + log(l), NEG_INF for a row that
+// sees no key.  The backward (`flash_attention_bwd.cu`) recomputes p from
+// it.  A null pointer writes nothing and changes nothing else; the split
+// schedule takes none (the wrapper runs training on the tiled ones).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -133,6 +140,7 @@ flash_attention_kernel(const T* __restrict__ q,    // (B, H, Sq, D)
                        const T* __restrict__ k,    // (B, Hkv, Sk, D)
                        const T* __restrict__ v,    // (B, Hkv, Sk, D)
                        T* __restrict__ out,        // (B, H, Sq, D)
+                       float* __restrict__ lse,    // (B, H, Sq) or null
                        int H, int Hkv, int Sq, int Sk, int D, float scale,
                        bool causal, bool has_window, int window, int kv_len,
                        int offset, bool vec) {
@@ -260,6 +268,10 @@ flash_attention_kernel(const T* __restrict__ q,    // (B, H, Sq, D)
       if (d < D) store(out + ((size_t)bh * Sq + q0 + r) * D + d,
                        acc[i][c] / l_safe);
     }
+    // m and l are the same in the 16 threads of the row
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)bh * Sq + q0 + r] =
+          l[i] == 0.0f ? kNegInf : m[i] + logf(l[i]);
   }
 }
 
@@ -329,6 +341,7 @@ namespace tc {
 
 constexpr int kBK = 64;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // kBQ query rows a CTA (64 or 128), one warp per 16
 template <int kDMax, int kBQ>
@@ -384,6 +397,7 @@ kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, Sq, D)
        const __nv_bfloat16* __restrict__ k,   // (B, Hkv, Sk, D)
        const __nv_bfloat16* __restrict__ v,   // (B, Hkv, Sk, D)
        __nv_bfloat16* __restrict__ out,       // (B, H, Sq, D)
+       float* __restrict__ lse,               // (B, H, Sq) or null
        int H, int Hkv, int Sq, int Sk, int D, float scale, bool causal,
        bool has_window, int window, int kv_len, int offset) {
   using L = Layout<kDMax, kBQ>;
@@ -548,6 +562,10 @@ kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, Sq, D)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = warp * 16 + g + 8 * r;
     if (row >= n_q) continue;
+    // m is in the base-2 domain: lse = m ln 2 + ln l
+    if (lse != nullptr && t == 0)
+      lse[(size_t)bh * Sq + q0 + row] =
+          l[r] == 0.0f ? kNegInf : m[r] * kLn2 + logf(l[r]);
     const float l_safe = l[r] == 0.0f ? 1.0f : l[r];
     __nv_bfloat16* o = out + ((size_t)bh * Sq + q0 + row) * D;
 #pragma unroll
@@ -863,6 +881,7 @@ struct Args {
   int tile_rows, n_splits, key_lo, key_hi, split_keys;
   float *m_part, *l_part, *acc_part;
   int* tickets;
+  float* lse;
   cudaStream_t stream;
 };
 
@@ -874,9 +893,9 @@ int launch_f32_cores(const Args& a) {
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.B * a.H);
   kernel<<<grid, kThreads, smem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out, a.H, a.Hkv,
-      a.Sq, a.Sk, a.D, a.scale, a.causal != 0, a.has_window != 0, a.window,
-      a.kv_len, a.offset, a.vec != 0);
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.out, a.lse, a.H,
+      a.Hkv, a.Sq, a.Sk, a.D, a.scale, a.causal != 0, a.has_window != 0,
+      a.window, a.kv_len, a.offset, a.vec != 0);
   return cudaGetLastError();
 }
 
@@ -889,8 +908,8 @@ int launch_tc(const Args& a) {
   const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.B * a.H);
   kernel<<<grid, L::kThreads, L::kBytes, a.stream>>>(
       (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k,
-      (const __nv_bfloat16*)a.v, (__nv_bfloat16*)a.out, a.H, a.Hkv, a.Sq,
-      a.Sk, a.D, a.scale, a.causal != 0, a.has_window != 0, a.window,
+      (const __nv_bfloat16*)a.v, (__nv_bfloat16*)a.out, a.lse, a.H, a.Hkv,
+      a.Sq, a.Sk, a.D, a.scale, a.causal != 0, a.has_window != 0, a.window,
       a.kv_len, a.offset);
   return cudaGetLastError();
 }
@@ -950,6 +969,8 @@ extern "C" {
 // over keys [key_lo, key_hi) in ranges of split_keys, with its f32 partials
 // (m_part, l_part: n_splits * B * Hkv * Sq * H / Hkv; acc_part: that times
 // D) and B * Hkv int32 tickets, zero before the launch and after it.
+// lse: null, or B * H * Sq floats for the rows' log-sum-exp (tiled
+// schedules only).
 int flash_attention_launch(int device, const void* q, const void* k,
                            const void* v, void* out, int B, int H, int Hkv,
                            int Sq, int Sk, int D, float scale, int causal,
@@ -958,14 +979,16 @@ int flash_attention_launch(int device, const void* q, const void* k,
                            int n_splits,
                            int key_lo, int key_hi, int split_keys,
                            void* m_part, void* l_part, void* acc_part,
-                           void* tickets, void* stream) {
+                           void* tickets, void* lse, void* stream) {
+  if (lse != nullptr && n_splits > 0) return cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   const Args a{q, k, v, out, B, H, Hkv, Sq, Sk, D, scale, causal,
                has_window, window, kv_len, offset, vec, tile_rows, n_splits,
                key_lo,
                key_hi, split_keys, (float*)m_part, (float*)l_part,
-               (float*)acc_part, (int*)tickets, (cudaStream_t)stream};
+               (float*)acc_part, (int*)tickets, (float*)lse,
+               (cudaStream_t)stream};
   if (bf16) return launch_d<__nv_bfloat16>(a);
   return launch_d<float>(a);
 }

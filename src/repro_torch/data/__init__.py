@@ -1,3 +1,5 @@
-from .pipeline import HostLoader, SyntheticCTC, source_for
+from .pipeline import (HostLoader, SyntheticCTC, SyntheticLM, TokenFile,
+                       source_for)
 
-__all__ = ['HostLoader', 'SyntheticCTC', 'source_for']
+__all__ = ['HostLoader', 'SyntheticCTC', 'SyntheticLM', 'TokenFile',
+           'source_for']

@@ -1,17 +1,23 @@
-"""Deterministic, restartable training data for the paper's CTC workload:
-the port of the ``lstm`` family's part of ``repro.data.pipeline``.
+"""Deterministic, restartable training data: the port of
+``repro.data.pipeline`` for the families the port trains (the paper's CTC
+LSTM and the dense LMs).
 
 Batch ``t`` is a pure function of (seed, step), drawn with the reference's
 numpy generator (Philox keyed by the seed, counter at the step), so a
 restarted run resumes mid-stream with only the step counter, and the port's
-batches are bit-identical to the reference's.  ``HostLoader`` stands in for
-the reference's ``ShardedLoader``: one process, no mesh; each batch is
-copied to the device as it is drawn (a pinned, non-blocking copy waits for
-a trace that shows the copy in the step's way).
+batches are bit-identical to the reference's.  Sources: ``SyntheticCTC``
+(MFCC frames and phoneme labels), ``SyntheticLM`` (a Zipf token stream)
+and ``TokenFile`` (windows of a memory-mapped token corpus).
+``HostLoader`` stands in for the reference's ``ShardedLoader``: one
+process, no mesh, no prefetch thread; each batch is copied to the device
+as it is drawn (a pinned, non-blocking copy waits for a trace that shows
+the copy in the step's way).  The reference's ``PipelineConfig`` is read
+by nothing in either package and has no counterpart; its stub frontend
+``source`` arrays (audio, vlm) come with those families.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,11 +54,55 @@ class SyntheticCTC:
                 'label_len': label_len[lo:hi]}
 
 
-def source_for(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0):
-    """The data source of ``cfg``'s family (only ``lstm`` is ported)."""
-    if cfg.family != 'lstm':
+class SyntheticLM:
+    """Zipf-ish token stream; labels are the next tokens.  Drawn exactly
+    as the reference draws it (the whole batch, then rows lo .. hi)."""
+
+    def __init__(self, cfg: ArchConfig, shape: ShapeConfig, seed: int = 0):
+        self.cfg, self.shape, self.seed = cfg, shape, seed
+
+    def host_batch(self, step: int, lo: int, hi: int) -> Dict[str,
+                                                              np.ndarray]:
+        rng = _rng_for_step(self.seed, step)
+        b, s = self.shape.global_batch, self.shape.seq_len
+        zipf = np.minimum(rng.zipf(1.3, size=(b, s + 1)),
+                          self.cfg.vocab_size) - 1
+        toks = zipf.astype(np.int32)[lo:hi]
+        return {'tokens': toks[:, :-1], 'labels': toks[:, 1:]}
+
+
+class TokenFile:
+    """Memory-mapped uint16/uint32 token corpus, read as random windows
+    of ``seq_len + 1`` tokens (the reference's draw)."""
+
+    def __init__(self, path: str, cfg: ArchConfig, shape: ShapeConfig,
+                 seed: int = 0, dtype=np.uint16):
+        self.tokens = np.memmap(path, dtype=dtype, mode='r')
+        self.cfg, self.shape, self.seed = cfg, shape, seed
+
+    def host_batch(self, step: int, lo: int, hi: int) -> Dict[str,
+                                                              np.ndarray]:
+        rng = _rng_for_step(self.seed, step)
+        s = self.shape.seq_len
+        starts = rng.integers(0, len(self.tokens) - s - 1,
+                              size=self.shape.global_batch)[lo:hi]
+        rows = np.stack([self.tokens[st:st + s + 1] for st in starts])
+        rows = rows.astype(np.int32) % self.cfg.vocab_size
+        return {'tokens': rows[:, :-1], 'labels': rows[:, 1:]}
+
+
+def source_for(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,
+               token_file: Optional[str] = None):
+    """The data source of ``cfg``'s family: ``SyntheticCTC`` for the CTC
+    LSTM; for a dense LM ``TokenFile`` over ``token_file`` when given,
+    else ``SyntheticLM``.  Other families are not ported."""
+    if cfg.family == 'lstm':
+        return SyntheticCTC(cfg, shape, seed)
+    if cfg.family != 'dense':
         raise ValueError(f'no ported data source for family {cfg.family!r}')
-    return SyntheticCTC(cfg, shape, seed)
+    if token_file:
+        return TokenFile(token_file, cfg, shape, seed)
+    return SyntheticLM(cfg, shape, seed)
 
 
 class HostLoader:

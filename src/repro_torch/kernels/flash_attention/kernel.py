@@ -12,12 +12,17 @@ per (kv head, key range), every query head of the group in it, the
 partials merged by the last CTA of each kv head, which also sets its
 ticket back to 0, so one zeroed ticket buffer per device and stream serves
 every split launch).
+
+Training: ``return_lse=True`` also returns each row's log-sum-exp (f32,
+(B, H, Sq); NEG_INF where a row sees no key), written by the tiled
+schedules, so such a call never takes the split one.  The backward that
+reads it is ``backward.flash_attention_bwd``.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -30,7 +35,7 @@ POS_MAX = 1 << 28     # |positions| stay below 2 POS_MAX: int32 never wraps
 
 _P, _I = _build.P, _build.I
 _SIGNATURES = {'flash_attention_launch': [_I] + [_P] * 4 + [_I] * 6
-               + [ctypes.c_float] + [_I] * 12 + [_P] * 5}
+               + [ctypes.c_float] + [_I] * 12 + [_P] * 6}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 TILE_ROWS = 64     # query rows of one tiled CTA (the finest tile)
@@ -70,8 +75,8 @@ class AttentionGeometry:
 def attention_geometry(B: int, H: int, Hkv: int, Sq: int, Sk: int,
                        window: Optional[int], kv_len: Optional[int],
                        offset: int, D: int, sms: int, *,
-                       causal: bool = True,
-                       wide: bool = True) -> AttentionGeometry:
+                       causal: bool = True, wide: bool = True,
+                       split: bool = True) -> AttentionGeometry:
     """Pure rule: ``split`` when the tiled grid would fill fewer CTAs than
     the card has SMs and one CTA holds every packed row (Sq x H / Hkv <=
     ``SPLIT_ROWS``), else ``tiled``.  The split cuts the live key range
@@ -82,10 +87,11 @@ def attention_geometry(B: int, H: int, Hkv: int, Sq: int, Sk: int,
     the rule (every D <= 128 has both schedules).  A tiled CTA takes
     ``WIDE_ROWS`` query rows where ``wide`` (the bf16 tensor-core kernel
     has both widths) and that grid still gives every SM two CTAs, else
-    ``TILE_ROWS``."""
+    ``TILE_ROWS``.  ``split=False`` (a training call, which needs the
+    log-sum-exp only the tiled schedules write) always takes ``tiled``."""
     del D
     tiled = -(-Sq // TILE_ROWS) * B * H
-    if tiled >= sms or Sq * (H // Hkv) > SPLIT_ROWS:
+    if not split or tiled >= sms or Sq * (H // Hkv) > SPLIT_ROWS:
         wide_ctas = -(-Sq // WIDE_ROWS) * B * H
         if wide and wide_ctas >= 2 * sms:
             return AttentionGeometry('tiled', wide_ctas, WIDE_ROWS)
@@ -104,9 +110,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     sm_scale: Optional[float] = None,
                     kv_len: Optional[int] = None,
-                    offset: Optional[int] = None) -> torch.Tensor:
+                    offset: Optional[int] = None, return_lse: bool = False
+                    ) -> Union[torch.Tensor, Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
     """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D) with H % Hkv == 0, all f32 or
-    all bf16.  Returns (B, H, Sq, D) in q's dtype.
+    all bf16.  Returns (B, H, Sq, D) in q's dtype, and with
+    ``return_lse`` also the rows' log-sum-exp, f32 (B, H, Sq).
 
     ``offset``: absolute position of query row 0 minus that of key row 0
     (default Sk - Sq when causal, else 0).  ``kv_len``: keys j < kv_len
@@ -126,7 +135,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dev = q.device
     if dev.type == 'cpu':
         return attention_ref(q, k, v, causal=causal, window=window,
-                             sm_scale=scale, kv_len=kv_len, offset=offset)
+                             sm_scale=scale, kv_len=kv_len, offset=offset,
+                             return_lse=return_lse)
     if dev.type != 'cuda':
         raise ValueError(f'flash_attention runs on cuda or cpu, not {dev}')
     if q.dtype not in _DTYPES:
@@ -140,8 +150,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f'B*H={b * h} at most 65535, and Sq={sq}, Sk={sk}, '
                          f'|offset|={abs(offset)} below {POS_MAX}')
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     # a window beyond +-2 POS_MAX passes or masks every pair alike
     win = 0 if window is None else max(-2 * POS_MAX, min(2 * POS_MAX, window))
     kv = sk if kv_len is None else max(-1, min(sk, kv_len))
@@ -150,7 +162,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     geom = attention_geometry(
         b, h, hkv, sq, sk, window, kv_len, offset, d,
         torch.cuda.get_device_properties(dev).multi_processor_count,
-        causal=causal, wide=q.dtype == torch.bfloat16)
+        causal=causal, wide=q.dtype == torch.bfloat16, split=not return_lse)
     stream = torch.cuda.current_stream(dev).cuda_stream
     parts = [None] * 4                 # m, l, acc partials and tickets
     if geom.path == 'split':
@@ -167,10 +179,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         int(q.dtype == torch.bfloat16), int(vec), geom.tile_rows,
         geom.n_splits,
         geom.key_lo, geom.key_hi, geom.split_keys,
-        *(0 if t is None else t.data_ptr() for t in parts), stream)
+        *(0 if t is None else t.data_ptr() for t in parts),
+        0 if lse is None else lse.data_ptr(), stream)
     _build.check(lib, err, 'flash_attention launch')
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

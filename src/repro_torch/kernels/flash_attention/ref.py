@@ -7,10 +7,15 @@ Scores and softmax in f32 from the inputs' values, masked scores
 dtype.  The query rows go in blocks of at most ``SCORE_ELEMS`` scores, so
 that a long prefill (Mixtral's 48 heads x 8192 x 8192) never holds its
 whole score tensor; each block is the same arithmetic as the whole.
+
+For training, ``attention_ref(..., return_lse=True)`` also returns each
+row's log-sum-exp and ``attention_bwd_ref`` is the plain mirror of the
+reference's ``_ca_bwd`` (the custom VJP of ``chunked_attention``): p
+recomputed from the log-sum-exp, blocked like the forward.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -18,16 +23,35 @@ NEG_INF = -1e30
 SCORE_ELEMS = 1 << 27     # scores per query block (512 MB in f32)
 
 
+def _mask(lo: int, hi: int, sk: int, offset: int, causal: bool,
+          window: Optional[int], kv_len: Optional[int], device):
+    """(hi - lo, sk) bool: which keys query rows lo .. hi - 1 see."""
+    k_pos = torch.arange(sk, device=device)[None, :]
+    q_pos = torch.arange(lo, hi, device=device)[:, None] + offset
+    mask = torch.ones((hi - lo, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    if kv_len is not None:
+        mask &= k_pos < kv_len
+    return mask
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
                   sm_scale: Optional[float] = None,
                   kv_len: Optional[int] = None,
-                  offset: Optional[int] = None) -> torch.Tensor:
+                  offset: Optional[int] = None, return_lse: bool = False
+                  ) -> Union[torch.Tensor, Tuple[torch.Tensor,
+                                                 torch.Tensor]]:
     """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D); GQA via H % Hkv == 0.
 
     ``window``: query position p attends keys j with p - j < window.
     ``kv_len``: keys j < kv_len only.  ``offset``: absolute position of
     query row 0 (default Sk - Sq when causal, else 0, the reference's).
+    ``return_lse``: also the rows' log-sum-exp of the scaled scores, f32
+    (B, H, Sq), NEG_INF where a row sees no key (``_attn_fwd_scan``'s).
     """
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -37,25 +61,78 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         offset = sk - sq if causal else 0
     qf = q.to(torch.float32).reshape(b, hkv, group, sq, d)
     kf, vf = k.to(torch.float32), v.to(torch.float32)
-    k_pos = torch.arange(sk, device=q.device)[None, :]
     out = torch.empty((b, hkv, group, sq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hkv, group, sq), dtype=torch.float32,
+                       device=q.device) if return_lse else None)
     step = max(1, SCORE_ELEMS // max(1, b * h * sk))
     for lo in range(0, sq, step):
         hi = min(sq, lo + step)
         s = torch.einsum('bkgqd,bksd->bkgqs', qf[:, :, :, lo:hi], kf) * scale
-        q_pos = torch.arange(lo, hi, device=q.device)[:, None] + offset
-        mask = torch.ones((hi - lo, sk), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= q_pos >= k_pos
-        if window is not None:
-            mask &= (q_pos - k_pos) < window
-        if kv_len is not None:
-            mask &= k_pos < kv_len
-        p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
-        p = torch.where(mask.any(dim=-1, keepdim=True), p, 0.0)
+        mask = _mask(lo, hi, sk, offset, causal, window, kv_len, q.device)
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        seen = mask.any(dim=-1)
+        p = torch.where(seen[:, None], p, 0.0)
         out[:, :, :, lo:hi] = torch.einsum('bkgqs,bksd->bkgqd', p, vf
                                            ).to(q.dtype)
-    return out.reshape(b, h, sq, d)
+        if return_lse:
+            lse[:, :, :, lo:hi] = torch.where(seen, torch.logsumexp(s, -1),
+                                              NEG_INF)
+    out = out.reshape(b, h, sq, d)
+    return (out, lse.reshape(b, h, sq)) if return_lse else out
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(do * o) in f32, (B, H, Sq): the backward's delta, as
+    ``_ca_bwd`` computes it."""
+    return (do.to(torch.float32) * o.to(torch.float32)).sum(dim=-1)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, lse: torch.Tensor,
+                      delta: torch.Tensor, *, causal: bool = True,
+                      window: Optional[int] = None,
+                      sm_scale: Optional[float] = None,
+                      offset: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``attention_ref`` at cotangent ``do`` (B, H,
+    Sq, D), from the forward's ``lse`` and ``delta`` (``attention_delta``):
+    the reference's ``_ca_bwd`` with p = exp(s - lse_safe) under the mask,
+    ds = p (dp - delta) scale; f32 arithmetic, each gradient in its
+    input's dtype.  The query rows go in blocks of at most ``SCORE_ELEMS``
+    scores; dk and dv sum over the blocks and the heads of each group.
+    No ``kv_len``: the reference's training path has none."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = d ** -0.5 if sm_scale is None else sm_scale
+    if offset is None:
+        offset = sk - sq if causal else 0
+    f32 = torch.float32
+    qf = q.to(f32).reshape(b, hkv, group, sq, d)
+    dof = do.to(f32).reshape(b, hkv, group, sq, d)
+    kf, vf = k.to(f32), v.to(f32)
+    lse_safe = torch.where(lse == NEG_INF, 0.0, lse).reshape(b, hkv, group,
+                                                             sq)
+    delta = delta.reshape(b, hkv, group, sq)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    step = max(1, SCORE_ELEMS // max(1, b * h * sk))
+    for lo in range(0, sq, step):
+        hi = min(sq, lo + step)
+        q_b, do_b = qf[:, :, :, lo:hi], dof[:, :, :, lo:hi]
+        s = torch.einsum('bkgqd,bksd->bkgqs', q_b, kf) * scale
+        mask = _mask(lo, hi, sk, offset, causal, window, None, q.device)
+        p = torch.where(mask, torch.exp(s - lse_safe[:, :, :, lo:hi, None]),
+                        0.0)
+        dv += torch.einsum('bkgqs,bkgqd->bksd', p, do_b)
+        dp = torch.einsum('bkgqd,bksd->bkgqs', do_b, vf)
+        ds = p * (dp - delta[:, :, :, lo:hi, None]) * scale
+        dq[:, :, :, lo:hi] = torch.einsum('bkgqs,bksd->bkgqd', ds, kf)
+        dk += torch.einsum('bkgqs,bkgqd->bksd', ds, q_b)
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def live_key_range(sq: int, sk: int, *, causal: bool, window: Optional[int],

@@ -1,21 +1,30 @@
-"""Train step factory and the trainer CLI for the paper's CTC LSTM.
+"""Train step factory and the trainer CLI, for the paper's CTC LSTM and
+the dense LM family.
 
 ``make_train_step`` builds the update: loss -> gradients (with microbatch
 accumulation) -> global-norm clip -> optimizer -> apply, as the reference's
-``repro.launch.train.make_train_step`` does; the gradients come from the
-hand-written gate-recompute backward of whichever LSTM backend the config
-names.  ``main`` is the CLI: synthetic CTC data -> steps under the
-``runtime.FaultTolerantRunner`` (retry, restore from the latest checkpoint,
-and a heartbeat in ``<ckpt-dir>/heartbeat.json``) -> async checkpoints,
-with ``--resume``.  It runs on the card unless ``--device cpu``
-is given; the full ``chipmunk-ctc`` configuration is the default and
-``--smoke`` selects the reduced one::
+``repro.launch.train.make_train_step`` does; the CTC LSTM's gradients come
+from the hand-written gate-recompute backward of whichever LSTM backend
+the config names, the LM's through K8's forward and backward kernels
+(``models.layers.attention``) under the config's ``remat``.  With
+``donate=True`` (the reference's ``donate_argnums=(0,)``) the step clips
+the gradients and updates the parameters and the optimizer state in place,
+leaf by leaf (``Optimizer.update_``), equal bit for bit to the functional
+step.  ``main`` is the CLI: synthetic data (CTC frames, or the LM's token
+stream) -> donating steps under the ``runtime.FaultTolerantRunner`` (retry,
+restore from the latest checkpoint, and a heartbeat in
+``<ckpt-dir>/heartbeat.json``) -> async checkpoints, with ``--resume``.  It
+runs on the card unless ``--device cpu`` is given; ``--arch`` takes
+``chipmunk-ctc`` (the default) or a dense LM, and ``--smoke`` selects the
+reduced configuration::
 
     python -m repro_torch.launch.train --steps 20 --lstm-backend cuda_step
     python -m repro_torch.launch.train --device cpu --smoke --steps 8 \\
         --batch 4 --seq 32
+    python -m repro_torch.launch.train --arch minicpm-2b --smoke --steps 8
 
-The reference's mesh and sharding have no counterpart here (one card).
+The reference's mesh and sharding (``abstract_train_state``,
+``batch_shardings``, ``local_mesh``) have no counterpart here (one card).
 """
 from __future__ import annotations
 
@@ -23,7 +32,7 @@ import argparse
 import functools
 import pathlib
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 import torch
 
@@ -31,9 +40,13 @@ from .. import configs
 from ..checkpoint import CheckpointManager
 from ..core.lstm import BACKENDS
 from ..data import HostLoader, source_for
-from ..models import chipmunk_net
-from ..optim import (apply_updates, clip_by_global_norm, cosine_schedule,
-                     make_optimizer)
+from ..kernels.flash_attention import (flash_attention,
+                                       flash_attention_bwd_kv,
+                                       flash_attention_bwd_q)
+from ..models import chipmunk_net, get_bundle, transformer
+from ..optim import (apply_updates, clip_by_global_norm,
+                     clip_by_global_norm_, cosine_schedule, make_optimizer,
+                     wsd_schedule)
 from ..runtime import FaultConfig, FaultTolerantRunner
 from ..tree import leaves, tree_map, unflatten_like
 
@@ -42,9 +55,10 @@ DEFAULT_CKPT_DIR = (pathlib.Path(__file__).resolve().parents[3] / 'build'
 
 
 def lr_schedule_for(cfg, peak_lr=3e-4, warmup=100, total=10_000):
-    """The learning-rate schedule of ``cfg``: cosine for every ported
-    configuration (the reference's WSD schedule belongs to MiniCPM, not
-    ported)."""
+    """The learning-rate schedule of ``cfg``: WSD for MiniCPM (which
+    trains with it), cosine for every other configuration."""
+    if cfg.name.startswith('minicpm'):
+        return wsd_schedule(peak_lr, warmup, total)
     return cosine_schedule(peak_lr, warmup, total)
 
 
@@ -55,46 +69,68 @@ def lr_schedule_for(cfg, peak_lr=3e-4, warmup=100, total=10_000):
 PHASES = ('train_step.loss', 'train_step.backward', 'train_step.update')
 
 
-def _grads_of(loss_fn: Callable, params, batch):
-    """(loss, gradient tree) of ``loss_fn(params, batch)``, with fresh
-    leaves so the caller's parameters never carry a graph."""
+def _grad_leaves(loss_fn: Callable, params, batch):
+    """(loss, gradient leaves in flattening order) of ``loss_fn(params,
+    batch)``, with fresh leaves so the caller's parameters never carry a
+    graph."""
     p = tree_map(lambda x: x.detach().requires_grad_(True), params)
     with torch.profiler.record_function(PHASES[0]):
         loss = loss_fn(p, batch)
     with torch.profiler.record_function(PHASES[1]):
-        grads = torch.autograd.grad(loss, leaves(p))
-    return loss.detach(), unflatten_like(params, grads)
+        grads = list(torch.autograd.grad(loss, leaves(p)))
+    return loss.detach(), grads
+
+
+def _grads_of(loss_fn: Callable, params, batch):
+    """(loss, gradient tree) of ``loss_fn(params, batch)``."""
+    loss, grads = _grad_leaves(loss_fn, params, batch)
+    return loss, unflatten_like(params, grads)
 
 
 def make_train_step(loss_fn: Callable, optimizer, *, microbatches: int = 1,
-                    grad_clip: float = 1.0) -> Callable:
+                    grad_clip: float = 1.0, donate: bool = False) -> Callable:
     """(state, batch) -> (state, metrics).  state = {'params', 'opt',
     'step'}; ``loss_fn(params, batch)`` is a scalar; metrics are the loss
     and the gradient's global norm before clipping, as 0-d device tensors
-    (reading them waits for the card)."""
+    (reading them waits for the card).  ``donate``: the parameters and
+    the optimizer state of the state passed in are updated in place (the
+    returned state holds the same tensors; after a failed step only a
+    restore gives a consistent state), each gradient freed once applied.
+    Microbatch gradients sum in place into fresh buffers in either form."""
+
+    def grads_and_loss(params, batch) -> tuple:
+        if microbatches == 1:
+            return _grad_leaves(loss_fn, params, batch)
+        split = {k: v.reshape((microbatches, v.shape[0] // microbatches)
+                              + tuple(v.shape[1:]))
+                 for k, v in batch.items()}
+        gsum: List[torch.Tensor] = [torch.zeros_like(p)
+                                    for p in leaves(params)]
+        lsum = 0.0
+        for i in range(microbatches):
+            loss_i, g = _grad_leaves(loss_fn, params,
+                                     {k: v[i] for k, v in split.items()})
+            for a, x in zip(gsum, g):
+                a.add_(x.to(a.dtype))
+            del g
+            lsum = lsum + loss_i
+        for a in gsum:
+            a.div_(microbatches)
+        return lsum / microbatches, gsum
 
     def train_step(state, batch: Dict[str, torch.Tensor]):
         params = state['params']
-        if microbatches == 1:
-            loss, grads = _grads_of(loss_fn, params, batch)
-        else:
-            split = {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                                  + tuple(v.shape[1:]))
-                     for k, v in batch.items()}
-            gsum = tree_map(torch.zeros_like, params)
-            lsum = 0.0
-            for i in range(microbatches):
-                loss_i, g = _grads_of(loss_fn, params,
-                                      {k: v[i] for k, v in split.items()})
-                gsum = tree_map(lambda a, x: a + x.to(a.dtype), gsum, g)
-                lsum = lsum + loss_i
-            grads = tree_map(lambda g: g / microbatches, gsum)
-            loss = lsum / microbatches
+        loss, grads = grads_and_loss(params, batch)
         with torch.no_grad(), torch.profiler.record_function(PHASES[2]):
-            grads, gnorm = clip_by_global_norm(grads, grad_clip)
-            updates, opt_state = optimizer.update(grads, state['opt'],
-                                                  params)
-            params = apply_updates(params, updates)
+            if donate:
+                gnorm = clip_by_global_norm_(grads, grad_clip)
+                opt_state = optimizer.update_(grads, state['opt'], params)
+            else:
+                tree, gnorm = clip_by_global_norm(
+                    unflatten_like(params, grads), grad_clip)
+                updates, opt_state = optimizer.update(tree, state['opt'],
+                                                      params)
+                params = apply_updates(params, updates)
         return ({'params': params, 'opt': opt_state,
                  'step': state['step'] + 1},
                 {'loss': loss, 'grad_norm': gnorm})
@@ -102,11 +138,33 @@ def make_train_step(loss_fn: Callable, optimizer, *, microbatches: int = 1,
     return train_step
 
 
+def attention_launches() -> str:
+    """K8's forward and backward launch counts, as the LM's trainers
+    print them."""
+    return (f'K8 launches: forward {flash_attention.launches}, backward '
+            f'dk/dv {flash_attention_bwd_kv.launches}, dq '
+            f'{flash_attention_bwd_q.launches}')
+
+
+def loss_fn_for(cfg) -> Callable:
+    """``(params, batch) -> loss`` of ``cfg``'s family."""
+    if cfg.family == 'lstm':
+        return functools.partial(chipmunk_net.loss_fn, cfg)
+    return get_bundle(cfg).loss_fn
+
+
 def init_train_state(cfg, optimizer, device, seed: int = 0):
     """Random parameters of ``cfg`` from ``seed``, fresh optimizer state,
-    step 0 (a 0-d int32 on the CPU)."""
-    params = chipmunk_net.init(cfg, torch.Generator().manual_seed(seed),
-                               device=device)
+    step 0 (a 0-d int32 on the CPU).  The CTC LSTM draws on the CPU's
+    generator and copies, a dense LM (``transformer.init_lm``) draws on a
+    generator of ``device`` itself."""
+    if cfg.family == 'lstm':
+        params = chipmunk_net.init(cfg, torch.Generator().manual_seed(seed),
+                                   device=device)
+    else:
+        dev = torch.device(device)
+        params = transformer.init_lm(
+            cfg, torch.Generator(dev).manual_seed(seed), dev)
     return {'params': params, 'opt': optimizer.init(params),
             'step': torch.zeros((), dtype=torch.int32)}
 
@@ -131,7 +189,8 @@ def main(argv=None):
     ap.add_argument('--resume', action='store_true')
     ap.add_argument('--microbatches', type=int, default=1)
     ap.add_argument('--log-every', type=int, default=5)
-    ap.add_argument('--lstm-backend', default='auto', choices=BACKENDS)
+    ap.add_argument('--lstm-backend', default='auto', choices=BACKENDS,
+                    help='the CTC LSTM\'s backend')
     ap.add_argument('--device', default='cuda',
                     help='torch device of the weights and the batches '
                          '(cuda, cpu)')
@@ -143,8 +202,8 @@ def main(argv=None):
     optimizer = make_optimizer(
         cfg.optimizer, lr_schedule_for(cfg, args.lr, warmup=10,
                                        total=args.steps))
-    step_fn = make_train_step(functools.partial(chipmunk_net.loss_fn, cfg),
-                              optimizer, microbatches=args.microbatches)
+    step_fn = make_train_step(loss_fn_for(cfg), optimizer,
+                              microbatches=args.microbatches, donate=True)
     state = init_train_state(cfg, optimizer, args.device)
 
     ckpt = CheckpointManager(args.ckpt_dir)
@@ -170,6 +229,8 @@ def main(argv=None):
         if (step + 1) % args.ckpt_every == 0:
             ckpt.save(step + 1, state)
     ckpt.save(args.steps, state, blocking=True)
+    if cfg.family != 'lstm':
+        print(attention_launches())
     print(f'done; events: {runner.events[:5]}')
 
 

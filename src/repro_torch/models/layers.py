@@ -14,7 +14,11 @@ Attention runs on K8 (``kernels.flash_attention``), chosen by
 tensors and runs its plain version on CPU ones, ``torch`` runs the plain
 version on any device.  A failure to build or launch the kernel is raised,
 never caught.  K8 takes any sequence
-length, so the reference's key padding to ``attn_chunk`` is gone.
+length, so the reference's key padding to ``attn_chunk`` is gone.  Under
+autograd (an input that requires grad) attention goes through
+``attention_train``, the counterpart of the reference's custom VJP: K8's
+forward keeps its log-sum-exp and K8's hand-written backward recomputes
+p from it (``torch``: the plain forward and backward).
 
 Init draws from one ``torch.Generator`` in order (the reference's
 ``keygen`` key splits have no counterpart); the numbers differ from
@@ -30,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs import ATTN_BACKENDS
-from ..kernels.flash_attention import attention_ref, flash_attention
+from ..kernels.flash_attention import (attention_ref, attention_train,
+                                       flash_attention)
 
 f32 = torch.float32
 Params = Dict[str, torch.Tensor]
@@ -125,10 +130,19 @@ def attention(backend: str, q: torch.Tensor, k: torch.Tensor,
     one dtype.  ``offset`` is the position of query row 0 (default Sk - Sq
     when causal), keys j < ``kv_len`` only.  On K8 (``flash_attention``)
     or its plain version (``attention_ref``) by ``backend``
-    (``cfg.attn_backend``)."""
+    (``cfg.attn_backend``); through ``attention_train`` when grad mode is
+    on and an input requires grad (``kv_len`` is inference-only there, as
+    in the reference, and raises)."""
     if backend not in ATTN_BACKENDS:
         raise ValueError(f'attn_backend {backend!r}, expected one of '
                          f'{ATTN_BACKENDS}')
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if kv_len is not None:
+            raise ValueError('attention: kv_len is inference-only (no '
+                             'backward)')
+        return attention_train(q, k, v, causal=causal, window=window,
+                               offset=offset, plain=backend == 'torch')
     kw = dict(causal=causal, window=window, offset=offset, kv_len=kv_len)
     if backend == 'torch':
         return attention_ref(q, k, v, **kw)
@@ -248,7 +262,11 @@ def init_embedding(cfg, gen: torch.Generator, dtype: torch.dtype) -> Params:
 
 
 def embed(cfg, p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p['table'][tokens].to(cfg.adtype())
+    """The table's rows at ``tokens``.  Through ``F.embedding``, whose
+    backward sums each row's gradients in a fixed order; indexing's
+    (``index_put_`` with accumulate) adds them in thread order on the CPU,
+    so two runs of a step would differ in their last bits."""
+    return F.embedding(tokens, p['table']).to(cfg.adtype())
 
 
 def unembed(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -4,20 +4,28 @@ cache and one-token decode.
 Counterpart of the decoder-only part of ``repro.models.transformer``.
 Block parameters are stacked over a leading layer axis, as the reference's
 scanned stack is, so carrying weights across is a copy; the reference's
-``lax.scan`` over layers is a Python loop over that axis here.  ``remat``
-does not apply to a serving forward.  The encoder-decoder and
+``lax.scan`` over layers is a Python loop over that axis here.
+``forward_lm`` splits the stack once (``torch.unbind``, whose backward
+stacks), so each layer's gradient is written once into the stacked
+gradient; indexing ``a[i]`` per layer would materialise a zero tensor of
+the whole stack per layer and leaf in the backward.  Under grad each
+layer runs under ``cfg.remat`` (``_maybe_remat``, the reference's
+counterpart: ``torch.utils.checkpoint``); a serving forward has no grad
+and no remat.  The encoder-decoder and
 cross-attention paths (``_encoder``, ``_cross_block``,
 ``precompute_cross_kv``) and the MoE block come with their families
 (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+import functools
+from typing import Any, Callable, Dict, List
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from ..configs import ArchConfig
-from ..tree import tree_map
+from ..tree import leaves, tree_map, unflatten_like
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -79,6 +87,16 @@ def layer(params: Params, i: int) -> Params:
     return tree_map(lambda a: a[i], params['blocks'])
 
 
+def unstack_layers(params: Params) -> List[Params]:
+    """Every layer's block parameters, from one ``torch.unbind`` of each
+    stacked leaf: views whose gradients the unbind's backward stacks into
+    one tensor per leaf."""
+    blocks = params['blocks']
+    cols = [torch.unbind(a) for a in leaves(blocks)]
+    return [unflatten_like(blocks, [c[i] for c in cols])
+            for i in range(len(cols[0]))]
+
+
 # ------------------------------------------------------------------ blocks
 def _self_block(cfg: ArchConfig, p: Params, x: torch.Tensor, cos_sin,
                 window):
@@ -88,6 +106,35 @@ def _self_block(cfg: ArchConfig, p: Params, x: torch.Tensor, cos_sin,
                                causal=True, window=window)).to(dt)
     h = L.apply_norm(cfg, p['ln2'], x)
     return (x + L.mlp_block(cfg, p['mlp'], h)).to(dt)
+
+
+REMATS = ('none', 'full', 'dots')
+# the products whose outputs ``remat='dots'`` keeps: matrix products with
+# no batch dimension (the port's projections reach ``mm``; attention's
+# batched products and everything elementwise are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(cfg: ArchConfig, fn: Callable) -> Callable:
+    """``fn`` under ``cfg.remat`` when grad mode is on: ``full``
+    recomputes the whole call in the backward, ``dots`` keeps only the
+    outputs of products with no batch dimension (the reference's
+    ``dots_with_no_batch_dims_saveable``), ``none`` keeps everything.
+    Nothing in a layer draws random numbers, so no RNG state is kept."""
+    if cfg.remat not in REMATS:
+        raise ValueError(f'remat {cfg.remat!r}, expected one of {REMATS}')
+    if cfg.remat == 'none' or not torch.is_grad_enabled():
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat == 'dots':
+        kw['context_fn'] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: ckpt.checkpoint(fn, *args, **kw)
 
 
 def forward_lm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
@@ -103,9 +150,9 @@ def forward_lm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     x = L.embed(cfg, params['embed'], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     cos_sin = L.rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        x = _self_block(cfg, layer(params, i), x, cos_sin,
-                        cfg.sliding_window)
+    block = _maybe_remat(cfg, functools.partial(_self_block, cfg))
+    for blk in unstack_layers(params):
+        x = block(blk, x, cos_sin, cfg.sliding_window)
     x = L.apply_norm(cfg, params['final_norm'], x)
     return L.unembed(cfg, params['embed'], x), 0.0
 

@@ -1,7 +1,10 @@
-from .optimizers import (AdamWState, Optimizer, adamw, apply_updates,
-                         clip_by_global_norm, cosine_schedule, global_norm,
-                         make_optimizer)
+from .optimizers import (AdafactorState, AdamWState, OPTIMIZERS, Optimizer,
+                         SGDState, adafactor, adamw, apply_updates,
+                         clip_by_global_norm, clip_by_global_norm_,
+                         cosine_schedule, global_norm, make_optimizer, sgd,
+                         wsd_schedule)
 
-__all__ = ['AdamWState', 'Optimizer', 'adamw', 'apply_updates',
-           'clip_by_global_norm', 'cosine_schedule', 'global_norm',
-           'make_optimizer']
+__all__ = ['AdafactorState', 'AdamWState', 'OPTIMIZERS', 'Optimizer',
+           'SGDState', 'adafactor', 'adamw', 'apply_updates',
+           'clip_by_global_norm', 'clip_by_global_norm_', 'cosine_schedule',
+           'global_norm', 'make_optimizer', 'sgd', 'wsd_schedule']

@@ -37,14 +37,16 @@ def test_f32_kernels_share_one_epilogue_header(name):
         assert body not in src, body
 
 
-# source -> its exported launch functions (K1-K8)
+# source -> its exported launch functions (K1-K8 and K8's backward)
 SOURCES = {'lstm_seq': ('lstm_seq_launch',),
            'lstm_stack_seq': ('lstm_stack_seq_launch',),
            'lstm_seq_q': ('lstm_seq_q_launch',),
            'lstm_stack_seq_q': ('lstm_stack_seq_q_launch',),
            'lstm_gates_rec': ('lstm_gates_rec_launch', 'lstm_gates_launch'),
            'quant_matmul': ('quant_matmul_launch',),
-           'flash_attention': ('flash_attention_launch',)}
+           'flash_attention': ('flash_attention_launch',),
+           'flash_attention_bwd': ('flash_attention_bwd_kv_launch',
+                                   'flash_attention_bwd_q_launch')}
 
 
 def test_every_kernel_source_and_its_exports():

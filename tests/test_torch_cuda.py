@@ -16,7 +16,12 @@ Frobenius error of at most 1e-4 per leaf.  K6 (the fused cell) at atol
 1e-4; K7 (int8 matmul) ``torch.equal`` to its plain version in f32 and
 bf16 (an exact int32 sum and the same epilogue order); K8 (attention) at
 atol 1e-4 in f32, and in bf16 at one rounding of the output (rtol 2**-7)
-with atol 1e-5: both compute in f32 and round the output to bf16.
+with atol 1e-5: both compute in f32 and round the output to bf16.  K8's
+log-sum-exp at atol 1e-5 (f32 logs of sums in another order), its output
+``torch.equal`` to the launch without one; K8's backward (dq, dk, dv) at a
+max-abs error of 1e-4 of the gradient's scale (max |want|) in f32 and
+2**-7 in bf16 (one rounding of the output), each launch bit-equal to the
+next on the same inputs.
 """
 import functools
 import subprocess
@@ -41,9 +46,14 @@ from repro_torch.kernels.lstm_seq import (lstm_seq, lstm_seq_quantized,
                                           lstm_stack_seq_ref,
                                           stack_kernel_weights,
                                           stack_kernel_weights_q)
-from repro_torch.kernels.flash_attention import (attention_geometry,
+from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                 attention_delta,
+                                                 attention_geometry,
                                                  attention_ref,
-                                                 flash_attention, mha)
+                                                 attention_train,
+                                                 flash_attention,
+                                                 flash_attention_bwd_kv,
+                                                 flash_attention_bwd_q, mha)
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.lstm_gates import (gates_geometry, lstm_cell_fused,
@@ -929,6 +939,82 @@ def test_mha_on_card_launches_once(dev):
     torch.testing.assert_close(
         got, attention_ref(q, k, v, causal=True, window=16), rtol=0,
         atol=1e-4)
+
+
+# (B, H, Hkv, Sq, Sk, D, window, offset): causal training shapes of K8's
+# forward with lse and its backward kernels; ragged tiles, GQA, D 20, a
+# window, rows that see no key (negative offset), MiniCPM-2B's heads
+TRAIN_ATTN_CASES = (
+    (2, 4, 2, 100, 100, 64, None, None),
+    (1, 6, 2, 70, 130, 128, 48, None),
+    (1, 2, 1, 96, 96, 20, None, -16),
+    (1, 4, 4, 130, 130, 32, 5, None),
+    (1, 36, 36, 512, 512, 64, None, None),
+)
+BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+
+
+def _train_attn_inputs(case, dtype, dev):
+    b, h, hkv, sq, sk, d, window, offset = case
+    g = torch.Generator(device=dev).manual_seed(sq + sk + d)
+    q, do = (torch.randn(b, h, sq, d, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, sk, d, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v, do, dict(causal=True, window=window, offset=offset)
+
+
+@pytest.mark.parametrize('case', TRAIN_ATTN_CASES)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_matches_plain_version(dev, case, dtype):
+    """Both tiled schedules write the log-sum-exp; the output is the
+    launch's without it."""
+    q, k, v, _, kw = _train_attn_inputs(case, dtype, dev)
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    o_r, lse_r = attention_ref(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, flash_attention(q, k, v, **kw))
+    assert lse.shape == lse_r.shape and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, lse_r, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize('case', TRAIN_ATTN_CASES)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_matches_plain_version(dev, case, dtype):
+    q, k, v, do, kw = _train_attn_inputs(case, dtype, dev)
+    o, lse = attention_ref(q, k, v, return_lse=True, **kw)
+    delta = attention_delta(o, do)
+    n_kv = flash_attention_bwd_kv.launches
+    n_q = flash_attention_bwd_q.launches
+    got = (flash_attention_bwd_q(q, k, v, do, lse, delta, **kw),
+           *flash_attention_bwd_kv(q, k, v, do, lse, delta, **kw))
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_kv.launches, flash_attention_bwd_q.launches
+            ) == (n_kv + 1, n_q + 1)
+    want = attention_bwd_ref(q, k, v, do, lse, delta, **kw)
+    for name, a, b in zip(('dq', 'dk', 'dv'), got, want):
+        assert a.dtype == b.dtype == dtype, name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= BWD_REL[dtype] * float(b.float().abs().max()), name
+    again = (flash_attention_bwd_q(q, k, v, do, lse, delta, **kw),
+             *flash_attention_bwd_kv(q, k, v, do, lse, delta, **kw))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_attention_train_on_card_matches_plain(dev):
+    """The autograd op on K8 (forward with lse, both backward kernels)
+    against the same op on the plain versions."""
+    q, k, v, do, kw = _train_attn_inputs(TRAIN_ATTN_CASES[1], torch.float32,
+                                         dev)
+    outs = {}
+    for plain in (False, True):
+        leaves_ = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = attention_train(*leaves_, plain=plain, **kw)
+        outs[plain] = (o, torch.autograd.grad(o, leaves_, do))
+    torch.testing.assert_close(outs[False][0], outs[True][0], rtol=0,
+                               atol=1e-4)
+    for a, b in zip(outs[False][1], outs[True][1]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
 # --------------------------- F4: batch blocks past a kernel's single launch

@@ -46,6 +46,8 @@ def test_serving_path_import_leaves_jax_unloaded():
             'import repro_torch.tune, repro_torch.tune.__main__\n'
             'import repro_torch.examples.speech_ctc\n'
             'import repro_torch.examples.quickstart\n'
+            'import repro_torch.examples.train_lm\n'
+            'import repro_torch.kernels.flash_attention.backward\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "repro")]\n'
             'print(bad)\n'
@@ -77,6 +79,33 @@ def test_die_mesh_and_staged_tuner_import_without_jax_and_default_to_cuda():
             'assert build_parser().parse_args([]).device == "cuda"\n'
             'src = inspect.getsource(main)\n'
             'assert "default=\'cuda\'" in src\n'
+            'print("ok")\n')
+    env = dict(os.environ, PYTHONPATH=str(ROOT / 'src'))
+    out = subprocess.run([sys.executable, '-c', code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_lm_training_path_imports_without_jax_and_defaults_to_cuda():
+    """The LM training slice (K8's backward and ``attention_train``, the
+    optimizers, the LM data sources, ``lm_train_state_from_numpy``, the
+    train CLI and ``examples.train_lm``) imports without ``jax``; both
+    entry points run on ``cuda`` unless asked."""
+    code = ('import sys, inspect\n'
+            'from repro_torch.kernels.flash_attention import (\n'
+            '    attention_train, flash_attention_bwd, attention_bwd_ref)\n'
+            'from repro_torch.optim import (adafactor, sgd, wsd_schedule,\n'
+            '    AdafactorState, SGDState, clip_by_global_norm_)\n'
+            'from repro_torch.data import SyntheticLM, TokenFile\n'
+            'from repro_torch.convert import lm_train_state_from_numpy\n'
+            'from repro_torch.launch import train\n'
+            'from repro_torch.examples import train_lm\n'
+            'bad = [m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "jaxlib", "repro")]\n'
+            'assert not bad, bad\n'
+            'for fn in (train.main, train_lm.main):\n'
+            '    assert "\'--device\', default=\'cuda\'" in '
+            'inspect.getsource(fn), fn\n'
             'print("ok")\n')
     env = dict(os.environ, PYTHONPATH=str(ROOT / 'src'))
     out = subprocess.run([sys.executable, '-c', code], env=env, cwd=ROOT,

@@ -39,7 +39,7 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 
 DENSE = ['qwen3-14b', 'qwen2.5-14b', 'codeqwen1.5-7b', 'minicpm-2b']
-IGNORED_FIELDS = ('use_pallas', 'remat', 'scan_layers', 'attn_chunk',
+IGNORED_FIELDS = ('use_pallas', 'scan_layers', 'attn_chunk',
                   'lstm_backend')
 FWD_TOL = dict(rtol=2e-4, atol=2e-4)
 DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
@@ -102,9 +102,9 @@ def _replay(cfg, params, tokens):
 def test_configs_match_reference(name):
     """CONFIG and SMOKE copied across: every field the reference has
     equal, but those the port leaves out (``use_pallas``, whose place
-    ``attn_backend`` takes, and ``remat``, ``scan_layers`` and
-    ``attn_chunk``, which nothing of the port reads) and the backend names,
-    which are the port's; dtypes as torch dtypes."""
+    ``attn_backend`` takes, and ``scan_layers`` and ``attn_chunk``, which
+    nothing of the port reads) and the backend names, which are the
+    port's; dtypes as torch dtypes."""
     for get, jget in ((configs.get_config, jconfigs.get_config),
                       (configs.get_smoke_config, jconfigs.get_smoke_config)):
         cfg, jcfg = get(name), jget(name)
