@@ -308,6 +308,7 @@ GRAD_T = 16                   # sequence of the on-card gradient check
 GRAD_REL_TOL = 1e-4           # relative Frobenius error per gradient leaf
 LOSS_RTOL = 1e-4              # loss histories across kernel backends
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 495e12     # H100 SXM tf32 tensor cores, dense
 # the tune phase: interleaved turns of each timed trial (K4 against the K3
 # chain; the serving loop at each chunk depth), and the deadline factor of
 # its server and of the serve CLI's run
@@ -3455,16 +3456,30 @@ def train_attn_case(label: str, B: int, H: int, Hkv: int, S: int, D: int,
             flops=flops))
     for c in cases:
         c['pairs'] = pairs * B * H
+        # the bound of the arithmetic each kernel runs: the forward's f32
+        # on the CUDA cores, the backward's f32 as three TF32 products
+        # (3xTF32) on the tensor cores beside the CUDA-core one; bf16 on
+        # the bf16 tensor cores
         c['bound_ms'], c['bound_by'] = bound(c['bytes'], c['flops'], peak)
+        c['bound_arithmetic'] = 'bf16 tensor cores' if dt == 'bfloat16' \
+            else 'f32 CUDA cores'
+        if dt == 'float32' and c['kernel'].startswith(
+                'flash_attention_bwd'):
+            c['bound_f32_cores_ms'] = c['bound_ms']
+            c['bound_ms'], c['bound_by'] = bound(c['bytes'], 3 * c['flops'],
+                                                 TF32_FLOPS_PER_S)
+            c['bound_arithmetic'] = '3xTF32 tensor cores'
+        cores = (f", {c['bound_f32_cores_ms']:.4f} ms on the f32 CUDA "
+                 f"cores" if 'bound_f32_cores_ms' in c else '')
         print(f"{c['kernel']}: {shape}: max_abs_err {c['max_abs_err']:.3e}"
               + (f" (lse {c['lse_max_abs_err']:.3e})" if 'lse_max_abs_err'
                  in c else f" ({c['err_over_scale']:.3e} of the scale, "
                  f"deterministic {c['deterministic']})")
               + f", kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
               f"library {c['library_ms']:.4f} ms, bound "
-              f"{c['bound_ms']:.4f} ms ({c['bound_by']}: "
-              f"{c['flops'] / 1e9:.1f} GFLOP, {c['bytes'] / 1e6:.1f} MB)",
-              flush=True)
+              f"{c['bound_ms']:.4f} ms ({c['bound_by']}, "
+              f"{c['bound_arithmetic']}: {c['flops'] / 1e9:.1f} GFLOP, "
+              f"{c['bytes'] / 1e6:.1f} MB{cores})", flush=True)
         check(c['ok'] and c.get('deterministic', True),
               f"{c['kernel']} disagrees with its plain version at {shape}")
     return cases
@@ -3473,10 +3488,19 @@ def train_attn_case(label: str, B: int, H: int, Hkv: int, S: int, D: int,
 def lm_train_attention(dev):
     """``train_attn_case`` at each ``LM_TRAIN_ATTN`` shape; with SDPA's
     forward + backward beside the sum of K8's three launches."""
+    from repro_torch.kernels.flash_attention import attention_bwd_geometry
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = []
     for case in LM_TRAIN_ATTN:
         cases = train_attn_case(*case, g, dev)
+        _, B, H, Hkv, S, D, window, dt = case
+        geom = dataclasses.asdict(attention_bwd_geometry(
+            B, H, Hkv, S, S, D, getattr(torch, dt), window, 0, sms))
+        for c in cases[1:]:
+            c['geometry'] = geom
+        print(f'K8 backward schedule {cases[0]["shape"]}: {geom}',
+              flush=True)
         total = sum(c['ms'] for c in cases)
         lib = cases[0]['library_ms'] + cases[1]['library_ms']
         print(f'K8 training attention {cases[0]["shape"]}: forward + '
@@ -4148,9 +4172,10 @@ def op_times(dev):
     ``seq_case`` for K1 and K2 at every ``SEQ_SHAPES`` shape, the f32
     engine on ``cuda_seq`` and ``cuda_seq_fused`` (``engine_case``),
     ``int8_times`` (K3, K4 and the int8 deploy), ``qmm_case`` at every
-    ``QMM_SHAPES`` shape and ``attn_case`` at every ``ATTN_CASES`` case, on
-    the phases' inputs (same seeds, same order), for one turn of
-    ``--ab``."""
+    ``QMM_SHAPES`` shape, ``attn_case`` at every ``ATTN_CASES`` case and
+    ``train_attn_case`` (K8's forward with lse and its two backward
+    kernels) at every ``LM_TRAIN_ATTN`` shape, on the phases' inputs (same
+    seeds, same order), for one turn of ``--ab``."""
     from repro_torch import configs
     from repro_torch.models import chipmunk_net
     cfg = configs.get_config('chipmunk-ctc')
@@ -4182,6 +4207,10 @@ def op_times(dev):
         cases.append(dict(attn_case(*spec, g, dev)[0],
                           kernel='flash_attention'))
         torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for spec in LM_TRAIN_ATTN:
+        cases += train_attn_case(*spec, g, dev)
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -4211,7 +4240,9 @@ def ab(parent_src: str):
                 for t in turns), flush=True)
             continue
         lib = (f"product only {got['product_only_ms']:.5f} ms"
-               if 'product_only_ms' in got else 'library none')
+               if 'product_only_ms' in got else
+               f"library {got['library_ms']:.5f} ms"
+               if got.get('library_ms') is not None else 'library none')
         if 'equal' in got:
             extra = 'equal ' + str(all(all(t['rows'][i]['equal'].values())
                                        for t in turns))
@@ -4359,9 +4390,10 @@ def main(argv=None) -> int:
                          'torch.profiler (device busy/idle share, time by '
                          'kernel)')
     ap.add_argument('--ab', metavar='PARENT_SRC', default=None,
-                    help='only time K1-K8, the f32 engine and the int8 '
-                         'deploy against the tree whose src directory is '
-                         'given, in turns (parent, change, change, parent)')
+                    help='only time K1-K8, K8\'s training kernels, the '
+                         'f32 engine and the int8 deploy against the tree '
+                         'whose src directory is given, in turns (parent, '
+                         'change, change, parent)')
     ap.add_argument('--op-times', metavar='SRC', default=None,
                     help=argparse.SUPPRESS)   # one turn of --ab
     ap.add_argument('--clock-stamps', action='store_true',

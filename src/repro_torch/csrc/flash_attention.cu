@@ -78,6 +78,7 @@
 #include <stdint.h>
 
 #include "clock_stamps.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -91,11 +92,6 @@ size_t smem_floats() {
   // q_t [kDMax][kBQP] | k_t [kDMax][kBK] | v_s [kBK][kDMax] | p_t [kBK][kBQP]
   return (size_t)kDMax * kBQP + (size_t)kDMax * kBK + (size_t)kBK * kDMax +
          (size_t)kBK * kBQP;
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
 }
 
 // Four consecutive elements at p, of which the first `n` exist (zero
@@ -278,55 +274,6 @@ flash_attention_kernel(const T* __restrict__ q,    // (B, H, Sq, D)
 
 // ---------------------------------------------------------------- helpers
 
-// 16 bytes from global to shared memory, asynchronously; only the first
-// `src_bytes` (0 or 16) are read, the rest of the 16 are zero-filled.
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
-                                            int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// Rows [0, n_rows) of src (row length D, in elements) into an
-// n_tile_rows x kDMax tile of dst (row stride ld elements), zero-filled
-// past n_rows and past D.  kVec: 16-byte `cp.async` copies (then D is a
-// multiple of 16 bytes and src 16-byte aligned); else element loads.
-template <int kDMax, bool kVec, int kNThreads, typename T>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
-                                          int n_tile_rows, int n_rows,
-                                          int D) {
-  constexpr int kElems = 16 / sizeof(T);
-  if (kVec) {
-    constexpr int kChunks = kDMax / kElems;
-    for (int i = threadIdx.x; i < n_tile_rows * kChunks; i += kNThreads) {
-      const int r = i / kChunks, d = (i % kChunks) * kElems;
-      const bool ok = r < n_rows && d < D;
-      cp_async_16(dst + r * ld + d, src + (ok ? (size_t)r * D + d : 0),
-                  ok ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < n_tile_rows * kDMax; i += kNThreads) {
-      const int r = i / kDMax, d = i % kDMax;
-      if (r < n_rows && d < D)
-        dst[r * ld + d] = src[(size_t)r * D + d];
-      else
-        store(dst + r * ld + d, 0.0f);
-    }
-  }
-}
-
 // Whether query position `pos` sees key `kp` (kp < kv_end folds kv_len and
 // the end of the key range the caller walks).
 __device__ __forceinline__ bool visible(int pos, int kp, int kv_end,
@@ -352,44 +299,6 @@ struct Layout {
   // Q | K0 V0 | K1 V1
   static constexpr size_t kBytes = 2 * ((size_t)kQTile + 4 * kTile);
 };
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-// p (two f32 values, the lower column first) as p_hi + p_lo in bf16 pairs
-__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat16 xh = __float2bfloat16_rn(x), yh = __float2bfloat16_rn(y);
-  hi = pack_bf16(xh, yh);
-  lo = pack_bf16(__float2bfloat16_rn(x - __bfloat162float(xh)),
-                 __float2bfloat16_rn(y - __bfloat162float(yh)));
-}
 
 template <int kDMax, bool kVec, int kBQ>
 __global__ void __launch_bounds__(Layout<kDMax, kBQ>::kThreads)

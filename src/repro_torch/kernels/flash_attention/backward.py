@@ -5,9 +5,15 @@ autograd Function that trains through K8.
 each launch one kernel on CUDA tensors (a plain launch on PyTorch's
 current stream, counted in its ``launches``) and run their plain version
 (``ref.attention_bwd_ref``) on CPU tensors; there is no fallback between
-the two.  ``flash_attention_bwd`` is the whole backward: delta =
+the two.  Every launch parameter comes from the rule
+``kernel.attention_bwd_geometry``: the tiles, the order of the grid and
+whether ``kv_kernel`` splits the GQA group across CTAs (then the wrapper
+allocates the f32 partials, (B, H, Sk, D) for dk and for dv, and takes
+the stream's zeroed tickets, ``kernel._tickets``, shared with K8's split
+decode).  ``flash_attention_bwd`` is the whole backward: delta =
 rowsum(do * o) as one PyTorch expression (``ref.attention_delta``), then
-both kernels.  No atomics: the same inputs give the same bits.
+both kernels.  No atomic touches a gradient: the same inputs give the
+same bits.
 
 ``attention_train`` is attention under autograd, the counterpart of the
 reference's ``chunked_attention`` custom VJP: the forward keeps (q, k, v,
@@ -25,20 +31,26 @@ import torch
 
 from .. import _build
 from ..lstm_seq.kernel import check_inputs
-from .kernel import D_MAX, POS_MAX, flash_attention
+from .kernel import (BWD_TILES_MAX, D_MAX, POS_MAX, _tickets,
+                     attention_bwd_geometry, flash_attention)
 from .ref import attention_bwd_ref, attention_delta, attention_ref
 
 _P, _I = _build.P, _build.I
 _ARGS = [_I] + [_P] * 6
-_TAIL = [_I] * 6 + [ctypes.c_float] + [_I] * 5 + [_P]
-_SIGNATURES = {'flash_attention_bwd_kv_launch': _ARGS + [_P] * 2 + _TAIL,
-               'flash_attention_bwd_q_launch': _ARGS + [_P] + _TAIL}
+_TAIL = [_I] * 6 + [ctypes.c_float] + [_I] * 6
+_SIGNATURES = {'flash_attention_bwd_kv_launch':
+               _ARGS + [_P] * 5 + _TAIL + [_I] * 6 + [_P],
+               'flash_attention_bwd_q_launch':
+               _ARGS + [_P] + _TAIL + [_I] * 5 + [_P]}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _launch(fn: str, q, k, v, do, lse, delta, outs, causal: bool,
-            window: Optional[int], scale: float, offset: int) -> None:
-    """Check the inputs and launch ``fn`` writing ``outs``."""
+            window: Optional[int], scale: float, offset: int,
+            split: Optional[bool] = None) -> None:
+    """Check the inputs and launch ``fn`` writing ``outs``, with the
+    geometry of ``attention_bwd_geometry`` (``split`` forces its group
+    split on or off)."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     dev = q.device
@@ -58,14 +70,38 @@ def _launch(fn: str, q, k, v, do, lse, delta, outs, causal: bool,
                          f'|offset|={abs(offset)} below {POS_MAX}')
     if outs[0].numel() == 0:
         return
+    geom = attention_bwd_geometry(
+        b, h, hkv, sq, sk, d, q.dtype, window, offset,
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        causal=causal, split=split)
+    kv = fn.endswith('kv')
+    tiles = geom.kv_tiles if kv else geom.q_tiles
+    if tiles > BWD_TILES_MAX:
+        raise ValueError(f'{fn}: {tiles} tiles of {geom.q_rows} rows, at '
+                         f'most {BWD_TILES_MAX}')
+    # a window beyond +-2 POS_MAX passes or masks every pair alike
     win = 0 if window is None else max(-2 * POS_MAX, min(2 * POS_MAX, window))
+    vec = (d % (16 // q.element_size()) == 0
+           and all(t.data_ptr() % 16 == 0 for t in (q, k, v, do, *outs)))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    extra, shape = [], ()
+    if kv:
+        parts = [None] * 3             # dk, dv partials and tickets
+        if geom.kv_split > 1:
+            parts = [torch.empty((b, h, sk, d), dtype=torch.float32,
+                                 device=dev) for _ in range(2)]
+            parts.append(_tickets(dev, stream, b * hkv * tiles))
+        extra = [0 if t is None else t.data_ptr() for t in parts]
+        shape = (geom.kv_rows, tiles, geom.kv_split, int(geom.kv_reverse))
+    else:
+        shape = (geom.q_keys, tiles, int(geom.q_reverse))
     lib = _build.load('flash_attention_bwd', _SIGNATURES)
     err = getattr(lib, f'{fn}_launch')(
         dev.index, *(t.data_ptr() for t in (q, k, v, do, lse, delta)),
-        *(t.data_ptr() for t in outs), b, h, hkv, sq, sk, d, float(scale),
-        int(causal), int(window is not None), win, offset,
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
+        *(t.data_ptr() for t in outs), *extra, b, h, hkv, sq, sk, d,
+        float(scale), int(causal), int(window is not None), win, offset,
+        int(q.dtype == torch.bfloat16), int(vec), geom.d_tile, geom.warps,
+        *shape, stream)
     _build.check(lib, err, f'{fn} launch')
 
 
@@ -80,11 +116,14 @@ def _defaults(q, k, causal, sm_scale, offset):
 def flash_attention_bwd_kv(q, k, v, do, lse, delta, *, causal: bool = True,
                            window: Optional[int] = None,
                            sm_scale: Optional[float] = None,
-                           offset: Optional[int] = None
+                           offset: Optional[int] = None,
+                           split: Optional[bool] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv), each (B, Hkv, Sk, D) in k's dtype, from q, do (B, H, Sq,
     D), k, v (B, Hkv, Sk, D), the forward's lse and delta (B, H, Sq) f32;
-    arguments as ``flash_attention``'s.  Counted in ``.launches``."""
+    arguments as ``flash_attention``'s.  ``split``: force the rule's GQA
+    group split on or off (None: the rule decides).  Counted in
+    ``.launches``."""
     scale, offset = _defaults(q, k, causal, sm_scale, offset)
     if q.device.type == 'cpu':
         return attention_bwd_ref(q, k, v, do, lse, delta, causal=causal,
@@ -92,7 +131,7 @@ def flash_attention_bwd_kv(q, k, v, do, lse, delta, *, causal: bool = True,
                                  offset=offset)[1:]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch('flash_attention_bwd_kv', q, k, v, do, lse, delta, (dk, dv),
-            causal, window, scale, offset)
+            causal, window, scale, offset, split)
     flash_attention_bwd_kv.launches += 1
     return dk, dv
 

@@ -16,7 +16,9 @@ every split launch).
 Training: ``return_lse=True`` also returns each row's log-sum-exp (f32,
 (B, H, Sq); NEG_INF where a row sees no key), written by the tiled
 schedules, so such a call never takes the split one.  The backward that
-reads it is ``backward.flash_attention_bwd``.
+reads it is ``backward.flash_attention_bwd``; ``attention_bwd_geometry``
+is its launch rule (tiles, the GQA group split of ``kv_kernel``, the
+heaviest-first order).
 """
 from __future__ import annotations
 
@@ -104,6 +106,126 @@ def attention_geometry(B: int, H: int, Hkv: int, Sq: int, Sk: int,
     n_splits = max(1, -(-tiles // per))
     return AttentionGeometry('split', n_splits * B * Hkv, TILE_ROWS,
                              n_splits, lo, hi, per * SPLIT_KEYS)
+
+
+BWD_WARPS = 4              # warps a CTA of either backward kernel
+BWD_ROWS = 16 * BWD_WARPS  # keys a kv_kernel CTA, query rows a q_kernel CTA
+BWD_TILES_MAX = 65535      # tiles of either grid (its y axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionBwdGeometry:
+    """The schedule of one call of K8's backward pair
+    (``csrc/flash_attention_bwd.cu``).  ``kv_kernel``: grid (B * Hkv *
+    ``kv_split``, ``kv_tiles``), a CTA ``kv_keys`` keys and query tiles of
+    ``kv_rows`` streamed through it; ``q_kernel``: grid (B * H,
+    ``q_tiles``), a CTA ``q_rows`` query rows and key tiles of ``q_keys``.
+    ``*_reverse``: the grid walks its rows from the last (``tile_ranges``;
+    ``kv_ranges`` and ``q_ranges`` give each grid's rows in launch
+    order)."""
+    d_tile: int          # D padded to 32, 64 or 128
+    warps: int           # warps a CTA of either kernel, 16 rows each
+    kv_keys: int
+    kv_rows: int
+    kv_tiles: int
+    kv_split: int        # CTAs a (kv head, key tile): 1 or the GQA group
+    kv_ctas: int
+    kv_reverse: bool
+    q_rows: int
+    q_keys: int
+    q_tiles: int
+    q_ctas: int
+    q_reverse: bool
+
+    def kv_ranges(self, Sk: int) -> Tuple[Tuple[int, int], ...]:
+        """The keys [lo, hi) of each ``kv_kernel`` CTA, in launch order."""
+        return tile_ranges(Sk, self.kv_keys, self.kv_reverse)
+
+    def q_ranges(self, Sq: int) -> Tuple[Tuple[int, int], ...]:
+        """The query rows [lo, hi) of each ``q_kernel`` CTA, in launch
+        order."""
+        return tile_ranges(Sq, self.q_rows, self.q_reverse)
+
+
+def tile_ranges(n: int, rows: int, reverse: bool
+                ) -> Tuple[Tuple[int, int], ...]:
+    """Rows [0, n) in tiles of ``rows``, as the backward kernels walk their
+    grid: from row 0, or where ``reverse`` from row n (tiles end at n,
+    n - rows, ...; a ragged tile, if any, comes last and starts at 0)."""
+    tiles = -(-n // rows)
+    if reverse:
+        return tuple((max(0, n - (i + 1) * rows), n - i * rows)
+                     for i in range(tiles))
+    return tuple((i * rows, min(n, (i + 1) * rows)) for i in range(tiles))
+
+
+def bwd_key_pairs(j: int, Sq: int, offset: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """Valid (query, key) pairs of key j: the query rows that see it."""
+    lo = max(0, j - offset) if causal else 0
+    hi = Sq if window is None else min(Sq, j - offset + window)
+    return max(0, hi - lo)
+
+
+def bwd_row_pairs(i: int, Sk: int, offset: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """Valid (query, key) pairs of query row i: the keys it sees."""
+    pos = i + offset
+    hi = min(Sk, pos + 1) if causal else Sk
+    lo = 0 if window is None else max(0, pos - window + 1)
+    return max(0, hi - lo)
+
+
+def _heavier_last(pairs, n: int) -> bool:
+    """Whether the last ``BWD_ROWS`` of n rows have more valid pairs than
+    the first."""
+    first = sum(pairs(i) for i in range(min(n, BWD_ROWS)))
+    return sum(pairs(i) for i in range(max(0, n - BWD_ROWS), n)) > first
+
+
+def attention_bwd_geometry(B: int, H: int, Hkv: int, Sq: int, Sk: int,
+                           D: int, dtype: torch.dtype,
+                           window: Optional[int], offset: int, sms: int, *,
+                           causal: bool = True,
+                           split: Optional[bool] = None
+                           ) -> AttentionBwdGeometry:
+    """Pure rule for K8's backward pair.  Tiles: ``BWD_WARPS`` warps a CTA
+    of either kernel, 16 rows a warp (``BWD_ROWS`` keys a ``kv_kernel``
+    CTA, as many query rows a ``q_kernel`` CTA).  In bf16 ``kv_kernel``
+    streams query tiles of 64 rows where D <= 64 and 32 at D 128 (so that
+    dK and dV, 128 f32 registers a thread at D 128, leave room for the
+    scores), ``q_kernel`` key tiles of 64; in f32 both stream tiles of 32
+    (each is held twice, as its tf32 big and small parts, and two CTAs
+    still fit an SM).  The split: where
+    B * Hkv * key tiles gives fewer than two CTAs an SM and the GQA group
+    is larger than 1, ``kv_kernel``'s grid gains the query head of the
+    group (``kv_split`` = the group; the kernel sums the heads' partials in
+    head order); ``split`` forces it on or off (for tests).  Order:
+    heaviest first, each grid walks its rows from the end whose first tile
+    has more valid pairs (``tile_ranges``: from the first key and from the
+    last query row under a causal mask)."""
+    if dtype not in _DTYPES:
+        raise ValueError(f'attention_bwd_geometry: dtype {dtype}, expected '
+                         f'one of {_DTYPES}')
+    if D > D_MAX:
+        raise ValueError(f'attention_bwd_geometry: D={D} above {D_MAX}')
+    d_tile = 32 if D <= 32 else 64 if D <= 64 else 128
+    f32 = dtype == torch.float32
+    group = H // Hkv
+    kv_tiles, q_tiles = -(-Sk // BWD_ROWS), -(-Sq // BWD_ROWS)
+    if split is None:
+        split = group > 1 and B * Hkv * kv_tiles < 2 * sms
+    kv_split = group if split else 1
+    key = lambda j: bwd_key_pairs(j, Sq, offset, causal, window)
+    row = lambda i: bwd_row_pairs(i, Sk, offset, causal, window)
+    kv_reverse = kv_tiles > 1 and _heavier_last(key, Sk)
+    q_reverse = q_tiles > 1 and _heavier_last(row, Sq)
+    return AttentionBwdGeometry(
+        d_tile=d_tile, warps=BWD_WARPS, kv_keys=BWD_ROWS,
+        kv_rows=32 if f32 or d_tile == 128 else 64, kv_tiles=kv_tiles,
+        kv_split=kv_split, kv_ctas=B * Hkv * kv_split * kv_tiles,
+        kv_reverse=kv_reverse, q_rows=BWD_ROWS, q_keys=32 if f32 else 64,
+        q_tiles=q_tiles, q_ctas=B * H * q_tiles, q_reverse=q_reverse)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

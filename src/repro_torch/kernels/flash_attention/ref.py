@@ -207,3 +207,84 @@ def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = (w[..., None] * torch.stack(accs)).sum(dim=0)
     l_safe = torch.where(l_sum == 0.0, 1.0, l_sum)
     return (acc / l_safe[..., None]).to(q.dtype).reshape(b, h, sq, d)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to tf32 as ``cvt.rna.tf32.f32`` rounds: 10
+    mantissa bits kept, to nearest, ties away from zero; the low 13 bits
+    cleared, so ``x - tf32_round(x)`` is exact in f32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _pieces(x: torch.Tensor, bf16: bool) -> Tuple[torch.Tensor, ...]:
+    """x (f32) as the kernels feed it to the tensor cores, small piece
+    first: bf16 hi + lo for bf16 inputs, tf32 big + small for f32."""
+    if bf16:
+        hi = x.to(torch.bfloat16).to(torch.float32)
+        return (x - hi).to(torch.bfloat16).to(torch.float32), hi
+    big = tf32_round(x)
+    return tf32_round(x - big), big
+
+
+def _product(eq: str, a: torch.Tensor, b: torch.Tensor, bf16: bool,
+             a_split: bool) -> torch.Tensor:
+    """einsum ``eq`` of f32 a and b in the kernels' arithmetic.  bf16: b
+    exact in bf16, a split into hi + lo where ``a_split`` (p, ds), else
+    exact too (q, k, v, do); f32: error-compensated 3xTF32, a_small b_big +
+    a_big b_small + a_big b_big."""
+    if bf16:
+        if not a_split:
+            return torch.einsum(eq, a, b)
+        lo, hi = _pieces(a, True)
+        return torch.einsum(eq, lo, b) + torch.einsum(eq, hi, b)
+    a_small, a_big = _pieces(a, False)
+    b_small, b_big = _pieces(b, False)
+    return (torch.einsum(eq, a_small, b_big) + torch.einsum(eq, a_big, b_small)
+            + torch.einsum(eq, a_big, b_big))
+
+
+def attention_bwd_mixed_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor, *,
+                            causal: bool = True,
+                            window: Optional[int] = None,
+                            sm_scale: Optional[float] = None,
+                            offset: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain mirror of the backward kernels' tensor-core arithmetic, the
+    same contract as ``attention_bwd_ref``: in bf16, s and dp from the
+    exact bf16 inputs, p and ds each fed as bf16 hi + lo into its product
+    (dv = p^T do, dk = ds^T q, dq = ds k); in f32, every product by
+    error-compensated 3xTF32 (``tf32_round``).  Sums in f32, each
+    gradient rounded once to its input's dtype.  The tensor cores' own
+    truncating accumulation is not modelled: the kernels sum each tile's
+    product in zeroed registers and add it to the running sum rounded.
+    For the tests only (no CUDA path calls it): it holds the design's
+    numerics on the CPU."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = d ** -0.5 if sm_scale is None else sm_scale
+    if offset is None:
+        offset = sk - sq if causal else 0
+    bf16 = q.dtype == torch.bfloat16
+    f32 = torch.float32
+    qf = q.to(f32).reshape(b, hkv, group, sq, d)
+    dof = do.to(f32).reshape(b, hkv, group, sq, d)
+    kf, vf = k.to(f32), v.to(f32)
+    lse_safe = torch.where(lse == NEG_INF, 0.0, lse).reshape(b, hkv, group,
+                                                             sq)
+    delta = delta.reshape(b, hkv, group, sq)
+    mask = _mask(0, sq, sk, offset, causal, window, None, q.device)
+    prod = lambda eq, a, x, split: _product(eq, a, x, bf16, split)
+    s = prod('bkgqd,bksd->bkgqs', qf, kf, False) * scale
+    p = torch.where(mask, torch.exp(s - lse_safe[..., None]), 0.0)
+    dp = prod('bkgqd,bksd->bkgqs', dof, vf, False)
+    ds = p * (dp - delta[..., None]) * scale
+    dv = prod('bkgqs,bkgqd->bksd', p, dof, True)
+    dk = prod('bkgqs,bkgqd->bksd', ds, qf, True)
+    dq = prod('bkgqs,bksd->bkgqd', ds, kf, True)
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -24,6 +24,8 @@ max-abs error of 1e-4 of the gradient's scale (max |want|) in f32 and
 next on the same inputs.
 """
 import functools
+import re
+import shutil
 import subprocess
 
 import numpy as np
@@ -46,7 +48,8 @@ from repro_torch.kernels.lstm_seq import (lstm_seq, lstm_seq_quantized,
                                           lstm_stack_seq_ref,
                                           stack_kernel_weights,
                                           stack_kernel_weights_q)
-from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+from repro_torch.kernels.flash_attention import (attention_bwd_geometry,
+                                                 attention_bwd_ref,
                                                  attention_delta,
                                                  attention_geometry,
                                                  attention_ref,
@@ -943,13 +946,17 @@ def test_mha_on_card_launches_once(dev):
 
 # (B, H, Hkv, Sq, Sk, D, window, offset): causal training shapes of K8's
 # forward with lse and its backward kernels; ragged tiles, GQA, D 20, a
-# window, rows that see no key (negative offset), MiniCPM-2B's heads
+# window, rows that see no key (negative offset), MiniCPM-2B's heads, and
+# Qwen3-14B's (40 on 8 heads, D 128: the rule splits kv_kernel's group
+# across CTAs) without and with a window
 TRAIN_ATTN_CASES = (
     (2, 4, 2, 100, 100, 64, None, None),
     (1, 6, 2, 70, 130, 128, 48, None),
     (1, 2, 1, 96, 96, 20, None, -16),
     (1, 4, 4, 130, 130, 32, 5, None),
     (1, 36, 36, 512, 512, 64, None, None),
+    (1, 40, 8, 256, 256, 128, None, None),
+    (1, 40, 8, 200, 200, 128, 64, None),
 )
 BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 
@@ -999,6 +1006,77 @@ def test_flash_attention_bwd_matches_plain_version(dev, case, dtype):
     again = (flash_attention_bwd_q(q, k, v, do, lse, delta, **kw),
              *flash_attention_bwd_kv(q, k, v, do, lse, delta, **kw))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize('case', [TRAIN_ATTN_CASES[i] for i in (0, 1, 5, 6)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kv_split_matches_unsplit(dev, case, dtype):
+    """``kv_kernel`` with the GQA group across CTAs (partials summed in head
+    order by the last CTA) and in one CTA, forced through the rule's
+    ``split``: one launch each, within ``BWD_REL`` of each other, each
+    bit-equal run to run; the split leaves its tickets at zero."""
+    q, k, v, do, kw = _train_attn_inputs(case, dtype, dev)
+    o, lse = attention_ref(q, k, v, return_lse=True, **kw)
+    args = (q, k, v, do, lse, attention_delta(o, do))
+    b, h, hkv, sq, sk, d = case[:6]
+    offset = sk - sq if kw['offset'] is None else kw['offset']
+    geoms = {split: attention_bwd_geometry(
+        b, h, hkv, sq, sk, d, dtype, kw['window'], offset, 132,
+        split=split) for split in (True, False)}
+    assert (geoms[True].kv_split, geoms[False].kv_split) == (h // hkv, 1)
+    got = {}
+    for split in (True, False):
+        n0 = flash_attention_bwd_kv.launches
+        got[split] = flash_attention_bwd_kv(*args, split=split, **kw)
+        again = flash_attention_bwd_kv(*args, split=split, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention_bwd_kv.launches == n0 + 2
+        assert all(torch.equal(a, x) for a, x in zip(got[split], again))
+    for a, x in zip(got[True], got[False]):
+        err = float((a.float() - x.float()).abs().max())
+        assert err <= BWD_REL[dtype] * float(x.float().abs().max())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert int(fa_kernel._TICKETS[(dev.index, stream)].abs().sum()) == 0
+
+
+def test_flash_attention_bwd_runs_on_tensor_cores(dev):
+    """Every instance of both backward kernels, bf16 and f32, issues
+    tensor-core instructions (``HMMA``) in the built library's SASS, and
+    MiniCPM-2B's f32 instances (D 64, 16-byte staging) spill nothing.
+    Prints each instance's registers and stack (``cuobjdump
+    -res-usage``)."""
+    lib = _build._target('flash_attention_bwd')[2]
+    _build.build(['flash_attention_bwd'])
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    out = {}
+    for flag in ('-sass', '-res-usage'):
+        proc = subprocess.run([tool, flag, str(lib)], capture_output=True,
+                              text=True)
+        assert proc.returncode == 0, proc.stderr
+        out[flag] = proc.stdout.splitlines()
+    funcs, name = {}, None
+    for line in out['-sass']:
+        if 'Function :' in line:
+            name = line.split('Function :')[1].strip()
+            funcs[name] = 0
+        elif name is not None and 'HMMA' in line:
+            funcs[name] += 1
+    kernels = {n: c for n, c in funcs.items()
+               if 'kv_kernel' in n or 'q_kernel' in n}
+    # 2 kernels x 2 dtypes x 3 widths x (vectorised or not)
+    assert len(kernels) == 24, sorted(funcs)
+    assert all(c > 0 for c in kernels.values()), kernels
+    assert any('bfloat16' in n for n in kernels)
+    usage, name = {}, None
+    for line in out['-res-usage']:
+        if 'Function' in line:
+            name = line.split('Function')[1].strip(' :')
+        elif name is not None and 'REG:' in line:
+            usage[name] = dict(re.findall(r'(\w+):(\d+)', line))
+    for n in sorted(usage):
+        print(f"{n}: REG {usage[n]['REG']} STACK {usage[n]['STACK']}")
+    main = [n for n in usage if 'ILi64ELi32ELb1EfE' in n]
+    assert len(main) == 2 and all(usage[n]['STACK'] == '0' for n in main)
 
 
 def test_attention_train_on_card_matches_plain(dev):
