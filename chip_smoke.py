@@ -205,6 +205,31 @@ the same f32 weights' configuration from seed 0):
     ``--resume``) and ``examples.train_lm --tiny`` as subprocesses (K8's
     forward and backward launched; the small sizes because a full-width
     final checkpoint is 32.7 GB).
+11g. the MoE family served (``moe_phase``, after MiniCPM-2B is freed;
+    bf16 reduced-precision reductions off): Mixtral 8x22B at full width
+    cut by depth alone to 12 of its 56 layers (30,451,390,464 parameters,
+    60,903,960,576 bytes, checked against its shapes), built from a
+    seeded CUDA generator; K8 against its plain version on q, k, v of its
+    layer 0: decode rows over a ring of the window's 4096 slots at
+    positions 4095 and 5000 (wrapped), the same rows against the linear
+    cache with the window (the two K8 outputs held to each other), and a
+    64-token windowed prefill; layer 0's ``moe_block`` on 80 tokens (cap
+    32) against the same call on a CPU copy (routes, keep masks and slots
+    equal, the output within ``MOE_OUT_REL``, the pairs dropped printed);
+    a 64-token replay of ``decode_step`` against ``forward_lm`` on 'auto'
+    and 'torch' at the no-drop capacity factor, rows whose experts
+    flipped counted apart, the others within ``LM_LOGIT_REL``; the main
+    path with every kernel counter set to 0 just before and read just
+    after: 6 requests through ``SlotServer`` (K8 launched 12 times a
+    decode call and nothing else), then each served sequence re-scored by
+    ``forward_lm``; a decode step's wall, host issue and traced device
+    time beside the bounds of the top-2 and of all 8 experts' bytes; the
+    model freed; Kimi-K2 cut to 1 of its 61 layers (19,378,623,488
+    parameters, 38,762,752,000 bytes): K8 at D 112, ``moe_block`` on 8
+    tokens against the CPU, 2 requests served, a step traced beside its
+    top-8 and all-384 bounds; then ``serve --arch mixtral-8x22b --smoke``
+    and ``serve --arch kimi-k2-1t-a32b --smoke`` as subprocesses (K8
+    launched);
 
 and then the two kernels that no path of the system reaches, each on its
 public op, and K8 also on its own, each held against its plain version and
@@ -213,8 +238,9 @@ shape with its launch counter set to 0 just before and read just after
 (K8's row in the ``kernels`` line leads with its Mixtral case, adds the LM
 phase's cases and the training phase's forward cases, takes ``launches``
 from the LM's serve path and reports the re-score's prefill launches as
-``prefill_launches`` and MiniCPM-2B's training launches as
-``train_launches``; the backward kernels' rows follow, with their
+``prefill_launches``, MiniCPM-2B's training launches as
+``train_launches`` and the MoE serve paths' (Mixtral's and Kimi-K2's) as
+``moe_launches``; the backward kernels' rows follow, with their
 launches on MiniCPM-2B's training path):
 
 12. K6 (``lstm_gates``, the fused cell) on layer 0 (N_in = 123 + 421) and
@@ -430,6 +456,30 @@ LSE_ATOL = 1e-5               # the log-sum-exp: f32 logs of other-order sums
 # residual stream and its gradient are bf16, so an f32 difference flips a
 # rounding (2**-8 relative) now and then, and 40 layers carry the flips
 LM_GRAD_REL = 2.0 ** -7
+# the MoE phase: Mixtral 8x22B at full width (d_model 6144, 48 heads on 8
+# kv heads of 128, 8 experts top-2 of d_ff 16384, window 4096, vocab
+# 32,768, bf16) cut by depth alone to MOE_LAYERS of its 56 layers (281 GB
+# of weights -> 60.9 GB); then Kimi-K2 at full width (d_model 7168, 64
+# heads on 8 of 112, 384 experts top-8 of d_ff 2048, vocab 163,840, bf16)
+# cut to KIMI_LAYERS of its 61 (38.76 GB)
+MOE_ARCH, MOE_LAYERS = 'mixtral-8x22b', 12
+KIMI_ARCH, KIMI_LAYERS = 'kimi-k2-1t-a32b', 1
+MOE_RING_POS = (4095, 5000)   # K8's ring decode rows: the ring full, wrapped
+MOE_TOKENS = 80               # moe_block on the card against the CPU (cap 32)
+KIMI_MOE_TOKENS = 8           # Kimi's, its live experts copied to the CPU
+KIMI_REQUESTS = 2
+# moe_block's bf16 output on the card against the CPU's: max |error| over
+# the output's scale.  bf16 keeps 8 bits, the expert products accumulate
+# in other orders on cuBLAS and on the CPU, and each is rounded twice
+# (SwiGLU's h, then y) before the gate sum
+MOE_OUT_REL = 2.0 ** -6
+# the replay's rows whose expert set flipped in some layer between two
+# runs, at most this share of the rows: bf16 moves the router's inputs by
+# ~1e-3 between K8 and the plain attention (or decode and forward), and a
+# top-2 of 8 has near-ties in 12 layers, so 12-17 % of Mixtral's rows flip
+# on an H100; a sanity floor like LM_AGREE_MIN (a broken cache or attention
+# moves every logit and flips nearly every row)
+MOE_FLIP_MAX = 1 / 2
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -3059,12 +3109,12 @@ def _kernel_counters():
             flash_attention_bwd_q)
 
 
-def lm_attention_cases(cfg, params, dev):
+def lm_attention_cases(cfg, params, dev, label: str = LM_ARCH):
     """K8 against its plain version (``attn_measure``, bf16 tolerance
     ``ATTN_TOL``) at the model's own shapes, on q, k, v captured from layer
     0 over ``LM_MAX_SEQ`` seeded tokens: decode rows at each
-    ``LM_DECODE_POS`` against the whole cache (``kv_len = pos + 1, offset
-    = pos``, as ``attention_decode`` calls it) and the causal prefill of
+    ``LM_DECODE_POS`` against the whole cache (no causal mask, ``kv_len =
+    pos + 1``, as ``attention_decode`` calls it) and the causal prefill of
     the first ``LM_PREFILL`` tokens; each with the schedule it ran."""
     from repro_torch.kernels.flash_attention import attention_geometry
     from repro_torch.models import layers, transformer
@@ -3082,14 +3132,14 @@ def lm_attention_cases(cfg, params, dev):
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     cases = []
     for pos in sorted(LM_DECODE_POS, reverse=True):
-        case = attn_measure(f'{LM_ARCH} decode pos={pos} bfloat16',
+        case = attn_measure(f'{label} decode pos={pos} bfloat16',
                             q[:, :, pos:pos + 1].contiguous(), k, v,
-                            offset=pos, kv_len=pos + 1)
+                            kv_len=pos + 1, causal=False)
         geom = attention_geometry(1, H, Hkv, 1, LM_MAX_SEQ, None, pos + 1,
-                                  pos, D, sms)
+                                  0, D, sms, causal=False)
         cases.append((case, geom))
     qp, kp, vp = (t[:, :, :LM_PREFILL].contiguous() for t in (q, k, v))
-    case = attn_measure(f'{LM_ARCH} prefill bfloat16', qp, kp, vp)
+    case = attn_measure(f'{label} prefill bfloat16', qp, kp, vp)
     cases.append((case, attention_geometry(1, H, Hkv, LM_PREFILL,
                                            LM_PREFILL, None, None, 0, D,
                                            sms)))
@@ -3149,20 +3199,21 @@ def lm_replay(cfg, params, tokens, dev):
     return res
 
 
-def lm_serve(cfg, params, dev):
+def lm_serve(cfg, params, dev, requests: int = LM_REQUESTS,
+             rescore_cfg=None):
     """The LM's main path, with every kernel counter set to 0 just before
-    and read just after: ``LM_REQUESTS`` seeded prompts of 3-7 tokens
+    and read just after: ``requests`` seeded prompts of 3-7 tokens
     served through ``SlotServer`` (``LM_SLOTS`` slots, ``LM_MAX_NEW``
     tokens each; K8's split decode).  Then, counted apart, each served
-    sequence scored whole by ``forward_lm`` (K8's tiled prefill), whose
-    argmax must reproduce the served tokens at a share of at least
-    ``LM_AGREE_MIN``.  Returns (numbers, the serve's launches by kernel,
-    the re-score's)."""
+    sequence scored whole by ``forward_lm`` on ``rescore_cfg`` (default
+    ``cfg``; K8's tiled prefill), whose argmax must reproduce the served
+    tokens at a share of at least ``LM_AGREE_MIN``.  Returns (numbers, the
+    serve's launches by kernel, the re-score's)."""
     from repro_torch.launch.serve import Request, SlotServer
     from repro_torch.models import transformer
     rng = np.random.RandomState(SEED)
     prompts = [rng.randint(1, cfg.vocab_size, size=rng.randint(3, 8)).tolist()
-               for _ in range(LM_REQUESTS)]
+               for _ in range(requests)]
     kernels = _kernel_counters()
     torch.cuda.synchronize()
     for k in kernels:
@@ -3179,7 +3230,8 @@ def lm_serve(cfg, params, dev):
     agree = []
     for r in done:
         seq = torch.tensor([r.prompt + r.out[:-1]], device=dev)
-        logits = transformer.forward_lm(cfg, params, seq)[0][0]
+        logits = transformer.forward_lm(rescore_cfg or cfg, params,
+                                        seq)[0][0]
         best = logits[len(r.prompt) - 1:].argmax(-1).cpu().numpy()
         agree += (best == np.array(r.out)).tolist()
     torch.cuda.synchronize()
@@ -3200,7 +3252,7 @@ def lm_serve(cfg, params, dev):
           f'calls); p50 latency {res["p50_latency_s"]:.3f} s; forward_lm '
           f'argmax == served token at {res["greedy_agree"]:.3f}; serve '
           f'launches {launches}; re-score launches {rescore}', flush=True)
-    check(toks == LM_REQUESTS * LM_MAX_NEW
+    check(toks == requests * LM_MAX_NEW
           and all(0 <= t < cfg.vocab_size for r in done for t in r.out),
           f'{cfg.name}: served {toks} tokens')
     for what, got, want in (('serve', launches, calls * cfg.n_layers),
@@ -3749,6 +3801,374 @@ def lm_train_phase(dev):
     return res
 
 
+# ------------------------------------------------------------------ MoE
+def moe_param_count(cfg):
+    """(parameters, bytes) of an MoE config from its shapes: per layer
+    attention, the f32 router (d, E), three expert matrices of E experts
+    and two norms; the untied embedding and unembedding and the final
+    norm; every leaf in the parameter dtype but the router."""
+    d, hd, m = cfg.d_model, cfg.resolved_head_dim, cfg.moe
+    h, hk = cfg.n_heads, cfg.n_kv_heads
+    router = d * m.n_experts
+    block = (2 * d * h * hd + 2 * d * hk * hd + router
+             + 3 * m.n_experts * d * m.d_ff + 2 * d)
+    n = 2 * cfg.vocab_size * d + cfg.n_layers * block + d
+    es = torch.finfo(cfg.dtype()).bits // 8
+    return n, n * es + cfg.n_layers * router * (4 - es)
+
+
+def _nodrop(cfg):
+    """``cfg`` with the no-drop capacity factor E (cap >= every group's
+    pairs): the reference's own decode-vs-forward test raises the factor
+    so, since a full sequence may drop pairs at capacity and one decoded
+    token never does."""
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+
+
+def moe_build(name: str, n_layers: int, dev, card: str):
+    """``name`` at full width cut to ``n_layers`` layers (the one cut),
+    built by ``bundle.init`` from a seeded CUDA generator; its parameters
+    and resident bytes checked against ``moe_param_count``; init seconds
+    and peak memory printed.  Returns (cfg, params, numbers)."""
+    from repro_torch import configs
+    from repro_torch.models import get_bundle
+    from repro_torch.tree import leaves
+    full = configs.get_config(name)
+    cfg = full.replace(n_layers=n_layers)
+    bundle = get_bundle(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = bundle.param_count(params)
+    nbytes = sum(p.numel() * p.element_size() for p in leaves(params))
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    want_n, want_bytes = moe_param_count(cfg)
+    full_n, full_bytes = moe_param_count(full)
+    m = cfg.moe
+    print(f'{name}: cut to {n_layers} of {full.n_layers} layers (the one '
+          f'cut: {full_n} parameters, {full_bytes / 1e9:.1f} GB at full '
+          f'depth, do not fit one card); d_model {cfg.d_model}, '
+          f'{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}'
+          f', {m.n_experts} experts top-{m.top_k} of d_ff {m.d_ff}, window '
+          f'{cfg.sliding_window}, vocab {cfg.vocab_size}, '
+          f'{cfg.param_dtype}: {n} parameters '
+          f'({bundle.active_param_count(params)} active), {nbytes} bytes '
+          f'resident ({nbytes / 1e9:.2f} GB), init {init_s:.2f} s, peak '
+          f'{peak / 1e9:.2f} GB [{card}]', flush=True)
+    check(n == want_n and nbytes == want_bytes and all(
+        p.device == dev for p in leaves(params)),
+        f'{name}: {n} parameters, {nbytes} bytes (want {want_n}, '
+        f'{want_bytes})')
+    return cfg, params, dict(arch=name, layers=n_layers,
+                             full_layers=full.n_layers, params=n,
+                             active=bundle.active_param_count(params),
+                             bytes=nbytes, init_s=init_s,
+                             init_peak_bytes=peak)
+
+
+def moe_attention_cases(cfg, params, dev):
+    """K8 against its plain version (``attn_measure``, bf16 ``ATTN_TOL``)
+    on q, k, v captured from layer 0 over max(``MOE_RING_POS``) + 1
+    seeded tokens: at each ``MOE_RING_POS`` a decode row over a ring of
+    the window's W slots filled with that layer's rows (position t in
+    slot t % W; ``attention_decode``'s call: no causal mask, kv_len =
+    min(pos + 1, W)); the same query against the linear cache of pos + 1
+    keys with the window (the same key set; the two K8 outputs also held
+    to each other within ``ATTN_TOL``); and the windowed causal prefill of
+    the first ``LM_PREFILL`` tokens; each with the schedule it ran."""
+    from repro_torch.kernels.flash_attention import (attention_geometry,
+                                                     flash_attention)
+    from repro_torch.models import layers, transformer
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    W, S = cfg.sliding_window, max(MOE_RING_POS) + 1
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), device=dev,
+                           generator=torch.Generator(dev).manual_seed(
+                               SEED + 1))
+    blk = transformer.layer(params, 0)
+    x = layers.apply_norm(cfg, blk['ln1'],
+                          layers.embed(cfg, params['embed'], tokens))
+    cos_sin = layers.rope_cos_sin(torch.arange(S, device=dev),
+                                  cfg.resolved_head_dim, cfg.rope_theta)
+    q, k, v = (t.transpose(1, 2).contiguous()
+               for t in layers._project_qkv(blk['attn'], x, cos_sin))
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    cases, tol = [], ATTN_TOL['bfloat16']
+    for pos in MOE_RING_POS:
+        t = torch.arange(max(0, pos - W + 1), pos + 1, device=dev)
+        ring = []
+        for a in (k, v):
+            r = torch.zeros((1, Hkv, W, D), dtype=a.dtype, device=dev)
+            r[:, :, t % W] = a[:, :, t]
+            ring.append(r)
+        qp = q[:, :, pos:pos + 1].contiguous()
+        kv = min(pos + 1, W)
+        case = attn_measure(f'{MOE_ARCH} ring decode pos={pos} W={W} '
+                            f'bfloat16', qp, *ring, kv_len=kv, causal=False)
+        kl, vl = (a[:, :, :pos + 1].contiguous() for a in (k, v))
+        lin = attn_measure(f'{MOE_ARCH} linear decode pos={pos} bfloat16',
+                           qp, kl, vl, window=W, offset=pos)
+        a = flash_attention(qp, *ring, causal=False, kv_len=kv).float()
+        b = flash_attention(qp, kl, vl, window=W, offset=pos).float()
+        case['ring_vs_linear_max_abs'] = float((a - b).abs().max())
+        case['ring_vs_linear_ok'] = bool(torch.allclose(a, b, **tol))
+        print(f'flash_attention: {MOE_ARCH} decode pos={pos}: ring of {W} '
+              f'slots against the linear cache of {pos + 1} keys with '
+              f'window {W} (the same keys): max abs '
+              f'{case["ring_vs_linear_max_abs"]:.3e}', flush=True)
+        check(case['ring_vs_linear_ok'], f'{MOE_ARCH}: K8 on the ring and '
+                                         f'on the linear cache disagree')
+        cases += [(case, attention_geometry(1, H, Hkv, 1, W, None, kv, 0,
+                                            D, sms, causal=False)),
+                  (lin, attention_geometry(1, H, Hkv, 1, pos + 1, W, None,
+                                           pos, D, sms))]
+    qp, kp, vp = (a[:, :, :LM_PREFILL].contiguous() for a in (q, k, v))
+    case = attn_measure(f'{MOE_ARCH} prefill window={W} bfloat16', qp, kp,
+                        vp, window=W)
+    cases.append((case, attention_geometry(1, H, Hkv, LM_PREFILL,
+                                           LM_PREFILL, W, None, 0, D, sms)))
+    for case, geom in cases:
+        case['geometry'] = dataclasses.asdict(geom)
+        _print_attn_case(case, geom)
+        check(case['ok'], f'flash_attention disagrees with its plain version '
+                          f'at {case["shape"]}')
+    return [case for case, _ in cases]
+
+
+def moe_route_check(cfg, params, dev, n_tokens: int, live_only=False):
+    """Layer 0's ``moe_route`` and ``moe_block`` on the card against the
+    same calls on a CPU copy of the layer (bf16), x the normed embeddings
+    of ``n_tokens`` seeded tokens: top-k experts, keep masks and slots
+    equal, the output within ``MOE_OUT_REL`` of its scale, the aux loss
+    within 1e-4 of it; the pairs dropped printed.  ``live_only``: the CPU
+    copy holds the router and the experts the card's routes use (the
+    others left unwritten; ``moe_block`` reads no other)."""
+    from repro_torch.models import layers, transformer
+    tokens = torch.randint(0, cfg.vocab_size, (1, n_tokens), device=dev,
+                           generator=torch.Generator(dev).manual_seed(
+                               SEED + 2))
+    blk = transformer.layer(params, 0)
+    x = layers.apply_norm(cfg, blk['ln2'],
+                          layers.embed(cfg, params['embed'], tokens))
+    p = blk['moe']
+    r = layers.moe_route(cfg, p, x)
+    out, ce = layers.moe_block(cfg, p, x)
+    card_ms = cuda_ms(lambda: layers.moe_block(cfg, p, x), 3, warmup=1)
+    live = layers._live_experts(r.counts)
+    pc = {'router': p['router'].cpu()}
+    for name in ('w_gate', 'w_up', 'w_down'):
+        if live_only:
+            pc[name] = torch.empty(p[name].shape, dtype=p[name].dtype)
+            for e in live:
+                pc[name][e] = p[name][e].cpu()
+        else:
+            pc[name] = p[name].cpu()
+    xc = x.cpu()
+    rc = layers.moe_route(cfg, pc, xc)
+    t0 = time.perf_counter()
+    outc, cec = layers.moe_block(cfg, pc, xc)
+    cpu_s = time.perf_counter() - t0
+    equal = {f: bool(torch.equal(getattr(r, f).cpu(), getattr(rc, f)))
+             for f in ('idx', 'keep', 'slot')}
+    scale = float(outc.float().abs().max())
+    err = float((out.cpu().float() - outc.float()).abs().max())
+    res = dict(tokens=n_tokens, cap=r.cap, pairs=int(r.keep.numel()),
+               dropped=int((~r.keep).sum()), live_experts=len(live),
+               routes_equal=equal, out_dtype=str(out.dtype),
+               out_max_abs=err, out_rel=err / scale, tol_rel=MOE_OUT_REL,
+               aux=float(ce), aux_cpu=float(cec), card_ms=card_ms,
+               cpu_s=cpu_s, copied='live experts' if live_only else 'all')
+    print(f'{cfg.name} moe_block layer 0, {n_tokens} tokens: cap '
+          f'{r.cap}, {res["dropped"]} of {res["pairs"]} pairs dropped, '
+          f'{len(live)} live experts; routes on the card == CPU: {equal}; '
+          f'output {out.dtype} max abs {err:.3e} ({err / scale:.3e} of '
+          f'its scale, tol {MOE_OUT_REL}); aux {float(ce):.6f} / '
+          f'{float(cec):.6f}; card {card_ms:.3f} ms a call, CPU '
+          f'{cpu_s:.2f} s', flush=True)
+    check(all(equal.values()), f'{cfg.name}: moe routes on the card differ '
+                               f'from the CPU\'s: {equal}')
+    check(bool(torch.isfinite(out).all()) and err <= MOE_OUT_REL * scale
+          and abs(float(ce) - float(cec)) <= 1e-4 * abs(float(cec)),
+          f'{cfg.name}: moe_block on the card strays from the CPU')
+    return res
+
+
+def moe_replay(cfg, params, tokens, dev):
+    """``lm_replay`` for an MoE config: ``tokens`` (1, S) through
+    ``forward_lm`` and ``decode_step`` on 'auto' (K8) and 'torch', at the
+    no-drop capacity factor (``_nodrop``), every MoE call's top-k experts
+    recorded.  A row whose expert set differs between the two runs of a
+    pair in some layer (a bf16 near-tie in the router: another expert
+    moves the row's logits far) is counted apart, at most
+    ``MOE_FLIP_MAX`` of the rows (a broken attention would flip most);
+    every other row within ``LM_LOGIT_REL`` of the logit scale, every
+    logit finite."""
+    from unittest import mock
+    from repro_torch.models import layers, transformer
+    c0 = _nodrop(cfg)
+    S, L, k = tokens.shape[1], cfg.n_layers, cfg.moe.top_k
+    route, log, out = layers.moe_route, [], {}
+
+    def record(c, p, x):
+        r = route(c, p, x)
+        log.append(r.idx.reshape(-1, k).sort(-1).values.cpu())
+        return r
+
+    with mock.patch.object(layers, 'moe_route', record):
+        for backend in ('auto', 'torch'):
+            c = c0.replace(attn_backend=backend)
+            log.clear()
+            full = transformer.forward_lm(c, params, tokens)[0][0].float()
+            fwd = torch.stack(log)                      # (L, S, k)
+            log.clear()
+            cache = transformer.init_cache(c, 1, max(S, LM_MAX_SEQ), dev)
+            dec = torch.stack([transformer.decode_step(
+                c, params, cache, tokens[:, t:t + 1], t)[0][0, 0].float()
+                for t in range(S)])
+            drt = torch.stack(log).reshape(S, L, k).transpose(0, 1)
+            out[backend] = ((full, fwd), (dec, drt))
+    scale = float(out['torch'][0][0].abs().max())
+    pairs = {'decode vs forward (K8)': (out['auto'][1], out['auto'][0]),
+             'decode vs forward (plain)': (out['torch'][1],
+                                           out['torch'][0]),
+             'decode: K8 vs plain': (out['auto'][1], out['torch'][1]),
+             'forward: K8 vs plain': (out['auto'][0], out['torch'][0])}
+    res = dict(tokens=S, logit_scale=scale, tol_rel=LM_LOGIT_REL,
+               capacity_factor=c0.moe.capacity_factor,
+               finite=all(bool(torch.isfinite(t[0]).all())
+                          for p in out.values() for t in p), pairs={})
+    for name, ((a, ra), (b, rb)) in pairs.items():
+        flipped = (ra != rb).any(-1).any(0)
+        kept = ~flipped.to(a.device)
+        check(bool(kept.any()), f'{cfg.name}: {name}: every row flipped')
+        d = _logit_diff(a[kept], b[kept], scale)
+        d['flipped_rows'] = int(flipped.sum())
+        d['argmax_agree_all'] = float((a.argmax(-1) == b.argmax(-1)).float()
+                                      .mean())
+        res['pairs'][name] = d
+    print(f'{cfg.name} replay of {S} tokens at capacity factor '
+          f'{c0.moe.capacity_factor} (logit scale {scale:.4f}, tol '
+          f'{LM_LOGIT_REL} of it on rows whose experts did not flip): '
+          + '; '.join(f'{k} {v["rel"]:.3e}, {v["flipped_rows"]} rows '
+                      f'flipped (argmax {v["argmax_agree_all"]:.3f})'
+                      for k, v in res['pairs'].items()), flush=True)
+    check(res['finite'] and all(
+        v['rel'] <= LM_LOGIT_REL and v['flipped_rows'] <= MOE_FLIP_MAX * S
+        for v in res['pairs'].values()),
+        f'{cfg.name}: decode replay outside {LM_LOGIT_REL} of the logit '
+        f'scale, too many route flips, or not finite')
+    return res
+
+
+def moe_step_times(cfg, params, dev, card: str):
+    """``lm_step_times`` beside two bounds of the bytes a step at position
+    ``LM_PREFILL`` must read: every weight but the embedding table and the
+    experts, one table row, the cache's live rows, and the top-k experts'
+    three matrices a layer (what ``moe_block`` reads: it runs the experts
+    that hold a pair) or all E (the reference's (E, cap, d) buffer)."""
+    from repro_torch.tree import leaves
+    m, es = cfg.moe, 2
+    total = sum(p.numel() * p.element_size() for p in leaves(params))
+    table = params['embed']['table']
+    experts = sum(params['blocks']['moe'][n].numel() * es
+                  for n in ('w_gate', 'w_up', 'w_down'))
+    base = (total - table.numel() * table.element_size() - experts
+            + cfg.d_model * es + 2 * cfg.n_layers * cfg.n_kv_heads
+            * (LM_PREFILL + 1) * cfg.resolved_head_dim * es)
+    top = base + experts * m.top_k // m.n_experts
+    res = lm_step_times(cfg, params, dev, top)
+    res['bound_all_ms'] = (base + experts) / HBM_BYTES_PER_S * 1e3
+    res['bytes_all'] = base + experts
+    print(f'{cfg.name} decode step against its bounds: top-{m.top_k} '
+          f'experts read {top / 1e9:.2f} GB, {res["bound_ms"]:.3f} ms; all '
+          f'{m.n_experts} read {(base + experts) / 1e9:.2f} GB, '
+          f'{res["bound_all_ms"]:.3f} ms; traced device busy '
+          f'{res["auto"]["device_busy_ms"]:.3f} ms on K8 (the port reads '
+          f'the routed experts only, so the top-{m.top_k} bound is its '
+          f'own) [{card}]', flush=True)
+    return res
+
+
+def _moe_clis():
+    """``serve --arch <MoE> --smoke`` for both MoE configs as subprocesses
+    (Mixtral's smoke window of 16 wraps its ring): tokens served, K8
+    launched."""
+    import re
+    import tempfile
+    out = {}
+    for name in (MOE_ARCH, KIMI_ARCH):
+        with tempfile.TemporaryDirectory() as tmp:
+            text = _run_cli(f'serve {name} --smoke', [
+                'repro_torch.launch.serve', '--arch', name, '--smoke',
+                '--requests', str(LM_REQUESTS), '--slots', str(LM_SLOTS),
+                '--max-new', str(LM_MAX_NEW)], tmp)
+        m = re.search(r'served (\d+) requests, (\d+) tokens in ([0-9.]+)s '
+                      r'\(([0-9.]+) tok/s\); p50 latency ([0-9.]+)s', text)
+        k8 = re.search(r'K8 launches (\d+)', text)
+        check(m is not None and k8 is not None and int(m.group(2))
+              == LM_REQUESTS * LM_MAX_NEW and int(k8.group(1)) > 0,
+              f'serve --arch {name} --smoke did not serve on K8')
+        out[name] = dict(tokens=int(m.group(2)), wall_s=float(m.group(3)),
+                         tok_per_s=float(m.group(4)),
+                         k8_launches=int(k8.group(1)),
+                         lines=text.strip().splitlines())
+    return out
+
+
+def moe_phase(dev, card: str):
+    """The MoE family served on the card (after ``lm_train_phase``): Mixtral
+    8x22B at full width cut to ``MOE_LAYERS`` layers, then Kimi-K2 cut to
+    ``KIMI_LAYERS`` (``_moe_phase``).  bf16 reduced-precision reductions
+    are off in this process for its checks (restored after)."""
+    flags = torch.backends.cuda.matmul
+    saved = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        return _moe_phase(dev, card)
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = saved
+
+
+def _moe_phase(dev, card: str):
+    import gc
+    t0 = time.perf_counter()
+    print(f'moe phase on {card}', flush=True)
+    res = {}
+    cfg, params, mix = moe_build(MOE_ARCH, MOE_LAYERS, dev, card)
+    mix['attn_cases'] = moe_attention_cases(cfg, params, dev)
+    mix['moe_block'] = moe_route_check(cfg, params, dev, MOE_TOKENS)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_PREFILL), device=dev,
+                           generator=torch.Generator(dev).manual_seed(SEED))
+    mix['replay'] = moe_replay(cfg, params, tokens, dev)
+    mix['serve'], mix['launches'], mix['rescore_launches'] = lm_serve(
+        cfg, params, dev, rescore_cfg=_nodrop(cfg))
+    mix['step'] = moe_step_times(cfg, params, dev, card)
+    res[MOE_ARCH] = mix
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params, kimi = moe_build(KIMI_ARCH, KIMI_LAYERS, dev, card)
+    kimi['attn_cases'] = lm_attention_cases(cfg, params, dev, KIMI_ARCH)
+    kimi['moe_block'] = moe_route_check(cfg, params, dev, KIMI_MOE_TOKENS,
+                                        live_only=True)
+    kimi['serve'], kimi['launches'], kimi['rescore_launches'] = lm_serve(
+        cfg, params, dev, requests=KIMI_REQUESTS, rescore_cfg=_nodrop(cfg))
+    kimi['step'] = moe_step_times(cfg, params, dev, card)
+    res[KIMI_ARCH] = kimi
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res['cli'] = _moe_clis()
+    res['seconds'] = time.perf_counter() - t0
+    print(f'moe phase: {res["seconds"]:.1f} s [{card}]', flush=True)
+    return res
+
+
 def _bwd_rows(train):
     """The kernels-line rows of K8's two backward kernels: their cases at
     every ``LM_TRAIN_ATTN`` shape (MiniCPM-2B's first) and their launches
@@ -3912,10 +4332,12 @@ def quant_matmul_checks(dev):
     return row
 
 
-def _needed(sq: int, sk: int, offset: int, window, kv_len=None):
-    """(valid query-key pairs, keys any query sees) of one causal head."""
+def _needed(sq: int, sk: int, offset: int, window, kv_len=None,
+            causal: bool = True):
+    """(valid query-key pairs, keys any query sees) of one head."""
     pos = np.arange(sq) + offset
-    hi = np.minimum(sk if kv_len is None else min(sk, kv_len), pos + 1)
+    kv = sk if kv_len is None else min(sk, kv_len)
+    hi = np.minimum(kv, pos + 1) if causal else np.full_like(pos, kv)
     lo = np.zeros_like(pos) if window is None else np.maximum(
         0, pos - window + 1)
     seen = np.zeros(sk + 1, np.int64)
@@ -3940,8 +4362,9 @@ def attn_case(label: str, B: int, H: int, Hkv: int, Sq: int, Sk: int,
                         offset=Sk - Sq), (q, k, v, window)
 
 
-def attn_measure(label: str, q, k, v, window=None, offset=0, kv_len=None):
-    """K8 on q, k, v (causal; ``window``, ``offset``, ``kv_len``): its
+def attn_measure(label: str, q, k, v, window=None, offset=0, kv_len=None,
+                 causal: bool = True):
+    """K8 on q, k, v (``causal``, ``window``, ``offset``, ``kv_len``): its
     error against the plain version and the share of the tolerance used,
     the kernel's ms, its plain version's, that of
     ``scaled_dot_product_attention`` with ``enable_gqa`` and an explicit
@@ -3953,7 +4376,7 @@ def attn_measure(label: str, q, k, v, window=None, offset=0, kv_len=None):
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     dt = str(q.dtype).split('.')[-1]
-    kw = dict(causal=True, window=window, offset=offset, kv_len=kv_len)
+    kw = dict(causal=causal, window=window, offset=offset, kv_len=kv_len)
     got = flash_attention(q, k, v, **kw).float()
     want = attention_ref(q, k, v, **kw).float()
     err = float((got - want).abs().max())
@@ -3964,7 +4387,7 @@ def attn_measure(label: str, q, k, v, window=None, offset=0, kv_len=None):
         tol['atol'] + tol['rtol'] * want.abs())).max())
     pos = torch.arange(Sq, device=q.device)[:, None] + offset
     key = torch.arange(Sk, device=q.device)[None, :]
-    mask = pos >= key
+    mask = pos >= key if causal else torch.ones_like(pos >= key)
     if window is not None:
         mask &= (pos - key) < window
     if kv_len is not None:
@@ -3972,10 +4395,11 @@ def attn_measure(label: str, q, k, v, window=None, offset=0, kv_len=None):
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
     lib_err = float((sdpa().float() - want).abs().max())
-    pairs, keys = _needed(Sq, Sk, offset, window, kv_len)
+    pairs, keys = _needed(Sq, Sk, offset, window, kv_len, causal)
     big = pairs * H > 1e8
     es = q.element_size()
     extra = '' if kv_len is None else f' kv_len={kv_len} offset={offset}'
+    extra += '' if causal else ' not causal'
     case = dict(
         shape=f'{label} B={B} H={H} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} '
               f'window={window}{extra}', max_abs_err=err, tol=tol, ok=ok,
@@ -4012,16 +4436,18 @@ def _print_attn_case(case, geom, narrow: str = '') -> None:
           flush=True)
 
 
-def attention_checks(dev, lm, train):
+def attention_checks(dev, lm, train, moe):
     """K8 (``flash_attention``) at each ``ATTN_CASES`` case (``attn_case``),
     with its schedule, and where that is 128-row tiles also the time of
     the 64-row tiles on the same inputs; then drives the public op ``mha``
     once per case with the launch counter set to 0.  The kernels-line row
     leads with the Mixtral cases, adds the LM phase's cases (``lm``:
     Qwen3-14B's decode and prefill, its main path) and the training
-    phase's forward-with-lse cases (``train``), takes its launches from
-    the LM's serve path and reports MiniCPM-2B's training launches as
-    ``train_launches``."""
+    phase's forward-with-lse cases (``train``) and the MoE phase's cases
+    (``moe``: Mixtral's ring and windowed cases, Kimi-K2's at D 112), takes
+    its launches from the LM's serve path, reports MiniCPM-2B's training
+    launches as ``train_launches`` and the MoE serve paths' as
+    ``moe_launches``."""
     from unittest import mock
     from repro_torch.kernels.flash_attention import (attention_geometry,
                                                      flash_attention, mha)
@@ -4064,10 +4490,14 @@ def attention_checks(dev, lm, train):
                     'src/repro_torch/csrc/flash_attention.cu',
                     'src/repro/kernels/flash_attention/kernel.py:79',
                     cases + lm['attn_cases']
-                    + [c[0] for c in train['attention']])
+                    + [c[0] for c in train['attention']]
+                    + moe[MOE_ARCH]['attn_cases']
+                    + moe[KIMI_ARCH]['attn_cases'])
     row['launches'] = lm['launches']['flash_attention']
     row['train_launches'] = train['run']['launches']['flash_attention']
     row['prefill_launches'] = lm['rescore_launches']['flash_attention']
+    row['moe_launches'] = {a: moe[a]['launches']['flash_attention']
+                           for a in (MOE_ARCH, KIMI_ARCH)}
     row['mha_launches'] = launches
     return row
 
@@ -4495,11 +4925,15 @@ def main(argv=None) -> int:
     lm = lm_phase(dev)
     # and trained at MiniCPM-2B's full width, through K8's backward
     lm_train = lm_train_phase(dev)
+    # the MoE family served: Mixtral 8x22B and Kimi-K2 at full width, cut
+    # by depth
+    moe = moe_phase(dev, card)
 
     # K6 and K7 on their public ops (no path of the system reaches them);
     # K8 at Mixtral's shapes and on mha beside the LM path's cases
     op_rows = [cell_checks(params, CELL_BATCH, dev),
-               quant_matmul_checks(dev), attention_checks(dev, lm, lm_train)]
+               quant_matmul_checks(dev),
+               attention_checks(dev, lm, lm_train, moe)]
     op_rows += _bwd_rows(lm_train)
 
     launches = dict(lstm_seq=runs['cuda_seq']['launches']['lstm_seq'],
@@ -4517,7 +4951,7 @@ def main(argv=None) -> int:
     for r in rows:
         check(r['launches'] > 0, f"{r['name']} never launched on the path")
     keys = ('name', 'route', 'source', 'replaces', 'launches',
-            'train_launches', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+            'train_launches', 'moe_launches', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
             'bound_by', 'library_ms', 'tol', 'ok', 'shape', 'geometry',
             'cases')
     kernels = {'kernels': [{k: r[k] for k in keys if k in r} for r in rows]}
@@ -4534,7 +4968,7 @@ def main(argv=None) -> int:
             stack_kernel_weights_q=q_stacking, int8_deploy=deploy,
             train_grad_rel_err=grad_err, train=train, train_cli=cli,
             tune=tuned, examples=examples, systolic=systolic, die=die,
-            lm=lm, lm_train=lm_train),
+            lm=lm, lm_train=lm_train, moe=moe),
             indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {

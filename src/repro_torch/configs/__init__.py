@@ -10,9 +10,9 @@ Python loop over the stacked layers in its place; ``attn_chunk``, since
 K8 takes any length) are left out.  ``remat`` is the reference's
 (``models.transformer`` applies it to each layer under grad).
 ``adtype()``/``dtype()`` return torch dtypes.  ``ARCH_MODULES`` holds the
-families the port runs: the paper's CTC LSTM and the four dense LMs; the
-other reference configurations come with the slices that port their
-families (ROADMAP queue 1, item 3).
+families the port runs: the paper's CTC LSTM, the four dense LMs and the
+two MoE LMs (Mixtral 8x22B, Kimi-K2); the other reference configurations
+come with the slices that port their families (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -107,6 +107,8 @@ class ShapeConfig:
 
 
 ARCH_MODULES = {
+    'kimi-k2-1t-a32b': 'kimi_k2_1t_a32b',
+    'mixtral-8x22b': 'mixtral_8x22b',
     'qwen3-14b': 'qwen3_14b',
     'minicpm-2b': 'minicpm_2b',
     'codeqwen1.5-7b': 'codeqwen15_7b',

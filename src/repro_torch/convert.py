@@ -11,7 +11,8 @@ layer (``QuantizedPackedLSTM``), keeping its integer dtypes.
 ``{'params', 'opt', 'step'}`` with AdamW's moments — into the port's.
 ``lm_params_from_numpy`` carries the dense LM's nested dict of parameters
 leaf for leaf in each leaf's own dtype (bf16 included), and
-``lm_cache_from_numpy`` its KV cache into the port's layout, and
+``lm_cache_from_numpy`` its KV cache (a ring filled in order) into the
+port's layout, and
 ``lm_train_state_from_numpy`` a whole LM train state with any of the three
 optimizers' states.  Nothing here imports JAX; the values are copied bit
 for bit.
@@ -116,11 +117,26 @@ def lm_params_from_numpy(tree, device='cuda'):
     return _exact(tree, device)
 
 
+def ring_fill(w: int, n: int) -> np.ndarray:
+    """The reference's ``pos`` row (slot -> position, -1 empty) of a ring
+    of ``w`` slots after positions 0 .. n - 1 were written in order: slot
+    s holds the latest t < n with t % w == s."""
+    s = np.arange(w)
+    return np.where(s < n, s + (n - 1 - s) // w * w, -1).astype(np.int32)
+
+
 def lm_cache_from_numpy(cache, device='cuda'):
-    """The port's KV cache from a numpy copy of the reference's linear one:
-    ``k``/``v`` (layers, B, W, Hkv, hd) -> (layers, B, Hkv, W, hd)
-    (``transformer.init_cache``'s layout); the reference's ``pos`` array
-    is dropped (the port's cache is linear, slot = position)."""
+    """The port's KV cache from a numpy copy of the reference's: ``k``/``v``
+    (layers, B, W, Hkv, hd) -> (layers, B, Hkv, W, hd)
+    (``transformer.init_cache``'s layout).  The reference's ``pos`` array
+    is checked and dropped: the port's cache implies the in-order fill
+    (``ring_fill``; ``layers.attention_decode``), so any other ``pos``
+    raises ``ValueError``."""
+    pos = np.asarray(cache['pos'])
+    want = ring_fill(pos.shape[-1], int(pos.max()) + 1)
+    if not (pos == want).all():
+        raise ValueError(f'lm_cache_from_numpy: pos {pos.tolist()} is not '
+                         f'a ring filled in order')
     return {n: _exact(np.swapaxes(np.asarray(cache[n]), 2, 3), device)
             for n in ('k', 'v')}
 

@@ -1,19 +1,23 @@
 """Serving entry point of the port: streams for the paper's CTC LSTM, tokens
-for the dense LMs.
+for the dense and MoE LMs.
 
 ``--arch`` picks the front end by family.  A dense LM (``qwen3-14b``,
-``qwen2.5-14b``, ``codeqwen1.5-7b``, ``minicpm-2b``) is served by
-``SlotServer``: a fixed number of decode slots, each with its own KV cache,
-refilled from the queue as requests finish (continuous batching), greedy
-sampling, the prompt fed token by token through ``decode_step`` as the
-reference does; its attention runs on K8 on the card.  The full
-configuration is the default (Qwen3-14B: 40 layers, d_model 5120, bf16,
-random weights from seed 0)::
+``qwen2.5-14b``, ``codeqwen1.5-7b``, ``minicpm-2b``) or an MoE LM
+(``mixtral-8x22b``, ``kimi-k2-1t-a32b``) is served by ``SlotServer``: a
+fixed number of decode slots, each with its own KV cache (a ring of the
+sliding window's slots for Mixtral), refilled from the queue as requests
+finish (continuous batching), greedy sampling, the prompt fed token by
+token through ``decode_step`` as the reference does; its attention runs on
+K8 on the card.  The full configuration is the default (Qwen3-14B: 40
+layers, d_model 5120, bf16, random weights from seed 0; the MoE configs at
+full width do not fit one card)::
 
     python -m repro_torch.launch.serve --arch qwen3-14b --requests 6 \
         --slots 4 --max-new 16
     python -m repro_torch.launch.serve --arch qwen3-14b --smoke \
         --device cpu
+    python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke \
+        --requests 6 --slots 4 --max-new 16
 
 The paper's CTC LSTM streams utterances of MFCC frames in, and per-frame
 CTC log-probs and incrementally decoded phonemes out.  Every engine step
@@ -108,7 +112,7 @@ class Request:
 
 
 class SlotServer:
-    """``num_slots`` concurrent decodes of a dense LM; greedy sampling;
+    """``num_slots`` concurrent decodes of an LM; greedy sampling;
     per-slot refill (the reference's ``SlotServer``).
 
     Each slot owns its own cache (batch 1), so a refill never perturbs a
@@ -213,8 +217,10 @@ def deadline_policy(cfg, chunk: int, slots: int, slo: float
 def _run_token_serving(cfg, args):
     """Serve ``args.requests`` random prompts (3-7 tokens, numpy seed 0)
     through ``SlotServer`` on ``args.device`` with weights from seed 0;
-    prints the reference's summary line, then the device, the attention
-    backend and K8's launches.  Returns the numbers and the requests."""
+    prints the reference's summary line, then the device, the parameters
+    (and those a token runs through: an MoE's experts at top_k / E), the
+    attention backend and K8's launches.  Returns the numbers and the
+    requests."""
     bundle = get_bundle(cfg)
     params = bundle.init(torch.Generator(args.device).manual_seed(0),
                          args.device)
@@ -234,8 +240,8 @@ def _run_token_serving(cfg, args):
     print(f'served {len(server.done)} requests, {toks} tokens in {wall:.2f}s '
           f'({toks / wall:.1f} tok/s); p50 latency {np.median(lat):.2f}s')
     print(f'{cfg.name} on {args.device}: {bundle.param_count(params)} '
-          f'parameters, attention {cfg.attn_backend}, K8 launches '
-          f'{launches}')
+          f'parameters ({bundle.active_param_count(params)} active), '
+          f'attention {cfg.attn_backend}, K8 launches {launches}')
     for r in sorted(server.done, key=lambda r: r.rid)[:3]:
         print(f'  req {r.rid}: prompt {r.prompt[:4]}... -> {r.out}')
     return dict(requests=len(server.done), tokens=toks, wall_s=wall,

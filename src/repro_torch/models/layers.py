@@ -23,12 +23,18 @@ p from it (``torch``: the plain forward and backward).
 Init draws from one ``torch.Generator`` in order (the reference's
 ``keygen`` key splits have no counterpart); the numbers differ from
 ``jax.random``'s, so tests carry the reference's weights across instead.
-The MoE blocks and cross attention come with their families (ROADMAP
-queue 1, item 3).
+
+The MoE blocks (``moe_block``, ``moe_block_global``) are the reference's
+functions step for step in plain PyTorch: the reference computes its
+routing and its expert products outside any Pallas kernel, so no kernel
+of the port replaces them.  Cross attention comes with its families
+(ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import dataclasses
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -204,27 +210,32 @@ def attention_block(cfg, p: Params, x: torch.Tensor, *, cos_sin,
 def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params, *,
                      pos: int, cos_sin,
                      window: Optional[int] = None) -> torch.Tensor:
-    """One-token decode against a linear KV cache, written in place.
+    """One-token decode against a ring KV cache, written in place.
 
     x: (B, 1, d); cache: ``{'k', 'v'}`` each (B, Hkv, W, hd), the port's
-    layout (``transformer.init_cache``), slot = position.  The new row goes
-    to slot ``pos``; keys j <= pos are valid, which for a cache filled in
-    order is the reference's ``pos_arr >= 0 & pos_arr <= pos``, so K8 runs
-    with ``kv_len = pos + 1, offset = pos``.  q is cast to the cache's
-    dtype (K8 takes one dtype; the reference's output has the cache's
-    too).  A sliding-window ring cache cannot be written as kv_len and
-    offset, so ``window`` raises until the MoE/hybrid slice."""
-    if window is not None:
-        raise NotImplementedError('attention_decode: ring caches (sliding '
-                                  'window) are not ported yet (ROADMAP '
-                                  'queue 1, item 3)')
-    q, k_new, v_new = _project_qkv(p, x, cos_sin)
+    layout (``transformer.init_cache``): W slots, position t in slot
+    t % W (a dense cache has W = max_seq, a sliding window's W <=
+    ``window``).  The new row goes to slot ``pos % W``, and every filled
+    slot is valid: keys j < min(pos + 1, W), with no causal mask.  For a
+    cache filled in order that is the reference's mask ``pos_arr >= 0 &
+    pos_arr <= pos & pos - pos_arr < window``: the slots hold positions
+    pos - W + 1 .. pos, all within the window, and softmax does not
+    depend on the keys' order.  So the port keeps no ``pos`` array, and
+    K8 runs with ``kv_len`` alone.  A cache wider than ``window`` would
+    need the position mask and raises.  q is cast to the cache's dtype (K8
+    takes one dtype; the reference's output has the cache's too)."""
     k_cache, v_cache = cache['k'], cache['v']
-    k_cache[:, :, pos].copy_(k_new[:, 0])
-    v_cache[:, :, pos].copy_(v_new[:, 0])
+    w = k_cache.shape[2]
+    if window is not None and w > window:
+        raise ValueError(f'attention_decode: a cache of {w} slots is wider '
+                         f'than the window {window}')
+    q, k_new, v_new = _project_qkv(p, x, cos_sin)
+    slot = pos % w
+    k_cache[:, :, slot].copy_(k_new[:, 0])
+    v_cache[:, :, slot].copy_(v_new[:, 0])
     qh = q.transpose(1, 2).to(k_cache.dtype)            # (B, H, 1, hd)
-    o = attention(cfg.attn_backend, qh, k_cache, v_cache, causal=True,
-                  offset=pos, kv_len=pos + 1)
+    o = attention(cfg.attn_backend, qh, k_cache, v_cache, causal=False,
+                  kv_len=min(pos + 1, w))
     return _out_proj(p, o.transpose(1, 2))
 
 
@@ -250,6 +261,222 @@ def mlp_block(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu's default is the tanh approximation
     h = F.gelu(_mm(x, p['w_up']) + p['b_up'], approximate='tanh')
     return _mm(h, p['w_down']) + p['b_down']
+
+
+# ----------------------------------------------------------------------- MoE
+def init_moe(cfg, gen: torch.Generator, dtype: torch.dtype) -> Params:
+    """The reference's MoE parameters: ``router`` (d, E) in f32, the
+    experts' ``w_gate`` and ``w_up`` (E, d, ff) and ``w_down`` (E, ff, d)
+    in ``dtype``, each with fan-in on dim 1.  The experts are drawn one at
+    a time (f32, then cast into their slice), so no f32 tensor of all
+    experts is held: at Kimi-K2's width one would be 22.5 GB."""
+    d, m = cfg.d_model, cfg.moe
+
+    def experts(shape):
+        out = torch.empty((m.n_experts,) + shape, dtype=dtype,
+                          device=gen.device)
+        for e in range(m.n_experts):
+            out[e].copy_(mk_param(gen, shape, dtype))
+        return out
+
+    return {'router': mk_param(gen, (d, m.n_experts), f32),
+            'w_gate': experts((d, m.d_ff)),
+            'w_up': experts((d, m.d_ff)),
+            'w_down': experts((m.d_ff, d))}
+
+
+def _moe_group_count(n: int, target_group: int = 4096) -> int:
+    """Token groups of ``moe_block``: ``n // target_group``, at least one,
+    lowered until it divides ``n``.  The reference also takes at least
+    one group per data-parallel shard of its installed mesh; the port has
+    no sharding rules yet (ROADMAP queue 1, item 3(d)), so its one shard
+    gives dp = 1."""
+    dp = 1
+    g = min(n, max(dp, n // target_group))
+    while n % g:
+        g -= 1
+    return max(g, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoERoute:
+    """``moe_block``'s routing of x (B, S, d) in G groups of Sg tokens,
+    P = Sg * k (token, choice) pairs a group, pair t * k + j for token t's
+    j-th choice.  ``logits`` (G, Sg, E) f32; ``idx`` (G, Sg, k) experts,
+    best first, and ``gates`` (G, Sg, k) their f32 softmax; ``order``
+    (G, P) the stable sort of the pairs by expert, and in that order
+    ``expert``, ``pos`` (the rank within the expert), ``keep`` (pos <
+    ``cap``) and ``slot`` (expert * cap + pos, E * cap when dropped);
+    ``starts`` and ``counts`` (G, E) each expert's first sorted pair and
+    its pairs."""
+    logits: torch.Tensor
+    idx: torch.Tensor
+    gates: torch.Tensor
+    order: torch.Tensor
+    expert: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    slot: torch.Tensor
+    starts: torch.Tensor
+    counts: torch.Tensor
+    cap: int
+
+
+def moe_route(cfg, p: Params, x: torch.Tensor) -> MoERoute:
+    """The routing half of ``moe_block`` (the reference's, step for step):
+    f32 router logits, top-k, a softmax over the k logits, a stable sort
+    of the pairs by expert (``jnp.argsort`` is stable, and which pairs a
+    full expert drops depends on the order), each pair's rank within its
+    expert and the capacity ``cap = max(ceil(P / E * cf / 8) * 8, 8)``."""
+    m = cfg.moe
+    b, s, d = x.shape
+    n = b * s
+    k, e = m.top_k, m.n_experts
+    g = _moe_group_count(n)
+    sg = n // g
+    pairs = sg * k
+    cap = max(int(math.ceil(pairs / e * m.capacity_factor / 8)) * 8, 8)
+    dev = x.device
+    logits = x.reshape(g, sg, d).to(f32) @ p['router']
+    top, idx = torch.topk(logits, k, dim=-1)
+    gates = torch.softmax(top, dim=-1)
+    pair_expert = idx.reshape(g, pairs)
+    order = torch.argsort(pair_expert, dim=-1, stable=True)
+    expert = torch.gather(pair_expert, 1, order)
+    starts = torch.searchsorted(
+        expert, torch.arange(e, device=dev).expand(g, e).contiguous(),
+        side='left')
+    pos = (torch.arange(pairs, device=dev)[None, :]
+           - torch.gather(starts, 1, expert))
+    keep = pos < cap
+    slot = torch.where(keep, expert * cap + pos, e * cap)
+    counts = torch.cat([starts[:, 1:], torch.full(
+        (g, 1), pairs, dtype=starts.dtype, device=dev)], dim=1) - starts
+    return MoERoute(logits, idx, gates, order, expert, pos, keep, slot,
+                    starts, counts, cap)
+
+
+def _live_experts(counts: torch.Tensor) -> List[int]:
+    """The experts that hold at least one pair (``counts`` (..., E)), read
+    to the host once: the expert products run over these alone."""
+    per = counts.reshape(-1, counts.shape[-1]).sum(0).tolist()
+    return [e for e, c in enumerate(per) if c]
+
+
+def _expert_products(p: Params, live: List[int],
+                     buf: torch.Tensor) -> torch.Tensor:
+    """SwiGLU of each live expert over its rows: ``buf`` (..., L, R, d)
+    with L = len(live) -> (..., L, R, d), the reference's
+    ``silu(buf @ w_gate) * (buf @ w_up) @ w_down`` with JAX's promotion
+    (``_mm``)."""
+    outs = []
+    for j, e in enumerate(live):
+        xe = buf[..., j, :, :]
+        h = F.silu(_mm(xe, p['w_gate'][e])) * _mm(xe, p['w_up'][e])
+        outs.append(_mm(h, p['w_down'][e]))
+    return torch.stack(outs, dim=-3)
+
+
+def _compact_slots(live: torch.Tensor, n_experts: int,
+                   expert: torch.Tensor, pos: torch.Tensor,
+                   keep: torch.Tensor, cap: int) -> torch.Tensor:
+    """A kept pair's row in the live experts' buffer (its expert's index
+    in ``live`` * cap + pos), 0 for a dropped one (its row is multiplied
+    by ``keep``'s 0, as the reference's clamped slot is)."""
+    lut = torch.zeros(n_experts, dtype=torch.long, device=expert.device)
+    lut[live] = torch.arange(len(live), device=expert.device)
+    return torch.where(keep, lut[expert] * cap + pos, 0)
+
+
+def moe_block(cfg, p: Params, x: torch.Tensor):
+    """Top-k MoE with per-group capacity dispatch (the reference's
+    ``moe_block``, step for step): x (B, S, d) -> (out (B, S, d), the
+    GShard load-balance loss).  ``moe_route`` routes; each expert's
+    buffer row c of a group is the group's c-th pair sorted to that
+    expert (zero past its count, the pairs past ``cap`` dropped); the
+    expert products are SwiGLU with JAX's promotion; each kept pair's
+    output comes back through the inverse sort, and a token's output is
+    the sum over its k choices of output times gate (the gate in x's
+    dtype).  The output's dtype is the promoted one (f32 for f32
+    parameters under bf16 activations), as the reference's.
+
+    Deviation in cost, not in function: the reference multiplies all E
+    experts' (G, cap, d) buffers.  Here the per-expert pair counts are
+    read to the host once a call (E ints) and the products run over the
+    experts that hold a pair; an empty expert's rows are never read back,
+    so the output is the same.  Over all E, Kimi-K2's decode would read
+    33.8 GB of expert weights a token and layer instead of ~0.7 GB."""
+    m = cfg.moe
+    b, s, d = x.shape
+    k, e = m.top_k, m.n_experts
+    r = moe_route(cfg, p, x)
+    g, pairs = r.order.shape
+    sg, cap = pairs // k, r.cap
+    xg = x.reshape(g, sg, d)
+    xk = torch.gather(xg, 1, (r.order // k)[..., None].expand(g, pairs, d))
+    xk_pad = torch.cat([xk, xk.new_zeros((g, 1, d))], dim=1)
+    live = _live_experts(r.counts)
+    lt = torch.tensor(live, device=x.device)
+    cgrid = torch.arange(cap, device=x.device)
+    cnt, st = r.counts[:, lt, None], r.starts[:, lt, None]
+    src = torch.where(cgrid < cnt, st + cgrid, pairs)     # (G, L, cap)
+    buf = torch.gather(xk_pad, 1, src.reshape(g, -1, 1).expand(-1, -1, d))
+    y = _expert_products(p, live, buf.reshape(g, len(live), cap, d))
+    y = y.reshape(g, len(live) * cap, d)
+    rows = _compact_slots(lt, e, r.expert, r.pos, r.keep, cap)
+    y_sorted = torch.gather(y, 1, rows[..., None].expand(g, pairs, d))
+    y_sorted = y_sorted * r.keep[..., None].to(x.dtype)
+    inv = torch.empty_like(r.order).scatter_(
+        1, r.order, torch.arange(pairs, device=x.device).expand(g, pairs))
+    y_pairs = torch.gather(y_sorted, 1, inv[..., None].expand(g, pairs, d))
+    out = (y_pairs.reshape(g, sg, k, d)
+           * r.gates[..., None].to(x.dtype)).sum(dim=2)
+    # GShard load-balance aux loss from the per-group expert loads
+    probs_mean = torch.softmax(r.logits, dim=-1).mean(dim=(0, 1))
+    load = r.counts.sum(0).to(f32) / (g * sg) / k
+    ce = (probs_mean * load).sum() * e
+    return out.reshape(b, s, d), ce
+
+
+def moe_block_global(cfg, p: Params, x: torch.Tensor):
+    """The reference's ablation baseline ``moe_block_global``: one global
+    stable sort of all N * k pairs, capacity ``ceil(N k / E * cf / 8) *
+    8``, the buffer filled by a scatter in x's dtype, and the pairs'
+    outputs scattered back into x's dtype (bf16 under bf16 activations,
+    where ``moe_block`` keeps the promoted dtype) before the gate sum; its
+    own aux loss, mean(load * mean prob) * E².  The expert products run
+    over the experts that hold a pair, as in ``moe_block``."""
+    m = cfg.moe
+    b, s, d = x.shape
+    n = b * s
+    k, e = m.top_k, m.n_experts
+    dev = x.device
+    xf = x.reshape(n, d)
+    logits = xf.to(f32) @ p['router']
+    top, idx = torch.topk(logits, k, dim=-1)
+    gates = torch.softmax(top, dim=-1)
+    pair_expert = idx.reshape(-1)
+    perm = torch.argsort(pair_expert, stable=True)
+    expert = pair_expert[perm]
+    counts = torch.bincount(pair_expert, minlength=e)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(n * k, device=dev) - starts[expert]
+    cap = int(math.ceil(n * k / e * m.capacity_factor / 8)) * 8
+    keep = pos < cap
+    live = _live_experts(counts)
+    rows = _compact_slots(torch.tensor(live, device=dev), e, expert, pos,
+                          keep, cap)
+    buf = x.new_zeros((len(live) * cap, d))
+    buf[rows[keep]] = xf[(perm // k)[keep]]
+    y = _expert_products(p, live, buf.reshape(len(live), cap, d))
+    y = y.reshape(len(live) * cap, d)
+    y_sorted = y[rows] * keep[:, None].to(x.dtype)
+    y_pairs = x.new_zeros((n * k, d))
+    y_pairs[perm] = y_sorted.to(x.dtype)
+    out = (y_pairs.reshape(n, k, d) * gates[..., None].to(x.dtype)).sum(1)
+    me = torch.softmax(logits, dim=-1).mean(dim=0)
+    ce = ((counts.to(f32) / (n * k)) * me).mean() * e * e
+    return out.reshape(b, s, d), ce
 
 
 # ----------------------------------------------------------------- embedding

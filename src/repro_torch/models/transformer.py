@@ -1,5 +1,5 @@
-"""Decoder-only dense LM of the port: init, full-sequence forward, loss, KV
-cache and one-token decode.
+"""Decoder-only LM of the port (the dense and the MoE families): init,
+full-sequence forward, loss, KV cache and one-token decode.
 
 Counterpart of the decoder-only part of ``repro.models.transformer``.
 Block parameters are stacked over a leading layer axis, as the reference's
@@ -11,10 +11,11 @@ gradient; indexing ``a[i]`` per layer would materialise a zero tensor of
 the whole stack per layer and leaf in the backward.  Under grad each
 layer runs under ``cfg.remat`` (``_maybe_remat``, the reference's
 counterpart: ``torch.utils.checkpoint``); a serving forward has no grad
-and no remat.  The encoder-decoder and
-cross-attention paths (``_encoder``, ``_cross_block``,
-``precompute_cross_kv``) and the MoE block come with their families
-(ROADMAP queue 1, item 3).
+and no remat.  An MoE config's blocks hold ``moe`` (``layers.moe_block``)
+in place of ``mlp``, and ``forward_lm`` returns the sum of their
+load-balance losses.  The encoder-decoder and cross-attention paths
+(``_encoder``, ``_cross_block``, ``precompute_cross_kv``) come with their
+families (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -31,12 +32,11 @@ from . import layers as L
 Params = Dict[str, Any]
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if (cfg.moe is not None or cfg.cross_attn_every
-            or cfg.n_encoder_layers):
+def _self_attention_only(cfg: ArchConfig) -> None:
+    if cfg.cross_attn_every or cfg.n_encoder_layers:
         raise NotImplementedError(
-            f'{cfg.name}: MoE, cross-attention and encoder-decoder stacks '
-            f'are not ported yet (ROADMAP queue 1, item 3)')
+            f'{cfg.name}: cross-attention and encoder-decoder stacks are '
+            f'not ported yet (ROADMAP queue 1, item 3)')
 
 
 # ------------------------------------------------------------------ init
@@ -45,18 +45,25 @@ def _init_block(cfg: ArchConfig, gen: torch.Generator) -> Params:
     return {'ln1': L.init_norm(cfg, dtype, gen.device),
             'attn': L.init_attention(cfg, gen, dtype),
             'ln2': L.init_norm(cfg, dtype, gen.device),
-            'mlp': L.init_mlp(cfg, gen, dtype)}
+            **({'moe': L.init_moe(cfg, gen, dtype)} if cfg.moe is not None
+               else {'mlp': L.init_mlp(cfg, gen, dtype)})}
 
 
 def _stack_init(init_fn: Callable[[], Params], n: int) -> Params:
     """``n`` draws of ``init_fn()`` stacked over a new leading axis,
     written slice by slice into tensors allocated once, so that the stack
     is never held twice (at Qwen3-14B's width one stacked ``w_gate`` is
-    7.1 GB in bf16)."""
-    first = init_fn()
-    stack = tree_map(lambda a: a.new_empty((n,) + a.shape), first)
+    7.1 GB in bf16) and at most one draw is held beside it: n + 1 layers
+    at the peak (one layer of Kimi-K2 is 34 GB).  One draw is its own
+    stack (a view with a leading axis of 1), so a one-layer init holds
+    one layer."""
+    blk = init_fn()
+    if n == 1:
+        return tree_map(lambda a: a.unsqueeze(0), blk)
+    stack = tree_map(lambda a: a.new_empty((n,) + a.shape), blk)
     for i in range(n):
-        blk = first if i == 0 else init_fn()
+        if i:
+            blk = init_fn()
         tree_map(lambda s, a: s[i].copy_(a), stack, blk)
         del blk
     return stack
@@ -69,7 +76,7 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator = None,
     'blocks', 'final_norm'}`` with the reference's names and layouts.
     (The reference also returns logical sharding axes; one card has
     none.)"""
-    _dense_only(cfg)
+    _self_attention_only(cfg)
     dev = torch.device(device)
     gen = (torch.Generator(dev).manual_seed(0) if generator is None
            else generator)
@@ -98,14 +105,22 @@ def unstack_layers(params: Params) -> List[Params]:
 
 
 # ------------------------------------------------------------------ blocks
+def _ffn(cfg: ArchConfig, p: Params, h: torch.Tensor):
+    """The block's feed-forward half: (y, aux), aux the MoE block's
+    load-balance loss (0.0 for the dense MLP)."""
+    if cfg.moe is not None:
+        return L.moe_block(cfg, p['moe'], h)
+    return L.mlp_block(cfg, p['mlp'], h), 0.0
+
+
 def _self_block(cfg: ArchConfig, p: Params, x: torch.Tensor, cos_sin,
                 window):
     dt = x.dtype
     h = L.apply_norm(cfg, p['ln1'], x)
     x = (x + L.attention_block(cfg, p['attn'], h, cos_sin=cos_sin,
                                causal=True, window=window)).to(dt)
-    h = L.apply_norm(cfg, p['ln2'], x)
-    return (x + L.mlp_block(cfg, p['mlp'], h)).to(dt)
+    y, aux = _ffn(cfg, p, L.apply_norm(cfg, p['ln2'], x))
+    return (x + y).to(dt), aux
 
 
 REMATS = ('none', 'full', 'dots')
@@ -140,9 +155,11 @@ def _maybe_remat(cfg: ArchConfig, fn: Callable) -> Callable:
 def forward_lm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
                source=None):
     """Full-sequence forward (train / prefill): tokens (B, S) -> (logits
-    (B, S, V), aux loss 0.0).  Attention runs causal on
-    ``cfg.attn_backend`` (K8's prefill on CUDA tensors under ``auto``)."""
-    _dense_only(cfg)
+    (B, S, V), aux loss: the sum over layers of the MoE blocks' losses,
+    0.0 for a dense config).  Attention runs causal with
+    ``cfg.sliding_window`` on ``cfg.attn_backend`` (K8's prefill on CUDA
+    tensors under ``auto``)."""
+    _self_attention_only(cfg)
     if source is not None:
         raise NotImplementedError('forward_lm: a source (audio frames, '
                                   'image patches) needs the cross-attention '
@@ -151,10 +168,12 @@ def forward_lm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     cos_sin = L.rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
     block = _maybe_remat(cfg, functools.partial(_self_block, cfg))
+    aux_total = 0.0
     for blk in unstack_layers(params):
-        x = block(blk, x, cos_sin, cfg.sliding_window)
+        x, aux = block(blk, x, cos_sin, cfg.sliding_window)
+        aux_total = aux_total + aux
     x = L.apply_norm(cfg, params['final_norm'], x)
-    return L.unembed(cfg, params['embed'], x), 0.0
+    return L.unembed(cfg, params['embed'], x), aux_total
 
 
 def loss_fn(cfg: ArchConfig, params: Params, batch) -> torch.Tensor:
@@ -166,24 +185,21 @@ def loss_fn(cfg: ArchConfig, params: Params, batch) -> torch.Tensor:
 # ------------------------------------------------------------------ serving
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                device='cuda') -> Params:
-    """The KV cache: ``{'k', 'v'}``, each (layers, B, Hkv, max_seq, hd) in
-    the activation dtype, zero.
+    """The KV cache: ``{'k', 'v'}``, each (layers, B, Hkv, W, hd) in the
+    activation dtype, zero, a ring of W = min(``cfg.sliding_window`` or
+    max_seq, max_seq) slots (the reference's W).
 
     Layout deviation from the reference's (layers, B, W, Hkv, hd) plus its
     slot -> position array ``pos``: K8 reads (B, Hkv, Sk, hd) contiguous,
     so the port stores that layout and ``attention_decode`` writes each
     new row in place (a transpose of the reference's layout would copy the
-    whole cache every layer and step).  The cache is linear (slot =
-    position), and keys j <= pos are the valid ones, which is what the
-    reference's ``pos`` array says for a cache filled in order; so the
-    port keeps no ``pos``.  Sliding-window ring caches wait for the
-    MoE/hybrid slice (``_cache_window`` with them)."""
-    _dense_only(cfg)
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(f'{cfg.name}: ring caches (sliding '
-                                  f'window) are not ported yet (ROADMAP '
-                                  f'queue 1, item 3)')
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq,
+    whole cache every layer and step).  Position t lives in slot t % W, as
+    in the reference, and a cache filled in order holds positions
+    pos - W + 1 .. pos, which is what the reference's ``pos`` array says;
+    so the port keeps no ``pos`` (``attention_decode``)."""
+    _self_attention_only(cfg)
+    w = min(cfg.sliding_window or max_seq, max_seq)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, w,
              cfg.resolved_head_dim)
     return {'k': torch.zeros(shape, dtype=cfg.adtype(), device=device),
             'v': torch.zeros(shape, dtype=cfg.adtype(), device=device)}
@@ -193,7 +209,9 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Params,
                 tokens: torch.Tensor, pos: int):
     """One decode step: tokens (B, 1) at position ``pos`` (a Python int,
     the same for every row).  Writes the new K/V rows into ``cache`` in
-    place and returns (logits (B, 1, V), cache)."""
+    place (slot ``pos % W``) and returns (logits (B, 1, V), cache); an
+    MoE block routes the B tokens as one group (the aux loss dropped, as
+    the reference drops it)."""
     pos = int(pos)
     adt = cfg.adtype()
     x = L.embed(cfg, params['embed'], tokens)
@@ -208,7 +226,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Params,
                                pos=pos, cos_sin=cos_sin,
                                window=cfg.sliding_window)
         x = (x + o).to(adt)
-        h = L.apply_norm(cfg, blk['ln2'], x)
-        x = (x + L.mlp_block(cfg, blk['mlp'], h)).to(adt)
+        y, _ = _ffn(cfg, blk, L.apply_norm(cfg, blk['ln2'], x))
+        x = (x + y).to(adt)
     x = L.apply_norm(cfg, params['final_norm'], x)
     return L.unembed(cfg, params['embed'], x), cache

@@ -171,6 +171,15 @@ def normalize(events, drop_keys=('dt',)):
     return out
 
 
+def untimed_counts(counts, skip=()):
+    """An engine's ``event_counts`` without the timing-only kinds
+    (``TIMED_KINDS``: a ``straggler`` is a chunk that took over 3x the
+    running mean of wall time, so a loaded host adds one to one run and
+    not to another) and without ``skip``."""
+    return {k: v for k, v in counts.items()
+            if k not in TIMED_KINDS + tuple(skip)}
+
+
 def kinds(events, skip=()):
     return [e['kind'] for e in events
             if e['kind'] not in TIMED_KINDS + tuple(skip)]

@@ -1573,3 +1573,81 @@ def test_lm_decode_on_k8_matches_plain_attention(dev, name, adtype,
     assert float((full - want_full).abs().max()) <= tol
     assert float((dec - full).abs().max()) <= (2e-3 if adtype == 'float32'
                                                else 3e-2 * scale)
+
+
+# ------------------------------------------------- the MoE family on the card
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('pos', [15, 40])
+def test_ring_decode_on_k8_matches_plain_and_linear(dev, dtype, pos):
+    """K8 on a ring of W = 16 slots holding positions pos - 15 .. pos at
+    slot t % 16 (``attention_decode``'s call: no causal mask, kv_len =
+    min(pos + 1, 16)) against its plain version, and against K8 on the
+    linear cache of pos + 1 keys with window 16 (the same key set): f32
+    atol 1e-4, bf16 rtol 2**-7, atol 1e-5 (one output rounding)."""
+    g = torch.Generator(dev).manual_seed(pos)
+    dt = getattr(torch, dtype)
+    W, H, Hkv, D = 16, 8, 2, 64
+    q = torch.randn(2, H, 1, D, generator=g, device=dev).to(dt)
+    k, v = (torch.randn(2, Hkv, pos + 1, D, generator=g, device=dev).to(dt)
+            for _ in range(2))
+    t = torch.arange(max(0, pos - W + 1), pos + 1, device=dev)
+    ring_k, ring_v = (torch.zeros(2, Hkv, W, D, dtype=dt, device=dev)
+                      for _ in range(2))
+    ring_k[:, :, t % W], ring_v[:, :, t % W] = k[:, :, t], v[:, :, t]
+    kw = dict(causal=False, kv_len=min(pos + 1, W))
+    got = flash_attention(q, ring_k, ring_v, **kw).float()
+    tol = (dict(rtol=0.0, atol=1e-4) if dtype == 'float32'
+           else dict(rtol=2.0 ** -7, atol=1e-5))
+    torch.testing.assert_close(
+        got, attention_ref(q, ring_k, ring_v, **kw).float(), **tol)
+    lin = flash_attention(q, k, v, causal=True, window=W, offset=pos)
+    torch.testing.assert_close(got, lin.float(), **tol)
+
+
+@pytest.mark.parametrize('name', ['mixtral-8x22b', 'kimi-k2-1t-a32b'])
+def test_moe_block_routes_on_the_card_equal_the_cpu(dev, name):
+    """``moe_route`` and ``moe_block`` on CUDA tensors against the same
+    call on CPU copies (bf16 activations, f32 parameters, 2 x 64 tokens,
+    smoke widths): top-k experts, keep masks and slots equal; outputs and
+    the aux loss within 1e-5 (f32 products in other orders)."""
+    from repro_torch.models import layers, transformer
+    cfg = configs.get_smoke_config(name)
+    params = transformer.init_lm(cfg, torch.Generator().manual_seed(0),
+                                 'cpu')
+    p = {k: v[0] for k, v in params['blocks']['moe'].items()}
+    x = torch.randn(2, 64, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).bfloat16()
+    pc = {k: v.to(dev) for k, v in p.items()}
+    want, got = layers.moe_route(cfg, p, x), layers.moe_route(cfg, pc,
+                                                              x.to(dev))
+    for f in ('idx', 'keep', 'slot', 'counts'):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    out, ce = layers.moe_block(cfg, pc, x.to(dev))
+    want_out, want_ce = layers.moe_block(cfg, p, x)
+    torch.testing.assert_close(out.cpu(), want_out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ce.cpu(), want_ce, rtol=1e-5, atol=1e-5)
+
+
+def test_mixtral_smoke_serves_on_k8_over_a_wrapped_ring(dev):
+    """``SlotServer`` on Mixtral's smoke config (window 16, f32
+    activations) on K8 and on 'torch': identical greedy tokens past the
+    ring's wrap, K8 launched once a layer a decode call."""
+    from repro_torch.launch.serve import Request, SlotServer
+    from repro_torch.models import transformer
+    cfg = configs.get_smoke_config('mixtral-8x22b').replace(
+        activation_dtype='float32')
+    params = transformer.init_lm(cfg, torch.Generator(dev).manual_seed(0),
+                                 dev)
+    outs = {}
+    for backend in ('auto', 'torch'):
+        srv = SlotServer(cfg.replace(attn_backend=backend), params,
+                         num_slots=2, max_seq=48)
+        for r in range(3):
+            srv.submit(Request(rid=r, prompt=[1 + r, 5, 9], max_new=24))
+        n0 = flash_attention.launches
+        srv.drain()
+        calls = 3 * (3 + 24 - 1)
+        assert flash_attention.launches - n0 == (
+            calls * cfg.n_layers if backend == 'auto' else 0)
+        outs[backend] = {r.rid: r.out for r in srv.done}
+    assert outs['auto'] == outs['torch']

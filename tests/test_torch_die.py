@@ -276,7 +276,8 @@ def test_die_chaos_equals_reference(ref, model, name):
     assert fp.normalize(stats['events']) == fp.normalize(want['events'])
     assert stats['rung'] == _port_label(want['rung'])
     assert stats['healthy_domains'] == want['healthy']
-    assert stats['event_counts'] == want['counts']
+    assert fp.untimed_counts(stats['event_counts']) == \
+        fp.untimed_counts(want['counts'])
     _, (clean, _) = _drain(model, name)
     for sid, (lp, err) in out.items():
         assert not err
@@ -299,15 +300,51 @@ def test_die_chaos_equals_reference(ref, model, name):
                 if e['kind'] == 'promote_rejected'] == [4, 8]
 
 
+def _assert_async_equals_sync(sync, asyn):
+    """Bit-equal streams and the same event trail and counts, the async
+    engine's ``squash`` events and the timing-only ``straggler`` events
+    aside (``fp.untimed_counts``)."""
+    fp.assert_bit_equal(sync, asyn)
+    assert fp.untimed_counts(sync[1]['event_counts'], ('squash',)) == \
+        fp.untimed_counts(asyn[1]['event_counts'], ('squash',))
+
+
 @pytest.mark.parametrize('name', sorted(SCHEDULES))
 def test_die_chaos_async_equals_sync(model, name):
     faults = SCHEDULES[name][3]
     _, sync = _drain(model, name, faults)
     _, asyn = _drain(model, name, faults, async_mode=True)
-    fp.assert_bit_equal(sync, asyn)
-    counts = lambda st: {k: v for k, v in st['event_counts'].items()
-                         if k != 'squash'}
-    assert counts(sync[1]) == counts(asyn[1])
+    _assert_async_equals_sync(sync, asyn)
+
+
+def test_die_chaos_async_equals_sync_on_a_loaded_host(model, monkeypatch):
+    """What a loaded host does to ``cross_class_reject``: a clock that
+    jumps 10 s in the middle of the async drain makes one chunk 10 s long,
+    and the runner logs a ``straggler`` in that run (so the counts,
+    compared whole, would differ from sync's).  The streams, the trail and
+    every other count are the same as sync's."""
+    import time
+    faults = SCHEDULES['cross_class_reject'][3]
+    _, sync = _drain(model, 'cross_class_reject', faults)
+    real, calls = time.time, [0]
+
+    def counted():
+        calls[0] += 1
+        return real()
+
+    monkeypatch.setattr(time, 'time', counted)
+    _drain(model, 'cross_class_reject', faults, async_mode=True)
+    jump_at, calls[0] = calls[0] // 2, 0
+
+    def jumping():
+        calls[0] += 1
+        return real() + (10.0 if calls[0] > jump_at else 0.0)
+
+    monkeypatch.setattr(time, 'time', jumping)
+    _, asyn = _drain(model, 'cross_class_reject', faults, async_mode=True)
+    monkeypatch.setattr(time, 'time', real)
+    assert asyn[1]['event_counts'].get('straggler', 0) >= 1
+    _assert_async_equals_sync(sync, asyn)
 
 
 def test_die_rung_placement_built_once(model, monkeypatch):

@@ -48,6 +48,9 @@ def test_serving_path_import_leaves_jax_unloaded():
             'import repro_torch.examples.quickstart\n'
             'import repro_torch.examples.train_lm\n'
             'import repro_torch.kernels.flash_attention.backward\n'
+            'import repro_torch.configs.mixtral_8x22b\n'
+            'import repro_torch.configs.kimi_k2_1t_a32b\n'
+            'import repro_torch.models.layers, repro_torch.models.registry\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "repro")]\n'
             'print(bad)\n'

@@ -183,15 +183,26 @@ def test_attention_backends_on_cpu(f32_pair):
 
 
 def test_ring_caches_and_other_families_raise():
+    """A sliding window gives a ring of its width (``test_torch_moe.py``
+    holds it to the reference); a ring wider than the window, and the
+    cross-attention and encoder-decoder stacks, still raise."""
     cfg = configs.get_smoke_config('qwen3-14b')
-    with pytest.raises(NotImplementedError):
-        transformer.init_cache(cfg.replace(sliding_window=16), 1, 8, 'cpu')
-    with pytest.raises(NotImplementedError):
-        layers.attention_decode(cfg, {}, None, {}, pos=0, cos_sin=None,
-                                window=16)
+    ring = transformer.init_cache(cfg.replace(sliding_window=16), 1, 32,
+                                  'cpu')
+    assert ring['k'].shape[3] == 16
+    wide = transformer.init_cache(cfg, 1, 32, 'cpu')
+    with pytest.raises(ValueError, match='wider than the window'):
+        layers.attention_decode(cfg, {}, None,
+                                {'k': wide['k'][0], 'v': wide['v'][0]},
+                                pos=0, cos_sin=None, window=16)
+    for kw in (dict(cross_attn_every=4), dict(n_encoder_layers=2)):
+        with pytest.raises(NotImplementedError, match='ROADMAP queue 1'):
+            transformer.init_cache(cfg.replace(**kw), 1, 8, 'cpu')
+        with pytest.raises(NotImplementedError, match='ROADMAP queue 1'):
+            transformer.init_lm(cfg.replace(**kw), torch.Generator(), 'cpu')
 
 
-@pytest.mark.parametrize('family', ['moe', 'ssm', 'hybrid', 'audio', 'vlm'])
+@pytest.mark.parametrize('family', ['ssm', 'hybrid', 'audio', 'vlm'])
 def test_get_bundle_raises_for_a_family_not_ported(family):
     cfg = configs.get_smoke_config('qwen3-14b').replace(family=family)
     with pytest.raises(NotImplementedError, match='ROADMAP queue 1'):
