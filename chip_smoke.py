@@ -480,6 +480,24 @@ MOE_OUT_REL = 2.0 ** -6
 # on an H100; a sanity floor like LM_AGREE_MIN (a broken cache or attention
 # moves every logit and flips nearly every row)
 MOE_FLIP_MAX = 1 / 2
+# the cross-attention phase: whisper-base at full width and depth (6
+# encoder + 6 decoder layers, d_model 512, 8 heads of 64, d_ff 2048, vocab
+# 51,865, f32 weights, bf16 activations; nothing cut), then
+# Llama-3.2-Vision-90B at full width (d_model 8192, 64 heads on 8 kv heads
+# of 128, d_ff 28,672, vocab 128,256, bf16, one cross layer in 5) cut by
+# depth alone to CROSS_VLM_LAYERS of its 100 (7 of 20 groups: 175 GB of
+# weights -> 64.1 GB)
+CROSS_AUDIO = 'whisper-base'
+CROSS_VLM, CROSS_VLM_LAYERS = 'llama-3.2-vision-90b', 35
+CROSS_BATCH = 4               # requests decoded together, one source each
+CROSS_PROMPT, CROSS_MAX_NEW = 8, 16
+CROSS_PREFILL = 64            # queries of K8's cross prefill case
+# decode == forward at f32 activations, over the logit scale: the
+# reference's own bound (tests/test_models.py, rtol = atol = 2e-3)
+CROSS_F32_REL = 2e-3
+# the VLM's init peak: its stack (64.1 GB), one layer (1.7 GB), one f32
+# draw (0.9 GB) and the allocator's rounding
+CROSS_PEAK_MAX = 68e9
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -3080,16 +3098,30 @@ def die_phase(cfg, params, utts, dev):
 
 
 def lm_param_count(cfg) -> int:
-    """Parameters of a dense LM config, counted from its shapes (SwiGLU,
-    RMSNorm): what ``init_lm`` must allocate."""
+    """Parameters of a dense or cross-attention LM config (no MoE),
+    counted from its shapes: what ``init_lm`` must allocate.  A block is
+    attention, two norms (RMSNorm: a scale; LayerNorm: scale and bias) and
+    the MLP (SwiGLU: three matrices; GELU: two and their biases); a self
+    block adds ``qkv_bias``'s biases and ``qk_norm``'s scales, a cross
+    block neither.  The VLM has (groups, per - 1) self blocks and a cross
+    block a group; the encoder-decoder its encoder's self blocks, a cross
+    block a decoder layer and ``enc_norm``."""
     d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
     h, hk = cfg.n_heads, cfg.n_kv_heads
-    attn = 2 * d * h * hd + 2 * d * hk * hd
-    attn += (h + 2 * hk) * hd if cfg.qkv_bias else 0
-    attn += 2 * hd if cfg.qk_norm else 0
-    block = attn + 3 * d * ff + 2 * d
+    norm = d * (2 if cfg.norm == 'layernorm' else 1)
+    mlp = 3 * d * ff if cfg.act == 'silu' else 2 * d * ff + ff + d
+    block = 2 * d * h * hd + 2 * d * hk * hd + 2 * norm + mlp
+    extra = ((h + 2 * hk) * hd if cfg.qkv_bias else 0) + (
+        2 * hd if cfg.qk_norm else 0)
+    if cfg.cross_attn_every:
+        n_cross = cfg.n_layers // cfg.cross_attn_every
+        n_self = n_cross * (cfg.cross_attn_every - 1)
+    else:
+        n_self = cfg.n_layers + cfg.n_encoder_layers
+        n_cross = cfg.n_layers if cfg.n_encoder_layers else 0
     embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
-    return embed + cfg.n_layers * block + d
+    norms = norm * (2 if cfg.n_encoder_layers else 1)
+    return embed + n_self * (block + extra) + n_cross * block + norms
 
 
 def _kernel_counters():
@@ -3160,23 +3192,28 @@ def _logit_diff(a, b, scale: float):
                                    .mean()))
 
 
-def lm_replay(cfg, params, tokens, dev):
+def lm_replay(cfg, params, tokens, dev, source=None):
     """``tokens`` (1, S) through ``forward_lm`` and through ``decode_step``
     token by token from an empty cache, every logit row, on
     ``attn_backend`` 'auto' (K8) and 'torch' (its plain version) with the
     same weights: each pair's max-abs difference relative to the logit
     scale (max |logit| of the plain forward) and its argmax agreement;
-    every pair within ``LM_LOGIT_REL``, every logit finite."""
+    every pair within ``LM_LOGIT_REL``, every logit finite.  A cross
+    family's ``source`` (1, F, d) goes to ``forward_lm`` and, through
+    ``precompute_cross_kv``, to every ``decode_step``."""
     from repro_torch.models import transformer
     S = tokens.shape[1]
     out = {}
     for backend in ('auto', 'torch'):
         c = cfg.replace(attn_backend=backend)
-        full = transformer.forward_lm(c, params, tokens)[0][0].float()
+        full = transformer.forward_lm(c, params, tokens,
+                                      source)[0][0].float()
         cache = transformer.init_cache(c, 1, max(S, LM_MAX_SEQ), dev)
+        kv = (None if source is None
+              else transformer.precompute_cross_kv(c, params, source))
         dec = torch.stack([transformer.decode_step(
-            c, params, cache, tokens[:, t:t + 1], t)[0][0, 0].float()
-            for t in range(S)])
+            c, params, cache, tokens[:, t:t + 1], t,
+            cross_kv=kv)[0][0, 0].float() for t in range(S)])
         out[backend] = (full, dec)
     scale = float(out['torch'][0].abs().max())
     pairs = {'decode vs forward (K8)': (out['auto'][1], out['auto'][0]),
@@ -3265,9 +3302,11 @@ def lm_serve(cfg, params, dev, requests: int = LM_REQUESTS,
     return res, launches, rescore
 
 
-def lm_step_times(cfg, params, dev, nbytes: int):
-    """One decode step at position ``LM_PREFILL`` of an ``LM_MAX_SEQ``-slot
-    cache on 'auto' (K8) and 'torch': the wall of a synchronized step
+def lm_step_times(cfg, params, dev, nbytes: int, cross_kv=None,
+                  batch: int = 1):
+    """One decode step of ``batch`` rows at position ``LM_PREFILL`` of an
+    ``LM_MAX_SEQ``-slot cache (and a cross family's ``cross_kv``) on
+    'auto' (K8) and 'torch': the wall of a synchronized step
     (median of ``LM_STEP_REPS``, the backends in turns), the host's issue
     ms (``host_ms``) and one traced step (``trace``: device busy ms, device
     ops, idle share), beside the bound of the bytes a step must read
@@ -3276,13 +3315,13 @@ def lm_step_times(cfg, params, dev, nbytes: int):
     ~2,600 kernels, more than the launch queue holds, so ``cuda_ms``'s
     queued run would time the host's issue instead."""
     from repro_torch.models import transformer
-    tok = torch.tensor([[1]], device=dev)
+    tok = torch.ones((batch, 1), dtype=torch.long, device=dev)
     steps = {}
     for backend in ('auto', 'torch'):
         c = cfg.replace(attn_backend=backend)
-        cache = transformer.init_cache(c, 1, LM_MAX_SEQ, dev)
+        cache = transformer.init_cache(c, batch, LM_MAX_SEQ, dev)
         steps[backend] = lambda c=c, cache=cache: transformer.decode_step(
-            c, params, cache, tok, LM_PREFILL)
+            c, params, cache, tok, LM_PREFILL, cross_kv=cross_kv)
     walls = {b: [] for b in steps}
     for i in range(LM_STEP_REPS):
         for b in (steps if i % 2 == 0 else reversed(list(steps))):
@@ -3826,6 +3865,26 @@ def _nodrop(cfg):
         cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
 
 
+def _init_on_card(cfg, dev):
+    """``bundle.init`` of ``cfg`` from a seeded CUDA generator: (params,
+    parameters, resident bytes, init seconds, the peak of allocated memory
+    above what was allocated before)."""
+    from repro_torch.models import get_bundle
+    from repro_torch.tree import leaves
+    bundle = get_bundle(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = sum(p.numel() * p.element_size() for p in leaves(params))
+    return (params, bundle.param_count(params), nbytes, init_s,
+            torch.cuda.max_memory_allocated(dev) - before)
+
+
 def moe_build(name: str, n_layers: int, dev, card: str):
     """``name`` at full width cut to ``n_layers`` layers (the one cut),
     built by ``bundle.init`` from a seeded CUDA generator; its parameters
@@ -3837,17 +3896,7 @@ def moe_build(name: str, n_layers: int, dev, card: str):
     full = configs.get_config(name)
     cfg = full.replace(n_layers=n_layers)
     bundle = get_bundle(cfg)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    before = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    params = bundle.init(torch.Generator(dev).manual_seed(SEED), dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n = bundle.param_count(params)
-    nbytes = sum(p.numel() * p.element_size() for p in leaves(params))
-    peak = torch.cuda.max_memory_allocated(dev) - before
+    params, n, nbytes, init_s, peak = _init_on_card(cfg, dev)
     want_n, want_bytes = moe_param_count(cfg)
     full_n, full_bytes = moe_param_count(full)
     m = cfg.moe
@@ -4169,6 +4218,373 @@ def _moe_phase(dev, card: str):
     return res
 
 
+# ------------------------------------------------ the cross-attention families
+def cross_build(name: str, n_layers, dev, card: str):
+    """``name`` at full width (cut by depth alone to ``n_layers`` layers
+    when given: the one cut), built by ``bundle.init`` from a seeded CUDA
+    generator; its parameters and resident bytes checked against
+    ``lm_param_count``; init seconds and peak memory printed.  Returns
+    (cfg, params, numbers)."""
+    from repro_torch import configs
+    from repro_torch.tree import leaves
+    full = configs.get_config(name)
+    cfg = full if n_layers is None else full.replace(n_layers=n_layers)
+    params, n, nbytes, init_s, peak = _init_on_card(cfg, dev)
+    want_n = lm_param_count(cfg)
+    want_bytes = want_n * torch.finfo(cfg.dtype()).bits // 8
+    full_n = lm_param_count(full)
+    cut = ('nothing cut' if n_layers is None else
+           f'cut by depth to {n_layers} of {full.n_layers} layers, the one '
+           f'cut ({full_n} parameters, '
+           f'{full_n * torch.finfo(cfg.dtype()).bits // 8 / 1e9:.1f} GB at '
+           f'full depth, do not fit one card)')
+    print(f'{name}: {cut}; {cfg.n_encoder_layers} encoder + '
+          f'{cfg.n_layers} decoder layers (cross every '
+          f'{cfg.cross_attn_every or 1}), d_model {cfg.d_model}, '
+          f'{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}'
+          f', d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype} '
+          f'weights, {cfg.activation_dtype} activations: {n} parameters, '
+          f'{nbytes} bytes resident ({nbytes / 1e9:.3f} GB), init '
+          f'{init_s:.2f} s, peak {peak / 1e9:.2f} GB [{card}]', flush=True)
+    check(n == want_n and nbytes == want_bytes and all(
+        p.device == dev and p.dtype == cfg.dtype() for p in leaves(params)),
+        f'{name}: {n} parameters, {nbytes} bytes (want {want_n}, '
+        f'{want_bytes})')
+    return cfg, params, dict(arch=name, layers=cfg.n_layers,
+                             full_layers=full.n_layers, params=n,
+                             bytes=nbytes, init_s=init_s,
+                             init_peak_bytes=peak)
+
+
+def _cross_stack(cfg, params):
+    """The cross blocks' stack: ``enc_cross`` (audio) or ``cross`` (VLM)."""
+    return params['enc_cross' if cfg.n_encoder_layers else 'cross']
+
+
+def cross_attention_cases(cfg, params, source, dev):
+    """K8 against its plain version (``attn_measure``, ``ATTN_TOL`` of the
+    inputs' dtype) at a cross family's shapes, on q, k, v from layer 0:
+    whisper's bidirectional encoder attention over the F frames (RoPE,
+    ``_encoder``'s first layer); the cross prefill of ``CROSS_PREFILL``
+    queries (seeded tokens through the first cross block's ``wq``) against
+    the first cross layer's K/V of ``precompute_cross_kv``; the cross
+    decode row (its first query) against them.  At the VLM's served B the
+    decode row takes the tiled schedule (B x H fills the card), so the
+    split schedule is also checked at B = 1, and the served row is also
+    timed with the split forced (``ms_split_forced``)."""
+    from unittest import mock
+    from repro_torch.kernels.flash_attention import (attention_geometry,
+                                                     flash_attention)
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import layers, transformer
+    from repro_torch.tree import tree_map
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    B, F = source.shape[:2]
+    name = cfg.name
+    cases = []
+
+    def add(label, q, k, v, causal=False):
+        dt = str(q.dtype).split('.')[-1]
+        case = attn_measure(f'{name} {label} {dt}', q, k, v, causal=causal)
+        geom = attention_geometry(q.shape[0], H, Hkv, q.shape[2], k.shape[2],
+                                  None, None, 0, D, sms, causal=causal,
+                                  wide=dt == 'bfloat16')
+        cases.append((case, geom))
+        return case
+
+    if cfg.n_encoder_layers:
+        blk = tree_map(lambda a: a[0], params['enc_blocks'])
+        x = layers.apply_norm(cfg, blk['ln1'], source.to(cfg.adtype()))
+        cos_sin = layers.rope_cos_sin(torch.arange(F, device=dev),
+                                      D, cfg.rope_theta)
+        q, k, v = (t.transpose(1, 2).contiguous()
+                   for t in layers._project_qkv(blk['attn'], x, cos_sin))
+        add(f'encoder F={F}', q, k, v)
+        del q, k, v, x
+    kv = transformer.precompute_cross_kv(cfg, params, source)
+    k, v = kv['k'][0], kv['v'][0]
+    xblk = tree_map(lambda a: a[0], _cross_stack(cfg, params))
+    tokens = torch.randint(0, cfg.vocab_size, (B, CROSS_PREFILL), device=dev,
+                           generator=torch.Generator(dev).manual_seed(
+                               SEED + 4))
+    x = layers.apply_norm(cfg, xblk['ln1'],
+                          layers.embed(cfg, params['embed'], tokens))
+    q = layers._project_q(xblk['attn'], x).transpose(1, 2).contiguous()
+    check(q.dtype == k.dtype, f'{name}: cross q {q.dtype}, K/V {k.dtype}')
+    add(f'cross prefill F={F}', q, k, v)
+    q1 = q[:, :, :1].contiguous()
+    case = add(f'cross decode F={F}', q1, k, v)
+    if cases[-1][1].path != 'split':
+        orig = fa_kernel.attention_geometry
+        # every other argument as flash_attention passes it; an SM count
+        # no grid reaches makes the rule take its split schedule
+        forced = lambda *a, **kw: orig(*a[:9], 1 << 20, **kw)
+        with mock.patch.object(fa_kernel, 'attention_geometry', forced):
+            got = flash_attention(q1, k, v, causal=False).float()
+            case['ms_split_forced'] = cuda_ms(
+                lambda: flash_attention(q1, k, v, causal=False), 20)
+        case['split_forced_ok'] = bool(torch.allclose(
+            got, flash_attention(q1, k, v, causal=False).float(),
+            **ATTN_TOL[str(q.dtype).split('.')[-1]]))
+        print(f'flash_attention: {name} cross decode B={B}: tiled '
+              f'{case["ms"]:.4f} ms, split forced '
+              f'{case["ms_split_forced"]:.4f} ms (agree: '
+              f'{case["split_forced_ok"]})', flush=True)
+        check(case['split_forced_ok'], f'{name}: forced split disagrees')
+        add(f'cross decode F={F}', q1[:1].contiguous(), k[:1].contiguous(),
+            v[:1].contiguous())
+    for case, geom in cases:
+        case['geometry'] = dataclasses.asdict(geom)
+        _print_attn_case(case, geom)
+        check(case['ok'], f'flash_attention disagrees with its plain version '
+                          f'at {case["shape"]}')
+    return [case for case, _ in cases]
+
+
+def cross_precompute(cfg, params, source):
+    """``precompute_cross_kv`` at f32 activations on 'auto' (K8 runs the
+    encoder) against 'torch', within the f32 ``ATTN_TOL``; K8's launches
+    on 'auto' (one an encoder layer, none for the VLM)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer
+    c = cfg.replace(activation_dtype='float32')
+    torch.cuda.synchronize()
+    n0 = flash_attention.launches
+    got = transformer.precompute_cross_kv(c, params, source)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches - n0
+    want = transformer.precompute_cross_kv(c.replace(attn_backend='torch'),
+                                           params, source)
+    err = max(float((got[n] - want[n]).abs().max()) for n in ('k', 'v'))
+    ok = all(torch.allclose(got[n], want[n], **ATTN_TOL['float32'])
+             for n in ('k', 'v'))
+    res = dict(shape=list(got['k'].shape), dtype=str(got['k'].dtype),
+               max_abs_err=err, tol=ATTN_TOL['float32'], ok=ok,
+               launches=launches)
+    print(f'{cfg.name} precompute_cross_kv (f32 activations): K/V '
+          f'{tuple(got["k"].shape)} {got["k"].dtype}, K8 against plain '
+          f'max abs {err:.3e} (tol {ATTN_TOL["float32"]}), K8 launches '
+          f'{launches}', flush=True)
+    check(ok and launches == cfg.n_encoder_layers,
+          f'{cfg.name}: precompute_cross_kv {res}')
+    return res
+
+
+def cross_generate(cfg, params, source, prompts):
+    """The cross families' serving path: ``precompute_cross_kv`` of the
+    batch's sources once, the prompts (B, P) fed token by token through
+    ``decode_step(cross_kv=)``, then ``CROSS_MAX_NEW`` greedy tokens a
+    request (the argmax stays on the card).  Returns (the tokens (B,
+    CROSS_MAX_NEW), every decode call's logits (B, P + CROSS_MAX_NEW - 1,
+    V), the decode calls)."""
+    from repro_torch.models import transformer
+    B, P = prompts.shape
+    calls = P + CROSS_MAX_NEW - 1
+    kv = transformer.precompute_cross_kv(cfg, params, source)
+    cache = transformer.init_cache(cfg, B, calls, source.device)
+    rows, out, tok = [], [], prompts[:, :1]
+    for t in range(calls):
+        logits, cache = transformer.decode_step(cfg, params, cache, tok, t,
+                                                cross_kv=kv)
+        rows.append(logits[:, 0])
+        if t + 1 < P:
+            tok = prompts[:, t + 1:t + 2]
+        else:
+            tok = logits[:, 0].argmax(-1, keepdim=True)
+            out.append(tok)
+    return torch.cat(out, 1), torch.stack(rows, 1), calls
+
+
+def _cross_prompts(cfg, B: int, dev):
+    return torch.randint(1, cfg.vocab_size, (B, CROSS_PROMPT), device=dev,
+                         generator=torch.Generator(dev).manual_seed(SEED + 5))
+
+
+def cross_contract(cfg, params, source, dev):
+    """The reference's own contract (``tests/test_models.py``) on the card
+    at full width: with f32 activations, ``cross_generate``'s every logit
+    row within ``CROSS_F32_REL`` of the logit scale of ``forward_lm(tokens,
+    source)`` on the same tokens."""
+    from repro_torch.models import transformer
+    c = cfg.replace(activation_dtype='float32')
+    prompts = _cross_prompts(cfg, source.shape[0], dev)
+    out, rows, _ = cross_generate(c, params, source, prompts)
+    seq = torch.cat([prompts, out[:, :-1]], 1)
+    full = transformer.forward_lm(c, params, seq, source)[0].float()
+    d = _logit_diff(rows.float(), full, float(full.abs().max()))
+    d.update(tol_rel=CROSS_F32_REL, tokens=list(seq.shape),
+             finite=bool(torch.isfinite(rows).all()))
+    print(f'{cfg.name} decode == forward at f32 activations over '
+          f'{tuple(seq.shape)} tokens: max abs {d["max_abs"]:.3e} = '
+          f'{d["rel"]:.3e} of the logit scale (tol {CROSS_F32_REL}), argmax '
+          f'{d["argmax_agree"]:.3f}', flush=True)
+    check(d['finite'] and d['rel'] <= CROSS_F32_REL,
+          f'{cfg.name}: decode strays from forward at f32: {d}')
+    return d
+
+
+def cross_serve(cfg, params, source, dev):
+    """A cross family's main path at its own activation dtype, every kernel
+    counter set to 0 just before and read just after: ``cross_generate``
+    of ``CROSS_BATCH`` requests (one source each; prompts of
+    ``CROSS_PROMPT`` seeded tokens, ``CROSS_MAX_NEW`` greedy tokens each).
+    K8 must launch once a self and a cross layer a decode call, plus once
+    an encoder layer for the precompute, and no other kernel at all.
+    Then, counted apart, each sequence re-scored by ``forward_lm``: every
+    served logit row within ``LM_LOGIT_REL`` of the logit scale, the
+    argmax reproducing the served tokens at a share of at least
+    ``LM_AGREE_MIN``.  Returns (numbers, the serve's launches by kernel,
+    the re-score's)."""
+    from repro_torch.models import transformer
+    B = source.shape[0]
+    prompts = _cross_prompts(cfg, B, dev)
+    kernels = _kernel_counters()
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out, rows, calls = cross_generate(cfg, params, source, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    seq = torch.cat([prompts, out[:, :-1]], 1)
+    full = transformer.forward_lm(cfg, params, seq, source)[0]
+    torch.cuda.synchronize()
+    rescore = {k.__name__: k.launches - launches[k.__name__]
+               for k in kernels}
+    P = prompts.shape[1]
+    d = _logit_diff(rows.float(), full.float(), float(full.float().abs()
+                                                      .max()))
+    agree = float((full[:, P - 1:].argmax(-1) == out).float().mean())
+    layers_a_call = transformer.n_self_layers(cfg) + (
+        cfg.n_layers // cfg.cross_attn_every if cfg.cross_attn_every
+        else cfg.n_layers)
+    toks = int(out.numel())
+    res = dict(requests=B, tokens=toks, decode_calls=calls, wall_s=wall,
+               tok_per_s=toks / wall, p50_latency_s=wall,
+               ms_per_decode_call=wall / calls * 1e3, greedy_agree=agree,
+               rows_vs_forward=d, tol_rel=LM_LOGIT_REL,
+               outputs=out.cpu().tolist())
+    print(f'{cfg.name} served: {B} requests (one source each), {toks} '
+          f'tokens in {wall:.3f} s ({res["tok_per_s"]:.2f} tok/s, '
+          f'{res["ms_per_decode_call"]:.3f} ms a decode call over {calls} '
+          f'calls, precompute_cross_kv included); p50 latency {wall:.3f} s '
+          f'(the requests decode together); rows vs forward_lm '
+          f'{d["rel"]:.3e} of the logit scale (tol {LM_LOGIT_REL}), argmax '
+          f'== served token at {agree:.3f}; serve launches {launches}; '
+          f're-score launches {rescore}', flush=True)
+    check(toks == B * CROSS_MAX_NEW and bool(torch.isfinite(rows).all())
+          and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+          f'{cfg.name}: served {toks} tokens')
+    for what, got, want in (
+            ('serve', launches,
+             calls * layers_a_call + cfg.n_encoder_layers),
+            ('re-score', rescore, layers_a_call + cfg.n_encoder_layers)):
+        check(got['flash_attention'] == want and sum(got.values()) == want,
+              f'{cfg.name}: {what} launched {got}, expected {want} of K8')
+    check(d['rel'] <= LM_LOGIT_REL and agree >= LM_AGREE_MIN,
+          f'{cfg.name}: forward_lm re-score {d}, argmax {agree:.3f}')
+    return res, launches, rescore
+
+
+def cross_step_times(cfg, params, source, dev, card: str):
+    """``lm_step_times`` of ``CROSS_BATCH`` rows with the sources' cross
+    K/V, beside the bound of the bytes a step must read: the decoder's
+    self blocks, its cross blocks without ``wk``/``wv`` (the cross K/V
+    are precomputed), the final norm and the unembedding (the encoder and
+    the embedding table but B rows are not read), the cross K/V and the
+    cache's live rows."""
+    from repro_torch.models import transformer
+    from repro_torch.tree import flatten_with_paths
+    kv = transformer.precompute_cross_kv(cfg, params, source)
+    B = source.shape[0]
+    cross = "['enc_cross']" if cfg.n_encoder_layers else "['cross']"
+    weights = sum(
+        a.numel() * a.element_size() for path, a in flatten_with_paths(params)
+        if not path.startswith(("['enc_blocks']", "['enc_norm']",
+                                "['embed']['table']"))
+        and not (path.startswith(cross) and path.endswith(("['wk']",
+                                                           "['wv']"))))
+    table = params['embed']['table']
+    kv_bytes = sum(a.numel() * a.element_size() for a in kv.values())
+    es = torch.finfo(cfg.adtype()).bits // 8
+    cache = (2 * transformer.n_self_layers(cfg) * B * cfg.n_kv_heads
+             * (LM_PREFILL + 1) * cfg.resolved_head_dim * es)
+    nbytes = weights + B * cfg.d_model * table.element_size() + kv_bytes \
+        + cache
+    res = lm_step_times(cfg, params, dev, nbytes, cross_kv=kv, batch=B)
+    res.update(weight_bytes=weights, cross_kv_bytes=kv_bytes,
+               cache_bytes=cache)
+    print(f'{cfg.name} decode step of {B} rows against its bound: weights '
+          f'{weights / 1e6:.1f} MB, cross K/V {kv_bytes / 1e6:.1f} MB, '
+          f'cache rows {cache / 1e6:.2f} MB: {res["bound_ms"]:.4f} ms; '
+          f'traced device busy {res["auto"]["device_busy_ms"]:.4f} ms on K8, '
+          f'{res["torch"]["device_busy_ms"]:.4f} ms plain [{card}]',
+          flush=True)
+    return res
+
+
+def cross_phase(dev, card: str):
+    """The cross-attention families served on the card (after
+    ``moe_phase``): whisper-base at full width and depth, then
+    Llama-3.2-Vision-90B at full width cut to ``CROSS_VLM_LAYERS`` layers
+    (``_cross_phase``).  bf16 reduced-precision reductions are off in this
+    process for its checks (restored after)."""
+    flags = torch.backends.cuda.matmul
+    saved = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        return _cross_phase(dev, card)
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = saved
+
+
+def _cross_source(cfg, dev):
+    """``CROSS_BATCH`` seeded f32 sources (B, F, d): the stub frontend's
+    frames or patches."""
+    return torch.randn((CROSS_BATCH, cfg.n_source_tokens, cfg.d_model),
+                       device=dev,
+                       generator=torch.Generator(dev).manual_seed(SEED + 3))
+
+
+def _cross_phase(dev, card: str):
+    import gc
+    t0 = time.perf_counter()
+    print(f'cross phase on {card}', flush=True)
+    res = {}
+    cfg, params, w = cross_build(CROSS_AUDIO, None, dev, card)
+    source = _cross_source(cfg, dev)
+    w['attn_cases'] = cross_attention_cases(cfg, params, source, dev)
+    w['precompute'] = cross_precompute(cfg, params, source)
+    w['contract'] = cross_contract(cfg, params, source, dev)
+    w['serve'], w['launches'], w['rescore_launches'] = cross_serve(
+        cfg, params, source, dev)
+    w['step'] = cross_step_times(cfg, params, source, dev, card)
+    res[CROSS_AUDIO] = w
+    del params, source
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params, v = cross_build(CROSS_VLM, CROSS_VLM_LAYERS, dev, card)
+    check(v['init_peak_bytes'] <= CROSS_PEAK_MAX,
+          f'{CROSS_VLM}: init peak {v["init_peak_bytes"]} bytes')
+    source = _cross_source(cfg, dev)
+    v['attn_cases'] = cross_attention_cases(cfg, params, source, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_PREFILL), device=dev,
+                           generator=torch.Generator(dev).manual_seed(SEED))
+    v['replay'] = lm_replay(cfg, params, tokens, dev, source=source[:1])
+    v['serve'], v['launches'], v['rescore_launches'] = cross_serve(
+        cfg, params, source, dev)
+    v['step'] = cross_step_times(cfg, params, source, dev, card)
+    res[CROSS_VLM] = v
+    del params, source
+    gc.collect()
+    torch.cuda.empty_cache()
+    res['seconds'] = time.perf_counter() - t0
+    print(f'cross phase: {res["seconds"]:.1f} s [{card}]', flush=True)
+    return res
+
+
 def _bwd_rows(train):
     """The kernels-line rows of K8's two backward kernels: their cases at
     every ``LM_TRAIN_ATTN`` shape (MiniCPM-2B's first) and their launches
@@ -4436,7 +4852,7 @@ def _print_attn_case(case, geom, narrow: str = '') -> None:
           flush=True)
 
 
-def attention_checks(dev, lm, train, moe):
+def attention_checks(dev, lm, train, moe, cross):
     """K8 (``flash_attention``) at each ``ATTN_CASES`` case (``attn_case``),
     with its schedule, and where that is 128-row tiles also the time of
     the 64-row tiles on the same inputs; then drives the public op ``mha``
@@ -4444,10 +4860,13 @@ def attention_checks(dev, lm, train, moe):
     leads with the Mixtral cases, adds the LM phase's cases (``lm``:
     Qwen3-14B's decode and prefill, its main path) and the training
     phase's forward-with-lse cases (``train``) and the MoE phase's cases
-    (``moe``: Mixtral's ring and windowed cases, Kimi-K2's at D 112), takes
-    its launches from the LM's serve path, reports MiniCPM-2B's training
-    launches as ``train_launches`` and the MoE serve paths' as
-    ``moe_launches``."""
+    (``moe``: Mixtral's ring and windowed cases, Kimi-K2's at D 112) and
+    the cross phase's cases (``cross``: whisper's encoder, cross prefill
+    and decode at 1,500 keys, f32 D 64; Llama-3.2-Vision's at 1,024 keys,
+    bf16 D 128, GQA 64/8), takes its launches from the LM's serve path,
+    reports MiniCPM-2B's training launches as ``train_launches``, the MoE
+    serve paths' as ``moe_launches`` and the cross serve paths' as
+    ``cross_launches``."""
     from unittest import mock
     from repro_torch.kernels.flash_attention import (attention_geometry,
                                                      flash_attention, mha)
@@ -4492,12 +4911,16 @@ def attention_checks(dev, lm, train, moe):
                     cases + lm['attn_cases']
                     + [c[0] for c in train['attention']]
                     + moe[MOE_ARCH]['attn_cases']
-                    + moe[KIMI_ARCH]['attn_cases'])
+                    + moe[KIMI_ARCH]['attn_cases']
+                    + cross[CROSS_AUDIO]['attn_cases']
+                    + cross[CROSS_VLM]['attn_cases'])
     row['launches'] = lm['launches']['flash_attention']
     row['train_launches'] = train['run']['launches']['flash_attention']
     row['prefill_launches'] = lm['rescore_launches']['flash_attention']
     row['moe_launches'] = {a: moe[a]['launches']['flash_attention']
                            for a in (MOE_ARCH, KIMI_ARCH)}
+    row['cross_launches'] = {a: cross[a]['launches']['flash_attention']
+                             for a in (CROSS_AUDIO, CROSS_VLM)}
     row['mha_launches'] = launches
     return row
 
@@ -4928,12 +5351,15 @@ def main(argv=None) -> int:
     # the MoE family served: Mixtral 8x22B and Kimi-K2 at full width, cut
     # by depth
     moe = moe_phase(dev, card)
+    # the cross-attention families served: whisper-base at full width and
+    # depth, Llama-3.2-Vision-90B at full width cut by depth
+    cross = cross_phase(dev, card)
 
     # K6 and K7 on their public ops (no path of the system reaches them);
     # K8 at Mixtral's shapes and on mha beside the LM path's cases
     op_rows = [cell_checks(params, CELL_BATCH, dev),
                quant_matmul_checks(dev),
-               attention_checks(dev, lm, lm_train, moe)]
+               attention_checks(dev, lm, lm_train, moe, cross)]
     op_rows += _bwd_rows(lm_train)
 
     launches = dict(lstm_seq=runs['cuda_seq']['launches']['lstm_seq'],
@@ -4951,7 +5377,8 @@ def main(argv=None) -> int:
     for r in rows:
         check(r['launches'] > 0, f"{r['name']} never launched on the path")
     keys = ('name', 'route', 'source', 'replaces', 'launches',
-            'train_launches', 'moe_launches', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+            'train_launches', 'moe_launches', 'cross_launches',
+            'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
             'bound_by', 'library_ms', 'tol', 'ok', 'shape', 'geometry',
             'cases')
     kernels = {'kernels': [{k: r[k] for k in keys if k in r} for r in rows]}
@@ -4968,7 +5395,7 @@ def main(argv=None) -> int:
             stack_kernel_weights_q=q_stacking, int8_deploy=deploy,
             train_grad_rel_err=grad_err, train=train, train_cli=cli,
             tune=tuned, examples=examples, systolic=systolic, die=die,
-            lm=lm, lm_train=lm_train, moe=moe),
+            lm=lm, lm_train=lm_train, moe=moe, cross=cross),
             indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -10,9 +10,11 @@ Python loop over the stacked layers in its place; ``attn_chunk``, since
 K8 takes any length) are left out.  ``remat`` is the reference's
 (``models.transformer`` applies it to each layer under grad).
 ``adtype()``/``dtype()`` return torch dtypes.  ``ARCH_MODULES`` holds the
-families the port runs: the paper's CTC LSTM, the four dense LMs and the
-two MoE LMs (Mixtral 8x22B, Kimi-K2); the other reference configurations
-come with the slices that port their families (ROADMAP queue 1, item 3).
+families the port runs: the paper's CTC LSTM, the four dense LMs, the
+two MoE LMs (Mixtral 8x22B, Kimi-K2) and the two cross-attention LMs
+(whisper-base, encoder-decoder; Llama-3.2-Vision-90B, one cross layer in
+five); the recurrent configurations (xLSTM, Hymba) come with the slice
+that ports their family (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -113,6 +115,8 @@ ARCH_MODULES = {
     'minicpm-2b': 'minicpm_2b',
     'codeqwen1.5-7b': 'codeqwen15_7b',
     'qwen2.5-14b': 'qwen25_14b',
+    'whisper-base': 'whisper_base',
+    'llama-3.2-vision-90b': 'llama32_vision_90b',
     'chipmunk-ctc': 'chipmunk_ctc',
 }
 

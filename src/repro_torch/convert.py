@@ -11,8 +11,9 @@ layer (``QuantizedPackedLSTM``), keeping its integer dtypes.
 ``{'params', 'opt', 'step'}`` with AdamW's moments — into the port's.
 ``lm_params_from_numpy`` carries the dense LM's nested dict of parameters
 leaf for leaf in each leaf's own dtype (bf16 included), and
-``lm_cache_from_numpy`` its KV cache (a ring filled in order) into the
-port's layout, and
+``lm_cache_from_numpy`` its KV cache (a ring filled in order) and
+``lm_cross_kv_from_numpy`` its precomputed cross K/V into the port's
+layouts, and
 ``lm_train_state_from_numpy`` a whole LM train state with any of the three
 optimizers' states.  Nothing here imports JAX; the values are copied bit
 for bit.
@@ -110,8 +111,10 @@ def _exact(a, device) -> torch.Tensor:
 def lm_params_from_numpy(tree, device='cuda'):
     """The port's LM parameters from ``jax.tree.map(np.asarray, params)``
     of the reference's (``transformer.init_lm``): the same nested dict
-    (``embed``, ``blocks`` stacked over layers, ``final_norm``), every leaf
-    bit for bit in its own dtype, on ``device``."""
+    (``embed``, ``blocks`` stacked over layers, ``final_norm``; a VLM's
+    ``blocks`` over (groups, per - 1) and its ``cross``; an
+    encoder-decoder's ``enc_blocks``, ``enc_cross`` and ``enc_norm``),
+    every leaf bit for bit in its own dtype, on ``device``."""
     if isinstance(tree, dict):
         return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
     return _exact(tree, device)
@@ -139,6 +142,16 @@ def lm_cache_from_numpy(cache, device='cuda'):
                          f'a ring filled in order')
     return {n: _exact(np.swapaxes(np.asarray(cache[n]), 2, 3), device)
             for n in ('k', 'v')}
+
+
+def lm_cross_kv_from_numpy(cross_kv, device='cuda'):
+    """The port's cross K/V (``transformer.precompute_cross_kv``) from a
+    numpy copy of the reference's: the tuple ``(k, v)``, each (cross
+    layers, B, F, Hkv, hd) -> ``{'k', 'v'}``, each (cross layers, B, Hkv,
+    F, hd), bit for bit."""
+    k, v = cross_kv
+    return {n: _exact(np.swapaxes(np.asarray(a), 2, 3), device)
+            for n, a in (('k', k), ('v', v))}
 
 
 # the reference's optimizer states by their moment fields, and the port's

@@ -10,7 +10,11 @@ finish (continuous batching), greedy sampling, the prompt fed token by
 token through ``decode_step`` as the reference does; its attention runs on
 K8 on the card.  The full configuration is the default (Qwen3-14B: 40
 layers, d_model 5120, bf16, random weights from seed 0; the MoE configs at
-full width do not fit one card)::
+full width do not fit one card).  The cross-attention configs
+(``whisper-base``, ``llama-3.2-vision-90b``) are refused before any init:
+the reference's ``SlotServer`` passes no source (ROADMAP R4), so they
+decode through ``transformer.precompute_cross_kv`` and
+``decode_step(..., cross_kv=)``::
 
     python -m repro_torch.launch.serve --arch qwen3-14b --requests 6 \
         --slots 4 --max-new 16
@@ -111,6 +115,20 @@ class Request:
     _prefill_left: List[int] = dataclasses.field(default_factory=list)
 
 
+def refuse_cross(cfg) -> None:
+    """``SlotServer`` serves no cross-attention config: the reference's
+    ``SlotServer`` calls ``decode_step`` without ``cross_kv`` and fails on
+    the cross layers (ROADMAP R4), and a request carries no source.  Those
+    families decode through ``transformer.precompute_cross_kv`` +
+    ``decode_step(..., cross_kv=)``."""
+    if cfg.cross_attn_every or cfg.n_encoder_layers:
+        raise NotImplementedError(
+            f'{cfg.name}: SlotServer serves no cross-attention config '
+            f'(R4: the reference\'s SlotServer passes no source to '
+            f'decode_step); decode through transformer.precompute_cross_kv '
+            f'and decode_step(..., cross_kv=)')
+
+
 class SlotServer:
     """``num_slots`` concurrent decodes of an LM; greedy sampling;
     per-slot refill (the reference's ``SlotServer``).
@@ -118,9 +136,11 @@ class SlotServer:
     Each slot owns its own cache (batch 1), so a refill never perturbs a
     neighbour; a prompt goes through ``decode_step`` token by token.  Slot
     bookkeeping lives in ``serving.SlotScheduler``; this class owns the
-    caches, on the parameters' device."""
+    caches, on the parameters' device.  A cross-attention config is
+    refused (``refuse_cross``)."""
 
     def __init__(self, cfg, params, num_slots=4, max_seq=128):
+        refuse_cross(cfg)
         self.cfg = cfg
         self.bundle = get_bundle(cfg)
         self.params = params
@@ -220,7 +240,9 @@ def _run_token_serving(cfg, args):
     prints the reference's summary line, then the device, the parameters
     (and those a token runs through: an MoE's experts at top_k / E), the
     attention backend and K8's launches.  Returns the numbers and the
-    requests."""
+    requests.  A cross-attention config is refused before any init
+    (``refuse_cross``)."""
+    refuse_cross(cfg)
     bundle = get_bundle(cfg)
     params = bundle.init(torch.Generator(args.device).manual_seed(0),
                          args.device)

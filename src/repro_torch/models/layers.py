@@ -27,8 +27,13 @@ Init draws from one ``torch.Generator`` in order (the reference's
 The MoE blocks (``moe_block``, ``moe_block_global``) are the reference's
 functions step for step in plain PyTorch: the reference computes its
 routing and its expert products outside any Pallas kernel, so no kernel
-of the port replaces them.  Cross attention comes with its families
-(ROADMAP queue 1, item 3).
+of the port replaces them.
+
+Cross attention (the audio and VLM families): ``attention_block`` with a
+``kv_src`` projects k and v from it and runs non-causal, with no RoPE;
+``cross_attention_decode`` attends one query row to a layer's
+precomputed cross K/V (``transformer.precompute_cross_kv``).  A cross
+block holds no bias and no qk-norm (``init_attention(..., cross=True)``).
 """
 from __future__ import annotations
 
@@ -52,7 +57,8 @@ def mk_param(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
              scale: Optional[float] = None,
              fan_in_dims: Tuple[int, ...] = (0,)) -> torch.Tensor:
     """Truncated-normal (on [-2, 2]) fan-in init on ``gen``'s device, drawn
-    in f32 and cast to ``dtype``."""
+    in f32, scaled in place (one f32 copy of the matrix at a time: 0.94 GB
+    for a Llama-3.2-Vision MLP matrix) and cast to ``dtype``."""
     if scale is None:
         fan_in = 1
         for d in fan_in_dims:
@@ -60,7 +66,7 @@ def mk_param(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
         scale = fan_in ** -0.5
     w = torch.empty(tuple(shape), dtype=f32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -155,7 +161,11 @@ def attention(backend: str, q: torch.Tensor, k: torch.Tensor,
     return flash_attention(q, k, v, **kw)
 
 
-def init_attention(cfg, gen: torch.Generator, dtype: torch.dtype) -> Params:
+def init_attention(cfg, gen: torch.Generator, dtype: torch.dtype,
+                   cross: bool = False) -> Params:
+    """``wq`` (d, H, hd), ``wk``/``wv`` (d, Hkv, hd), ``wo`` (H, hd, d);
+    ``cfg.qkv_bias``'s biases and ``cfg.qk_norm``'s scales on a self
+    block only (a ``cross`` block has neither, as in the reference)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, hk = cfg.n_heads, cfg.n_kv_heads
     dev = gen.device
@@ -165,23 +175,34 @@ def init_attention(cfg, gen: torch.Generator, dtype: torch.dtype) -> Params:
         'wv': mk_param(gen, (d, hk, hd), dtype),
         'wo': mk_param(gen, (h, hd, d), dtype, fan_in_dims=(0, 1)),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for n, sh in (('bq', (h, hd)), ('bk', (hk, hd)), ('bv', (hk, hd))):
             p[n] = torch.zeros(sh, dtype=dtype, device=dev)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p['q_norm'] = torch.ones((hd,), dtype=dtype, device=dev)
         p['k_norm'] = torch.ones((hd,), dtype=dtype, device=dev)
     return p
 
 
-def _project_qkv(p: Params, x: torch.Tensor, cos_sin=None):
-    """q (B, S, H, hd), k and v (B, S, Hkv, hd): the projections, bias,
-    qk-norm and RoPE (``cos_sin`` from ``rope_cos_sin``; None: no RoPE)."""
-    q, k, v = _mm(x, p['wq']), _mm(x, p['wk']), _mm(x, p['wv'])
+def _project_q(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """q (B, S, H, hd) alone: the projection, bias and qk-norm."""
+    q = _mm(x, p['wq'])
     if 'bq' in p:
-        q, k, v = q + p['bq'], k + p['bk'], v + p['bv']
+        q = q + p['bq']
     if 'q_norm' in p:
         q = rms_norm(q, p['q_norm'])
+    return q
+
+
+def _project_qkv(p: Params, x: torch.Tensor, cos_sin=None, kv_src=None):
+    """q (B, S, H, hd), k and v (B, F, Hkv, hd): the projections (k and v
+    from ``kv_src`` (B, F, d) when given, else from x), bias, qk-norm and
+    RoPE (``cos_sin`` from ``rope_cos_sin``; None: no RoPE)."""
+    src = x if kv_src is None else kv_src
+    q, k, v = _project_q(p, x), _mm(src, p['wk']), _mm(src, p['wv'])
+    if 'bk' in p:
+        k, v = k + p['bk'], v + p['bv']
+    if 'k_norm' in p:
         k = rms_norm(k, p['k_norm'])
     if cos_sin is not None:
         q = apply_rope(q, cos_sin)
@@ -196,14 +217,42 @@ def _out_proj(p: Params, o: torch.Tensor) -> torch.Tensor:
 
 
 def attention_block(cfg, p: Params, x: torch.Tensor, *, cos_sin,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """Self attention over full sequences (train / prefill): x (B, S, d),
-    causal with offset 0."""
-    q, k, v = _project_qkv(p, x, cos_sin)
+                    causal: bool = True, window: Optional[int] = None,
+                    kv_src: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention over full sequences (train / prefill): x (B, S, d),
+    with offset 0.  Self attention (causal or not) takes RoPE from
+    ``cos_sin``; cross attention (``kv_src`` (B, F, d), the encoder's
+    output or the image patches) projects k and v from ``kv_src`` and runs
+    non-causal with no RoPE and no window, the reference's
+    ``attention_block(..., kv_src=, cross=True)``.  The reference pads
+    the F keys to ``attn_chunk`` and masks the padding (``kv_len``), which
+    is the same function; K8 takes any F."""
+    if kv_src is not None:
+        cos_sin, causal, window = None, False, None
+    q, k, v = _project_qkv(p, x, cos_sin, kv_src)
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     o = attention(cfg.attn_backend, qh, kh, vh, causal=causal,
                   window=window)
+    return _out_proj(p, o.transpose(1, 2))
+
+
+def cross_attention_decode(cfg, p: Params, x: torch.Tensor,
+                           cross_kv: Params) -> torch.Tensor:
+    """One decode row's cross attention, the ``cross_kv`` branch of the
+    reference's ``attention_decode``: x (B, 1, d); ``cross_kv`` one
+    layer's ``{'k', 'v'}``, each (B, Hkv, F, hd) (a slice of
+    ``transformer.precompute_cross_kv``'s, contiguous).  Only q is
+    projected (the reference also projects k and v from x and discards
+    them); K8 attends the row to all F keys, non-causal, with no
+    ``kv_len``.  q and the cross K/V share a dtype on every cross config
+    (f32 for whisper, whose f32 layer-norm scales promote the bf16
+    activations; bf16 for Llama-3.2-Vision), and a mismatch raises."""
+    k, v = cross_kv['k'], cross_kv['v']
+    qh = _project_q(p, x).transpose(1, 2).contiguous()   # (B, H, 1, hd)
+    if qh.dtype != k.dtype:
+        raise ValueError(f'cross_attention_decode: q is {qh.dtype}, the '
+                         f'cross K/V {k.dtype}; K8 takes one dtype')
+    o = attention(cfg.attn_backend, qh, k, v, causal=False)
     return _out_proj(p, o.transpose(1, 2))
 
 
@@ -223,7 +272,13 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params, *,
     depend on the keys' order.  So the port keeps no ``pos`` array, and
     K8 runs with ``kv_len`` alone.  A cache wider than ``window`` would
     need the position mask and raises.  q is cast to the cache's dtype (K8
-    takes one dtype; the reference's output has the cache's too)."""
+    takes one dtype; the reference's output has the cache's too).  Where q
+    is f32 and the cache bf16 (whisper: its f32 layer-norm scales promote
+    the bf16 activations) the reference scores the f32 q against the bf16
+    cache in f32; rounding q to bf16 instead keeps the smoke config's
+    decode within 1e-2 of the reference's logit scale (the tests hold it
+    to 3e-2), so the port keeps this cast and does not widen the layer's
+    ring slice to f32."""
     k_cache, v_cache = cache['k'], cache['v']
     w = k_cache.shape[2]
     if window is not None and w > window:

@@ -1,10 +1,16 @@
 """Model registry of the port: one uniform bundle per architecture family.
 
 Counterpart of ``repro.models.registry``.  ``get_bundle(cfg)`` returns the
-decoder-only LM (``family`` ``'dense'`` or ``'moe'``).  The paper's CTC LSTM has no
+LM of ``models.transformer`` for the families ``'dense'``, ``'moe'``,
+``'audio'`` (whisper's encoder-decoder) and ``'vlm'`` (Llama-3.2-Vision's
+cross layers).  The cross families take a source in ``forward``'s and
+``loss_fn``'s batch (``batch['source']``, (B, F, d)) and decode through
+``transformer.precompute_cross_kv`` + ``decode_step(..., cross_kv=)``
+(the bundle's ``decode_step`` passes ``cross_kv`` on by keyword), as the
+reference's own test and dry run do.  The paper's CTC LSTM has no
 bundle: the stream server and the trainer call ``models.chipmunk_net``
-directly.  Every other family raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.  A bundle's ``init`` takes ``(generator,
+directly.  The recurrent families raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.  A bundle's ``init`` takes ``(generator,
 device)`` and returns the parameters alone (the reference's logical
 sharding axes have no meaning on one card); ``init_cache`` takes
 ``(batch, max_seq, device)``.  The reference's ``input_specs`` /
@@ -22,8 +28,6 @@ from . import transformer
 
 # family -> the ROADMAP queue 1 item that ports it
 _NOT_PORTED = {
-    'audio': 'item 3, the cross-attention families (whisper-base)',
-    'vlm': 'item 3, the cross-attention families (llama-3.2-vision)',
     'ssm': 'item 3, recurrent.py (xLSTM)',
     'hybrid': 'item 3, recurrent.py (Hymba)',
 }
@@ -36,7 +40,8 @@ class ModelBundle:
     loss_fn: Callable                   # (params, batch) -> scalar
     forward: Callable                   # (params, batch) -> logits
     init_cache: Optional[Callable]      # (batch, max_seq, device) -> cache
-    decode_step: Optional[Callable]     # (params, cache, tokens, pos) -> (logits, cache)
+    # (params, cache, tokens, pos, cross_kv=None) -> (logits, cache)
+    decode_step: Optional[Callable]
 
     def param_count(self, params) -> int:
         return sum(int(p.numel()) for p in leaves(params))
@@ -69,7 +74,7 @@ def _lm_bundle(cfg: ArchConfig) -> ModelBundle:
 
 
 def get_bundle(cfg: ArchConfig) -> ModelBundle:
-    if cfg.family in ('dense', 'moe'):
+    if cfg.family in ('dense', 'moe', 'audio', 'vlm'):
         return _lm_bundle(cfg)
     if cfg.family == 'lstm':
         raise ValueError(f'{cfg.name}: the CTC LSTM has no bundle; '

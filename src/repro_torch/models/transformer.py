@@ -1,26 +1,35 @@
-"""Decoder-only LM of the port (the dense and the MoE families): init,
-full-sequence forward, loss, KV cache and one-token decode.
+"""The LM of the port (the dense, MoE, VLM and encoder-decoder families):
+init, full-sequence forward, loss, KV cache, cross K/V and one-token decode.
 
-Counterpart of the decoder-only part of ``repro.models.transformer``.
-Block parameters are stacked over a leading layer axis, as the reference's
-scanned stack is, so carrying weights across is a copy; the reference's
-``lax.scan`` over layers is a Python loop over that axis here.
-``forward_lm`` splits the stack once (``torch.unbind``, whose backward
-stacks), so each layer's gradient is written once into the stacked
-gradient; indexing ``a[i]`` per layer would materialise a zero tensor of
-the whole stack per layer and leaf in the backward.  Under grad each
-layer runs under ``cfg.remat`` (``_maybe_remat``, the reference's
-counterpart: ``torch.utils.checkpoint``); a serving forward has no grad
-and no remat.  An MoE config's blocks hold ``moe`` (``layers.moe_block``)
-in place of ``mlp``, and ``forward_lm`` returns the sum of their
-load-balance losses.  The encoder-decoder and cross-attention paths
-(``_encoder``, ``_cross_block``, ``precompute_cross_kv``) come with their
-families (ROADMAP queue 1, item 3).
+Counterpart of ``repro.models.transformer``.  Block parameters are stacked
+over leading layer axes, as the reference's scanned stacks are, so carrying
+weights across is a copy: ``blocks`` (layers, ...), and for the VLM (one
+cross layer in ``cfg.cross_attn_every``) ``blocks`` (groups, per - 1, ...)
+and ``cross`` (groups, ...); the encoder-decoder (audio) adds
+``enc_blocks`` (encoder layers, ...), ``enc_cross`` (layers, ...) and
+``enc_norm``.  The reference's ``lax.scan`` over layers is a Python loop
+over those axes here.  ``forward_lm`` splits each stack once
+(``torch.unbind``, whose backward stacks), so each layer's gradient is
+written once into the stacked gradient; indexing ``a[i]`` per layer would
+materialise a zero tensor of the whole stack per layer and leaf in the
+backward.  Under grad each scan body (a layer; an audio layer's self and
+cross block; a VLM group) runs under ``cfg.remat`` (``_maybe_remat``, the
+reference's counterpart: ``torch.utils.checkpoint``); a serving forward has
+no grad and no remat.  An MoE config's blocks hold ``moe``
+(``layers.moe_block``) in place of ``mlp``, and ``forward_lm`` returns the
+sum of their load-balance losses.
+
+The cross-attention families serve through ``precompute_cross_kv`` (once
+per request: the encoder, or the image patches' projections) and
+``decode_step(..., cross_kv=)``, as the reference's own test and dry run
+do; the reference's ``SlotServer`` passes no source (ROADMAP R4).
 """
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, List
+import itertools
+import math
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 from torch.utils import checkpoint as ckpt
@@ -32,39 +41,42 @@ from . import layers as L
 Params = Dict[str, Any]
 
 
-def _self_attention_only(cfg: ArchConfig) -> None:
-    if cfg.cross_attn_every or cfg.n_encoder_layers:
-        raise NotImplementedError(
-            f'{cfg.name}: cross-attention and encoder-decoder stacks are '
-            f'not ported yet (ROADMAP queue 1, item 3)')
+def _has_cross(cfg: ArchConfig) -> bool:
+    return bool(cfg.cross_attn_every or cfg.n_encoder_layers)
 
 
 # ------------------------------------------------------------------ init
-def _init_block(cfg: ArchConfig, gen: torch.Generator) -> Params:
+def _init_block(cfg: ArchConfig, gen: torch.Generator,
+                cross: bool = False) -> Params:
     dtype = cfg.dtype()
     return {'ln1': L.init_norm(cfg, dtype, gen.device),
-            'attn': L.init_attention(cfg, gen, dtype),
+            'attn': L.init_attention(cfg, gen, dtype, cross=cross),
             'ln2': L.init_norm(cfg, dtype, gen.device),
             **({'moe': L.init_moe(cfg, gen, dtype)} if cfg.moe is not None
                else {'mlp': L.init_mlp(cfg, gen, dtype)})}
 
 
-def _stack_init(init_fn: Callable[[], Params], n: int) -> Params:
-    """``n`` draws of ``init_fn()`` stacked over a new leading axis,
-    written slice by slice into tensors allocated once, so that the stack
-    is never held twice (at Qwen3-14B's width one stacked ``w_gate`` is
-    7.1 GB in bf16) and at most one draw is held beside it: n + 1 layers
-    at the peak (one layer of Kimi-K2 is 34 GB).  One draw is its own
-    stack (a view with a leading axis of 1), so a one-layer init holds
-    one layer."""
+def _stack_init(init_fn: Callable[[], Params],
+                shape: Union[int, Sequence[int]]) -> Params:
+    """Draws of ``init_fn()`` stacked over new leading axes of ``shape``
+    (an int, or a tuple such as the VLM's (groups, per - 1)), in
+    row-major order, written slice by slice into tensors allocated once,
+    so that the stack is never held twice (at Qwen3-14B's width one
+    stacked ``w_gate`` is 7.1 GB in bf16) and at most one draw is held
+    beside it: the stack plus one layer at the peak (one layer of Kimi-K2
+    is 34 GB; of Llama-3.2-Vision 1.7 GB, whose 7-group cut would hold a
+    6.8 GB group beside the stack if groups were stacked in turn).  One
+    draw is its own stack (a view with leading axes of 1), so a one-layer
+    init holds one layer."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
     blk = init_fn()
-    if n == 1:
-        return tree_map(lambda a: a.unsqueeze(0), blk)
-    stack = tree_map(lambda a: a.new_empty((n,) + a.shape), blk)
-    for i in range(n):
-        if i:
+    if math.prod(shape) == 1:
+        return tree_map(lambda a: a.reshape(shape + a.shape), blk)
+    stack = tree_map(lambda a: a.new_empty(shape + a.shape), blk)
+    for n, idx in enumerate(itertools.product(*map(range, shape))):
+        if n:
             blk = init_fn()
-        tree_map(lambda s, a: s[i].copy_(a), stack, blk)
+        tree_map(lambda s, a: s[idx].copy_(a), stack, blk)
         del blk
     return stack
 
@@ -72,35 +84,47 @@ def _stack_init(init_fn: Callable[[], Params], n: int) -> Params:
 def init_lm(cfg: ArchConfig, generator: torch.Generator = None,
             device='cuda') -> Params:
     """Random weights for ``cfg`` drawn on ``device`` from ``generator``
-    (which lives there; a fresh one seeded 0 when None): ``{'embed',
-    'blocks', 'final_norm'}`` with the reference's names and layouts.
-    (The reference also returns logical sharding axes; one card has
-    none.)"""
-    _self_attention_only(cfg)
+    (which lives there; a fresh one seeded 0 when None), with the
+    reference's names and layouts: ``{'embed', 'blocks', 'final_norm'}``,
+    plus ``cross`` for the VLM and ``enc_blocks``, ``enc_cross`` and
+    ``enc_norm`` for the encoder-decoder.  (The reference also returns
+    logical sharding axes; one card has none.)"""
     dev = torch.device(device)
     gen = (torch.Generator(dev).manual_seed(0) if generator is None
            else generator)
     if gen.device.type != dev.type:
         raise ValueError(f'init_lm: generator on {gen.device}, weights on '
                          f'{dev}')
-    return {'embed': L.init_embedding(cfg, gen, cfg.dtype()),
-            'blocks': _stack_init(lambda: _init_block(cfg, gen),
-                                  cfg.n_layers),
-            'final_norm': L.init_norm(cfg, cfg.dtype(), gen.device)}
+    block = lambda: _init_block(cfg, gen)
+    cross = lambda: _init_block(cfg, gen, cross=True)
+    params = {'embed': L.init_embedding(cfg, gen, cfg.dtype())}
+    if cfg.cross_attn_every:          # vlm: groups of (per - 1 self + 1 cross)
+        per = cfg.cross_attn_every
+        n_groups = cfg.n_layers // per
+        params['blocks'] = _stack_init(block, (n_groups, per - 1))
+        params['cross'] = _stack_init(cross, n_groups)
+    else:
+        params['blocks'] = _stack_init(block, cfg.n_layers)
+    if cfg.n_encoder_layers:          # audio encoder-decoder
+        params['enc_blocks'] = _stack_init(block, cfg.n_encoder_layers)
+        params['enc_cross'] = _stack_init(cross, cfg.n_layers)
+        params['enc_norm'] = L.init_norm(cfg, cfg.dtype(), gen.device)
+    params['final_norm'] = L.init_norm(cfg, cfg.dtype(), gen.device)
+    return params
 
 
 def layer(params: Params, i: int) -> Params:
-    """Layer ``i``'s block parameters: views into the stack."""
+    """Layer ``i``'s block parameters of a one-axis ``blocks`` stack (a
+    VLM's group ``i``): views into the stack."""
     return tree_map(lambda a: a[i], params['blocks'])
 
 
-def unstack_layers(params: Params) -> List[Params]:
-    """Every layer's block parameters, from one ``torch.unbind`` of each
-    stacked leaf: views whose gradients the unbind's backward stacks into
-    one tensor per leaf."""
-    blocks = params['blocks']
-    cols = [torch.unbind(a) for a in leaves(blocks)]
-    return [unflatten_like(blocks, [c[i] for c in cols])
+def unbind(stack: Params) -> List[Params]:
+    """The slices of a stack along its leading axis, from one
+    ``torch.unbind`` of each stacked leaf: views whose gradients the
+    unbind's backward stacks into one tensor per leaf."""
+    cols = [torch.unbind(a) for a in leaves(stack)]
+    return [unflatten_like(stack, [c[i] for c in cols])
             for i in range(len(cols[0]))]
 
 
@@ -119,6 +143,19 @@ def _self_block(cfg: ArchConfig, p: Params, x: torch.Tensor, cos_sin,
     h = L.apply_norm(cfg, p['ln1'], x)
     x = (x + L.attention_block(cfg, p['attn'], h, cos_sin=cos_sin,
                                causal=True, window=window)).to(dt)
+    y, aux = _ffn(cfg, p, L.apply_norm(cfg, p['ln2'], x))
+    return (x + y).to(dt), aux
+
+
+def _cross_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                 source: torch.Tensor):
+    """A cross block: attention from x to ``source`` (B, F, d), non-causal
+    with no RoPE (``layers.attention_block(..., kv_src=)``), then the
+    block's own feed-forward half."""
+    dt = x.dtype
+    h = L.apply_norm(cfg, p['ln1'], x)
+    x = (x + L.attention_block(cfg, p['attn'], h, cos_sin=None,
+                               kv_src=source)).to(dt)
     y, aux = _ffn(cfg, p, L.apply_norm(cfg, p['ln2'], x))
     return (x + y).to(dt), aux
 
@@ -152,26 +189,85 @@ def _maybe_remat(cfg: ArchConfig, fn: Callable) -> Callable:
     return lambda *args: ckpt.checkpoint(fn, *args, **kw)
 
 
+def _encoder(cfg: ArchConfig, params: Params,
+             frames: torch.Tensor) -> torch.Tensor:
+    """The audio encoder over the stub frame embeddings (B, F, d):
+    bidirectional self attention with RoPE over the frame positions (the
+    reference's; the stub frontend has no position table), the GELU MLP,
+    ``enc_norm`` at the end."""
+    x = frames.to(cfg.adtype())
+    cos_sin = L.rope_cos_sin(torch.arange(x.shape[1], device=x.device),
+                             cfg.resolved_head_dim, cfg.rope_theta)
+
+    def body(blk, x):
+        dt = x.dtype
+        h = L.apply_norm(cfg, blk['ln1'], x)
+        x = (x + L.attention_block(cfg, blk['attn'], h, cos_sin=cos_sin,
+                                   causal=False)).to(dt)
+        h = L.apply_norm(cfg, blk['ln2'], x)
+        return (x + L.mlp_block(cfg, blk['mlp'], h)).to(dt)
+
+    body = _maybe_remat(cfg, body)
+    for blk in unbind(params['enc_blocks']):
+        x = body(blk, x)
+    return L.apply_norm(cfg, params['enc_norm'], x)
+
+
 def forward_lm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
-               source=None):
+               source: Optional[torch.Tensor] = None):
     """Full-sequence forward (train / prefill): tokens (B, S) -> (logits
     (B, S, V), aux loss: the sum over layers of the MoE blocks' losses,
-    0.0 for a dense config).  Attention runs causal with
+    0.0 for a dense config).  Self attention runs causal with
     ``cfg.sliding_window`` on ``cfg.attn_backend`` (K8's prefill on CUDA
-    tensors under ``auto``)."""
-    _self_attention_only(cfg)
-    if source is not None:
-        raise NotImplementedError('forward_lm: a source (audio frames, '
-                                  'image patches) needs the cross-attention '
-                                  'families (ROADMAP queue 1, item 3)')
+    tensors under ``auto``).  ``source`` (B, F, d): the audio frames,
+    which the encoder reads, or the image patches, cast to the activation
+    dtype, which every cross layer attends to; required by the cross
+    families, refused by the others."""
+    if _has_cross(cfg) and source is None:
+        raise ValueError(f'forward_lm: {cfg.name} needs a source (B, F, '
+                         f'{cfg.d_model})')
+    if not _has_cross(cfg) and source is not None:
+        raise NotImplementedError(f'forward_lm: {cfg.name} has no cross '
+                                  f'attention to read a source')
     x = L.embed(cfg, params['embed'], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     cos_sin = L.rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    block = _maybe_remat(cfg, functools.partial(_self_block, cfg))
+    window = cfg.sliding_window
     aux_total = 0.0
-    for blk in unstack_layers(params):
-        x, aux = block(blk, x, cos_sin, cfg.sliding_window)
-        aux_total = aux_total + aux
+    if cfg.n_encoder_layers:
+        enc = _encoder(cfg, params, source)
+
+        def body(blk, xblk, x):
+            x, aux = _self_block(cfg, blk, x, cos_sin, window)
+            x, aux2 = _cross_block(cfg, xblk, x, enc)
+            return x, aux + aux2
+
+        body = _maybe_remat(cfg, body)
+        for blk, xblk in zip(unbind(params['blocks']),
+                             unbind(params['enc_cross'])):
+            x, aux = body(blk, xblk, x)
+            aux_total = aux_total + aux
+    elif cfg.cross_attn_every:
+        src = source.to(cfg.adtype())
+
+        def body(group, xblk, x):
+            aux = 0.0
+            for blk in unbind(group):
+                x, a = _self_block(cfg, blk, x, cos_sin, window)
+                aux = aux + a
+            x, a = _cross_block(cfg, xblk, x, src)
+            return x, aux + a
+
+        body = _maybe_remat(cfg, body)
+        for group, xblk in zip(unbind(params['blocks']),
+                               unbind(params['cross'])):
+            x, aux = body(group, xblk, x)
+            aux_total = aux_total + aux
+    else:
+        block = _maybe_remat(cfg, functools.partial(_self_block, cfg))
+        for blk in unbind(params['blocks']):
+            x, aux = block(blk, x, cos_sin, window)
+            aux_total = aux_total + aux
     x = L.apply_norm(cfg, params['final_norm'], x)
     return L.unembed(cfg, params['embed'], x), aux_total
 
@@ -183,11 +279,19 @@ def loss_fn(cfg: ArchConfig, params: Params, batch) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ serving
+def n_self_layers(cfg: ArchConfig) -> int:
+    """The layers that hold a KV cache: all but a VLM's cross layers."""
+    if cfg.cross_attn_every:
+        return cfg.n_layers - cfg.n_layers // cfg.cross_attn_every
+    return cfg.n_layers
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                device='cuda') -> Params:
-    """The KV cache: ``{'k', 'v'}``, each (layers, B, Hkv, W, hd) in the
-    activation dtype, zero, a ring of W = min(``cfg.sliding_window`` or
-    max_seq, max_seq) slots (the reference's W).
+    """The KV cache of the self layers (``n_self_layers``): ``{'k', 'v'}``,
+    each (layers, B, Hkv, W, hd) in the activation dtype, zero, a ring of
+    W = min(``cfg.sliding_window`` or max_seq, max_seq) slots (the
+    reference's W).
 
     Layout deviation from the reference's (layers, B, W, Hkv, hd) plus its
     slot -> position array ``pos``: K8 reads (B, Hkv, Sk, hd) contiguous,
@@ -197,36 +301,100 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     in the reference, and a cache filled in order holds positions
     pos - W + 1 .. pos, which is what the reference's ``pos`` array says;
     so the port keeps no ``pos`` (``attention_decode``)."""
-    _self_attention_only(cfg)
     w = min(cfg.sliding_window or max_seq, max_seq)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, w,
+    shape = (n_self_layers(cfg), batch, cfg.n_kv_heads, w,
              cfg.resolved_head_dim)
     return {'k': torch.zeros(shape, dtype=cfg.adtype(), device=device),
             'v': torch.zeros(shape, dtype=cfg.adtype(), device=device)}
 
 
+def precompute_cross_kv(cfg: ArchConfig, params: Params,
+                        source: torch.Tensor) -> Optional[Params]:
+    """Every cross layer's K and V of ``source`` (B, F, d), computed once
+    per request: the encoder's output (audio) or the image patches in the
+    activation dtype (VLM) through each cross block's ``wk``/``wv``.
+    Returns ``{'k', 'v'}``, each (cross layers, B, Hkv, F, hd) contiguous
+    in the projections' dtype (JAX's promotion: f32 for whisper, bf16 for
+    Llama-3.2-Vision), so each layer's slice is K8's (B, Hkv, Sk, D)
+    without a copy; the reference's is a tuple of (cross layers, B, F,
+    Hkv, hd) (``convert.lm_cross_kv_from_numpy``).  None for a config
+    with no cross layer, as in the reference."""
+    if cfg.n_encoder_layers:
+        src, blocks = _encoder(cfg, params, source), params['enc_cross']
+    elif cfg.cross_attn_every:
+        src, blocks = source.to(cfg.adtype()), params['cross']
+    else:
+        return None
+    out = {}
+    for n, w in (('k', blocks['attn']['wk']), ('v', blocks['attn']['wv'])):
+        for i, wi in enumerate(torch.unbind(w)):
+            a = L._mm(src, wi).transpose(1, 2)          # (B, Hkv, F, hd)
+            if not i:
+                out[n] = a.new_empty((w.shape[0],) + a.shape)
+            out[n][i].copy_(a)
+    return out
+
+
+def _self_decode(cfg: ArchConfig, blk: Params, x: torch.Tensor,
+                 cache: Params, pos: int, cos_sin) -> torch.Tensor:
+    """One self block of a decode step, its cache slices written in
+    place."""
+    adt = cfg.adtype()
+    h = L.apply_norm(cfg, blk['ln1'], x)
+    o = L.attention_decode(cfg, blk['attn'], h, cache, pos=pos,
+                           cos_sin=cos_sin, window=cfg.sliding_window)
+    x = (x + o).to(adt)
+    y, _ = _ffn(cfg, blk, L.apply_norm(cfg, blk['ln2'], x))
+    return (x + y).to(adt)
+
+
+def _cross_decode(cfg: ArchConfig, blk: Params, x: torch.Tensor,
+                  cross_kv: Params) -> torch.Tensor:
+    """One cross block of a decode step, against its layer's cross K/V."""
+    adt = cfg.adtype()
+    h = L.apply_norm(cfg, blk['ln1'], x)
+    x = (x + L.cross_attention_decode(cfg, blk['attn'], h, cross_kv)).to(adt)
+    y, _ = _ffn(cfg, blk, L.apply_norm(cfg, blk['ln2'], x))
+    return (x + y).to(adt)
+
+
 def decode_step(cfg: ArchConfig, params: Params, cache: Params,
-                tokens: torch.Tensor, pos: int):
+                tokens: torch.Tensor, pos: int,
+                cross_kv: Optional[Params] = None):
     """One decode step: tokens (B, 1) at position ``pos`` (a Python int,
     the same for every row).  Writes the new K/V rows into ``cache`` in
     place (slot ``pos % W``) and returns (logits (B, 1, V), cache); an
     MoE block routes the B tokens as one group (the aux loss dropped, as
-    the reference drops it)."""
+    the reference drops it).  A cross family needs ``cross_kv``
+    (``precompute_cross_kv`` of the request's source): an audio layer is a
+    self block, then a cross block; a VLM group is ``per - 1`` self blocks
+    (cache layer g * (per - 1) + i), then a cross block."""
+    if _has_cross(cfg) and cross_kv is None:
+        raise ValueError(f'decode_step: {cfg.name} needs cross_kv '
+                         f'(precompute_cross_kv of the source)')
     pos = int(pos)
-    adt = cfg.adtype()
     x = L.embed(cfg, params['embed'], tokens)
     positions = torch.full((1,), pos, dtype=torch.float32,
                            device=tokens.device)
     cos_sin = L.rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        blk = layer(params, i)
-        h = L.apply_norm(cfg, blk['ln1'], x)
-        o = L.attention_decode(cfg, blk['attn'], h,
-                               {'k': cache['k'][i], 'v': cache['v'][i]},
-                               pos=pos, cos_sin=cos_sin,
-                               window=cfg.sliding_window)
-        x = (x + o).to(adt)
-        y, _ = _ffn(cfg, blk, L.apply_norm(cfg, blk['ln2'], x))
-        x = (x + y).to(adt)
+    cache_i = lambda j: {'k': cache['k'][j], 'v': cache['v'][j]}
+    cross_i = lambda j: {'k': cross_kv['k'][j], 'v': cross_kv['v'][j]}
+    blocks = params['blocks']
+    if cfg.cross_attn_every:
+        per = cfg.cross_attn_every - 1
+        for g in range(cfg.n_layers // cfg.cross_attn_every):
+            for i in range(per):
+                blk = tree_map(lambda a: a[g, i], blocks)
+                x = _self_decode(cfg, blk, x, cache_i(g * per + i), pos,
+                                 cos_sin)
+            xblk = tree_map(lambda a: a[g], params['cross'])
+            x = _cross_decode(cfg, xblk, x, cross_i(g))
+    else:
+        for i in range(cfg.n_layers):
+            x = _self_decode(cfg, tree_map(lambda a: a[i], blocks), x,
+                             cache_i(i), pos, cos_sin)
+            if cfg.n_encoder_layers:
+                xblk = tree_map(lambda a: a[i], params['enc_cross'])
+                x = _cross_decode(cfg, xblk, x, cross_i(i))
     x = L.apply_norm(cfg, params['final_norm'], x)
     return L.unembed(cfg, params['embed'], x), cache

@@ -1651,3 +1651,68 @@ def test_mixtral_smoke_serves_on_k8_over_a_wrapped_ring(dev):
             calls * cfg.n_layers if backend == 'auto' else 0)
         outs[backend] = {r.rid: r.out for r in srv.done}
     assert outs['auto'] == outs['torch']
+
+
+# ---------------------------------------- the cross-attention families on the card
+@pytest.mark.parametrize('shape', [
+    ('whisper encoder', 4, 8, 8, 1500, 1500, 64, 'float32'),
+    ('whisper cross prefill', 4, 8, 8, 64, 1500, 64, 'float32'),
+    ('whisper cross decode', 4, 8, 8, 1, 1500, 64, 'float32'),
+    ('llama-vision cross prefill', 4, 64, 8, 64, 1024, 128, 'bfloat16'),
+    ('llama-vision cross decode', 4, 64, 8, 1, 1024, 128, 'bfloat16'),
+    ('llama-vision cross decode B=1', 1, 64, 8, 1, 1024, 128, 'bfloat16'),
+], ids=lambda s: s[0])
+def test_cross_attention_on_k8_matches_plain(dev, shape):
+    """K8 non-causal with Sq != Sk (whisper's 1,500 keys: a split whose
+    last tile holds 28 keys; Llama-3.2-Vision's 1,024 with GQA 64/8)
+    against its plain version: f32 atol 1e-4, bf16 rtol 2**-7, atol
+    1e-5."""
+    _, B, H, Hkv, Sq, Sk, D, dtype = shape
+    g = torch.Generator(dev).manual_seed(Sk + Sq)
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, H, Sq, D, generator=g, device=dev).to(dt)
+    k, v = (torch.randn(B, Hkv, Sk, D, generator=g, device=dev).to(dt)
+            for _ in range(2))
+    got = flash_attention(q, k, v, causal=False).float()
+    tol = (dict(rtol=0.0, atol=1e-4) if dtype == 'float32'
+           else dict(rtol=2.0 ** -7, atol=1e-5))
+    torch.testing.assert_close(
+        got, attention_ref(q, k, v, causal=False).float(), **tol)
+
+
+@pytest.mark.parametrize('name', ['whisper-base', 'llama-3.2-vision-90b'])
+def test_cross_decode_on_k8_matches_plain_and_forward(dev, name):
+    """The smoke configs at f32 activations on the card: precompute_cross_kv
+    + decode_step(cross_kv=) over 12 tokens on K8 against 'torch' (atol
+    1e-4) and against forward_lm (2e-3, the reference's bound); K8
+    launched once a self and a cross layer a call, once an encoder layer
+    a precompute."""
+    from repro_torch.models import transformer
+    cfg = configs.get_smoke_config(name).replace(activation_dtype='float32')
+    params = transformer.init_lm(cfg, torch.Generator(dev).manual_seed(0),
+                                 dev)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 12))).to(dev)
+    source = torch.randn(2, 37, cfg.d_model, device=dev,
+                         generator=torch.Generator(dev).manual_seed(1))
+    n_cross = (cfg.n_layers // cfg.cross_attn_every if cfg.cross_attn_every
+               else cfg.n_layers)
+    a_call = transformer.n_self_layers(cfg) + n_cross
+
+    def run(backend):
+        c = cfg.replace(attn_backend=backend)
+        kv = transformer.precompute_cross_kv(c, params, source)
+        cache = transformer.init_cache(c, 2, 12, dev)
+        rows = [transformer.decode_step(c, params, cache, tokens[:, t:t + 1],
+                                        t, cross_kv=kv)[0]
+                for t in range(12)]
+        return torch.cat(rows, 1)
+
+    n0 = flash_attention.launches
+    dec = run('auto')
+    assert flash_attention.launches - n0 == (12 * a_call
+                                             + cfg.n_encoder_layers)
+    want = run('torch')
+    torch.testing.assert_close(dec, want, rtol=0.0, atol=1e-4)
+    full, _ = transformer.forward_lm(cfg, params, tokens, source)
+    torch.testing.assert_close(dec, full, rtol=2e-3, atol=2e-3)

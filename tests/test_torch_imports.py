@@ -50,6 +50,8 @@ def test_serving_path_import_leaves_jax_unloaded():
             'import repro_torch.kernels.flash_attention.backward\n'
             'import repro_torch.configs.mixtral_8x22b\n'
             'import repro_torch.configs.kimi_k2_1t_a32b\n'
+            'import repro_torch.configs.whisper_base\n'
+            'import repro_torch.configs.llama32_vision_90b\n'
             'import repro_torch.models.layers, repro_torch.models.registry\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "repro")]\n'
@@ -117,9 +119,11 @@ def test_lm_training_path_imports_without_jax_and_defaults_to_cuda():
 
 
 def test_dense_lm_path_imports_without_jax_and_defaults_to_cuda():
-    """The dense LM slice (every config module, ``models.layers``,
-    ``models.transformer``, ``models.registry``, the token path of
-    ``launch.serve`` and ``examples.serve_lm``) imports without ``jax``;
+    """The LM slices (every config module, ``models.layers`` with its
+    cross attention, ``models.transformer`` with ``precompute_cross_kv``,
+    ``models.registry``, the token path of ``launch.serve`` with its R4
+    refusal, ``examples.serve_lm`` and the cross K/V's converter) import
+    without ``jax``;
     its entry points put weights and caches on ``cuda`` unless asked."""
     code = ('import sys, inspect\n'
             'from repro_torch import configs\n'
@@ -129,14 +133,19 @@ def test_dense_lm_path_imports_without_jax_and_defaults_to_cuda():
             'from repro_torch.launch.serve import (Request, SlotServer,\n'
             '    _run_token_serving, build_parser)\n'
             'from repro_torch.examples import serve_lm\n'
-            'from repro_torch.convert import lm_params_from_numpy\n'
+            'from repro_torch.convert import (lm_params_from_numpy,\n'
+            '    lm_cross_kv_from_numpy)\n'
+            'from repro_torch.models.transformer import (\n'
+            '    precompute_cross_kv, n_self_layers)\n'
+            'from repro_torch.models.layers import cross_attention_decode\n'
+            'from repro_torch.launch.serve import refuse_cross\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "repro")]\n'
             'assert not bad, bad\n'
             'args = build_parser().parse_args(["--arch", "qwen3-14b"])\n'
             'assert args.device == "cuda" and not args.smoke\n'
             'for fn in (transformer.init_lm, transformer.init_cache,\n'
-            '           lm_params_from_numpy):\n'
+            '           lm_params_from_numpy, lm_cross_kv_from_numpy):\n'
             '    dev = inspect.signature(fn).parameters["device"].default\n'
             '    assert dev == "cuda", (fn, dev)\n'
             'assert "default=\'cuda\'" in inspect.getsource(serve_lm.main)\n'
