@@ -230,6 +230,31 @@ the same f32 weights' configuration from seed 0):
     top-8 and all-384 bounds; then ``serve --arch mixtral-8x22b --smoke``
     and ``serve --arch kimi-k2-1t-a32b --smoke`` as subprocesses (K8
     launched);
+11h. the cross-attention families served (``cross_phase``): whisper-base
+    at full width and depth and Llama-3.2-Vision-90B at full width cut by
+    depth to ``CROSS_VLM_LAYERS`` of 100 layers, K8 at their encoder,
+    cross prefill and cross decode shapes, decode == forward at f32
+    activations, 4 requests through ``precompute_cross_kv`` +
+    ``decode_step(cross_kv=)`` with every counter reset, a traced step;
+11i. the recurrent families served (``recurrent_phase``, bf16
+    reduced-precision reductions off): xLSTM-1.3B (3,605,817,680 f32
+    parameters) and then Hymba-1.5B (1,403,601,600), each at full width
+    and depth, built from a seeded CUDA generator and freed before the
+    next; xLSTM's decode == ``forward_xlstm`` within 2e-3 of the logit
+    scale at f32 activations (the reference's own contract); K8 against
+    its plain version at Hymba's shapes (D 64, GQA 25/5): the f32 prefill
+    of 128 meta + 64 tokens on a global layer, the f32 forward of 128 +
+    2,048 with the window of 1,024, and the bf16 decode rows over a
+    windowed layer's full ring and a global layer's cache; Hymba's decode
+    and forward on K8 against the plain attention within
+    ``LM_LOGIT_REL`` (its decode is not its forward: R5, printed); the
+    main path with every kernel counter set to 0 just before and read
+    just after: 6 requests through ``SlotServer`` (4 slots, 16 new
+    tokens), K8 launched once a layer a Hymba decode call and never for
+    xLSTM, no other kernel; xLSTM's served sequences re-scored by
+    ``forward_xlstm``; a decode step each traced beside its byte bound;
+    ``serve --arch xlstm-1.3b`` and ``--arch hymba-1.5b`` at full width as
+    subprocesses;
 
 and then the two kernels that no path of the system reaches, each on its
 public op, and K8 also on its own, each held against its plain version and
@@ -239,8 +264,10 @@ shape with its launch counter set to 0 just before and read just after
 phase's cases and the training phase's forward cases, takes ``launches``
 from the LM's serve path and reports the re-score's prefill launches as
 ``prefill_launches``, MiniCPM-2B's training launches as
-``train_launches`` and the MoE serve paths' (Mixtral's and Kimi-K2's) as
-``moe_launches``; the backward kernels' rows follow, with their
+``train_launches``, the MoE serve paths' (Mixtral's and Kimi-K2's) as
+``moe_launches``, the cross serve paths' as ``cross_launches`` and the
+recurrent ones' (0 for xLSTM) as ``recurrent_launches``, and adds the
+cross and Hymba cases; the backward kernels' rows follow, with their
 launches on MiniCPM-2B's training path):
 
 12. K6 (``lstm_gates``, the fused cell) on layer 0 (N_in = 123 + 421) and
@@ -498,6 +525,20 @@ CROSS_F32_REL = 2e-3
 # the VLM's init peak: its stack (64.1 GB), one layer (1.7 GB), one f32
 # draw (0.9 GB) and the allocator's rounding
 CROSS_PEAK_MAX = 68e9
+# the recurrent phase: xLSTM-1.3B (48 blocks: 42 mLSTM and 6 sLSTM, d_model
+# 2048, 4 heads, vocab 50,304) and Hymba-1.5B (32 layers, d_model 1600, 25
+# heads on 5 kv heads of 64, a window of 1,024 but on layers 0/15/31, a
+# Mamba state of 16, d_ff 5504, vocab 32,001), f32 weights under bf16
+# activations, each at full width and depth (nothing cut).  Their parameter
+# counts are the reference's init's (``jax.eval_shape`` of
+# ``get_bundle(cfg).init``)
+XLSTM_ARCH, HYMBA_ARCH = 'xlstm-1.3b', 'hymba-1.5b'
+RECURRENT_PARAMS = {XLSTM_ARCH: 3_605_817_680, HYMBA_ARCH: 1_403_601_600}
+HYMBA_PREFILL = 64            # tokens behind them in K8's prefill case
+HYMBA_FORWARD = 2048          # and in its windowed forward case
+HYMBA_GLOBAL_FILL = 100       # tokens in the global layer's decode case
+RECURRENT_REPLAY = 16         # tokens of the decode replays
+RECURRENT_CLI_REQUESTS, RECURRENT_CLI_MAX_NEW = 2, 4
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -4585,6 +4626,389 @@ def _cross_phase(dev, card: str):
     return res
 
 
+# ---------------------------------------------------- the recurrent families
+def recurrent_build(name: str, dev, card: str):
+    """``name`` at full width and depth, built by ``bundle.init`` from a
+    seeded CUDA generator: its parameters checked against the reference's
+    count (``RECURRENT_PARAMS``), every leaf f32 on the card; init seconds
+    and peak memory printed.  Returns (cfg, params, numbers)."""
+    from repro_torch import configs
+    from repro_torch.tree import leaves
+    cfg = configs.get_config(name)
+    params, n, nbytes, init_s, peak = _init_on_card(cfg, dev)
+    print(f'{name}: nothing cut; {cfg.n_layers} layers, d_model '
+          f'{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, vocab '
+          f'{cfg.vocab_size}, {cfg.param_dtype} weights, '
+          f'{cfg.activation_dtype} activations: {n} parameters (want '
+          f'{RECURRENT_PARAMS[name]}), {nbytes} bytes resident '
+          f'({nbytes / 1e9:.3f} GB), init {init_s:.2f} s, peak '
+          f'{peak / 1e9:.2f} GB [{card}]', flush=True)
+    check(n == RECURRENT_PARAMS[name] and nbytes == 4 * n and all(
+        p.device == dev and p.dtype == torch.float32
+        for p in leaves(params)), f'{name}: {n} parameters, {nbytes} bytes')
+    return cfg, params, dict(arch=name, layers=cfg.n_layers, params=n,
+                             bytes=nbytes, init_s=init_s,
+                             init_peak_bytes=peak)
+
+
+def hymba_attention_cases(cfg, params, dev):
+    """K8 against its plain version (``attn_measure``) at Hymba's shapes,
+    on q, k, v of its own layers over seeded tokens behind the 128 meta
+    tokens, RoPE at their positions: the causal prefill of 128 +
+    ``HYMBA_PREFILL`` rows on global layer 0 and the causal forward of
+    128 + ``HYMBA_FORWARD`` rows on layer 1 with its window of 1,024, both
+    f32 as the model runs them (the f32 norm scales promote the bf16
+    activations); then the decode rows as ``attention_decode`` calls K8
+    (q rounded to the cache's bf16, kv_len, no causal mask): the last
+    forward row against layer 1's full ring of 1,024 slots, and row
+    ``HYMBA_GLOBAL_FILL`` - 1 against layer 0's 128-slot cache holding
+    ``HYMBA_GLOBAL_FILL`` tokens.  Each with its schedule."""
+    from repro_torch.kernels.flash_attention import attention_geometry
+    from repro_torch.models import layers
+    from repro_torch.models.recurrent import N_META
+    from repro_torch.tree import tree_map
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    tokens = torch.randint(0, cfg.vocab_size, (1, HYMBA_FORWARD), device=dev,
+                           generator=torch.Generator(dev).manual_seed(
+                               SEED + 6))
+    x = layers.embed(cfg, params['embed'], tokens)
+    x = torch.cat([params['meta'].to(x.dtype)[None], x], 1)
+    n = x.shape[1]
+    cos, sin = layers.rope_cos_sin(torch.arange(n, device=dev), D,
+                                   cfg.rope_theta)
+
+    def qkv(layer: int, rows: int):
+        blk = tree_map(lambda a: a[layer], params['blocks'])
+        h = layers.apply_norm(cfg, blk['ln1'], x[:, :rows])
+        return [t.transpose(1, 2).contiguous() for t in layers._project_qkv(
+            blk['attn'], h, (cos[:rows], sin[:rows]))]
+
+    def ring(k, t, slots):
+        out = k.new_zeros((1, Hkv, slots, D), dtype=torch.bfloat16)
+        out[:, :, t % slots] = k[:, :, t].to(torch.bfloat16)
+        return out
+
+    cases = []
+
+    def add(label, q, k, v, window=None, kv_len=None):
+        dt = str(q.dtype).split('.')[-1]
+        causal = kv_len is None
+        case = attn_measure(f'{cfg.name} {label} {dt}', q, k, v,
+                            window=window, kv_len=kv_len, causal=causal)
+        cases.append((case, attention_geometry(
+            1, H, Hkv, q.shape[2], k.shape[2], window, kv_len, 0, D, sms,
+            causal=causal, wide=dt == 'bfloat16')))
+
+    q, k, v = qkv(0, N_META + HYMBA_PREFILL)
+    check(q.dtype == torch.float32, f'{cfg.name}: q is {q.dtype}')
+    add(f'prefill {N_META}+{HYMBA_PREFILL}', q, k, v)
+    fill = HYMBA_GLOBAL_FILL
+    t = torch.arange(fill, device=dev)
+    glob = (q[:, :, fill - 1:fill].to(torch.bfloat16),
+            ring(k, t, LM_MAX_SEQ), ring(v, t, LM_MAX_SEQ))
+    q, k, v = qkv(1, n)
+    W = cfg.sliding_window
+    add(f'windowed forward {N_META}+{HYMBA_FORWARD}', q, k, v, window=W)
+    t = torch.arange(n - W, n, device=dev)
+    add(f'decode ring of {W} at position {n - 1}',
+        q[:, :, n - 1:].to(torch.bfloat16), ring(k, t, W), ring(v, t, W),
+        kv_len=W)
+    add(f'decode global {LM_MAX_SEQ} slots at position {fill - 1}', *glob,
+        kv_len=fill)
+    for case, geom in cases:
+        case['geometry'] = dataclasses.asdict(geom)
+        _print_attn_case(case, geom)
+        check(case['ok'], f'flash_attention disagrees with its plain version '
+                          f'at {case["shape"]}')
+    return [case for case, _ in cases]
+
+
+def _recurrent_decode(cfg, params, tokens, dev):
+    """The bundle's ``decode_step`` over ``tokens`` (1, S) from an empty
+    cache (``LM_MAX_SEQ`` slots): every logit row (S, V), f32."""
+    from repro_torch.models import get_bundle
+    b = get_bundle(cfg)
+    cache = b.init_cache(1, LM_MAX_SEQ, dev)
+    rows = []
+    for t in range(tokens.shape[1]):
+        logits, cache = b.decode_step(params, cache, tokens[:, t:t + 1], t)
+        rows.append(logits[0, 0].float())
+    return torch.stack(rows)
+
+
+def xlstm_contract(cfg, params, tokens, dev):
+    """The reference's own contract (``tests/test_models.py``) on the card
+    at full width: with f32 activations, ``decode_step`` token by token
+    from ``init_xlstm_state`` equals ``forward_xlstm`` within
+    ``CROSS_F32_REL`` (the reference's 2e-3) of the logit scale."""
+    from repro_torch.models import get_bundle
+    c = cfg.replace(activation_dtype='float32')
+    dec = _recurrent_decode(c, params, tokens, dev)
+    full = get_bundle(c).forward(params, {'tokens': tokens})[0].float()
+    d = _logit_diff(dec, full, float(full.abs().max()))
+    d.update(tol_rel=CROSS_F32_REL, tokens=tokens.shape[1],
+             finite=bool(torch.isfinite(dec).all()))
+    print(f'{cfg.name} decode == forward at f32 activations over '
+          f'{tokens.shape[1]} tokens: max abs {d["max_abs"]:.3e} = '
+          f'{d["rel"]:.3e} of the logit scale (tol {CROSS_F32_REL}), argmax '
+          f'{d["argmax_agree"]:.3f}', flush=True)
+    check(d['finite'] and d['rel'] <= CROSS_F32_REL,
+          f'{cfg.name}: decode strays from forward at f32: {d}')
+    return d
+
+
+def hymba_replay(cfg, params, tokens, dev):
+    """Hymba's decode over ``tokens`` (1, S) from an empty cache and its
+    forward, each on 'auto' (K8) and 'torch' (the plain attention), at its
+    own bf16 activations: decode K8 against plain and forward K8 against
+    plain, each within ``LM_LOGIT_REL`` of the plain run's logit scale,
+    every logit finite.  Decode is not held to forward (R5: no meta token
+    reaches the reference's caches or Mamba state); their gap is
+    printed."""
+    from repro_torch.models import get_bundle
+    out = {}
+    for backend in ('auto', 'torch'):
+        c = cfg.replace(attn_backend=backend)
+        out[backend] = (_recurrent_decode(c, params, tokens, dev),
+                        get_bundle(c).forward(params,
+                                              {'tokens': tokens})[0].float())
+    pairs = {'decode: K8 vs plain': (out['auto'][0], out['torch'][0]),
+             'forward: K8 vs plain': (out['auto'][1], out['torch'][1])}
+    res = dict(tokens=tokens.shape[1], tol_rel=LM_LOGIT_REL,
+               finite=all(bool(torch.isfinite(t).all())
+                          for p in out.values() for t in p),
+               pairs={k: _logit_diff(a, b, float(b.abs().max()))
+                      for k, (a, b) in pairs.items()},
+               r5_decode_vs_forward=_logit_diff(
+                   out['torch'][0], out['torch'][1],
+                   float(out['torch'][1].abs().max())))
+    print(f'{cfg.name} replay of {tokens.shape[1]} tokens (tol '
+          f'{LM_LOGIT_REL} of the logit scale): ' + '; '.join(
+              f'{k} {v["rel"]:.3e} (argmax {v["argmax_agree"]:.3f})'
+              for k, v in res['pairs'].items())
+          + f'; R5, decode vs forward (plain): '
+            f'{res["r5_decode_vs_forward"]["rel"]:.3f} of the scale, argmax '
+            f'{res["r5_decode_vs_forward"]["argmax_agree"]:.3f}', flush=True)
+    check(res['finite'] and all(v['rel'] <= LM_LOGIT_REL
+                                for v in res['pairs'].values()),
+          f'{cfg.name}: K8 strays from the plain attention: {res}')
+    return res
+
+
+def recurrent_serve(cfg, params, dev, card: str):
+    """A recurrent family's main path, with every kernel counter set to 0
+    just before and read just after: ``LM_REQUESTS`` seeded prompts of 3-7
+    tokens served through ``SlotServer`` (``LM_SLOTS`` slots of
+    ``LM_MAX_SEQ`` positions, ``LM_MAX_NEW`` tokens each), the reference's
+    ``_run_token_serving``.  K8 must launch once a layer a decode call for
+    Hymba and never for xLSTM, and no other kernel at all.  xLSTM's served
+    sequences are then re-scored by ``forward_xlstm`` (counted apart:
+    nothing launched), its argmax reproducing at least ``LM_AGREE_MIN`` of
+    the served tokens; Hymba's decode is not its forward (R5), so it has
+    no re-score.  Returns (numbers, the serve's launches by kernel, the
+    re-score's)."""
+    from repro_torch.launch.serve import Request, SlotServer
+    from repro_torch.models import get_bundle
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(1, cfg.vocab_size, size=rng.randint(3, 8)).tolist()
+               for _ in range(LM_REQUESTS)]
+    kernels = _kernel_counters()
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    server = SlotServer(cfg, params, num_slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+    for r, prompt in enumerate(prompts):
+        server.submit(Request(rid=r, prompt=prompt, max_new=LM_MAX_NEW))
+    server.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    done = sorted(server.done, key=lambda r: r.rid)
+    hymba = cfg.family == 'hybrid'
+    agree = []
+    if not hymba:
+        fwd = get_bundle(cfg).forward
+        for r in done:
+            seq = torch.tensor([r.prompt + r.out[:-1]], device=dev)
+            best = fwd(params, {'tokens': seq})[0][len(r.prompt) - 1:]
+            agree += (best.argmax(-1).cpu().numpy() == np.array(r.out)
+                      ).tolist()
+    torch.cuda.synchronize()
+    rescore = {k.__name__: k.launches - launches[k.__name__]
+               for k in kernels}
+    toks = sum(len(r.out) for r in done)
+    calls = sum(len(r.prompt) + len(r.out) - 1 for r in done)
+    lat = [r.t_done - r.t_enqueue for r in done]
+    res = dict(requests=len(done), tokens=toks, decode_calls=calls,
+               wall_s=wall, tok_per_s=toks / wall,
+               p50_latency_s=float(np.median(lat)),
+               ms_per_decode_call=wall / calls * 1e3,
+               greedy_agree=float(np.mean(agree)) if agree else None,
+               outputs={r.rid: r.out for r in done})
+    print(f'{cfg.name} SlotServer: {len(done)} requests, {toks} tokens in '
+          f'{wall:.2f} s ({res["tok_per_s"]:.2f} tok/s, '
+          f'{res["ms_per_decode_call"]:.2f} ms a decode call over {calls} '
+          f'calls); p50 latency {res["p50_latency_s"]:.3f} s; '
+          + ('no re-score (R5)' if hymba else
+             f'forward_xlstm argmax == served token at '
+             f'{res["greedy_agree"]:.3f}')
+          + f'; serve launches {launches}; re-score launches {rescore} '
+            f'[{card}]', flush=True)
+    check(toks == LM_REQUESTS * LM_MAX_NEW
+          and all(0 <= t < cfg.vocab_size for r in done for t in r.out),
+          f'{cfg.name}: served {toks} tokens')
+    want = calls * cfg.n_layers if hymba else 0
+    check(launches['flash_attention'] == want
+          and sum(launches.values()) == want and sum(rescore.values()) == 0,
+          f'{cfg.name}: serve launched {launches}, expected {want} of K8; '
+          f're-score {rescore}')
+    check(hymba or res['greedy_agree'] >= LM_AGREE_MIN,
+          f'{cfg.name}: forward reproduces {res["greedy_agree"]} of the '
+          f'served tokens')
+    return res, launches, rescore
+
+
+def recurrent_step_times(cfg, params, dev, card: str):
+    """One decode step at B = 1 (``SlotServer``'s) at position
+    ``LM_PREFILL``, on 'auto' and 'torch' for Hymba (xLSTM has no
+    attention: 'auto' alone): the wall of a synchronized step (median of
+    ``LM_STEP_REPS``, the backends in turns), the host's issue ms and one
+    traced step (device busy ms, ops, idle share), beside the bound of the
+    bytes the step must move: every weight but the embedding table, one
+    table row; xLSTM's recurrent state read and written (the 42 mLSTM
+    memories: 1.41 GB); Hymba's live K/V rows read (``LM_PREFILL`` + 1 of
+    each ring) and its conv and ssm states read and written."""
+    from repro_torch.models import get_bundle
+    from repro_torch.tree import leaves
+    size = lambda ts: sum(a.numel() * a.element_size() for a in ts)
+    tok = torch.ones((1, 1), dtype=torch.long, device=dev)
+    table = params['embed']['table']
+    weights = size(leaves(params)) - size([table]) \
+        + cfg.d_model * table.element_size()
+    steps, state_bytes = {}, 0
+    backends = ('auto', 'torch') if cfg.family == 'hybrid' else ('auto',)
+    for backend in backends:
+        c = cfg.replace(attn_backend=backend)
+        b = get_bundle(c)
+        cache = b.init_cache(1, LM_MAX_SEQ, dev)
+        steps[backend] = lambda b=b, cache=cache: b.decode_step(
+            params, cache, tok, LM_PREFILL)
+        _, cache = steps[backend]()
+        if cfg.family == 'hybrid':
+            es = torch.finfo(cfg.adtype()).bits // 8
+            state_bytes = sum(
+                2 * cfg.n_kv_heads * min(LM_PREFILL + 1, lc['k'].shape[2])
+                * cfg.resolved_head_dim * es
+                + 2 * size([lc['conv'], lc['ssm']]) for lc in cache)
+        else:
+            state_bytes = 2 * size(leaves(cache))
+    walls = {b: [] for b in steps}
+    for i in range(LM_STEP_REPS):
+        for b in (steps if i % 2 == 0 else reversed(list(steps))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps[b]()
+            torch.cuda.synchronize()
+            walls[b].append((time.perf_counter() - t0) * 1e3)
+    nbytes = weights + state_bytes
+    res = dict(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes,
+               weight_bytes=weights, state_bytes=state_bytes)
+    for b, fn in steps.items():
+        t = trace(fn, f'{cfg.name} decode step [{b}]')
+        res[b] = dict(wall_ms=float(np.median(walls[b])),
+                      host_issue_ms=host_ms(fn, LM_STEP_REPS),
+                      device_busy_ms=t['device_busy_ms'],
+                      device_ops=t['device_ops'],
+                      idle_share=t['idle_share'], top=t['top'])
+    print(f'{cfg.name} decode step (bound {res["bound_ms"]:.3f} ms: weights '
+          f'{weights / 1e9:.3f} GB, state {state_bytes / 1e9:.4f} GB at 3.35 '
+          f'TB/s): ' + '; '.join(
+              f'{b}: wall {res[b]["wall_ms"]:.3f} ms, host issue '
+              f'{res[b]["host_issue_ms"]:.3f} ms, device busy '
+              f'{res[b]["device_busy_ms"]:.3f} ms in {res[b]["device_ops"]} '
+              f'ops, idle {res[b]["idle_share"]:.3f}' for b in steps)
+          + f' [{card}]', flush=True)
+    return res
+
+
+def _recurrent_clis():
+    """``serve --arch xlstm-1.3b`` and ``--arch hymba-1.5b`` at full width
+    and depth on the card as subprocesses (``RECURRENT_CLI_REQUESTS``
+    requests of ``RECURRENT_CLI_MAX_NEW`` tokens): tokens served, K8
+    launched for Hymba and never for xLSTM."""
+    import re
+    import tempfile
+    out = {}
+    for name in (XLSTM_ARCH, HYMBA_ARCH):
+        with tempfile.TemporaryDirectory() as tmp:
+            text = _run_cli(f'serve {name}', [
+                'repro_torch.launch.serve', '--arch', name, '--requests',
+                str(RECURRENT_CLI_REQUESTS), '--slots', str(LM_SLOTS),
+                '--max-new', str(RECURRENT_CLI_MAX_NEW)], tmp)
+        m = re.search(r'served (\d+) requests, (\d+) tokens in ([0-9.]+)s '
+                      r'\(([0-9.]+) tok/s\); p50 latency ([0-9.]+)s', text)
+        k8 = re.search(r'K8 launches (\d+)', text)
+        check(m is not None and k8 is not None and int(m.group(2))
+              == RECURRENT_CLI_REQUESTS * RECURRENT_CLI_MAX_NEW
+              and (int(k8.group(1)) > 0) == (name == HYMBA_ARCH),
+              f'serve --arch {name}: {text[-1000:]}')
+        out[name] = dict(tokens=int(m.group(2)), wall_s=float(m.group(3)),
+                         tok_per_s=float(m.group(4)),
+                         k8_launches=int(k8.group(1)),
+                         lines=text.strip().splitlines())
+    return out
+
+
+def recurrent_phase(dev, card: str):
+    """The recurrent families served on the card (after ``cross_phase``):
+    xLSTM-1.3B, then Hymba-1.5B, each at full width and depth and freed
+    before the next (``_recurrent_phase``).  bf16 reduced-precision
+    reductions are off in this process for its checks (restored
+    after)."""
+    flags = torch.backends.cuda.matmul
+    saved = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        return _recurrent_phase(dev, card)
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = saved
+
+
+def _recurrent_phase(dev, card: str):
+    import gc
+    t0 = time.perf_counter()
+    print(f'recurrent phase on {card}', flush=True)
+    res = {}
+    cfg, params, x = recurrent_build(XLSTM_ARCH, dev, card)
+    tokens = lambda: torch.randint(
+        0, cfg.vocab_size, (1, RECURRENT_REPLAY), device=dev,
+        generator=torch.Generator(dev).manual_seed(SEED))
+    x['contract'] = xlstm_contract(cfg, params, tokens(), dev)
+    x['serve'], x['launches'], x['rescore_launches'] = recurrent_serve(
+        cfg, params, dev, card)
+    x['step'] = recurrent_step_times(cfg, params, dev, card)
+    res[XLSTM_ARCH] = x
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params, h = recurrent_build(HYMBA_ARCH, dev, card)
+    h['attn_cases'] = hymba_attention_cases(cfg, params, dev)
+    h['replay'] = hymba_replay(cfg, params, tokens(), dev)
+    h['serve'], h['launches'], h['rescore_launches'] = recurrent_serve(
+        cfg, params, dev, card)
+    h['step'] = recurrent_step_times(cfg, params, dev, card)
+    res[HYMBA_ARCH] = h
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res['cli'] = _recurrent_clis()
+    res['seconds'] = time.perf_counter() - t0
+    print(f'recurrent phase: {res["seconds"]:.1f} s [{card}]', flush=True)
+    return res
+
+
 def _bwd_rows(train):
     """The kernels-line rows of K8's two backward kernels: their cases at
     every ``LM_TRAIN_ATTN`` shape (MiniCPM-2B's first) and their launches
@@ -4852,7 +5276,7 @@ def _print_attn_case(case, geom, narrow: str = '') -> None:
           flush=True)
 
 
-def attention_checks(dev, lm, train, moe, cross):
+def attention_checks(dev, lm, train, moe, cross, rec):
     """K8 (``flash_attention``) at each ``ATTN_CASES`` case (``attn_case``),
     with its schedule, and where that is 128-row tiles also the time of
     the 64-row tiles on the same inputs; then drives the public op ``mha``
@@ -4863,10 +5287,13 @@ def attention_checks(dev, lm, train, moe, cross):
     (``moe``: Mixtral's ring and windowed cases, Kimi-K2's at D 112) and
     the cross phase's cases (``cross``: whisper's encoder, cross prefill
     and decode at 1,500 keys, f32 D 64; Llama-3.2-Vision's at 1,024 keys,
-    bf16 D 128, GQA 64/8), takes its launches from the LM's serve path,
-    reports MiniCPM-2B's training launches as ``train_launches``, the MoE
-    serve paths' as ``moe_launches`` and the cross serve paths' as
-    ``cross_launches``."""
+    bf16 D 128, GQA 64/8) and the recurrent phase's (``rec``: Hymba's f32
+    prefill and windowed forward and its bf16 decode rows, D 64, GQA
+    25/5), takes its launches from the LM's serve path, reports
+    MiniCPM-2B's training launches as ``train_launches``, the MoE serve
+    paths' as ``moe_launches``, the cross serve paths' as
+    ``cross_launches`` and the recurrent ones' as
+    ``recurrent_launches``."""
     from unittest import mock
     from repro_torch.kernels.flash_attention import (attention_geometry,
                                                      flash_attention, mha)
@@ -4913,7 +5340,8 @@ def attention_checks(dev, lm, train, moe, cross):
                     + moe[MOE_ARCH]['attn_cases']
                     + moe[KIMI_ARCH]['attn_cases']
                     + cross[CROSS_AUDIO]['attn_cases']
-                    + cross[CROSS_VLM]['attn_cases'])
+                    + cross[CROSS_VLM]['attn_cases']
+                    + rec[HYMBA_ARCH]['attn_cases'])
     row['launches'] = lm['launches']['flash_attention']
     row['train_launches'] = train['run']['launches']['flash_attention']
     row['prefill_launches'] = lm['rescore_launches']['flash_attention']
@@ -4921,6 +5349,8 @@ def attention_checks(dev, lm, train, moe, cross):
                            for a in (MOE_ARCH, KIMI_ARCH)}
     row['cross_launches'] = {a: cross[a]['launches']['flash_attention']
                              for a in (CROSS_AUDIO, CROSS_VLM)}
+    row['recurrent_launches'] = {a: rec[a]['launches']['flash_attention']
+                                 for a in (XLSTM_ARCH, HYMBA_ARCH)}
     row['mha_launches'] = launches
     return row
 
@@ -5354,12 +5784,15 @@ def main(argv=None) -> int:
     # the cross-attention families served: whisper-base at full width and
     # depth, Llama-3.2-Vision-90B at full width cut by depth
     cross = cross_phase(dev, card)
+    # the recurrent families served: xLSTM-1.3B and Hymba-1.5B at full
+    # width and depth, Hymba's attention on K8
+    rec = recurrent_phase(dev, card)
 
     # K6 and K7 on their public ops (no path of the system reaches them);
     # K8 at Mixtral's shapes and on mha beside the LM path's cases
     op_rows = [cell_checks(params, CELL_BATCH, dev),
                quant_matmul_checks(dev),
-               attention_checks(dev, lm, lm_train, moe, cross)]
+               attention_checks(dev, lm, lm_train, moe, cross, rec)]
     op_rows += _bwd_rows(lm_train)
 
     launches = dict(lstm_seq=runs['cuda_seq']['launches']['lstm_seq'],
@@ -5378,6 +5811,7 @@ def main(argv=None) -> int:
         check(r['launches'] > 0, f"{r['name']} never launched on the path")
     keys = ('name', 'route', 'source', 'replaces', 'launches',
             'train_launches', 'moe_launches', 'cross_launches',
+            'recurrent_launches',
             'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
             'bound_by', 'library_ms', 'tol', 'ok', 'shape', 'geometry',
             'cases')
@@ -5395,7 +5829,7 @@ def main(argv=None) -> int:
             stack_kernel_weights_q=q_stacking, int8_deploy=deploy,
             train_grad_rel_err=grad_err, train=train, train_cli=cli,
             tune=tuned, examples=examples, systolic=systolic, die=die,
-            lm=lm, lm_train=lm_train, moe=moe, cross=cross),
+            lm=lm, lm_train=lm_train, moe=moe, cross=cross, recurrent=rec),
             indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {

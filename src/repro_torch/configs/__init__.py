@@ -9,12 +9,13 @@ the blocking knobs that nothing of the port reads (``scan_layers``, a
 Python loop over the stacked layers in its place; ``attn_chunk``, since
 K8 takes any length) are left out.  ``remat`` is the reference's
 (``models.transformer`` applies it to each layer under grad).
-``adtype()``/``dtype()`` return torch dtypes.  ``ARCH_MODULES`` holds the
-families the port runs: the paper's CTC LSTM, the four dense LMs, the
-two MoE LMs (Mixtral 8x22B, Kimi-K2) and the two cross-attention LMs
+``adtype()``/``dtype()`` return torch dtypes.  ``ARCH_MODULES`` holds
+every configuration of the reference: the paper's CTC LSTM, the four dense
+LMs, the two MoE LMs (Mixtral 8x22B, Kimi-K2), the two cross-attention LMs
 (whisper-base, encoder-decoder; Llama-3.2-Vision-90B, one cross layer in
-five); the recurrent configurations (xLSTM, Hymba) come with the slice
-that ports their family (ROADMAP queue 1, item 3).
+five) and the two recurrent LMs (xLSTM-1.3B, family ``ssm``: mLSTM and
+sLSTM blocks; Hymba-1.5B, family ``hybrid``: attention beside Mamba heads;
+``models.recurrent``).
 """
 from __future__ import annotations
 
@@ -117,6 +118,8 @@ ARCH_MODULES = {
     'qwen2.5-14b': 'qwen25_14b',
     'whisper-base': 'whisper_base',
     'llama-3.2-vision-90b': 'llama32_vision_90b',
+    'xlstm-1.3b': 'xlstm_1_3b',
+    'hymba-1.5b': 'hymba_1_5b',
     'chipmunk-ctc': 'chipmunk_ctc',
 }
 

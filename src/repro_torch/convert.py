@@ -15,8 +15,12 @@ leaf for leaf in each leaf's own dtype (bf16 included), and
 ``lm_cross_kv_from_numpy`` its precomputed cross K/V into the port's
 layouts, and
 ``lm_train_state_from_numpy`` a whole LM train state with any of the three
-optimizers' states.  Nothing here imports JAX; the values are copied bit
-for bit.
+optimizers' states.  ``lm_params_from_numpy`` also carries the recurrent
+families' parameters (xLSTM's and Hymba's dicts);
+``xlstm_state_from_numpy`` carries xLSTM's recurrent state and
+``hymba_cache_from_numpy`` Hymba's per-layer caches (its rings rolled from
+the reference's meta-offset slots into the port's).  Nothing here imports
+JAX; the values are copied bit for bit.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 
 from .core.lstm import LSTMParams, LSTMStackParams
 from .core.systolic import QuantizedPackedLSTM
+from .models.recurrent import N_META
 from .optim import AdafactorState, AdamWState, SGDState
 
 
@@ -142,6 +147,48 @@ def lm_cache_from_numpy(cache, device='cuda'):
                          f'a ring filled in order')
     return {n: _exact(np.swapaxes(np.asarray(cache[n]), 2, 3), device)
             for n in ('k', 'v')}
+
+
+def xlstm_state_from_numpy(states, device='cuda'):
+    """The port's xLSTM state (``recurrent.init_xlstm_state``'s tree) from
+    a numpy copy of the reference's: the same nested tuples ((conv, (C,
+    n, m)), (c, n, m, h)), every leaf bit for bit in its own dtype."""
+    if isinstance(states, (tuple, list)):
+        return tuple(xlstm_state_from_numpy(a, device) for a in states)
+    return _exact(states, device)
+
+
+def hymba_cache_from_numpy(cache, cfg, max_seq: int, device='cuda'):
+    """The port's Hymba caches (``recurrent.init_hymba_cache(cfg, B,
+    max_seq)``) from a numpy copy of the reference's list of
+    ``{'k', 'v' (B, W', Hkv, hd), 'pos' (W',), 'conv', 'ssm'}``, one a
+    layer.  The reference writes token t to slot (t + 128) % W' and never
+    fills the meta slots; its ``pos`` row must be that fill of tokens 0 ..
+    n - 1 in order (else ``ValueError``), and token t moves to the port's
+    slot t % W, W = min(the layer's window or max_seq, max_seq)
+    (``ring_fill``: the last W tokens, all that the port's ring holds and
+    all that the reference's mask lets through).  ``conv`` and ``ssm`` are
+    copied as they are."""
+    out = []
+    for layer, c in enumerate(cache):
+        pos = np.asarray(c['pos'])
+        w_ref = pos.shape[-1]
+        n = max(int(pos.max()) - N_META + 1, 0)
+        filled = ring_fill(w_ref, N_META + n)
+        if not (pos == np.where(filled >= N_META, filled, -1)).all():
+            raise ValueError(f'hymba_cache_from_numpy: layer {layer} pos '
+                             f'{pos.tolist()} is not the meta-offset ring '
+                             f'filled in order')
+        window = (None if layer in cfg.global_layer_ids
+                  else cfg.sliding_window)
+        tok = ring_fill(min(window or max_seq, max_seq), n)
+        src = (np.maximum(tok, 0) + N_META) % w_ref
+        out.append({n_: _exact(c[n_], device) for n_ in ('conv', 'ssm')})
+        for name in ('k', 'v'):
+            rows = np.asarray(c[name])[:, src].copy()
+            rows[:, tok < 0] = 0
+            out[-1][name] = _exact(np.swapaxes(rows, 1, 2), device)
+    return out
 
 
 def lm_cross_kv_from_numpy(cross_kv, device='cuda'):

@@ -1,16 +1,20 @@
 """Serving entry point of the port: streams for the paper's CTC LSTM, tokens
-for the dense and MoE LMs.
+for the dense, MoE and recurrent LMs.
 
 ``--arch`` picks the front end by family.  A dense LM (``qwen3-14b``,
-``qwen2.5-14b``, ``codeqwen1.5-7b``, ``minicpm-2b``) or an MoE LM
-(``mixtral-8x22b``, ``kimi-k2-1t-a32b``) is served by ``SlotServer``: a
-fixed number of decode slots, each with its own KV cache (a ring of the
-sliding window's slots for Mixtral), refilled from the queue as requests
-finish (continuous batching), greedy sampling, the prompt fed token by
-token through ``decode_step`` as the reference does; its attention runs on
-K8 on the card.  The full configuration is the default (Qwen3-14B: 40
-layers, d_model 5120, bf16, random weights from seed 0; the MoE configs at
-full width do not fit one card).  The cross-attention configs
+``qwen2.5-14b``, ``codeqwen1.5-7b``, ``minicpm-2b``), an MoE LM
+(``mixtral-8x22b``, ``kimi-k2-1t-a32b``) or a recurrent LM (``xlstm-1.3b``:
+mLSTM and sLSTM blocks; ``hymba-1.5b``: attention beside Mamba heads) is
+served by ``SlotServer``: a fixed number of decode slots, each with its
+own cache (a KV cache, a ring of the sliding window's slots for Mixtral
+and Hymba's windowed layers; xLSTM's recurrent state; Hymba's Mamba state
+beside its K/V), refilled from the queue as requests finish (continuous
+batching), greedy sampling, the prompt fed token by token through the
+bundle's ``decode_step`` as the reference does; attention runs on K8 on
+the card (xLSTM has none).  The full configuration is the default
+(Qwen3-14B: 40 layers, d_model 5120, bf16, random weights from seed 0;
+xLSTM-1.3B and Hymba-1.5B whole, f32 weights; the MoE configs at full
+width do not fit one card).  The cross-attention configs
 (``whisper-base``, ``llama-3.2-vision-90b``) are refused before any init:
 the reference's ``SlotServer`` passes no source (ROADMAP R4), so they
 decode through ``transformer.precompute_cross_kv`` and
@@ -22,6 +26,10 @@ decode through ``transformer.precompute_cross_kv`` and
         --device cpu
     python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke \
         --requests 6 --slots 4 --max-new 16
+    python -m repro_torch.launch.serve --arch xlstm-1.3b --requests 6 \
+        --slots 4 --max-new 16
+    python -m repro_torch.launch.serve --arch hymba-1.5b --smoke \
+        --device cpu
 
 The paper's CTC LSTM streams utterances of MFCC frames in, and per-frame
 CTC log-probs and incrementally decoded phonemes out.  Every engine step

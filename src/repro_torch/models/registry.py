@@ -9,12 +9,15 @@ cross layers).  The cross families take a source in ``forward``'s and
 (the bundle's ``decode_step`` passes ``cross_kv`` on by keyword), as the
 reference's own test and dry run do.  The paper's CTC LSTM has no
 bundle: the stream server and the trainer call ``models.chipmunk_net``
-directly.  The recurrent families raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.  A bundle's ``init`` takes ``(generator,
+directly.  The recurrent families (``'ssm'``: xLSTM; ``'hybrid'``: Hymba)
+take the bundles of ``models.recurrent``: xLSTM's ``init_cache`` is its
+recurrent state (``init_xlstm_state``) and its ``decode_step`` the forward
+over one token from that state (``pos`` unused); Hymba's is its per-layer
+cache list and ``hymba_decode_step``.  A bundle's ``init`` takes ``(generator,
 device)`` and returns the parameters alone (the reference's logical
 sharding axes have no meaning on one card); ``init_cache`` takes
 ``(batch, max_seq, device)``.  The reference's ``input_specs`` /
-``batch_axes`` come with the sharding slice (ROADMAP queue 1, item 3(d)).
+``batch_axes`` come with the sharding slice (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -24,13 +27,8 @@ from typing import Callable, Optional
 
 from ..configs import ArchConfig
 from ..tree import leaves
-from . import transformer
-
-# family -> the ROADMAP queue 1 item that ports it
-_NOT_PORTED = {
-    'ssm': 'item 3, recurrent.py (xLSTM)',
-    'hybrid': 'item 3, recurrent.py (Hymba)',
-}
+from . import recurrent, transformer
+from .layers import softmax_xent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,13 +71,45 @@ def _lm_bundle(cfg: ArchConfig) -> ModelBundle:
     )
 
 
+def _xlstm_bundle(cfg: ArchConfig) -> ModelBundle:
+    def decode(p, states, tokens, pos):
+        return recurrent.forward_xlstm(cfg, p, tokens, states=states)
+
+    return ModelBundle(
+        cfg=cfg,
+        init=functools.partial(recurrent.init_xlstm, cfg),
+        loss_fn=lambda p, batch: softmax_xent(
+            recurrent.forward_xlstm(cfg, p, batch['tokens'])[0],
+            batch['labels']),
+        forward=lambda p, batch: recurrent.forward_xlstm(
+            cfg, p, batch['tokens'])[0],
+        init_cache=lambda b, s, device='cuda': recurrent.init_xlstm_state(
+            cfg, b, device),
+        decode_step=decode,
+    )
+
+
+def _hymba_bundle(cfg: ArchConfig) -> ModelBundle:
+    return ModelBundle(
+        cfg=cfg,
+        init=functools.partial(recurrent.init_hymba, cfg),
+        loss_fn=lambda p, batch: softmax_xent(
+            recurrent.forward_hymba(cfg, p, batch['tokens']),
+            batch['labels']),
+        forward=lambda p, batch: recurrent.forward_hymba(
+            cfg, p, batch['tokens']),
+        init_cache=functools.partial(recurrent.init_hymba_cache, cfg),
+        decode_step=functools.partial(recurrent.hymba_decode_step, cfg),
+    )
+
+
+_BUNDLES = {'dense': _lm_bundle, 'moe': _lm_bundle, 'audio': _lm_bundle,
+            'vlm': _lm_bundle, 'ssm': _xlstm_bundle, 'hybrid': _hymba_bundle}
+
+
 def get_bundle(cfg: ArchConfig) -> ModelBundle:
-    if cfg.family in ('dense', 'moe', 'audio', 'vlm'):
-        return _lm_bundle(cfg)
     if cfg.family == 'lstm':
         raise ValueError(f'{cfg.name}: the CTC LSTM has no bundle; '
                          f'models.chipmunk_net runs it')
-    raise NotImplementedError(
-        f'{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP '
-        f'queue 1, {_NOT_PORTED.get(cfg.family, "item 3")})')
+    return _BUNDLES[cfg.family](cfg)
 

@@ -70,7 +70,7 @@ from repro_torch.kernels.quant_matmul import (quant_matmul, quant_matmul_ref,
 from repro_torch.kernels.lstm_seq.ops import _dense_from_tiles
 from repro_torch.launch.train import _grads_of
 from repro_torch.models import chipmunk_net
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map
 from repro_torch.serving import StreamingEngine
 
 ATOL = 1e-4
@@ -1716,3 +1716,67 @@ def test_cross_decode_on_k8_matches_plain_and_forward(dev, name):
     torch.testing.assert_close(dec, want, rtol=0.0, atol=1e-4)
     full, _ = transformer.forward_lm(cfg, params, tokens, source)
     torch.testing.assert_close(dec, full, rtol=2e-3, atol=2e-3)
+
+
+# ----------------------------------------- the recurrent families on the card
+@pytest.mark.parametrize('shape', [
+    # Hymba (25 heads on 5, D 64): its f32 forward of 128 meta + 64 tokens
+    # on a global layer, of 128 + 2,048 with the window of 1,024, and its
+    # bf16 decode rows over a windowed layer's full ring and a global
+    # layer's partly filled one
+    ('hymba prefill', 1, 192, 192, None, None, True, 'float32'),
+    ('hymba windowed forward', 1, 2176, 2176, 1024, None, True, 'float32'),
+    ('hymba decode ring', 1, 1, 1024, None, 1024, False, 'bfloat16'),
+    ('hymba decode global', 1, 1, 128, None, 100, False, 'bfloat16'),
+], ids=lambda s: s[0])
+def test_hymba_attention_on_k8_matches_plain(dev, shape):
+    """K8 at Hymba's shapes (D 64, GQA 25/5, causal with and without its
+    window; the decode row with kv_len and no causal mask, as
+    ``attention_decode`` calls it) against its plain version: f32 atol
+    1e-4, bf16 rtol 2**-7, atol 1e-5."""
+    _, B, Sq, Sk, window, kv_len, causal, dtype = shape
+    g = torch.Generator(dev).manual_seed(Sk + Sq)
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, 25, Sq, 64, generator=g, device=dev).to(dt)
+    k, v = (torch.randn(B, 5, Sk, 64, generator=g, device=dev).to(dt)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    got = flash_attention(q, k, v, **kw).float()
+    tol = (dict(rtol=0.0, atol=1e-4) if dtype == 'float32'
+           else dict(rtol=2.0 ** -7, atol=1e-5))
+    torch.testing.assert_close(got, attention_ref(q, k, v, **kw).float(),
+                               **tol)
+
+
+@pytest.mark.parametrize('name', ['xlstm-1.3b', 'hymba-1.5b'])
+def test_recurrent_smoke_decode_on_the_card_equals_the_cpu(dev, name):
+    """The smoke configs at f32 activations, the same weights on the card
+    and on the CPU: the bundle's decode over 24 tokens (past Hymba's
+    window of 16, so its rings wrap) and its forward, every logit within
+    2e-4 (f32 products in other orders; K8 against the plain attention);
+    K8 launched once a layer a Hymba decode call and a forward, never for
+    xLSTM."""
+    from repro_torch.models import get_bundle
+    cfg = configs.get_smoke_config(name).replace(activation_dtype='float32')
+    b = get_bundle(cfg)
+    params = b.init(torch.Generator().manual_seed(0), 'cpu')
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 24)))
+
+    def run(device):
+        p = tree_map(lambda a: a.to(device), params)
+        tok = tokens.to(device)
+        cache = b.init_cache(2, 32, device)
+        rows = [b.decode_step(p, cache, tok[:, t:t + 1], t)[0]
+                for t in range(24)]
+        return (torch.cat(rows, 1).cpu(),
+                b.forward(p, {'tokens': tok}).cpu())
+
+    n0 = flash_attention.launches
+    dec, full = run(dev)
+    hymba = cfg.family == 'hybrid'
+    assert flash_attention.launches - n0 == (25 * cfg.n_layers if hymba
+                                             else 0)
+    want_dec, want_full = run('cpu')
+    torch.testing.assert_close(dec, want_dec, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(full, want_full, rtol=2e-4, atol=2e-4)

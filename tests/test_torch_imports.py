@@ -52,6 +52,9 @@ def test_serving_path_import_leaves_jax_unloaded():
             'import repro_torch.configs.kimi_k2_1t_a32b\n'
             'import repro_torch.configs.whisper_base\n'
             'import repro_torch.configs.llama32_vision_90b\n'
+            'import repro_torch.configs.xlstm_1_3b\n'
+            'import repro_torch.configs.hymba_1_5b\n'
+            'import repro_torch.models.recurrent\n'
             'import repro_torch.models.layers, repro_torch.models.registry\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "repro")]\n'
@@ -149,6 +152,42 @@ def test_dense_lm_path_imports_without_jax_and_defaults_to_cuda():
             '    dev = inspect.signature(fn).parameters["device"].default\n'
             '    assert dev == "cuda", (fn, dev)\n'
             'assert "default=\'cuda\'" in inspect.getsource(serve_lm.main)\n'
+            'print("ok")\n')
+    env = dict(os.environ, PYTHONPATH=str(ROOT / 'src'))
+    out = subprocess.run([sys.executable, '-c', code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_recurrent_path_imports_without_jax_and_defaults_to_cuda():
+    """The recurrent slice (``models.recurrent``'s xLSTM and Hymba, their
+    configs and bundles, the state and cache converters) imports without
+    ``jax``; its inits, states, caches and converters default to ``cuda``,
+    and ``serve --arch xlstm-1.3b`` / ``hymba-1.5b`` to the full config on
+    the card."""
+    code = ('import sys, inspect\n'
+            'from repro_torch import configs\n'
+            'from repro_torch.configs import xlstm_1_3b, hymba_1_5b\n'
+            'from repro_torch.models import recurrent, get_bundle\n'
+            'from repro_torch.models.recurrent import (init_xlstm,\n'
+            '    forward_xlstm, init_xlstm_state, init_hymba, forward_hymba,\n'
+            '    init_hymba_cache, hymba_decode_step, mlstm_chunkwise,\n'
+            '    slstm_scan, mamba_mix, hymba_block)\n'
+            'from repro_torch.convert import (xlstm_state_from_numpy,\n'
+            '    hymba_cache_from_numpy)\n'
+            'from repro_torch.launch.serve import build_parser\n'
+            'bad = [m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "jaxlib", "repro")]\n'
+            'assert not bad, bad\n'
+            'for name in ("xlstm-1.3b", "hymba-1.5b"):\n'
+            '    args = build_parser().parse_args(["--arch", name])\n'
+            '    assert args.device == "cuda" and not args.smoke\n'
+            '    get_bundle(configs.get_config(name))\n'
+            'for fn in (init_xlstm, init_xlstm_state, init_hymba,\n'
+            '           init_hymba_cache, xlstm_state_from_numpy,\n'
+            '           hymba_cache_from_numpy):\n'
+            '    dev = inspect.signature(fn).parameters["device"].default\n'
+            '    assert dev == "cuda", (fn, dev)\n'
             'print("ok")\n')
     env = dict(os.environ, PYTHONPATH=str(ROOT / 'src'))
     out = subprocess.run([sys.executable, '-c', code], env=env, cwd=ROOT,

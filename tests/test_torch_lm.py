@@ -185,9 +185,8 @@ def test_attention_backends_on_cpu(f32_pair):
 def test_ring_caches_and_other_families_raise():
     """A sliding window gives a ring of its width (``test_torch_moe.py``
     holds it to the reference); a ring wider than the window still raises,
-    as do the recurrent families' bundles and a cross-attention stack's
-    decode without its cross K/V (``test_torch_cross.py`` holds those
-    stacks to the reference)."""
+    as does a cross-attention stack's decode without its cross K/V
+    (``test_torch_cross.py`` holds those stacks to the reference)."""
     cfg = configs.get_smoke_config('qwen3-14b')
     ring = transformer.init_cache(cfg.replace(sliding_window=16), 1, 32,
                                   'cpu')
@@ -197,9 +196,6 @@ def test_ring_caches_and_other_families_raise():
         layers.attention_decode(cfg, {}, None,
                                 {'k': wide['k'][0], 'v': wide['v'][0]},
                                 pos=0, cos_sin=None, window=16)
-    for family in ('ssm', 'hybrid'):
-        with pytest.raises(NotImplementedError, match='ROADMAP queue 1'):
-            get_bundle(cfg.replace(family=family))
     for kw in (dict(cross_attn_every=2), dict(n_encoder_layers=2)):
         c = cfg.replace(**kw)
         params = transformer.init_lm(c, torch.Generator(), 'cpu')
@@ -207,13 +203,6 @@ def test_ring_caches_and_other_families_raise():
         with pytest.raises(ValueError, match='needs cross_kv'):
             transformer.decode_step(c, params, cache,
                                     torch.zeros(1, 1, dtype=torch.long), 0)
-
-
-@pytest.mark.parametrize('family', ['ssm', 'hybrid'])
-def test_get_bundle_raises_for_a_family_not_ported(family):
-    cfg = configs.get_smoke_config('qwen3-14b').replace(family=family)
-    with pytest.raises(NotImplementedError, match='ROADMAP queue 1'):
-        get_bundle(cfg)
 
 
 def test_get_bundle_refuses_the_lstm():
