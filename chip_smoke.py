@@ -6,7 +6,8 @@
 Drives the port's serving and training paths at the full CTC-3L-421H-UNI
 width (123 MFCC features -> 3x421 peephole LSTM -> 62 CTC outputs, random
 weights from a seed), serves Qwen3-14B at full width (11e) and trains
-MiniCPM-2B at full width (11f), and checks them:
+MiniCPM-2B at full width (11f), serves and trains the other LM families
+(11g-11j), and checks them:
 
 1. builds every CUDA kernel of the path from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and prints the build time;
@@ -255,6 +256,26 @@ the same f32 weights' configuration from seed 0):
     ``forward_xlstm``; a decode step each traced beside its byte bound;
     ``serve --arch xlstm-1.3b`` and ``--arch hymba-1.5b`` at full width as
     subprocesses;
+11j. the families one card holds whole, trained (``family_train_phase``):
+    K8's forward with lse and its backward pair against their plain
+    versions at the new shapes (``FAMILY_TRAIN_ATTN``: whisper's 1500 x
+    1500 encoder, 448 x 1500 cross and 448 causal self attention, B 8 x 8
+    heads; Hymba's 2,176 rows with the window of 1,024 and without, GQA
+    25/5; a 37 x 1500 non-causal case with partial tiles on both grids; all
+    f32 D 64), each timed beside its bound, its plain version and SDPA;
+    then whisper-base (B 8 x 448 tokens, 1,500-frame sources), Hymba-1.5B
+    (B 2 x 2,048) and xLSTM-1.3B (B 2 x 1,024) at full width and depth,
+    each drawn on the card from a seed and freed before the next: one
+    batch's gradients on K8 against the plain attention at f32
+    activations within ``GRAD_REL_TOL`` (at the configs' bf16 activations
+    printed beside the plain attention's own bf16 rounding), three donating AdamW steps under
+    ``FaultTolerantRunner`` with every kernel counter set to 0 just before
+    (losses finite; K8's launches a step ``FAMILY_LAUNCHES`` and nothing
+    else; step ms, tokens/s, resident state and peak against the card's
+    memory), one step at the trained shape traced (device busy, idle share, ops, the top ops,
+    host ms under the train phases' labels and the sLSTM loop's); and the
+    train CLI (``launch.train.main``) on each smoke config, 4 steps and
+    ``--resume`` to 6;
 
 and then the two kernels that no path of the system reaches, each on its
 public op, and K8 also on its own, each held against its plain version and
@@ -265,10 +286,11 @@ phase's cases and the training phase's forward cases, takes ``launches``
 from the LM's serve path and reports the re-score's prefill launches as
 ``prefill_launches``, MiniCPM-2B's training launches as
 ``train_launches``, the MoE serve paths' (Mixtral's and Kimi-K2's) as
-``moe_launches``, the cross serve paths' as ``cross_launches`` and the
-recurrent ones' (0 for xLSTM) as ``recurrent_launches``, and adds the
-cross and Hymba cases; the backward kernels' rows follow, with their
-launches on MiniCPM-2B's training path):
+``moe_launches``, the cross serve paths' as ``cross_launches``, the
+recurrent ones' (0 for xLSTM) as ``recurrent_launches`` and the trained
+families' as ``family_train_launches``, and adds the cross, Hymba and
+family training cases; the backward kernels' rows follow, with their
+launches on MiniCPM-2B's training path and the trained families'):
 
 12. K6 (``lstm_gates``, the fused cell) on layer 0 (N_in = 123 + 421) and
     an inner layer (421 + 421) at B = 8, atol 1e-4, with the geometry
@@ -539,6 +561,39 @@ HYMBA_FORWARD = 2048          # and in its windowed forward case
 HYMBA_GLOBAL_FILL = 100       # tokens in the global layer's decode case
 RECURRENT_REPLAY = 16         # tokens of the decode replays
 RECURRENT_CLI_REQUESTS, RECURRENT_CLI_MAX_NEW = 2, 4
+# the families trained whole (``family_train_phase``): (arch, batch,
+# tokens), each cut from train_4k (256 x 4096) by batch, and whisper and
+# xLSTM by sequence too: whisper to its published 448-token decoder
+# context (sources of its 1,500 frames); Hymba keeps 2,048 tokens (2,176
+# rows with its 128 meta tokens), so the window of 1,024 bites; xLSTM
+# 1,024 (four 256-step mLSTM chunks; 1,024 steps of the sLSTM's per-step
+# loop, which sets its host-bound step)
+FAMILY_TRAIN = (('whisper-base', 8, 448), (HYMBA_ARCH, 2, 2048),
+                (XLSTM_ARCH, 2, 1024))
+FAMILY_TRAIN_STEPS = 3
+# The families' gradients on K8 against the plain attention are held at
+# f32 activations (f32 throughout: the two attentions' ~1e-6 alone) to
+# GRAD_REL_TOL on every leaf: that check fails a wrong kernel.  At the
+# configs' bf16 activations the errors are printed beside the plain
+# attention's own bf16 rounding (bf16 against f32) and gate nothing:
+# Hymba's Mamba dt path (w_dt, b_dt, w_bdt) moves 1.3-1.8e-2 by bf16
+# rounding alone, past LM_GRAD_REL, so a ~1e-6 attention difference that
+# flips a rounding moves it as far (measured on one H100).
+# K8's launches a step: (forward, dk/dv, dq). whisper: 6 encoder + 6
+# decoder self + 6 cross, no remat; Hymba: 32 layers, the forward again in
+# the remat recompute; xLSTM has no attention
+FAMILY_LAUNCHES = {'whisper-base': (18, 18, 18), HYMBA_ARCH: (64, 32, 32),
+                   XLSTM_ARCH: (0, 0, 0)}
+# K8's training kernels at the new shapes, all D 64 and f32 (the f32 norm
+# scales promote the bf16 activations): (label, B, H, Hkv, Sq, D, window,
+# dtype, Sk, causal)
+FAMILY_TRAIN_ATTN = (
+    ('whisper encoder', 8, 8, 8, 1500, 64, None, 'float32', 1500, False),
+    ('whisper cross', 8, 8, 8, 448, 64, None, 'float32', 1500, False),
+    ('whisper decoder self', 8, 8, 8, 448, 64, None, 'float32', 448, True),
+    ('hymba windowed', 2, 25, 5, 2176, 64, 1024, 'float32', 2176, True),
+    ('hymba global', 2, 25, 5, 2176, 64, None, 'float32', 2176, True),
+    ('partial tiles', 2, 8, 8, 37, 64, None, 'float32', 1500, False))
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -928,16 +983,19 @@ def readback_overlap(events):
                 next_kernel_before_readback=early)
 
 
-def trace(fn, label: str, readback: bool = False):
+def trace(fn, label: str, readback: bool = False, warm: bool = True):
     """One traced call of ``fn`` (after a warm call): device busy time from
     ``torch.profiler`` over the host wall time of the traced call, device
     time by kernel name, and the host ms under each ``record_function``
     label (a train step's phases, ``launch.train.PHASES``); with
     ``readback`` (an engine drain), ``readback_overlap``.  The tracer's own
-    cost inflates the wall time, so the idle share is an upper bound."""
+    cost inflates the wall time, so the idle share is an upper bound.
+    ``warm=False``: no warm call (a caller that has just run ``fn``'s
+    work)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -945,16 +1003,20 @@ def trace(fn, label: str, readback: bool = False):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev_us = lambda e: getattr(e, 'self_device_time_total',
-                               getattr(e, 'self_cuda_time_total', 0.0))
-    events = prof.key_averages()
-    marked = lambda e: bool(getattr(e, 'is_user_annotation', False))
-    # device-side entries only (kernels, copies, sets): a host op's entry
-    # repeats the time of the kernels it launched, and a label's device-side
-    # span covers kernels already counted
-    by_name = sorted(((e.key, dev_us(e), e.count) for e in events
-                      if e.device_type == DeviceType.CUDA and dev_us(e) > 0
-                      and not marked(e)),
+    # the profiler's raw events, read once: ``key_averages`` first builds
+    # the tree of every host op, ~1 ms a device op (minutes for a training
+    # step of 10^5 ops).  Device-side entries only (kernels, copies, sets):
+    # a host op's entry repeats the time of the kernels it launched, and a
+    # label's device-side span covers kernels already counted
+    dev_ns, host_ns = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if not e.is_user_annotation() and e.duration_ns() > 0:
+                t, n = dev_ns.get(e.name(), (0, 0))
+                dev_ns[e.name()] = (t + e.duration_ns(), n + 1)
+        elif e.is_user_annotation():
+            host_ns[e.name()] = host_ns.get(e.name(), 0) + e.duration_ns()
+    by_name = sorted(((k, t / 1e3, n) for k, (t, n) in dev_ns.items()),
                      key=lambda r: -r[1])
     busy_us = sum(r[1] for r in by_name)
     res = dict(backend=label, wall_ms=wall_us / 1e3,
@@ -964,9 +1026,7 @@ def trace(fn, label: str, readback: bool = False):
                ops_by_name={k: n for k, _, n in by_name},
                top=[dict(name=k[:80], device_ms=t / 1e3, count=n)
                     for k, t, n in by_name[:10]],
-               phases_host_ms={e.key: e.cpu_time_total / 1e3 for e in events
-                               if marked(e)
-                               and e.device_type == DeviceType.CPU},
+               phases_host_ms={k: t / 1e6 for k, t in host_ns.items()},
                readback=(readback_overlap(prof.events()) if readback
                          else None))
     print(f'profile [{label}]: wall {res["wall_ms"]:.2f} ms, device busy '
@@ -3491,11 +3551,13 @@ def _lm_phase(dev):
 
 # ------------------------------------------------------------- LM training
 def train_attn_case(label: str, B: int, H: int, Hkv: int, S: int, D: int,
-                    window, dt: str, g, dev):
-    """K8's training kernels on normal data drawn from ``g`` (causal, offset
-    0): the forward with its log-sum-exp against ``attention_ref`` (output
-    at ``ATTN_TOL``, lse at ``LSE_ATOL``) and the two backward kernels
-    against ``attention_bwd_ref`` (max |error| within ``BWD_TOL`` of the
+                    window, dt: str, g, dev, sk=None,
+                    causal: bool = True):
+    """K8's training kernels on normal data drawn from ``g`` (offset 0; S
+    query rows, ``sk`` keys, S when None; ``causal``): the forward with its
+    log-sum-exp against ``attention_ref`` (output at ``ATTN_TOL``, lse at
+    ``LSE_ATOL``) and the two backward kernels against
+    ``attention_bwd_ref`` (max |error| within ``BWD_TOL`` of the
     gradient's scale), from the plain forward's o and lse; each timed
     (CUDA events) beside its plain version, its bound and SDPA (forward,
     and its backward alone from a kept graph).  Returns one case a
@@ -3505,11 +3567,12 @@ def train_attn_case(label: str, B: int, H: int, Hkv: int, S: int, D: int,
         attention_bwd_ref, attention_delta, attention_ref, flash_attention,
         flash_attention_bwd_kv, flash_attention_bwd_q)
     dtype = getattr(torch, dt)
+    sk = S if sk is None else sk
     q, do = (torch.randn(B, H, S, D, generator=g, device=dev).to(dtype)
              for _ in range(2))
-    k, v = (torch.randn(B, Hkv, S, D, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, Hkv, sk, D, generator=g, device=dev).to(dtype)
             for _ in range(2))
-    kw = dict(causal=True, window=window, offset=0)
+    kw = dict(causal=causal, window=window, offset=0)
     o, lse = flash_attention(q, k, v, return_lse=True, **kw)
     o_r, lse_r = attention_ref(q, k, v, return_lse=True, **kw)
     delta = attention_delta(o_r, do)
@@ -3518,12 +3581,13 @@ def train_attn_case(label: str, B: int, H: int, Hkv: int, S: int, D: int,
     dk, dv = flash_attention_bwd_kv(*args, **kw)
     want = attention_bwd_ref(*args, **kw)
     torch.cuda.synchronize()
-    big = S >= 4096
+    big = max(S, sk) >= 4096
     reps = 3 if big else 10
-    pos = torch.arange(S, device=dev)
-    mask = pos[:, None] >= pos[None, :]
+    pos = torch.arange(S, device=dev)[:, None]
+    key = torch.arange(sk, device=dev)[None, :]
+    mask = pos >= key if causal else torch.ones_like(pos >= key)
     if window is not None:
-        mask &= (pos[:, None] - pos[None, :]) < window
+        mask &= (pos - key) < window
     sdpa = lambda *t: F.scaled_dot_product_attention(*t, attn_mask=mask,
                                                      enable_gqa=True)
     lq, lk, lv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
@@ -3531,11 +3595,12 @@ def train_attn_case(label: str, B: int, H: int, Hkv: int, S: int, D: int,
     sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
         out, (lq, lk, lv), do, retain_graph=True), reps)
     del out
-    pairs, keys = _needed(S, S, 0, window)
+    pairs, keys = _needed(S, sk, 0, window, causal=causal)
     es, n_q, n_kv, rows = q.element_size(), B * H * S * D, B * Hkv, B * H * S
     peak = BF16_FLOPS_PER_S if dt == 'bfloat16' else F32_FLOPS_PER_S
     shape = (f'{label} {dt} B={B} H={H} Hkv={Hkv} S={S} D={D} '
-             f'window={window}')
+             f'window={window}' + ('' if sk == S else f' Sk={sk}')
+             + ('' if causal else ' not causal'))
     plain_bwd_ms = cuda_ms(lambda: attention_bwd_ref(*args, **kw), 1,
                            warmup=1)
     cases = []
@@ -5009,18 +5074,295 @@ def _recurrent_phase(dev, card: str):
     return res
 
 
-def _bwd_rows(train):
+def family_train_attention(dev):
+    """``train_attn_case`` at each ``FAMILY_TRAIN_ATTN`` shape (K8's
+    forward with lse and its backward pair against their plain versions,
+    timed beside their bounds, their plain versions and SDPA), with each
+    backward schedule (``attention_bwd_geometry``)."""
+    from repro_torch.kernels.flash_attention import attention_bwd_geometry
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = []
+    for label, B, H, Hkv, S, D, window, dt, sk, causal in FAMILY_TRAIN_ATTN:
+        cases = train_attn_case(label, B, H, Hkv, S, D, window, dt, g, dev,
+                                sk=sk, causal=causal)
+        geom = dataclasses.asdict(attention_bwd_geometry(
+            B, H, Hkv, S, sk, D, getattr(torch, dt), window, 0, sms,
+            causal=causal))
+        for c in cases[1:]:
+            c['geometry'] = geom
+        print(f'K8 backward schedule {cases[0]["shape"]}: {geom}',
+              flush=True)
+        total = sum(c['ms'] for c in cases)
+        lib = cases[0]['library_ms'] + cases[1]['library_ms']
+        print(f'K8 training attention {cases[0]["shape"]}: forward + '
+              f'backward {total:.4f} ms (SDPA {lib:.4f} ms)', flush=True)
+        out.append(cases)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _family_grad_check(cfg, params, batch):
+    """One batch's gradients four ways: on K8 ('auto') and the plain
+    attention ('torch'), each at the config's activations and at f32.
+    Per leaf: K8's relative Frobenius error against the plain attention
+    at both (``rel``, ``rel_f32``; the second is the gate), and the plain
+    attention's own bf16 rounding difference (bf16 against f32,
+    ``noise``); the first run's kernel launches."""
+    from repro_torch.launch.train import _grad_leaves, loss_fn_for
+    from repro_torch.tree import flatten_with_paths
+    kernels = _kernel_counters()
+    paths = [p for p, _ in flatten_with_paths(params)]
+    f32 = cfg.replace(activation_dtype='float32')
+    runs, launches = {}, None
+    for label, c in (('auto', cfg), ('torch', cfg.replace(
+            attn_backend='torch')), ('auto f32', f32),
+            ('torch f32', f32.replace(attn_backend='torch'))):
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        loss, grads = _grad_leaves(loss_fn_for(c), params, batch)
+        torch.cuda.synchronize()
+        if launches is None:
+            launches = {k.__name__: k.launches for k in kernels}
+        runs[label] = (float(loss), grads)
+
+    def rel(a, b):
+        return {p: float(torch.linalg.vector_norm(x.float() - y.float())
+                         / torch.linalg.vector_norm(y.float()))
+                for p, x, y in zip(paths, runs[a][1], runs[b][1])}
+
+    res = dict(losses={k: v[0] for k, v in runs.items()},
+               rel=rel('auto', 'torch'), rel_f32=rel('auto f32', 'torch f32'),
+               noise=rel('torch', 'torch f32'), launches=launches)
+    res['worst'] = max(res['rel'].values())
+    res['worst_f32'] = max(res['rel_f32'].values())
+    return res
+
+
+def _family_param_count(cfg) -> int:
+    return RECURRENT_PARAMS.get(cfg.name) or lm_param_count(cfg)
+
+
+def family_train_run(name: str, B: int, S: int, dev, card: str):
+    """``name``'s training main path at full width and depth: the weights
+    drawn on the card from a seed (parameters and bytes against the
+    shapes), one batch's gradients on K8 against the plain attention
+    (``_family_grad_check``: every leaf within ``GRAD_REL_TOL`` at f32
+    activations; the bf16 errors printed beside their own rounding), then
+    ``FAMILY_TRAIN_STEPS`` donating ``make_train_step`` steps (AdamW under
+    ``lr_schedule_for``'s cosine) under ``FaultTolerantRunner`` over
+    ``HostLoader`` and ``SyntheticLM`` (whisper's with its sources), every
+    kernel counter set to 0 just before and read just after: losses
+    finite, each step's launches ``FAMILY_LAUNCHES`` and nothing else,
+    step ms (the median of steps 2-3), tokens/s, the resident state and
+    the peak against the card's memory; then one more step at the same
+    shape traced (no warm call: three steps ran)."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.data import HostLoader, source_for
+    from repro_torch.launch.train import (loss_fn_for, lr_schedule_for,
+                                          make_train_step)
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime import FaultTolerantRunner
+    from repro_torch.tree import leaves
+    cfg = configs.get_config(name)
+    shape = configs.ShapeConfig('train_4k cut', 'train', S, B)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    params, n, nbytes, init_s, init_peak = _init_on_card(cfg, dev)
+    print(f'{name}: {cfg.n_layers} layers (+{cfg.n_encoder_layers} '
+          f'encoder), d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} '
+          f'heads, vocab {cfg.vocab_size}, {cfg.param_dtype} weights, '
+          f'{cfg.activation_dtype} activations, remat {cfg.remat}: {n} '
+          f'parameters, {nbytes} bytes ({nbytes / 1e9:.2f} GB), init '
+          f'{init_s:.2f} s, init peak {init_peak / 1e9:.2f} GB; batch {B} x '
+          f'{S} tokens [{card}]', flush=True)
+    check(n == _family_param_count(cfg) and nbytes == 4 * n and all(
+        p.dtype == torch.float32 and p.device == dev
+        for p in leaves(params)), f'{name}: {n} parameters, {nbytes} bytes')
+    res = dict(arch=name, params=n, bytes=nbytes, init_s=init_s,
+               init_peak_bytes=init_peak, batch=B, seq=S,
+               tokens_per_step=B * S)
+    loader = HostLoader(source_for(cfg, shape, seed=SEED), shape, dev)
+    want = dict(zip(('flash_attention', 'flash_attention_bwd_kv',
+                     'flash_attention_bwd_q'), FAMILY_LAUNCHES[name]))
+    want = {k: v for k, v in want.items() if v}
+    if want:
+        _, batch0 = next(loader)
+        res['grad_check'] = g = _family_grad_check(cfg, params, batch0)
+        worst = sorted(g['rel'], key=lambda k: -g['rel'][k])[:6]
+        print(f'{name} gradients on K8 vs the plain attention: losses '
+              f'{g["losses"]}; worst leaf relative Frobenius error at f32 '
+              f'activations {g["worst_f32"]:.3e} (tol {GRAD_REL_TOL}); at '
+              f'{cfg.activation_dtype}, not a gate, {g["worst"]:.3e} ('
+              + ', '.join(f'{k} {g["rel"][k]:.2e} [its bf16 rounding '
+                          f'{g["noise"][k]:.2e}]' for k in worst)
+              + f'); launches {g["launches"]}', flush=True)
+        check(g['worst_f32'] <= GRAD_REL_TOL
+              and np.isfinite(list(g['losses'].values())).all(),
+              f'{name}: gradients on K8 off the plain attention\'s by '
+              f'{g["worst_f32"]:.3e} at f32 activations')
+        check({k: v for k, v in g['launches'].items() if v} == want,
+              f'{name}: gradient launches {g["launches"]}, expected '
+              f'{want}')
+        del batch0
+    else:
+        # no attention: 'auto' and 'torch' run the same ops, so the check
+        # would compare a step with itself; the steps below count K8's 0
+        res['grad_check'] = None
+        print(f'{name}: no attention, so no K8 gradient check; its steps '
+              f'launch no kernel', flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt = make_optimizer(cfg.optimizer, lr_schedule_for(cfg))
+    state = {'params': params, 'opt': opt.init(params),
+             'step': torch.zeros((), dtype=torch.int32)}
+    del params
+    resident = sum(t.numel() * t.element_size() for t in leaves(state))
+    runner = FaultTolerantRunner(make_train_step(loss_fn_for(cfg), opt,
+                                                 donate=True))
+    kernels = _kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels:
+        k.launches = 0
+    steps, before = [], {k.__name__: 0 for k in kernels}
+    for _, (step, batch) in zip(range(FAMILY_TRAIN_STEPS), loader):
+        t0 = time.perf_counter()
+        state, m = runner.run_step(step, state, batch)
+        loss, gnorm = float(m['loss']), float(m['grad_norm'])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        now = {k.__name__: k.launches for k in kernels}
+        steps.append(dict(step=step, loss=loss, grad_norm=gnorm,
+                          wall_ms=wall, launches={
+                              k: now[k] - before[k] for k in now}))
+        before = now
+        print(f'{name} train step {step}: loss {loss:.6f}, grad norm '
+              f'{gnorm:.6f}, {wall:.1f} ms, launches '
+              f'{ {k: v for k, v in steps[-1]["launches"].items() if v} }',
+              flush=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    total = torch.cuda.get_device_properties(dev).total_memory
+    step_ms = float(np.median([s['wall_ms'] for s in steps[1:]]))
+    res.update(resident_bytes=resident, peak_bytes=peak,
+               card_bytes=total, steps=steps, step_ms=step_ms,
+               tokens_per_s=B * S / step_ms * 1e3,
+               launches={k.__name__: k.launches for k in kernels},
+               events=list(runner.events))
+    print(f'{name}: {FAMILY_TRAIN_STEPS} steps of {B} x {S} tokens: step '
+          f'{step_ms:.1f} ms (median of steps 2-{FAMILY_TRAIN_STEPS}), '
+          f'{res["tokens_per_s"]:.1f} tokens/s; resident state '
+          f'{resident / 1e9:.2f} GB (parameters and AdamW moments), peak '
+          f'{peak / 1e9:.2f} GB of the card\'s {total / 1e9:.2f} GB '
+          f'[{card}]', flush=True)
+    check(all(np.isfinite([s['loss'], s['grad_norm']]).all()
+              for s in steps), f'{name}: a loss or norm not finite')
+    check(peak < total, f'{name}: peak {peak} bytes')
+    for s in steps:
+        check({k: v for k, v in s['launches'].items() if v} == want,
+              f'{name} step {s["step"]}: launches {s["launches"]}, '
+              f'expected {want}')
+    _, batch = next(loader)
+    t0 = time.perf_counter()
+    res['trace'] = trace(
+        lambda: runner.run_step(FAMILY_TRAIN_STEPS, state, batch),
+        f'{name} train step, {B} x {S} tokens [{card}]', warm=False)
+    res['trace_s'] = time.perf_counter() - t0
+    del state, runner, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def family_train_clis(tmp_root: str):
+    """The train CLI (``launch.train.main``, in this process) on each
+    family's smoke configuration on the card: 4 steps with checkpoints,
+    then ``--resume`` to 6; losses finite, the resume at step 4, and K8's
+    launches printed (and non-zero) for the families with attention."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+    from repro_torch.launch.train import main as train_main
+    res = {}
+    for name, _, _ in FAMILY_TRAIN:
+        with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
+            base = ['--arch', name, '--smoke', '--batch', '2', '--seq',
+                    '64', '--ckpt-every', '2', '--log-every', '1',
+                    '--ckpt-dir', tmp]
+            outs = []
+            for extra in (['--steps', '4'], ['--steps', '6', '--resume']):
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    train_main(base + extra)
+                outs.append(buf.getvalue())
+                print(f'train --arch {name} --smoke {" ".join(extra)}: '
+                      f'{time.perf_counter() - t0:.1f} s; '
+                      + ' | '.join(buf.getvalue().strip().splitlines()[-3:]),
+                      flush=True)
+        losses = [float(x) for x in re.findall(r' loss +(\S+)',
+                                               ''.join(outs))]
+        k8 = [re.search(r'K8 launches: forward (\d+), backward dk/dv '
+                        r'(\d+), dq (\d+)', o) for o in outs]
+        attn = FAMILY_LAUNCHES[name][0] > 0
+        check(len(losses) == 6 and all(np.isfinite(losses))
+              and 'resumed at step 4' in outs[1]
+              and all((m is not None and min(map(int, m.groups())) > 0)
+                      if attn else m is None for m in k8),
+              f'train --arch {name} --smoke: {outs}')
+        res[name] = dict(losses=losses, k8=[list(map(int, m.groups()))
+                                            if m else None for m in k8])
+    return res
+
+
+def family_train_phase(dev, card: str):
+    """The families one card holds whole, trained (after
+    ``recurrent_phase``): K8's training kernels at their new shapes
+    (``family_train_attention``), then whisper-base, Hymba-1.5B and
+    xLSTM-1.3B at full width and depth (``family_train_run``), each freed
+    before the next, then the train CLI on each smoke config
+    (``family_train_clis``)."""
+    import tempfile
+    t0 = time.perf_counter()
+    print(f'family training phase on {card}', flush=True)
+    res = dict(attention=family_train_attention(dev))
+    for name, B, S in FAMILY_TRAIN:
+        res[name] = family_train_run(name, B, S, dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        res['cli'] = family_train_clis(tmp)
+    res['seconds'] = time.perf_counter() - t0
+    print(f'family training phase: {res["seconds"]:.1f} s [{card}]',
+          flush=True)
+    return res
+
+
+def _family_launches(fam, name: str):
+    """A kernel's launches in each trained family's three steps."""
+    return {a: fam[a]['launches'][name] for a, _, _ in FAMILY_TRAIN}
+
+
+def _bwd_rows(train, fam):
     """The kernels-line rows of K8's two backward kernels: their cases at
-    every ``LM_TRAIN_ATTN`` shape (MiniCPM-2B's first) and their launches
-    on MiniCPM-2B's training path."""
+    every ``LM_TRAIN_ATTN`` shape (MiniCPM-2B's first) and every
+    ``FAMILY_TRAIN_ATTN`` shape, their launches on MiniCPM-2B's training
+    path and, as ``family_train_launches``, on the three trained
+    families'."""
     rows = []
     for i, name in ((1, 'flash_attention_bwd_kv'),
                     (2, 'flash_attention_bwd_q')):
         row = _case_row(name, 'src/repro_torch/csrc/flash_attention_bwd.cu',
                         'none: the reference\'s backward (_ca_bwd, '
                         'src/repro/models/layers.py:173) is plain jnp',
-                        [cases[i] for cases in train['attention']])
+                        [cases[i] for cases in train['attention']
+                         + fam['attention']])
         row['launches'] = train['run']['launches'][name]
+        row['family_train_launches'] = _family_launches(fam, name)
         rows.append(row)
     return rows
 
@@ -5276,7 +5618,7 @@ def _print_attn_case(case, geom, narrow: str = '') -> None:
           flush=True)
 
 
-def attention_checks(dev, lm, train, moe, cross, rec):
+def attention_checks(dev, lm, train, moe, cross, rec, fam):
     """K8 (``flash_attention``) at each ``ATTN_CASES`` case (``attn_case``),
     with its schedule, and where that is 128-row tiles also the time of
     the 64-row tiles on the same inputs; then drives the public op ``mha``
@@ -5289,11 +5631,14 @@ def attention_checks(dev, lm, train, moe, cross, rec):
     and decode at 1,500 keys, f32 D 64; Llama-3.2-Vision's at 1,024 keys,
     bf16 D 128, GQA 64/8) and the recurrent phase's (``rec``: Hymba's f32
     prefill and windowed forward and its bf16 decode rows, D 64, GQA
-    25/5), takes its launches from the LM's serve path, reports
-    MiniCPM-2B's training launches as ``train_launches``, the MoE serve
-    paths' as ``moe_launches``, the cross serve paths' as
-    ``cross_launches`` and the recurrent ones' as
-    ``recurrent_launches``."""
+    25/5) and the family training phase's forward-with-lse cases
+    (``fam``: whisper's encoder, cross and decoder self, Hymba's windowed
+    and global, and a partial-tile case, f32 D 64), takes its launches from
+    the LM's serve path, reports MiniCPM-2B's training launches as
+    ``train_launches``, the MoE serve paths' as ``moe_launches``, the
+    cross serve paths' as ``cross_launches``, the recurrent ones' as
+    ``recurrent_launches`` and the three trained families' (three steps
+    each) as ``family_train_launches``."""
     from unittest import mock
     from repro_torch.kernels.flash_attention import (attention_geometry,
                                                      flash_attention, mha)
@@ -5341,7 +5686,8 @@ def attention_checks(dev, lm, train, moe, cross, rec):
                     + moe[KIMI_ARCH]['attn_cases']
                     + cross[CROSS_AUDIO]['attn_cases']
                     + cross[CROSS_VLM]['attn_cases']
-                    + rec[HYMBA_ARCH]['attn_cases'])
+                    + rec[HYMBA_ARCH]['attn_cases']
+                    + [c[0] for c in fam['attention']])
     row['launches'] = lm['launches']['flash_attention']
     row['train_launches'] = train['run']['launches']['flash_attention']
     row['prefill_launches'] = lm['rescore_launches']['flash_attention']
@@ -5351,6 +5697,7 @@ def attention_checks(dev, lm, train, moe, cross, rec):
                              for a in (CROSS_AUDIO, CROSS_VLM)}
     row['recurrent_launches'] = {a: rec[a]['launches']['flash_attention']
                                  for a in (XLSTM_ARCH, HYMBA_ARCH)}
+    row['family_train_launches'] = _family_launches(fam, 'flash_attention')
     row['mha_launches'] = launches
     return row
 
@@ -5787,13 +6134,16 @@ def main(argv=None) -> int:
     # the recurrent families served: xLSTM-1.3B and Hymba-1.5B at full
     # width and depth, Hymba's attention on K8
     rec = recurrent_phase(dev, card)
+    # the families one card holds whole, trained at full width and depth:
+    # whisper-base, Hymba-1.5B and xLSTM-1.3B
+    fam = family_train_phase(dev, card)
 
     # K6 and K7 on their public ops (no path of the system reaches them);
     # K8 at Mixtral's shapes and on mha beside the LM path's cases
     op_rows = [cell_checks(params, CELL_BATCH, dev),
                quant_matmul_checks(dev),
-               attention_checks(dev, lm, lm_train, moe, cross, rec)]
-    op_rows += _bwd_rows(lm_train)
+               attention_checks(dev, lm, lm_train, moe, cross, rec, fam)]
+    op_rows += _bwd_rows(lm_train, fam)
 
     launches = dict(lstm_seq=runs['cuda_seq']['launches']['lstm_seq'],
                     lstm_stack_seq_kernel=runs['cuda_seq_fused']['launches']
@@ -5811,7 +6161,7 @@ def main(argv=None) -> int:
         check(r['launches'] > 0, f"{r['name']} never launched on the path")
     keys = ('name', 'route', 'source', 'replaces', 'launches',
             'train_launches', 'moe_launches', 'cross_launches',
-            'recurrent_launches',
+            'recurrent_launches', 'family_train_launches',
             'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
             'bound_by', 'library_ms', 'tol', 'ok', 'shape', 'geometry',
             'cases')
@@ -5829,7 +6179,8 @@ def main(argv=None) -> int:
             stack_kernel_weights_q=q_stacking, int8_deploy=deploy,
             train_grad_rel_err=grad_err, train=train, train_cli=cli,
             tune=tuned, examples=examples, systolic=systolic, die=die,
-            lm=lm, lm_train=lm_train, moe=moe, cross=cross, recurrent=rec),
+            lm=lm, lm_train=lm_train, moe=moe, cross=cross, recurrent=rec,
+            family_train=fam),
             indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {

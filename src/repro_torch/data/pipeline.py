@@ -1,19 +1,19 @@
 """Deterministic, restartable training data: the port of
-``repro.data.pipeline`` for the families the port trains (the paper's CTC
-LSTM and the dense LMs).
+``repro.data.pipeline`` for every family (the paper's CTC LSTM and the
+LMs).
 
 Batch ``t`` is a pure function of (seed, step), drawn with the reference's
 numpy generator (Philox keyed by the seed, counter at the step), so a
 restarted run resumes mid-stream with only the step counter, and the port's
 batches are bit-identical to the reference's.  Sources: ``SyntheticCTC``
-(MFCC frames and phoneme labels), ``SyntheticLM`` (a Zipf token stream)
-and ``TokenFile`` (windows of a memory-mapped token corpus).
+(MFCC frames and phoneme labels), ``SyntheticLM`` (a Zipf token stream,
+and for the audio and VLM families the stub frontend's ``source`` frames
+or patches) and ``TokenFile`` (windows of a memory-mapped token corpus).
 ``HostLoader`` stands in for the reference's ``ShardedLoader``: one
 process, no mesh, no prefetch thread; each batch is copied to the device
 as it is drawn (a pinned, non-blocking copy waits for a trace that shows
 the copy in the step's way).  The reference's ``PipelineConfig`` is read
-by nothing in either package and has no counterpart; its stub frontend
-``source`` arrays (audio, vlm) come with those families.
+by nothing in either package and has no counterpart.
 """
 from __future__ import annotations
 
@@ -56,7 +56,10 @@ class SyntheticCTC:
 
 class SyntheticLM:
     """Zipf-ish token stream; labels are the next tokens.  Drawn exactly
-    as the reference draws it (the whole batch, then rows lo .. hi)."""
+    as the reference draws it (the whole batch, then rows lo .. hi).  For
+    the audio and VLM families also ``source`` (hi - lo, n_source_tokens,
+    d_model) f32, standard normal, drawn after the tokens from the same
+    generator."""
 
     def __init__(self, cfg: ArchConfig, shape: ShapeConfig, seed: int = 0):
         self.cfg, self.shape, self.seed = cfg, shape, seed
@@ -68,7 +71,12 @@ class SyntheticLM:
         zipf = np.minimum(rng.zipf(1.3, size=(b, s + 1)),
                           self.cfg.vocab_size) - 1
         toks = zipf.astype(np.int32)[lo:hi]
-        return {'tokens': toks[:, :-1], 'labels': toks[:, 1:]}
+        out = {'tokens': toks[:, :-1], 'labels': toks[:, 1:]}
+        if self.cfg.family in ('audio', 'vlm'):
+            out['source'] = rng.standard_normal(
+                (hi - lo, self.cfg.n_source_tokens, self.cfg.d_model),
+                dtype=np.float32)
+        return out
 
 
 class TokenFile:
@@ -94,12 +102,10 @@ class TokenFile:
 def source_for(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,
                token_file: Optional[str] = None):
     """The data source of ``cfg``'s family: ``SyntheticCTC`` for the CTC
-    LSTM; for a dense LM ``TokenFile`` over ``token_file`` when given,
-    else ``SyntheticLM``.  Other families are not ported."""
+    LSTM; for every LM ``TokenFile`` over ``token_file`` when given, else
+    ``SyntheticLM``, as in the reference."""
     if cfg.family == 'lstm':
         return SyntheticCTC(cfg, shape, seed)
-    if cfg.family != 'dense':
-        raise ValueError(f'no ported data source for family {cfg.family!r}')
     if token_file:
         return TokenFile(token_file, cfg, shape, seed)
     return SyntheticLM(cfg, shape, seed)

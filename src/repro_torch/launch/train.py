@@ -1,12 +1,14 @@
 """Train step factory and the trainer CLI, for the paper's CTC LSTM and
-the dense LM family.
+the LM families that one card holds whole: dense, audio (whisper's
+encoder-decoder), ssm (xLSTM) and hybrid (Hymba).
 
 ``make_train_step`` builds the update: loss -> gradients (with microbatch
 accumulation) -> global-norm clip -> optimizer -> apply, as the reference's
 ``repro.launch.train.make_train_step`` does; the CTC LSTM's gradients come
 from the hand-written gate-recompute backward of whichever LSTM backend
-the config names, the LM's through K8's forward and backward kernels
-(``models.layers.attention``) under the config's ``remat``.  With
+the config names, an LM's through K8's forward and backward kernels
+(``models.layers.attention``; xLSTM has no attention) under the config's
+``remat``.  With
 ``donate=True`` (the reference's ``donate_argnums=(0,)``) the step clips
 the gradients and updates the parameters and the optimizer state in place,
 leaf by leaf (``Optimizer.update_``), equal bit for bit to the functional
@@ -15,13 +17,18 @@ stream) -> donating steps under the ``runtime.FaultTolerantRunner`` (retry,
 restore from the latest checkpoint, and a heartbeat in
 ``<ckpt-dir>/heartbeat.json``) -> async checkpoints, with ``--resume``.  It
 runs on the card unless ``--device cpu`` is given; ``--arch`` takes
-``chipmunk-ctc`` (the default) or a dense LM, and ``--smoke`` selects the
-reduced configuration::
+``chipmunk-ctc`` (the default), a dense LM (qwen3-14b, qwen2.5-14b,
+codeqwen1.5-7b, minicpm-2b), whisper-base, xlstm-1.3b or hymba-1.5b, and
+``--smoke`` selects the reduced configuration.  The MoE and VLM families
+(mixtral-8x22b, kimi-k2-1t-a32b, llama-3.2-vision-90b) train only cut by
+depth, in a later slice: ``--arch`` names them and the trainer refuses
+them before it draws a weight (``check_trainable``)::
 
     python -m repro_torch.launch.train --steps 20 --lstm-backend cuda_step
     python -m repro_torch.launch.train --device cpu --smoke --steps 8 \\
         --batch 4 --seq 32
     python -m repro_torch.launch.train --arch minicpm-2b --smoke --steps 8
+    python -m repro_torch.launch.train --arch hymba-1.5b --smoke --steps 8
 
 The reference's mesh and sharding (``abstract_train_state``,
 ``batch_shardings``, ``local_mesh``) have no counterpart here (one card).
@@ -43,7 +50,7 @@ from ..data import HostLoader, source_for
 from ..kernels.flash_attention import (flash_attention,
                                        flash_attention_bwd_kv,
                                        flash_attention_bwd_q)
-from ..models import chipmunk_net, get_bundle, transformer
+from ..models import chipmunk_net, get_bundle
 from ..optim import (apply_updates, clip_by_global_norm,
                      clip_by_global_norm_, cosine_schedule, make_optimizer,
                      wsd_schedule)
@@ -146,8 +153,24 @@ def attention_launches() -> str:
             f'{flash_attention_bwd_q.launches}')
 
 
+# the families trained cut by depth, in a later slice: Mixtral's bf16
+# weights alone are 281 GB, and Llama-3.2-Vision-90B holds ~3.4 GB of
+# weights and gradients a layer
+LATER_FAMILIES = ('moe', 'vlm')
+
+
+def check_trainable(cfg) -> None:
+    """Raise ``ValueError`` for a family this port does not train yet."""
+    if cfg.family in LATER_FAMILIES:
+        raise ValueError(
+            f'{cfg.name}: the {cfg.family} family trains in a later slice, '
+            f'cut by depth (no full-width train state fits one card)')
+
+
 def loss_fn_for(cfg) -> Callable:
-    """``(params, batch) -> loss`` of ``cfg``'s family."""
+    """``(params, batch) -> loss`` of ``cfg``'s family (the bundle's
+    ``loss_fn`` for an LM)."""
+    check_trainable(cfg)
     if cfg.family == 'lstm':
         return functools.partial(chipmunk_net.loss_fn, cfg)
     return get_bundle(cfg).loss_fn
@@ -156,15 +179,17 @@ def loss_fn_for(cfg) -> Callable:
 def init_train_state(cfg, optimizer, device, seed: int = 0):
     """Random parameters of ``cfg`` from ``seed``, fresh optimizer state,
     step 0 (a 0-d int32 on the CPU).  The CTC LSTM draws on the CPU's
-    generator and copies, a dense LM (``transformer.init_lm``) draws on a
-    generator of ``device`` itself."""
+    generator and copies; an LM draws with its bundle's ``init``
+    (``transformer.init_lm``, ``recurrent.init_xlstm`` or
+    ``recurrent.init_hymba``) on a generator of ``device`` itself."""
+    check_trainable(cfg)
     if cfg.family == 'lstm':
         params = chipmunk_net.init(cfg, torch.Generator().manual_seed(seed),
                                    device=device)
     else:
         dev = torch.device(device)
-        params = transformer.init_lm(
-            cfg, torch.Generator(dev).manual_seed(seed), dev)
+        params = get_bundle(cfg).init(torch.Generator(dev).manual_seed(seed),
+                                      dev)
     return {'params': params, 'opt': optimizer.init(params),
             'step': torch.zeros((), dtype=torch.int32)}
 
@@ -229,7 +254,7 @@ def main(argv=None):
         if (step + 1) % args.ckpt_every == 0:
             ckpt.save(step + 1, state)
     ckpt.save(args.steps, state, blocking=True)
-    if cfg.family != 'lstm':
+    if cfg.family not in ('lstm', 'ssm'):      # the families with attention
         print(attention_launches())
     print(f'done; events: {runner.events[:5]}')
 

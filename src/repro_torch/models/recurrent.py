@@ -49,6 +49,7 @@ from .transformer import _maybe_remat, _stack_init, unbind
 f32 = torch.float32
 Params = Dict[str, Any]
 N_META = 128                     # Hymba's meta tokens
+SLSTM_LABEL = 'recurrent.slstm_scan'   # record_function label of its loop
 
 
 # =============================================================== mLSTM block
@@ -95,7 +96,10 @@ def mlstm_chunkwise(q, k, v, log_f, log_i, chunk: int, state=None):
     Within a chunk an attention-like masked decay matrix; across chunks the
     matrix memory at the boundaries.  The -1e30 / -1e29 sentinels and the
     max(|n|, exp(-m)) denominator are the reference's: they keep the first
-    chunk (m = -1e30) free of NaN."""
+    chunk (m = -1e30) free of NaN.  Under autograd every max is
+    ``torch.maximum`` or ``amax``, which split the gradient evenly between
+    tied operands as ``jnp.maximum`` and ``jnp.max`` do (the floor of
+    -1e29 too: ``clamp_min`` would pass all of it at a tie)."""
     b, h, s, dh = q.shape
     nc = s // chunk
     qs, ks, vs = (a.to(f32).reshape(b, h, nc, chunk, dh) for a in (q, k, v))
@@ -112,6 +116,7 @@ def mlstm_chunkwise(q, k, v, log_f, log_i, chunk: int, state=None):
         c, n, m = state
     tri = torch.ones((chunk, chunk), dtype=torch.bool,
                      device=q.device).tril()
+    floor = q.new_tensor(-1e29, dtype=f32)
     ys = []
     for j in range(nc):
         qc, kc, vc = qs[:, :, j], ks[:, :, j], vs[:, :, j]
@@ -121,7 +126,8 @@ def mlstm_chunkwise(q, k, v, log_f, log_i, chunk: int, state=None):
         dmat = torch.where(tri, dmat, torch.full_like(dmat, -1e30))
         # stabiliser per row: max(intra max, inter bound m_prev + csum_t)
         inter_bound = m[..., None] + csum_c
-        m_row = torch.maximum(dmat.amax(dim=-1), inter_bound).clamp_min(-1e29)
+        m_row = torch.maximum(torch.maximum(dmat.amax(dim=-1), inter_bound),
+                              floor)
         dmat = torch.exp(dmat - m_row[..., None])
         inter_w = torch.exp(inter_bound - m_row)
         w_qk = (qc @ kc.transpose(-1, -2)) * dmat
@@ -221,22 +227,25 @@ def slstm_scan(p: Params, zx: torch.Tensor, state, n_heads: int,
     c, n, m, hid = (init_slstm_state(b, d, zx.device) if state is None
                     else state)
     ys = []
-    for t in range(s):
-        rec = torch.einsum('ghde,bhd->bghe', r,
-                           hid.reshape(b, h, dh)).reshape(b, 4, d)
-        pre = zx[:, t].to(f32) + rec
-        z = torch.tanh(pre[:, 0])
-        log_i = pre[:, 1]
-        log_f = F.logsigmoid(pre[:, 2])
-        o = torch.sigmoid(pre[:, 3])
-        m_new = torch.maximum(log_f + m, log_i)
-        i_s = torch.exp(log_i - m_new)
-        f_s = torch.exp(log_f + m - m_new)
-        c = f_s * c + i_s * z
-        n = torch.clamp_min(f_s * n + i_s, 1e-6)
-        m = m_new
-        hid = o * (c / n)
-        ys.append(hid)
+    # a trace reads the loop's host time under this label (nothing when no
+    # profiler runs)
+    with torch.profiler.record_function(SLSTM_LABEL):
+        for t in range(s):
+            rec = torch.einsum('ghde,bhd->bghe', r,
+                               hid.reshape(b, h, dh)).reshape(b, 4, d)
+            pre = zx[:, t].to(f32) + rec
+            z = torch.tanh(pre[:, 0])
+            log_i = pre[:, 1]
+            log_f = F.logsigmoid(pre[:, 2])
+            o = torch.sigmoid(pre[:, 3])
+            m_new = torch.maximum(log_f + m, log_i)
+            i_s = torch.exp(log_i - m_new)
+            f_s = torch.exp(log_f + m - m_new)
+            c = f_s * c + i_s * z
+            n = torch.clamp_min(f_s * n + i_s, 1e-6)
+            m = m_new
+            hid = o * (c / n)
+            ys.append(hid)
     return torch.stack(ys, dim=1), (c, n, m, hid)
 
 
@@ -281,10 +290,13 @@ def init_xlstm(cfg: ArchConfig, generator: torch.Generator = None,
 def forward_xlstm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
                   states=None):
     """tokens (B, S) -> (logits (B, S, V), the final states).  ``states``
-    (``init_xlstm_state``'s tree) continues from them (decode); the
+    (``init_xlstm_state``'s tree) continues from them (decode), and the
     returned states have the same tree, new tensors (the reference's
     stacked scan outputs): ((conv, (C, n, m)) over (groups, per - 1),
-    (c, n, m, h) over groups)."""
+    (c, n, m, h) over groups).  Without ``states`` (the loss and the
+    forward, which read the logits alone) each group's states are dropped
+    as it ends and None is returned for them: no stack of the matrix
+    memories (42 x B x 16.8 MB at full width) is built."""
     x = L.embed(cfg, params['embed'], tokens)
     per = cfg.xlstm_slstm_every
     decode = states is not None
@@ -313,9 +325,12 @@ def forward_xlstm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     for g, (group, sblk) in enumerate(zip(groups,
                                           unbind(params['slstm']))):
         x, m_st, s_st = body(group, sblk, x, m_states[g], s_states[g])
-        new_m.append(m_st)
-        new_s.append(s_st)
+        if decode:
+            new_m.append(m_st)
+            new_s.append(s_st)
     x = L.rms_norm(x, params['final_norm']['scale'])
+    if not decode:
+        return L.unembed(cfg, params['embed'], x), None
     # one copy of each layer's state into its stack
     new_states = (
         tree_map(lambda *a: torch.stack(a).unflatten(0, (n_groups, per - 1)),

@@ -957,18 +957,26 @@ TRAIN_ATTN_CASES = (
     (1, 36, 36, 512, 512, 64, None, None),
     (1, 40, 8, 256, 256, 128, None, None),
     (1, 40, 8, 200, 200, 128, 64, None),
+    # the trained families' shapes at D 64 (a ninth field: causal): whisper's
+    # cross (non-causal, Sq != Sk, 1500 keys: a ragged 28-key tile), its
+    # encoder's ragged tiles on both grids (37 x 1500), Hymba's windowed
+    # GQA 25/5 (the rule's group split)
+    (1, 8, 8, 448, 1500, 64, None, None, False),
+    (2, 8, 8, 37, 1500, 64, None, None, False),
+    (1, 25, 5, 300, 300, 64, 100, None),
 )
 BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 
 
 def _train_attn_inputs(case, dtype, dev):
-    b, h, hkv, sq, sk, d, window, offset = case
+    b, h, hkv, sq, sk, d, window, offset = case[:8]
+    causal = case[8] if len(case) > 8 else True
     g = torch.Generator(device=dev).manual_seed(sq + sk + d)
     q, do = (torch.randn(b, h, sq, d, generator=g, device=dev).to(dtype)
              for _ in range(2))
     k, v = (torch.randn(b, hkv, sk, d, generator=g, device=dev).to(dtype)
             for _ in range(2))
-    return q, k, v, do, dict(causal=True, window=window, offset=offset)
+    return q, k, v, do, dict(causal=causal, window=window, offset=offset)
 
 
 @pytest.mark.parametrize('case', TRAIN_ATTN_CASES)
