@@ -276,6 +276,25 @@ the same f32 weights' configuration from seed 0):
     host ms under the train phases' labels and the sLSTM loop's); and the
     train CLI (``launch.train.main``) on each smoke config, 4 steps and
     ``--resume`` to 6;
+11k. the MoE and VLM families trained at full width, cut by depth
+    (``depth_train_phase``): K8's forward with lse and its backward pair
+    against their plain versions at their shapes (``DEPTH_TRAIN_ATTN``,
+    bf16 D 128: Mixtral's 2 x 4,096 rows, GQA 48/8, window 4,096;
+    Llama-3.2-Vision's 4,096 rows, GQA 64/8, causal and across to its
+    1,024 patches); then Mixtral 8x22B cut to 6 of 56 layers (B 2 x 4,096)
+    and Llama-3.2-Vision-90B to 15 of 100 (three groups; B 1 x 4,096), each
+    drawn on the card from a seed (parameters and bytes against the
+    shapes, the experts counted): three donating Adafactor steps under
+    ``FaultTolerantRunner`` with every kernel counter set to 0 just before
+    (losses finite; K8 twice a layer, each backward kernel once, nothing
+    else; step ms, tokens/s, resident state, peak under
+    ``DEPTH_PEAK_MAX``), a traced step (device busy, idle share, the top
+    ops, the MoE's expert-count reads: twice a layer, with their host ms),
+    and K8's gradients against the plain attention's at f32 weights and
+    activations on a cut of one layer or group at 1,024 tokens (the routes
+    compared first, none flipped; every leaf within ``GRAD_REL_TOL``); and
+    the train CLI on the Mixtral, Kimi-K2 and Llama smoke configs, 4 steps
+    and ``--resume`` to 6;
 
 and then the two kernels that no path of the system reaches, each on its
 public op, and K8 also on its own, each held against its plain version and
@@ -287,10 +306,12 @@ from the LM's serve path and reports the re-score's prefill launches as
 ``prefill_launches``, MiniCPM-2B's training launches as
 ``train_launches``, the MoE serve paths' (Mixtral's and Kimi-K2's) as
 ``moe_launches``, the cross serve paths' as ``cross_launches``, the
-recurrent ones' (0 for xLSTM) as ``recurrent_launches`` and the trained
-families' as ``family_train_launches``, and adds the cross, Hymba and
-family training cases; the backward kernels' rows follow, with their
-launches on MiniCPM-2B's training path and the trained families'):
+recurrent ones' (0 for xLSTM) as ``recurrent_launches``, the trained
+families' as ``family_train_launches`` and the MoE and VLM configs' as
+``depth_train_launches``, and adds the cross, Hymba, family and depth
+training cases; the backward kernels' rows follow, with their launches on
+MiniCPM-2B's training path, the trained families' and the MoE and VLM
+configs'):
 
 12. K6 (``lstm_gates``, the fused cell) on layer 0 (N_in = 123 + 421) and
     an inner layer (421 + 421) at B = 8, atol 1e-4, with the geometry
@@ -594,6 +615,38 @@ FAMILY_TRAIN_ATTN = (
     ('hymba windowed', 2, 25, 5, 2176, 64, 1024, 'float32', 2176, True),
     ('hymba global', 2, 25, 5, 2176, 64, None, 'float32', 2176, True),
     ('partial tiles', 2, 8, 8, 37, 64, None, 'float32', 1500, False))
+# the MoE and VLM families trained at full width, cut by depth alone
+# (``depth_train_phase``): (arch, layers kept, batch, tokens).  No full
+# train state fits one card: Mixtral 8x22B's bf16 weights and gradients
+# are 10.0 GB a layer (the embedding and unembedding 1.6 GB), so it keeps
+# 6 of its 56 layers; Llama-3.2-Vision-90B's 17.1 GB a group of four self
+# blocks and a cross block (8.4 GB of embedding and unembedding), so it
+# keeps 15 of its 100 layers, three of its 20 groups.  Each at train_4k's
+# 4,096 tokens, cut by batch (Mixtral 2, Llama 1; Llama's sources are its
+# 1,024 patch embeddings); Adafactor, remat full, as configured
+DEPTH_TRAIN = (('mixtral-8x22b', 6, 2, 4096),
+               ('llama-3.2-vision-90b', 15, 1, 4096))
+# the depth above is the most whose training peak stays under this (the
+# card allocates 85.02 GB): 70.17 GB for Mixtral and 72.75 GB for Llama
+# on an H100 80GB HBM3 at 700 W, where one more layer (10.0 GB of weights
+# and gradients) or group (17.1 GB) would pass it
+DEPTH_PEAK_MAX = 75e9
+# K8's gradients against the plain attention's at f32 weights and
+# activations (bf16 weights round each gradient leaf, and a 1e-6
+# difference flips roundings of 2**-8), every leaf within GRAD_REL_TOL.
+# Two f32 gradient trees do not fit beside the cut above, so the check
+# runs on (layers, batch, tokens): one Mixtral layer, one Llama group, at
+# 1,024 tokens, with the first run's gradients on the host meanwhile
+DEPTH_GRAD = {'mixtral-8x22b': (1, 1, 1024),
+              'llama-3.2-vision-90b': (5, 1, 1024)}
+# K8's training kernels at the families' shapes, bf16 D 128 (label, B, H,
+# Hkv, Sq, D, window, dtype, Sk, causal): Mixtral's GQA 48/8 with its
+# window of 4,096 over 4,096 tokens, Llama's GQA 64/8 self layers and its
+# cross layers over the 1,024 patches
+DEPTH_TRAIN_ATTN = (
+    ('mixtral self', 2, 48, 8, 4096, 128, 4096, 'bfloat16', 4096, True),
+    ('llama self', 1, 64, 8, 4096, 128, None, 'bfloat16', 4096, True),
+    ('llama cross', 1, 64, 8, 4096, 128, None, 'bfloat16', 1024, False))
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -986,8 +1039,9 @@ def readback_overlap(events):
 def trace(fn, label: str, readback: bool = False, warm: bool = True):
     """One traced call of ``fn`` (after a warm call): device busy time from
     ``torch.profiler`` over the host wall time of the traced call, device
-    time by kernel name, and the host ms under each ``record_function``
-    label (a train step's phases, ``launch.train.PHASES``); with
+    time by kernel name, and the host ms and count under each
+    ``record_function`` label (a train step's phases,
+    ``launch.train.PHASES``; MoE's expert reads); with
     ``readback`` (an engine drain), ``readback_overlap``.  The tracer's own
     cost inflates the wall time, so the idle share is an upper bound.
     ``warm=False``: no warm call (a caller that has just run ``fn``'s
@@ -1008,7 +1062,7 @@ def trace(fn, label: str, readback: bool = False, warm: bool = True):
     # step of 10^5 ops).  Device-side entries only (kernels, copies, sets):
     # a host op's entry repeats the time of the kernels it launched, and a
     # label's device-side span covers kernels already counted
-    dev_ns, host_ns = {}, {}
+    dev_ns, host_ns, host_n = {}, {}, {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
             if not e.is_user_annotation() and e.duration_ns() > 0:
@@ -1016,6 +1070,7 @@ def trace(fn, label: str, readback: bool = False, warm: bool = True):
                 dev_ns[e.name()] = (t + e.duration_ns(), n + 1)
         elif e.is_user_annotation():
             host_ns[e.name()] = host_ns.get(e.name(), 0) + e.duration_ns()
+            host_n[e.name()] = host_n.get(e.name(), 0) + 1
     by_name = sorted(((k, t / 1e3, n) for k, (t, n) in dev_ns.items()),
                      key=lambda r: -r[1])
     busy_us = sum(r[1] for r in by_name)
@@ -1027,6 +1082,7 @@ def trace(fn, label: str, readback: bool = False, warm: bool = True):
                top=[dict(name=k[:80], device_ms=t / 1e3, count=n)
                     for k, t, n in by_name[:10]],
                phases_host_ms={k: t / 1e6 for k, t in host_ns.items()},
+               phases_count=host_n,
                readback=(readback_overlap(prof.events()) if readback
                          else None))
     print(f'profile [{label}]: wall {res["wall_ms"]:.2f} ms, device busy '
@@ -5074,16 +5130,16 @@ def _recurrent_phase(dev, card: str):
     return res
 
 
-def family_train_attention(dev):
-    """``train_attn_case`` at each ``FAMILY_TRAIN_ATTN`` shape (K8's
-    forward with lse and its backward pair against their plain versions,
-    timed beside their bounds, their plain versions and SDPA), with each
-    backward schedule (``attention_bwd_geometry``)."""
+def family_train_attention(dev, shapes=FAMILY_TRAIN_ATTN, seed=SEED + 3):
+    """``train_attn_case`` at each of ``shapes`` (K8's forward with lse
+    and its backward pair against their plain versions, timed beside
+    their bounds, their plain versions and SDPA), with each backward
+    schedule (``attention_bwd_geometry``), on data from ``seed``."""
     from repro_torch.kernels.flash_attention import attention_bwd_geometry
-    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    g = torch.Generator(device=dev).manual_seed(seed)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = []
-    for label, B, H, Hkv, S, D, window, dt, sk, causal in FAMILY_TRAIN_ATTN:
+    for label, B, H, Hkv, S, D, window, dt, sk, causal in shapes:
         cases = train_attn_case(label, B, H, Hkv, S, D, window, dt, g, dev,
                                 sk=sk, causal=causal)
         geom = dataclasses.asdict(attention_bwd_geometry(
@@ -5157,14 +5213,10 @@ def family_train_run(name: str, B: int, S: int, dev, card: str):
     finite, each step's launches ``FAMILY_LAUNCHES`` and nothing else,
     step ms (the median of steps 2-3), tokens/s, the resident state and
     the peak against the card's memory; then one more step at the same
-    shape traced (no warm call: three steps ran)."""
+    shape traced (no warm call: three steps ran): ``_donating_steps``."""
     import gc
     from repro_torch import configs
     from repro_torch.data import HostLoader, source_for
-    from repro_torch.launch.train import (loss_fn_for, lr_schedule_for,
-                                          make_train_step)
-    from repro_torch.optim import make_optimizer
-    from repro_torch.runtime import FaultTolerantRunner
     from repro_torch.tree import leaves
     cfg = configs.get_config(name)
     shape = configs.ShapeConfig('train_4k cut', 'train', S, B)
@@ -5216,7 +5268,32 @@ def family_train_run(name: str, B: int, S: int, dev, card: str):
               f'launch no kernel', flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    res.update(_donating_steps(cfg, params, loader, want, B, S, dev, card,
+                               base))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
+
+def _donating_steps(cfg, params, loader, want, B: int, S: int, dev,
+                    card: str, base: int):
+    """``FAMILY_TRAIN_STEPS`` donating ``make_train_step`` steps of ``cfg``
+    from ``params`` (updated in place) on its optimizer under
+    ``lr_schedule_for``'s schedule, under ``FaultTolerantRunner`` over
+    ``loader``'s B x S batches, every kernel counter set to 0 just before
+    and read just after: losses finite, each step's launches ``want`` and
+    nothing else, step ms (the median of steps 2-3), tokens/s, the
+    resident state and the peak above ``base`` against the card's memory;
+    then one more step at the same shape traced (no warm call: three
+    steps ran).  Returns their numbers."""
+    import gc
+    from repro_torch.launch.train import (loss_fn_for, lr_schedule_for,
+                                          make_train_step)
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime import FaultTolerantRunner
+    from repro_torch.tree import leaves
+    name = cfg.name
     opt = make_optimizer(cfg.optimizer, lr_schedule_for(cfg))
     state = {'params': params, 'opt': opt.init(params),
              'step': torch.zeros((), dtype=torch.int32)}
@@ -5249,17 +5326,17 @@ def family_train_run(name: str, B: int, S: int, dev, card: str):
     peak = torch.cuda.max_memory_allocated(dev) - base
     total = torch.cuda.get_device_properties(dev).total_memory
     step_ms = float(np.median([s['wall_ms'] for s in steps[1:]]))
-    res.update(resident_bytes=resident, peak_bytes=peak,
-               card_bytes=total, steps=steps, step_ms=step_ms,
+    res = dict(resident_bytes=resident, peak_bytes=peak, card_bytes=total,
+               steps=steps, step_ms=step_ms,
                tokens_per_s=B * S / step_ms * 1e3,
                launches={k.__name__: k.launches for k in kernels},
                events=list(runner.events))
     print(f'{name}: {FAMILY_TRAIN_STEPS} steps of {B} x {S} tokens: step '
           f'{step_ms:.1f} ms (median of steps 2-{FAMILY_TRAIN_STEPS}), '
           f'{res["tokens_per_s"]:.1f} tokens/s; resident state '
-          f'{resident / 1e9:.2f} GB (parameters and AdamW moments), peak '
-          f'{peak / 1e9:.2f} GB of the card\'s {total / 1e9:.2f} GB '
-          f'[{card}]', flush=True)
+          f'{resident / 1e9:.2f} GB (parameters and {cfg.optimizer} '
+          f'state), peak {peak / 1e9:.2f} GB of the card\'s '
+          f'{total / 1e9:.2f} GB [{card}]', flush=True)
     check(all(np.isfinite([s['loss'], s['grad_norm']]).all()
               for s in steps), f'{name}: a loss or norm not finite')
     check(peak < total, f'{name}: peak {peak} bytes')
@@ -5279,18 +5356,19 @@ def family_train_run(name: str, B: int, S: int, dev, card: str):
     return res
 
 
-def family_train_clis(tmp_root: str):
-    """The train CLI (``launch.train.main``, in this process) on each
-    family's smoke configuration on the card: 4 steps with checkpoints,
-    then ``--resume`` to 6; losses finite, the resume at step 4, and K8's
-    launches printed (and non-zero) for the families with attention."""
+def family_train_clis(tmp_root: str, names=None):
+    """The train CLI (``launch.train.main``, in this process) on the smoke
+    configuration of each of ``names`` (default ``FAMILY_TRAIN``'s) on
+    the card: 4 steps with checkpoints, then ``--resume`` to 6; losses
+    finite, the resume at step 4, and K8's launches printed (and non-zero)
+    for the families with attention (all but xLSTM)."""
     import contextlib
     import io
     import re
     import tempfile
     from repro_torch.launch.train import main as train_main
     res = {}
-    for name, _, _ in FAMILY_TRAIN:
+    for name in names or [n for n, _, _ in FAMILY_TRAIN]:
         with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
             base = ['--arch', name, '--smoke', '--batch', '2', '--seq',
                     '64', '--ckpt-every', '2', '--log-every', '1',
@@ -5310,7 +5388,7 @@ def family_train_clis(tmp_root: str):
                                                ''.join(outs))]
         k8 = [re.search(r'K8 launches: forward (\d+), backward dk/dv '
                         r'(\d+), dq (\d+)', o) for o in outs]
-        attn = FAMILY_LAUNCHES[name][0] > 0
+        attn = name != XLSTM_ARCH
         check(len(losses) == 6 and all(np.isfinite(losses))
               and 'resumed at step 4' in outs[1]
               and all((m is not None and min(map(int, m.groups())) > 0)
@@ -5342,17 +5420,191 @@ def family_train_phase(dev, card: str):
     return res
 
 
+# ------------------------------------------- MoE and VLM training, cut
+def _routes_of(fn):
+    """(``fn()``, the sorted top-k experts of every ``moe_route`` call it
+    made, on the host)."""
+    from unittest import mock
+    from repro_torch.models import layers
+    real, seen = layers.moe_route, []
+
+    def spy(cfg, p, x):
+        r = real(cfg, p, x)
+        seen.append(torch.sort(r.idx, dim=-1).values.cpu())
+        return r
+
+    with mock.patch.object(layers, 'moe_route', spy):
+        out = fn()
+    return out, seen
+
+
+def depth_grad_check(name: str, dev, card: str):
+    """K8's gradients against the plain attention's on ``name`` at full
+    width cut to ``DEPTH_GRAD``'s depth, batch and tokens, at f32 weights
+    and activations, drawn on the card from a seed: the MoE routes of the
+    two runs compared first (forward and recompute; the tokens whose
+    expert set differs are printed and none may), then every leaf's
+    relative Frobenius error within ``GRAD_REL_TOL``, and the K8 run's
+    launches (twice a layer forward, with the recompute; once a layer
+    each backward kernel).  The K8 run's gradients wait on the host while
+    the plain run's are made."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.data import HostLoader, source_for
+    from repro_torch.launch.train import _grad_leaves, loss_fn_for
+    from repro_torch.tree import flatten_with_paths
+    L, B, S = DEPTH_GRAD[name]
+    cfg = configs.get_config(name).replace(
+        n_layers=L, param_dtype='float32', activation_dtype='float32')
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, n, nbytes, init_s, _ = _init_on_card(cfg, dev)
+    shape = configs.ShapeConfig('gradient check', 'train', S, B)
+    _, batch = next(HostLoader(source_for(cfg, shape, seed=SEED), shape,
+                               dev))
+    kernels = _kernel_counters()
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    (loss, grads), routes = _routes_of(
+        lambda: _grad_leaves(loss_fn_for(cfg), params, batch))
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels if k.launches}
+    on_host = [g.cpu() for g in grads]
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    (loss_t, grads_t), routes_t = _routes_of(lambda: _grad_leaves(
+        loss_fn_for(cfg.replace(attn_backend='torch')), params, batch))
+    flips = sum(int((a != b).any(dim=-1).sum())
+                for a, b in zip(routes, routes_t))
+    rel = {}
+    for (path, _), a, b in zip(flatten_with_paths(params), on_host,
+                               grads_t):
+        rel[path] = float(torch.linalg.vector_norm(a.to(dev) - b)
+                          / torch.linalg.vector_norm(b).clamp(min=1e-30))
+    res = dict(layers=L, batch=B, seq=S, params=n, bytes=nbytes,
+               loss=float(loss), loss_torch=float(loss_t), rel=rel,
+               worst=max(rel.values()), route_calls=len(routes),
+               routed_tokens=sum(r.shape[0] * r.shape[1] for r in routes),
+               route_flips=flips, launches=launches)
+    worst = sorted(rel, key=lambda k: -rel[k])[:5]
+    print(f'{name} gradients on K8 vs the plain attention, cut to {L} '
+          f'layers, {B} x {S} tokens, f32 weights and activations ({n} '
+          f'parameters): losses {res["loss"]:.6f} / '
+          f'{res["loss_torch"]:.6f}; routes of {len(routes)} moe_route '
+          f'calls, {flips} of {res["routed_tokens"]} tokens flipped; '
+          f'worst leaf relative Frobenius error {res["worst"]:.3e} (tol '
+          f'{GRAD_REL_TOL}: ' + ', '.join(f'{k} {rel[k]:.2e}' for k in worst)
+          + f'); launches {launches} [{card}]', flush=True)
+    check(flips == 0, f'{name}: {flips} tokens routed otherwise on K8 than '
+                      f'on the plain attention at f32')
+    check(res['worst'] <= GRAD_REL_TOL and np.isfinite(
+        [res['loss'], res['loss_torch']]).all(),
+        f'{name}: gradients on K8 off the plain attention\'s by '
+        f'{res["worst"]:.3e} at f32')
+    check(launches == dict(flash_attention=2 * L, flash_attention_bwd_kv=L,
+                           flash_attention_bwd_q=L),
+          f'{name}: gradient check launches {launches}')
+    del params, grads_t, on_host, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def depth_train_run(name: str, n_layers: int, B: int, S: int, dev,
+                    card: str):
+    """``name``'s training main path at full width cut by depth alone to
+    ``n_layers`` (``moe_build`` / ``cross_build``: the weights drawn on
+    the card from a seed, parameters and bytes against the shapes), then
+    ``_donating_steps`` on Adafactor at B x S tokens (the VLM's batches
+    with their patches): each step launches K8's forward twice a layer
+    (forward and remat recompute) and each backward kernel once, nothing
+    else; the traced step reads the MoE's expert counts to the host twice
+    a layer (``LIVE_EXPERTS_LABEL``, with their host ms); the peak under
+    ``DEPTH_PEAK_MAX``."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.data import HostLoader, source_for
+    from repro_torch.models.layers import LIVE_EXPERTS_LABEL
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    moe = configs.get_config(name).moe is not None
+    cfg, params, res = (moe_build if moe else cross_build)(
+        name, n_layers, dev, card)
+    shape = configs.ShapeConfig('train_4k cut', 'train', S, B)
+    loader = HostLoader(source_for(cfg, shape, seed=SEED), shape, dev)
+    L = cfg.n_layers
+    want = dict(flash_attention=2 * L, flash_attention_bwd_kv=L,
+                flash_attention_bwd_q=L)
+    res.update(batch=B, seq=S, tokens_per_step=B * S)
+    res.update(_donating_steps(cfg, params, loader, want, B, S, dev, card,
+                               base))
+    del params
+    tr = res['trace']
+    res['moe_reads'] = tr['phases_count'].get(LIVE_EXPERTS_LABEL, 0)
+    res['moe_read_host_ms'] = tr['phases_host_ms'].get(LIVE_EXPERTS_LABEL,
+                                                       0.0)
+    print(f'{name} at {L} layers: traced step {tr["wall_ms"]:.1f} ms, '
+          f'device busy {tr["device_busy_ms"]:.1f} ms, idle share '
+          f'{tr["idle_share"]:.3f}; {res["moe_reads"]} host reads of the '
+          f'expert counts, {res["moe_read_host_ms"]:.2f} ms of host under '
+          f'them; peak {res["peak_bytes"] / 1e9:.2f} GB (target '
+          f'{DEPTH_PEAK_MAX / 1e9:.0f} GB) [{card}]', flush=True)
+    check(res['moe_reads'] == (2 * L if moe else 0),
+          f'{name}: {res["moe_reads"]} expert-count reads in a step')
+    check(res['peak_bytes'] < DEPTH_PEAK_MAX,
+          f'{name}: peak {res["peak_bytes"]} bytes at {L} layers')
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def depth_train_phase(dev, card: str):
+    """The MoE and VLM families trained, cut by depth (after
+    ``family_train_phase``): K8's training kernels at their shapes
+    (``DEPTH_TRAIN_ATTN``), then for Mixtral 8x22B and
+    Llama-3.2-Vision-90B the main path at the ``DEPTH_TRAIN`` cut
+    (``depth_train_run``) and the f32 gradient check on a cut of one
+    layer or group (``depth_grad_check``), each freed before the next;
+    then the train CLI on the three smoke configs (Mixtral's, Kimi-K2's,
+    Llama's) with ``--resume``."""
+    import tempfile
+    t0 = time.perf_counter()
+    print(f'MoE and VLM training phase on {card}', flush=True)
+    res = dict(attention=family_train_attention(dev, DEPTH_TRAIN_ATTN,
+                                                SEED + 4))
+    for name, L, B, S in DEPTH_TRAIN:
+        res[name] = depth_train_run(name, L, B, S, dev, card)
+        res[name]['grad_check'] = depth_grad_check(name, dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        res['cli'] = family_train_clis(tmp, [MOE_ARCH, KIMI_ARCH,
+                                             CROSS_VLM])
+    res['seconds'] = time.perf_counter() - t0
+    print(f'MoE and VLM training phase: {res["seconds"]:.1f} s [{card}]',
+          flush=True)
+    return res
+
+
 def _family_launches(fam, name: str):
     """A kernel's launches in each trained family's three steps."""
     return {a: fam[a]['launches'][name] for a, _, _ in FAMILY_TRAIN}
 
 
-def _bwd_rows(train, fam):
+def _depth_launches(depth, name: str):
+    """A kernel's launches in each MoE and VLM config's three steps."""
+    return {a: depth[a]['launches'][name] for a, _, _, _ in DEPTH_TRAIN}
+
+
+def _bwd_rows(train, fam, depth):
     """The kernels-line rows of K8's two backward kernels: their cases at
-    every ``LM_TRAIN_ATTN`` shape (MiniCPM-2B's first) and every
-    ``FAMILY_TRAIN_ATTN`` shape, their launches on MiniCPM-2B's training
-    path and, as ``family_train_launches``, on the three trained
-    families'."""
+    every ``LM_TRAIN_ATTN`` shape (MiniCPM-2B's first), every
+    ``FAMILY_TRAIN_ATTN`` and every ``DEPTH_TRAIN_ATTN`` shape, their
+    launches on MiniCPM-2B's training path and, as
+    ``family_train_launches`` and ``depth_train_launches``, on the trained
+    families' and the MoE and VLM configs'."""
     rows = []
     for i, name in ((1, 'flash_attention_bwd_kv'),
                     (2, 'flash_attention_bwd_q')):
@@ -5360,9 +5612,10 @@ def _bwd_rows(train, fam):
                         'none: the reference\'s backward (_ca_bwd, '
                         'src/repro/models/layers.py:173) is plain jnp',
                         [cases[i] for cases in train['attention']
-                         + fam['attention']])
+                         + fam['attention'] + depth['attention']])
         row['launches'] = train['run']['launches'][name]
         row['family_train_launches'] = _family_launches(fam, name)
+        row['depth_train_launches'] = _depth_launches(depth, name)
         rows.append(row)
     return rows
 
@@ -5618,7 +5871,7 @@ def _print_attn_case(case, geom, narrow: str = '') -> None:
           flush=True)
 
 
-def attention_checks(dev, lm, train, moe, cross, rec, fam):
+def attention_checks(dev, lm, train, moe, cross, rec, fam, depth):
     """K8 (``flash_attention``) at each ``ATTN_CASES`` case (``attn_case``),
     with its schedule, and where that is 128-row tiles also the time of
     the 64-row tiles on the same inputs; then drives the public op ``mha``
@@ -5633,12 +5886,15 @@ def attention_checks(dev, lm, train, moe, cross, rec, fam):
     prefill and windowed forward and its bf16 decode rows, D 64, GQA
     25/5) and the family training phase's forward-with-lse cases
     (``fam``: whisper's encoder, cross and decoder self, Hymba's windowed
-    and global, and a partial-tile case, f32 D 64), takes its launches from
+    and global, and a partial-tile case, f32 D 64) and the MoE and VLM
+    training phase's (``depth``: Mixtral's windowed GQA 48/8, Llama's
+    self and cross GQA 64/8, bf16 D 128), takes its launches from
     the LM's serve path, reports MiniCPM-2B's training launches as
     ``train_launches``, the MoE serve paths' as ``moe_launches``, the
     cross serve paths' as ``cross_launches``, the recurrent ones' as
-    ``recurrent_launches`` and the three trained families' (three steps
-    each) as ``family_train_launches``."""
+    ``recurrent_launches``, the three trained families' (three steps
+    each) as ``family_train_launches`` and the MoE and VLM families' as
+    ``depth_train_launches``."""
     from unittest import mock
     from repro_torch.kernels.flash_attention import (attention_geometry,
                                                      flash_attention, mha)
@@ -5687,7 +5943,8 @@ def attention_checks(dev, lm, train, moe, cross, rec, fam):
                     + cross[CROSS_AUDIO]['attn_cases']
                     + cross[CROSS_VLM]['attn_cases']
                     + rec[HYMBA_ARCH]['attn_cases']
-                    + [c[0] for c in fam['attention']])
+                    + [c[0] for c in fam['attention']]
+                    + [c[0] for c in depth['attention']])
     row['launches'] = lm['launches']['flash_attention']
     row['train_launches'] = train['run']['launches']['flash_attention']
     row['prefill_launches'] = lm['rescore_launches']['flash_attention']
@@ -5698,6 +5955,7 @@ def attention_checks(dev, lm, train, moe, cross, rec, fam):
     row['recurrent_launches'] = {a: rec[a]['launches']['flash_attention']
                                  for a in (XLSTM_ARCH, HYMBA_ARCH)}
     row['family_train_launches'] = _family_launches(fam, 'flash_attention')
+    row['depth_train_launches'] = _depth_launches(depth, 'flash_attention')
     row['mha_launches'] = launches
     return row
 
@@ -6137,13 +6395,17 @@ def main(argv=None) -> int:
     # the families one card holds whole, trained at full width and depth:
     # whisper-base, Hymba-1.5B and xLSTM-1.3B
     fam = family_train_phase(dev, card)
+    # the MoE and VLM families trained at full width, cut by depth:
+    # Mixtral 8x22B and Llama-3.2-Vision-90B
+    depth = depth_train_phase(dev, card)
 
     # K6 and K7 on their public ops (no path of the system reaches them);
     # K8 at Mixtral's shapes and on mha beside the LM path's cases
     op_rows = [cell_checks(params, CELL_BATCH, dev),
                quant_matmul_checks(dev),
-               attention_checks(dev, lm, lm_train, moe, cross, rec, fam)]
-    op_rows += _bwd_rows(lm_train, fam)
+               attention_checks(dev, lm, lm_train, moe, cross, rec, fam,
+                                depth)]
+    op_rows += _bwd_rows(lm_train, fam, depth)
 
     launches = dict(lstm_seq=runs['cuda_seq']['launches']['lstm_seq'],
                     lstm_stack_seq_kernel=runs['cuda_seq_fused']['launches']
@@ -6162,9 +6424,9 @@ def main(argv=None) -> int:
     keys = ('name', 'route', 'source', 'replaces', 'launches',
             'train_launches', 'moe_launches', 'cross_launches',
             'recurrent_launches', 'family_train_launches',
-            'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
-            'bound_by', 'library_ms', 'tol', 'ok', 'shape', 'geometry',
-            'cases')
+            'depth_train_launches', 'max_abs_err', 'ms', 'plain_ms',
+            'bound_ms', 'bound_by', 'library_ms', 'tol', 'ok', 'shape',
+            'geometry', 'cases')
     kernels = {'kernels': [{k: r[k] for k in keys if k in r} for r in rows]}
     if args.out:
         out = pathlib.Path(args.out)
@@ -6180,7 +6442,7 @@ def main(argv=None) -> int:
             train_grad_rel_err=grad_err, train=train, train_cli=cli,
             tune=tuned, examples=examples, systolic=systolic, die=die,
             lm=lm, lm_train=lm_train, moe=moe, cross=cross, recurrent=rec,
-            family_train=fam),
+            family_train=fam, depth_train=depth),
             indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -1,6 +1,7 @@
 """Train step factory and the trainer CLI, for the paper's CTC LSTM and
-the LM families that one card holds whole: dense, audio (whisper's
-encoder-decoder), ssm (xLSTM) and hybrid (Hymba).
+every LM family: dense, moe (Mixtral, Kimi-K2), vlm (Llama-3.2-Vision's
+cross layers over image patches), audio (whisper's encoder-decoder), ssm
+(xLSTM) and hybrid (Hymba).
 
 ``make_train_step`` builds the update: loss -> gradients (with microbatch
 accumulation) -> global-norm clip -> optimizer -> apply, as the reference's
@@ -11,24 +12,27 @@ the config names, an LM's through K8's forward and backward kernels
 ``remat``.  With
 ``donate=True`` (the reference's ``donate_argnums=(0,)``) the step clips
 the gradients and updates the parameters and the optimizer state in place,
-leaf by leaf (``Optimizer.update_``), equal bit for bit to the functional
-step.  ``main`` is the CLI: synthetic data (CTC frames, or the LM's token
-stream) -> donating steps under the ``runtime.FaultTolerantRunner`` (retry,
-restore from the latest checkpoint, and a heartbeat in
-``<ckpt-dir>/heartbeat.json``) -> async checkpoints, with ``--resume``.  It
-runs on the card unless ``--device cpu`` is given; ``--arch`` takes
-``chipmunk-ctc`` (the default), a dense LM (qwen3-14b, qwen2.5-14b,
-codeqwen1.5-7b, minicpm-2b), whisper-base, xlstm-1.3b or hymba-1.5b, and
-``--smoke`` selects the reduced configuration.  The MoE and VLM families
-(mixtral-8x22b, kimi-k2-1t-a32b, llama-3.2-vision-90b) train only cut by
-depth, in a later slice: ``--arch`` names them and the trainer refuses
-them before it draws a weight (``check_trainable``)::
+a slice at a time (``Optimizer.update_``), equal bit for bit to the
+functional step.  ``main`` is the CLI: synthetic data (CTC frames, or the
+LM's token stream, with the VLM's patches and whisper's frames) ->
+donating steps under the ``runtime.FaultTolerantRunner`` (retry, restore
+from the latest checkpoint, and a heartbeat in
+``<ckpt-dir>/heartbeat.json``) -> async checkpoints, with ``--resume``.
+It runs on the card unless ``--device cpu`` is given; ``--arch`` takes
+``chipmunk-ctc`` (the default) or any LM config, and ``--smoke`` selects
+the reduced configuration.  Like the reference's trainer ("small configs
+only"), it trains a full configuration as far as the card's memory goes:
+the MoE and VLM configs do not fit one card at full depth (Mixtral's
+bf16 weights alone are 281 GB, Kimi-K2's one layer 38.75 GB), so on one
+card they train at their smoke configurations or, through the API, at
+full width cut by depth (``chip_smoke.py``)::
 
     python -m repro_torch.launch.train --steps 20 --lstm-backend cuda_step
     python -m repro_torch.launch.train --device cpu --smoke --steps 8 \\
         --batch 4 --seq 32
     python -m repro_torch.launch.train --arch minicpm-2b --smoke --steps 8
     python -m repro_torch.launch.train --arch hymba-1.5b --smoke --steps 8
+    python -m repro_torch.launch.train --arch mixtral-8x22b --smoke --steps 8
 
 The reference's mesh and sharding (``abstract_train_state``,
 ``batch_shardings``, ``local_mesh``) have no counterpart here (one card).
@@ -153,24 +157,9 @@ def attention_launches() -> str:
             f'{flash_attention_bwd_q.launches}')
 
 
-# the families trained cut by depth, in a later slice: Mixtral's bf16
-# weights alone are 281 GB, and Llama-3.2-Vision-90B holds ~3.4 GB of
-# weights and gradients a layer
-LATER_FAMILIES = ('moe', 'vlm')
-
-
-def check_trainable(cfg) -> None:
-    """Raise ``ValueError`` for a family this port does not train yet."""
-    if cfg.family in LATER_FAMILIES:
-        raise ValueError(
-            f'{cfg.name}: the {cfg.family} family trains in a later slice, '
-            f'cut by depth (no full-width train state fits one card)')
-
-
 def loss_fn_for(cfg) -> Callable:
     """``(params, batch) -> loss`` of ``cfg``'s family (the bundle's
     ``loss_fn`` for an LM)."""
-    check_trainable(cfg)
     if cfg.family == 'lstm':
         return functools.partial(chipmunk_net.loss_fn, cfg)
     return get_bundle(cfg).loss_fn
@@ -182,7 +171,6 @@ def init_train_state(cfg, optimizer, device, seed: int = 0):
     generator and copies; an LM draws with its bundle's ``init``
     (``transformer.init_lm``, ``recurrent.init_xlstm`` or
     ``recurrent.init_hymba``) on a generator of ``device`` itself."""
-    check_trainable(cfg)
     if cfg.family == 'lstm':
         params = chipmunk_net.init(cfg, torch.Generator().manual_seed(seed),
                                    device=device)

@@ -411,10 +411,19 @@ def moe_route(cfg, p: Params, x: torch.Tensor) -> MoERoute:
                     starts, counts, cap)
 
 
+# the ``torch.profiler.record_function`` label of ``_live_experts``' host
+# read: a trace reads its host time (and count) under it
+LIVE_EXPERTS_LABEL = 'moe.live_experts'
+
+
 def _live_experts(counts: torch.Tensor) -> List[int]:
     """The experts that hold at least one pair (``counts`` (..., E)), read
-    to the host once: the expert products run over these alone."""
-    per = counts.reshape(-1, counts.shape[-1]).sum(0).tolist()
+    to the host once: the expert products run over these alone.  Under
+    remat the recompute reads them again from the same routes: ``topk``,
+    the stable sort and ``searchsorted`` are deterministic on the same
+    input, ties included, so both reads agree."""
+    with torch.profiler.record_function(LIVE_EXPERTS_LABEL):
+        per = counts.reshape(-1, counts.shape[-1]).sum(0).tolist()
     return [e for e, c in enumerate(per) if c]
 
 
@@ -423,12 +432,16 @@ def _expert_products(p: Params, live: List[int],
     """SwiGLU of each live expert over its rows: ``buf`` (..., L, R, d)
     with L = len(live) -> (..., L, R, d), the reference's
     ``silu(buf @ w_gate) * (buf @ w_up) @ w_down`` with JAX's promotion
-    (``_mm``)."""
+    (``_mm``).  Each expert stack is split by one ``torch.unbind``, whose
+    backward writes the experts' gradients into one stacked tensor
+    (indexing ``w[e]`` would make a zero tensor of all E experts for each
+    live one: 1.6 GB a Mixtral 8x22B matrix)."""
+    wg, wu, wd = (torch.unbind(p[k]) for k in ('w_gate', 'w_up', 'w_down'))
     outs = []
     for j, e in enumerate(live):
         xe = buf[..., j, :, :]
-        h = F.silu(_mm(xe, p['w_gate'][e])) * _mm(xe, p['w_up'][e])
-        outs.append(_mm(h, p['w_down'][e]))
+        h = F.silu(_mm(xe, wg[e])) * _mm(xe, wu[e])
+        outs.append(_mm(h, wd[e]))
     return torch.stack(outs, dim=-3)
 
 

@@ -9,15 +9,15 @@ and ``cross`` (groups, ...); the encoder-decoder (audio) adds
 ``enc_blocks`` (encoder layers, ...), ``enc_cross`` (layers, ...) and
 ``enc_norm``.  The reference's ``lax.scan`` over layers is a Python loop
 over those axes here.  ``forward_lm`` splits each stack once
-(``torch.unbind``, whose backward stacks), so each layer's gradient is
-written once into the stacked gradient; indexing ``a[i]`` per layer would
-materialise a zero tensor of the whole stack per layer and leaf in the
-backward.  Under grad each scan body (a layer; an audio layer's self and
-cross block; a VLM group) runs under ``cfg.remat`` (``_maybe_remat``, the
-reference's counterpart: ``torch.utils.checkpoint``); a serving forward has
-no grad and no remat.  An MoE config's blocks hold ``moe``
-(``layers.moe_block``) in place of ``mlp``, and ``forward_lm`` returns the
-sum of their load-balance losses.
+(``unbind``), so each layer's gradient is written once into the stacked
+gradient, as soon as that layer's backward is done; indexing ``a[i]`` per
+layer would materialise a zero tensor of the whole stack per layer and
+leaf in the backward.  Under grad each scan body (a layer; an audio
+layer's self and cross block; a VLM group) runs under ``cfg.remat``
+(``_maybe_remat``, the reference's counterpart:
+``torch.utils.checkpoint``); a serving forward has no grad and no remat.
+An MoE config's blocks hold ``moe`` (``layers.moe_block``) in place of
+``mlp``, and ``forward_lm`` returns the sum of their load-balance losses.
 
 The cross-attention families serve through ``precompute_cross_kv`` (once
 per request: the encoder, or the image patches' projections) and
@@ -29,7 +29,7 @@ from __future__ import annotations
 import functools
 import itertools
 import math
-from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Union
 
 import torch
 from torch.utils import checkpoint as ckpt
@@ -119,13 +119,88 @@ def layer(params: Params, i: int) -> Params:
     return tree_map(lambda a: a[i], params['blocks'])
 
 
-def unbind(stack: Params) -> List[Params]:
-    """The slices of a stack along its leading axis, from one
-    ``torch.unbind`` of each stacked leaf: views whose gradients the
-    unbind's backward stacks into one tensor per leaf."""
-    cols = [torch.unbind(a) for a in leaves(stack)]
-    return [unflatten_like(stack, [c[i] for c in cols])
-            for i in range(len(cols[0]))]
+class _StackGrad:
+    """The gradient of one stacked leaf, written a slice at a time by
+    ``_Sink`` and handed to autograd whole by ``_Unbind``."""
+
+    def __init__(self, like: torch.Tensor):
+        self.shape, self.dtype, self.device = like.shape, like.dtype, \
+            like.device
+        self.buf: Optional[torch.Tensor] = None
+
+
+class _Unbind(torch.autograd.Function):
+    """``torch.unbind`` of a stack whose backward returns the gradient
+    that its slices' ``_Sink`` nodes wrote, instead of stacking the
+    slices' gradients (which would hold them and their stack at once:
+    9.7 GB twice for a Mixtral 8x22B expert matrix at 6 layers)."""
+
+    @staticmethod
+    def forward(ctx, stack, grad: _StackGrad):
+        ctx.set_materialize_grads(False)
+        ctx.grad = grad
+        return stack.unbind(0)
+
+    @staticmethod
+    def backward(ctx, *_):
+        buf, ctx.grad.buf = ctx.grad.buf, None
+        return buf, None
+
+
+class _Sink(torch.autograd.Function):
+    """Slice i of an ``_Unbind``: the identity, whose backward copies the
+    slice's gradient into the stack's and passes on a zero of no memory.
+    Made just before the layer that reads it, so autograd runs it as soon
+    as that layer's backward is done and frees the slice's gradient."""
+
+    @staticmethod
+    def forward(ctx, view, grad: _StackGrad, i: int):
+        ctx.grad, ctx.i = grad, i
+        return view.view_as(view)
+
+    @staticmethod
+    def backward(ctx, g):
+        acc = ctx.grad
+        if acc.buf is None:
+            acc.buf = torch.zeros(acc.shape, dtype=acc.dtype,
+                                  device=acc.device)
+        acc.buf[ctx.i].copy_(g)
+        return g.new_zeros(()).expand(g.shape), None, None
+
+
+class _Slices:
+    """The slices of a stack (``unbind``), each made when first read."""
+
+    def __init__(self, stack: Params):
+        self.stack, self.cols, self.made = stack, [], {}
+        for a in leaves(stack):
+            if torch.is_grad_enabled() and a.requires_grad:
+                acc = _StackGrad(a)
+                self.cols.append((_Unbind.apply(a, acc), acc))
+            else:
+                self.cols.append((torch.unbind(a), None))
+
+    def __len__(self) -> int:
+        return len(self.cols[0][0])
+
+    def __getitem__(self, i: int) -> Params:
+        if i not in self.made:
+            self.made[i] = unflatten_like(self.stack, [
+                v[i] if acc is None else _Sink.apply(v[i], acc, i)
+                for v, acc in self.cols])
+        return self.made[i]
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+
+def unbind(stack: Params) -> Sequence[Params]:
+    """The slices of a stack along its leading axis: views of each stacked
+    leaf.  Under grad each leaf's gradient is written into one tensor
+    slice by slice as the layers' backwards finish (``_Unbind``,
+    ``_Sink``), the same bits as ``torch.unbind``'s backward, which
+    stacks all the slices' gradients at the end."""
+    return _Slices(stack)
 
 
 # ------------------------------------------------------------------ blocks

@@ -12,17 +12,27 @@ Two forms of one arithmetic.  ``update`` is functional like the
 reference's: every update returns new tensors.  ``update_`` is the
 counterpart of the reference's donated train state (``donate_argnums`` in
 ``jax.jit``): it writes the parameters and the optimizer state in place,
-leaf by leaf, and drops each gradient once used, so a leaf's temporaries
-are freed before the next leaf's are made (MiniCPM-2B's f32 weights,
-gradients and AdamW moments are 43.6 GB; the functional form would hold
-twice that).  Both forms run the same per-leaf rule, so their results are
-equal bit for bit.  ``optimizer_state_axes`` (sharding) is not ported:
-one card has no mesh.
+and drops each gradient once used.  Both forms, the global norm and the
+clip work a slice at a time (``_slices``): a leaf of more than two dims
+and more than ``SLICE_ELEMS`` elements, a stack of layers or experts, is
+taken as slices over its leading dims, down to one (rows, columns) matrix
+at most, so the f32 temporaries of the norm and of a rule are one slice
+and never the stack (a Mixtral 8x22B layer's expert ``w_up`` is 805 M
+elements, 3.2 GB in f32, where one expert's matrix is 0.4 GB).  AdamW's
+and SGD's rules are elementwise, so slicing them changes nothing;
+Adafactor's factored moments are per matrix, and its update clip reads
+the rms of the whole leaf's direction, which a first pass sums slice by
+slice (in f32) before a second pass recomputes each slice's direction
+and applies it.  Both forms run the same slices in the
+same order, so their results are equal bit for bit; against the
+reference (one sum over the leaf) they differ by f32 summation order.
+``optimizer_state_axes`` (sharding) is not ported: one card has no mesh.
 """
 from __future__ import annotations
 
+import itertools
 import math
-from typing import Any, Callable, List, NamedTuple, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,9 +53,38 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
 
 
+# a stacked leaf is split over its leading dims until a slice holds at
+# most this many elements or is one (rows, columns) matrix: a layer's
+# attention weight (d, H, hd) stays whole (Mixtral 8x22B's wq is 37.7 M
+# elements), an expert's matrix is the slice (Mixtral's (6144, 16384),
+# 0.4 GB in f32)
+SLICE_ELEMS = 1 << 26
+
+
+def _lead(shape) -> tuple:
+    """The leading dims a leaf of ``shape`` is split over (``_slices``)."""
+    k = 0
+    while len(shape) - k > 2 and math.prod(shape[k:]) > SLICE_ELEMS:
+        k += 1
+    return tuple(shape[:k])
+
+
+def _slices(x: torch.Tensor, lead=None) -> List[torch.Tensor]:
+    """Views of ``x``, one per index of its ``lead`` leading dims (default
+    ``_lead(x.shape)``), in order: x whole when it has at most two dims or
+    ``SLICE_ELEMS`` elements, else its slices, none of more than two dims
+    larger than that.  A state leaf is split by its parameter's lead."""
+    lead = _lead(x.shape) if lead is None else lead
+    return [x[i] for i in itertools.product(*map(range, lead))]
+
+
+def _sq_sum(x: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of squares of ``x``, a slice at a time."""
+    return sum(torch.sum(torch.square(m.to(f32))) for m in _slices(x))
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(f32)))
-                          for x in leaves(tree)))
+    return torch.sqrt(sum(_sq_sum(x) for x in leaves(tree)))
 
 
 def clip_by_global_norm(tree, max_norm: float):
@@ -108,34 +147,88 @@ def _zeros(shape, like: torch.Tensor) -> torch.Tensor:
     return torch.zeros(shape, dtype=f32, device=like.device)
 
 
+class Rule(NamedTuple):
+    """An optimizer's arithmetic on one slice of a leaf (``_slices``),
+    g in f32: ``moments(g, p, *state, **sc) -> new state``, ``direction(g,
+    p, *new state, **sc) -> u`` and ``step(u, p, clip, **sc) -> update``.
+    ``leaf_clip`` (Adafactor's update clip) maps the rms of u over the
+    whole leaf, summed in a first pass over its slices, to the divisor
+    ``clip``; without it ``clip`` is 1.0 and one pass does."""
+    moments: Callable
+    direction: Callable
+    step: Callable
+    leaf_clip: Optional[Callable] = None
+
+
+def _leaf_updates(rule: Rule, sc: dict, g, p, olds, outs):
+    """One leaf's update, a slice at a time: yields (index of the slice in
+    ``_slices(p)``, its f32 update), each made after the one before was
+    used; the new state is written into ``outs`` (``olds`` itself under
+    ``update_``: a slice's old state is read before it is written)."""
+    lead = _lead(p.shape)
+    gs, ps = _slices(g, lead), _slices(p, lead)
+    old_ms = [_slices(t, lead) for t in olds]
+    out_ms = [_slices(t, lead) for t in outs]
+
+    def moments(i, gi):
+        news = rule.moments(gi, ps[i], *(m[i] for m in old_ms), **sc)
+        for o, n in zip(out_ms, news):
+            o[i].copy_(n)
+        return [o[i] for o in out_ms]
+
+    clip = 1.0
+    if rule.leaf_clip is not None:
+        ss = 0.0
+        for i, gi in enumerate(gs):
+            gi = gi.to(f32)
+            u = rule.direction(gi, ps[i], *moments(i, gi), **sc)
+            ss = ss + torch.sum(torch.square(u))
+            del gi, u
+        clip = rule.leaf_clip(torch.sqrt(ss / p.numel() + 1e-12))
+    for i, gi in enumerate(gs):
+        gi = gi.to(f32)
+        news = ([o[i] for o in out_ms] if rule.leaf_clip is not None
+                else moments(i, gi))
+        yield i, rule.step(rule.direction(gi, ps[i], *news, **sc), ps[i],
+                           clip, **sc)
+        del gi, news
+
+
 def _optimizer(init: Callable, state_cls, scalars: Callable,
-               rule: Callable) -> Optimizer:
-    """An ``Optimizer`` from a per-leaf ``rule(g, p, *state leaves,
-    **scalars(step)) -> (update, *new state leaves)``; ``state_cls(step,
-    *state trees)`` is the state, each tree shaped like the parameters."""
+               rule: Rule) -> Optimizer:
+    """An ``Optimizer`` from a ``Rule`` applied a slice at a time
+    (``_slices``); ``state_cls(step, *state trees)`` is the state, each
+    tree with its parameters' leading dims."""
 
     def update(grads, state, params):
         step = state.step + 1
         sc = scalars(step)
         trees = state[1:]
-        outs = [rule(g, p, *s, **sc) for g, p, *s in zip(
-            leaves(grads), leaves(params), *map(leaves, trees))]
-        cols = list(zip(*outs))
-        return (unflatten_like(params, cols[0]),
+        upds, cols = [], [[] for _ in trees]
+        for g, p, *olds in zip(leaves(grads), leaves(params),
+                               *map(leaves, trees)):
+            outs = [torch.empty_like(o) for o in olds]
+            u = torch.empty(p.shape, dtype=f32, device=p.device)
+            us = _slices(u)
+            for i, ui in _leaf_updates(rule, sc, g, p, olds, outs):
+                us[i].copy_(ui)
+            upds.append(u)
+            for c, o in zip(cols, outs):
+                c.append(o)
+        return (unflatten_like(params, upds),
                 state_cls(step, *(unflatten_like(t, c)
-                                  for t, c in zip(trees, cols[1:]))))
+                                  for t, c in zip(trees, cols))))
 
     def update_(grads: List[torch.Tensor], state, params):
         step = state.step + 1
         sc = scalars(step)
         cols = list(zip(*map(leaves, state[1:])))
         for i, (p, olds) in enumerate(zip(leaves(params), cols)):
-            upd, *news = rule(grads[i], p, *olds, **sc)
+            ps = _slices(p)
+            for j, uj in _leaf_updates(rule, sc, grads[i], p, olds, olds):
+                ps[j].add_(uj.to(p.dtype))
+                del uj      # before the next slice's temporaries exist
             grads[i] = None
-            p.add_(upd.to(p.dtype))
-            for old, new in zip(olds, news):
-                old.copy_(new)
-            del upd, news      # before the next leaf's temporaries exist
         return state._replace(step=step)
 
     return Optimizer(init, update, update_)
@@ -162,13 +255,18 @@ def adamw(lr: Callable, b1=0.9, b2=0.95, eps=1e-8,
                     bc2=1 - torch.tensor(b2, dtype=f32) ** step_f,
                     lr_t=lr(step))
 
-    def rule(g, p, mm, vv, bc1, bc2, lr_t):
-        m = b1 * mm + (1 - b1) * g.to(f32)
-        v = b2 * vv + (1 - b2) * torch.square(g.to(f32))
-        u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-        return -lr_t * (u + weight_decay * p.to(f32)), m, v
+    def moments(g, p, mm, vv, **sc):
+        return (b1 * mm + (1 - b1) * g,
+                b2 * vv + (1 - b2) * torch.square(g))
 
-    return _optimizer(init, AdamWState, scalars, rule)
+    def direction(g, p, m, v, bc1, bc2, lr_t):
+        return (m / bc1) / (torch.sqrt(v / bc2) + eps)
+
+    def step(u, p, clip, lr_t, **sc):
+        return -lr_t * (u + weight_decay * p.to(f32))
+
+    return _optimizer(init, AdamWState, scalars,
+                      Rule(moments, direction, step))
 
 
 class AdafactorState(NamedTuple):
@@ -196,27 +294,31 @@ def adafactor(lr: Callable, eps=1e-30, clip_threshold=1.0,
     def scalars(step):
         return dict(beta=1.0 - step.to(f32) ** -decay_rate, lr_t=lr(step))
 
-    def rule(g, p, vr, vc, beta, lr_t):
-        g = g.to(f32)
+    def moments(g, p, vr, vc, beta, lr_t):
         g2 = torch.square(g) + eps
         if p.ndim >= 2:
-            vr_n = beta * vr + (1 - beta) * g2.mean(dim=-1)
-            vc_n = beta * vc + (1 - beta) * g2.mean(dim=-2)
+            return (beta * vr + (1 - beta) * g2.mean(dim=-1),
+                    beta * vc + (1 - beta) * g2.mean(dim=-2))
+        return beta * vr + (1 - beta) * g2, vc
+
+    def direction(g, p, vr_n, vc_n, **sc):
+        if p.ndim >= 2:
             denom = torch.clamp(vr_n.mean(dim=-1, keepdim=True), min=eps)
-            u = (g * torch.rsqrt(vr_n / denom)[..., None]
-                 * torch.rsqrt(vc_n)[..., None, :])
-        else:
-            vr_n = beta * vr + (1 - beta) * g2
-            vc_n = vc
-            u = g * torch.rsqrt(vr_n)
-        rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
-        u = u / torch.clamp(rms / clip_threshold, min=1.0)
-        upd = -lr_t * u
+            return (g * torch.rsqrt(vr_n / denom)[..., None]
+                    * torch.rsqrt(vc_n)[..., None, :])
+        return g * torch.rsqrt(vr_n)
+
+    def leaf_clip(rms):
+        return torch.clamp(rms / clip_threshold, min=1.0)
+
+    def step(u, p, clip, lr_t, **sc):
+        upd = -lr_t * (u / clip)
         if weight_decay:
             upd = upd - lr_t * weight_decay * p.to(f32)
-        return upd, vr_n, vc_n
+        return upd
 
-    return _optimizer(init, AdafactorState, scalars, rule)
+    return _optimizer(init, AdafactorState, scalars,
+                      Rule(moments, direction, step, leaf_clip))
 
 
 class SGDState(NamedTuple):
@@ -230,12 +332,17 @@ def sgd(lr: Callable, momentum=0.9) -> Optimizer:
         return SGDState(torch.zeros((), dtype=torch.int32),
                         tree_map(lambda p: _zeros(p.shape, p), params))
 
-    def rule(g, p, m, lr_t):
-        mom = momentum * m + g.to(f32)
-        return -lr_t * mom, mom
+    def moments(g, p, m, lr_t):
+        return (momentum * m + g,)
+
+    def direction(g, p, mom, lr_t):
+        return mom
+
+    def step(u, p, clip, lr_t):
+        return -lr_t * u
 
     return _optimizer(init, SGDState, lambda step: dict(lr_t=lr(step)),
-                      rule)
+                      Rule(moments, direction, step))
 
 
 OPTIMIZERS = {'adamw': adamw, 'adafactor': adafactor, 'sgd': sgd}

@@ -964,6 +964,14 @@ TRAIN_ATTN_CASES = (
     (1, 8, 8, 448, 1500, 64, None, None, False),
     (2, 8, 8, 37, 1500, 64, None, None, False),
     (1, 25, 5, 300, 300, 64, 100, None),
+    # the MoE and VLM families' geometry at D 128 on ragged tiles:
+    # Mixtral's GQA group 6 with its window as long as the sequence (4096
+    # at 4096) and with a window that bites; Llama-3.2-Vision's group 8,
+    # causal, and non-causal Sq != Sk (its cross layers over the patches)
+    (1, 12, 2, 100, 100, 128, 100, None),
+    (1, 12, 2, 100, 100, 128, 40, None),
+    (1, 16, 2, 100, 100, 128, None, None),
+    (1, 16, 2, 70, 100, 128, None, None, False),
 )
 BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 

@@ -4,8 +4,8 @@ reference on the CPU, at their smoke sizes: the data sources of every LM
 family, K8's autograd Function at the non-causal Sq != Sk and windowed GQA
 shapes, the mLSTM's maxima under a tie, each bundle's ``loss_fn`` and its
 gradients, ``remat``, three train steps, train states through checkpoints
-shared with the reference, and the train CLI (including its refusal of
-the MoE and VLM families, which train in a later slice).
+shared with the reference, and the train CLI.  The MoE and VLM families'
+training is held in ``tests/test_torch_moe_train.py``.
 
 Weights come from the reference's own init through ``convert``; tokens,
 sources and cotangents are numpy arrays from a seed.  The reference runs
@@ -47,7 +47,6 @@ pool oversubscribes the cores (Hymba's remat test took 34 s instead of
 """
 import functools
 import shutil
-from unittest import mock
 
 import numpy as np
 import pytest
@@ -78,7 +77,6 @@ from repro_torch.tree import (flatten_with_paths, leaves,  # noqa: E402
                               unflatten_like)
 
 FAMILIES = ['whisper-base', 'xlstm-1.3b', 'hymba-1.5b']
-LATER = ['mixtral-8x22b', 'llama-3.2-vision-90b']
 LM_ARCHS = sorted(a for a in configs.ARCH_MODULES if a != 'chipmunk-ctc')
 # the reference's key chunk: not a divisor of the keys (module docstring)
 JAX_CHUNK = {'whisper-base': 16, 'hymba-1.5b': 64}
@@ -456,24 +454,3 @@ def test_train_cli_trains_and_resumes_bit_for_bit(name, tmp_path, capsys):
     resumed = CheckpointManager(tmp_path / 'b').restore(like, step=6)
     for (path, a), b in zip(flatten_with_paths(straight), leaves(resumed)):
         assert torch.equal(a, b), path
-
-
-@pytest.mark.parametrize('smoke', [False, True])
-@pytest.mark.parametrize('name', LATER)
-def test_train_cli_refuses_later_families_before_drawing(name, smoke,
-                                                         tmp_path):
-    """``--arch mixtral-8x22b`` / ``llama-3.2-vision-90b`` raise the
-    later-slice ``ValueError`` before any weight is drawn (the bundle's
-    ``init`` is never reached), at full size and at smoke size; so do
-    ``loss_fn_for`` and ``init_train_state``."""
-    cfg = (configs.get_smoke_config if smoke else configs.get_config)(name)
-    with mock.patch('repro_torch.models.transformer.init_lm') as init:
-        with pytest.raises(ValueError, match='later slice, cut by depth'):
-            ttrain.main(['--arch', name, '--device', 'cpu', '--ckpt-dir',
-                         str(tmp_path)] + (['--smoke'] if smoke else []))
-        for fn in (lambda: ttrain.loss_fn_for(cfg),
-                   lambda: ttrain.init_train_state(cfg, None, 'cpu')):
-            with pytest.raises(ValueError, match=cfg.family):
-                fn()
-        init.assert_not_called()
-    assert not any(tmp_path.iterdir())
