@@ -296,6 +296,28 @@ the same f32 weights' configuration from seed 0):
     the train CLI on the Mixtral, Kimi-K2 and Llama smoke configs, 4 steps
     and ``--resume`` to 6;
 
+and then the sharding slice (``dryrun_phase``, 11l; one budget of
+``DRYRUN_BUDGET_S``):
+
+11l. the production-mesh dry run of the reference: CTC-3L-421H-UNI's
+    train_4k on the (16, 16) mesh and Qwen3-14B's decode_32k on
+    (2, 16, 16), each ``python -m repro_torch.launch.dryrun`` in a process
+    of its own on the machine's CPU (fake DTensors over a fake process
+    group), both at once: status, the bytes one rank holds against the
+    card's 80 GB, the bottleneck and the wall seconds (a failed cell fails
+    the phase); the cost model's ranking of the stack backends at the
+    serving shape (``op_cost.rank_stack_backends``, 123 -> 3 x 421, T =
+    chunk, B = slots), each estimate beside that backend's launch timed on
+    the card, which must be at or above its lower bound
+    (``roofline.analyze``'s ``step_time_lower_bound_s``); MiniCPM-2B's
+    train step at 2 x 4096 traced by the cost model (no step run), its
+    lower bound against the step the LM training phase measured, the
+    ratio printed and at least 1; K8 under DTensor (q, k, v placed on
+    ``launch.train.local_mesh()``, (1, 1) on one card): one launch on the
+    local shards, ``torch.equal`` to the plain call; and
+    ``optim.compress_tensor``'s int8 codes of a tensor on the card
+    ``torch.equal`` to those of its copy on the CPU;
+
 and then the two kernels that no path of the system reaches, each on its
 public op, and K8 also on its own, each held against its plain version and
 timed beside its bound and a PyTorch yardstick, each op driven once per
@@ -367,9 +389,10 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
-INT8_OPS_PER_S = 1979e12      # H100 SXM int8 tensor cores, dense
+# the card's peak rates, read from ``repro_torch.launch.mesh`` (the one
+# set the roofline reads too) by ``load_card_rates`` before any phase
+HBM_BYTES_PER_S = F32_FLOPS_PER_S = INT8_OPS_PER_S = None
+BF16_FLOPS_PER_S = TF32_FLOPS_PER_S = HBM_BYTES = None
 KERNEL_ATOL = 1e-4            # kernel vs plain version, f32 state/outputs
 ENGINE_ATOL = 1e-4            # log-probs across backends / vs forward
 ENGINE_RTOL = 1e-4
@@ -403,8 +426,12 @@ TRAIN_BACKENDS = ('cuda_step', 'cuda_seq', 'cuda_seq_fused')
 GRAD_T = 16                   # sequence of the on-card gradient check
 GRAD_REL_TOL = 1e-4           # relative Frobenius error per gradient leaf
 LOSS_RTOL = 1e-4              # loss histories across kernel backends
-BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
-TF32_FLOPS_PER_S = 495e12     # H100 SXM tf32 tensor cores, dense
+# the dry-run phase: its cells (arch, shape, multi-pod), each process's
+# time limit, and the phase's budget
+DRYRUN_CELLS = (('chipmunk-ctc', 'train_4k', False),
+                ('qwen3-14b', 'decode_32k', True))
+DRYRUN_TIMEOUT_S = 100
+DRYRUN_BUDGET_S = 120
 # the tune phase: interleaved turns of each timed trial (K4 against the K3
 # chain; the serving loop at each chunk depth), and the deadline factor of
 # its server and of the serve CLI's run
@@ -688,11 +715,59 @@ def host_ms(fn, reps: int, warmup: int = 2) -> float:
     return t / reps * 1e3
 
 
-def bound(nbytes: float, flops: float, ops_per_s: float = F32_FLOPS_PER_S):
+# the functions ``main`` calls as its phases, each timed (``time_phases``)
+PHASES = ('kernel_checks', 'chunked_checks', 'engine_runs', 'engine_timing',
+          'profile_engine', 'f4_checks', 'fault_runs', 'quantize_stack',
+          'int8_kernel_checks', 'int8_chunked_checks', 'int8_deploy',
+          'gates_kernel_checks', 'grad_checks', 'train_runs', 'train_cli',
+          'fault_train', 'tune_phase', 'examples_phase', 'systolic_phase',
+          'die_phase', 'lm_phase', 'lm_train_phase', 'moe_phase',
+          'cross_phase', 'recurrent_phase', 'family_train_phase',
+          'depth_train_phase', 'dryrun_phase', 'cell_checks',
+          'quant_matmul_checks', 'attention_checks', '_bwd_rows')
+
+
+def time_phases(module_globals: dict) -> dict:
+    """Wrap each of ``PHASES`` in ``module_globals`` so that its wall
+    seconds add up, under its name, in the dict returned (a phase called
+    inside another counts toward the outer one alone)."""
+    seconds, depth = {}, [0]
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                if not depth[0]:
+                    seconds[name] = seconds.get(name, 0.0) + (
+                        time.perf_counter() - t0)
+        return run
+
+    for name in PHASES:
+        if name in module_globals:
+            module_globals[name] = timed(name, module_globals[name])
+    return seconds
+
+
+def load_card_rates() -> None:
+    """Set the card's peak rates from ``repro_torch.launch.mesh``."""
+    global HBM_BYTES_PER_S, F32_FLOPS_PER_S, INT8_OPS_PER_S
+    global BF16_FLOPS_PER_S, TF32_FLOPS_PER_S, HBM_BYTES
+    from repro_torch.launch import mesh
+    HBM_BYTES_PER_S, F32_FLOPS_PER_S = mesh.HBM_BW, mesh.PEAK_FLOPS_F32
+    INT8_OPS_PER_S, BF16_FLOPS_PER_S = mesh.PEAK_OPS_INT8, \
+        mesh.PEAK_FLOPS_BF16
+    TF32_FLOPS_PER_S, HBM_BYTES = mesh.PEAK_FLOPS_TF32, mesh.HBM_BYTES
+
+
+def bound(nbytes: float, flops: float, ops_per_s: float = None):
     """(bound_ms, bound_by): the larger of bytes over HBM rate and
     operations over the peak rate of their type (f32 unless given)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / ops_per_s * 1e3
+    t_ops = flops / (ops_per_s or F32_FLOPS_PER_S) * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -6267,6 +6342,178 @@ def clock_stamps(dev):
     return out
 
 
+# ------------------------------------------------------- the dry run
+def dryrun_cells():
+    """``DRYRUN_CELLS``, each ``python -m repro_torch.launch.dryrun`` in a
+    process of its own (one process group a process) on the CPU, all at
+    once: their records (``results/dryrun_torch``), a failed cell raising
+    with its error."""
+    import os
+    from repro_torch.launch.dryrun import cell_path
+    root = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / 'src'),
+               CUDA_VISIBLE_DEVICES='')
+    procs = []
+    for arch, shape, mp in DRYRUN_CELLS:
+        args = ['--arch', arch, '--shape', shape, '--force'] + (
+            ['--multi-pod'] if mp else [])
+        procs.append(subprocess.Popen(
+            [sys.executable, '-m', 'repro_torch.launch.dryrun', *args],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    recs = []
+    for (arch, shape, mp), p in zip(DRYRUN_CELLS, procs):
+        try:
+            out, err = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        path = cell_path(arch, shape, mp)
+        check(p.returncode == 0 and path.exists(),
+              f'dry run {arch} x {shape}: exit {p.returncode}\n'
+              f'{out[-2000:]}\n{err[-3000:]}')
+        rec = json.loads(path.read_text())
+        check(rec['status'] == 'ok', f'dry run {arch} x {shape}: '
+                                     f'{rec.get("error", "")[-2000:]}')
+        m, r = rec['memory'], rec['roofline']
+        rank_bytes = m['argument_size_bytes'] + m['temp_size_bytes']
+        print(f'dry run {arch} x {shape} ({rec["mesh"]}, {rec["n_chips"]} '
+              f'ranks): {rec["status"]}, {rank_bytes / 1e9:.2f} GB a rank '
+              f'(arguments {m["argument_size_bytes"] / 1e9:.2f}, temporaries '
+              f'{m["temp_size_bytes"] / 1e9:.2f}) of the card\'s '
+              f'{HBM_BYTES / 1e9:.0f} GB, '
+              f'bottleneck {r["bottleneck"]}, lower bound '
+              f'{max(r["compute_s"], r["memory_s"], r["collective_s"]):.6f} '
+              f's, roofline fraction {r["roofline_fraction"]}, '
+              f'{rec["wall_s"]} s wall', flush=True)
+        recs.append(dict(rec, rank_bytes=rank_bytes))
+    return recs
+
+
+def dryrun_ranking(cfg, params, dev):
+    """``op_cost.rank_stack_backends`` at the serving shape (the stack
+    without its read-out, T = ``CHUNK``, B = ``SLOTS``) beside each
+    backend's launch timed on the card, each at or above its lower bound
+    (``roofline.analyze``)."""
+    from repro_torch import op_cost
+    from repro_torch.core.lstm import LSTMStackParams, lstm_stack_apply
+    from repro_torch.roofline import analyze
+    n_x, n_h, L = cfg.lstm_inputs, cfg.lstm_hidden, cfg.n_layers
+    stack = LSTMStackParams(params.layers, None, None)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    xs = torch.randn((CHUNK, SLOTS, n_x), generator=g, device=dev)
+    rows = []
+    for backend, est_us in op_cost.rank_stack_backends(n_x, n_h, L, CHUNK,
+                                                       SLOTS):
+        lb_ms = analyze(op_cost.stack_launch_cost(
+            backend, n_x, n_h, L, CHUNK, SLOTS)).step_time_lower_bound_s * 1e3
+        with torch.no_grad():
+            ms = cuda_ms(lambda: lstm_stack_apply(stack, xs, backend=backend),
+                         20)
+        rows.append(dict(backend=backend, estimate_us=est_us, cuda_ms=ms,
+                         lower_bound_ms=lb_ms, ratio=ms / lb_ms))
+        print(f'stack backend {backend}: cost-model estimate {est_us:.2f} us, '
+              f'on the card {ms * 1e3:.2f} us, lower bound '
+              f'{lb_ms * 1e3:.2f} us (x{ms / lb_ms:.2f})', flush=True)
+        check(ms >= lb_ms, f'{backend}: {ms} ms below its lower bound '
+                           f'{lb_ms} ms')
+    return rows
+
+
+def dryrun_minicpm_bound(lm_train):
+    """MiniCPM-2B's train step at ``LM_TRAIN_BATCH`` x ``LM_TRAIN_SEQ``
+    traced by the cost model on fake tensors (one card, the donating step
+    of ``lm_train_run``; no step runs): its lower bound against the median
+    measured step of the LM training phase."""
+    from repro_torch import configs, op_cost
+    from repro_torch.launch.train import (init_train_state, loss_fn_for,
+                                          lr_schedule_for, make_train_step)
+    from repro_torch.optim import make_optimizer
+    from repro_torch.roofline import analyze
+    cfg = configs.get_config(LM_TRAIN_ARCH)
+    opt = make_optimizer(cfg.optimizer, lr_schedule_for(cfg))
+    t0 = time.perf_counter()
+    with op_cost.traced() as mode:
+        with mode.hidden():
+            state = init_train_state(cfg, opt, 'cpu', seed=SEED)
+            batch = {k: torch.zeros((LM_TRAIN_BATCH, LM_TRAIN_SEQ),
+                                    dtype=torch.int32)
+                     for k in ('tokens', 'labels')}
+        make_train_step(loss_fn_for(cfg), opt, donate=True)(state, batch)
+    terms = analyze(mode.record)
+    lb_ms = terms.step_time_lower_bound_s * 1e3
+    ms = float(np.median([s['wall_ms'] for s in lm_train['run']['steps'][1:]]))
+    res = dict(terms=terms.to_dict(), kernels=mode.record.kernels,
+               lower_bound_ms=lb_ms, step_ms=ms, ratio=ms / lb_ms,
+               trace_s=time.perf_counter() - t0)
+    print(f'{cfg.name} train step {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}: cost '
+          f'model {terms.flops:.4e} FLOPs, {terms.hbm_bytes:.4e} B, lower '
+          f'bound {lb_ms:.1f} ms ({terms.bottleneck}); measured {ms:.1f} ms, '
+          f'x{ms / lb_ms:.3f} ({res["trace_s"]:.1f} s to trace)', flush=True)
+    check(ms >= lb_ms, f'{cfg.name}: step {ms} ms below its bound {lb_ms}')
+    return res
+
+
+def dryrun_sharded_attention(dev):
+    """K8 under DTensor on the card: q, k, v placed on the trainer's
+    ``local_mesh()`` ((1, 1) over a one-rank ``gloo`` group) under
+    ``TRAIN_RULES``; ``layers.attention`` runs K8 on each rank's local
+    shards (here the whole tensors): one launch, counted, its output
+    ``torch.equal`` to the plain call's."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch import sharding as shd
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import resolve_rules
+    from repro_torch.launch.train import local_mesh
+    from repro_torch.models import layers
+    mesh = local_mesh('cuda')
+    rules = shd.ShardingRules(mesh, resolve_rules(shd.TRAIN_RULES, mesh))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn((2, h, 256, 64), generator=g, device=dev,
+                           dtype=torch.bfloat16) for h in (8, 2, 2))
+    want = flash_attention(q, k, v)
+    before = flash_attention.launches
+    with shd.use_rules(rules), torch.no_grad():
+        o = layers.attention('auto', *(distribute_tensor(
+            t, mesh, [Replicate(), Replicate()]) for t in (q, k, v)))
+    res = dict(mesh=tuple(mesh.shape), placements=str(o.placements),
+               launches=flash_attention.launches - before,
+               equal=bool(torch.equal(o.to_local(), want)))
+    dist.destroy_process_group()
+    print(f'K8 under DTensor on the card: mesh {res["mesh"]}, output '
+          f'{res["placements"]}, {res["launches"]} launch, equal to the '
+          f'plain call: {res["equal"]}', flush=True)
+    check(res['launches'] == 1 and res['equal'],
+          f'K8 under DTensor: {res}')
+    return res
+
+
+def dryrun_phase(cfg, params, lm_train, card: str, dev):
+    """The sharding slice on the card machine (11l): ``dryrun_cells``,
+    ``dryrun_ranking``, ``dryrun_minicpm_bound``,
+    ``dryrun_sharded_attention`` and ``compress_tensor``'s codes on the
+    card against the CPU's."""
+    from repro_torch.optim import compress_tensor
+    t0 = time.perf_counter()
+    res = dict(card=card, cells=dryrun_cells(),
+               ranking=dryrun_ranking(cfg, params, dev),
+               minicpm=dryrun_minicpm_bound(lm_train),
+               sharded_attention=dryrun_sharded_attention(dev))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((4096, 1024), generator=g, device=dev) * 3e-3
+    q, s = compress_tensor(x)
+    q_cpu, s_cpu = compress_tensor(x.cpu())
+    res['compress_equal'] = bool(torch.equal(q.cpu(), q_cpu)
+                                 and float(s) == float(s_cpu))
+    check(res['compress_equal'], 'compress_tensor: the card\'s int8 codes '
+                                 'differ from the CPU\'s')
+    res['s'] = time.perf_counter() - t0
+    print(f'dry-run phase: {res["s"]:.1f} s of its {DRYRUN_BUDGET_S} s '
+          f'budget; int8 codes on the card equal the CPU\'s', flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description='chip smoke test of the port')
     ap.add_argument('--out', default=None,
@@ -6294,9 +6541,11 @@ def main(argv=None) -> int:
     dev = torch.device('cuda', 0)
     if args.op_times:
         sys.path.insert(0, args.op_times)
+        load_card_rates()
         print(json.dumps(op_times(dev)), flush=True)
         return 0
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / 'src'))
+    load_card_rates()
     if args.ab or args.clock_stamps:
         card = subprocess.run(
             ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -6317,6 +6566,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.models import chipmunk_net
 
+    t_start = time.perf_counter()
+    phase_s = time_phases(globals())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
@@ -6399,6 +6650,10 @@ def main(argv=None) -> int:
     # Mixtral 8x22B and Llama-3.2-Vision-90B
     depth = depth_train_phase(dev, card)
 
+    # the sharding slice: the production-mesh dry run on the CPU, the cost
+    # model's bounds against launches and MiniCPM-2B's step on the card
+    dry = dryrun_phase(cfg, params, lm_train, card, dev)
+
     # K6 and K7 on their public ops (no path of the system reaches them);
     # K8 at Mixtral's shapes and on mha beside the LM path's cases
     op_rows = [cell_checks(params, CELL_BATCH, dev),
@@ -6428,6 +6683,10 @@ def main(argv=None) -> int:
             'bound_ms', 'bound_by', 'library_ms', 'tol', 'ok', 'shape',
             'geometry', 'cases')
     kernels = {'kernels': [{k: r[k] for k in keys if k in r} for r in rows]}
+    phase_s['build'] = build_s
+    phase_s['total'] = time.perf_counter() - t_start
+    print('phase seconds: ' + json.dumps(
+        {k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -6442,7 +6701,8 @@ def main(argv=None) -> int:
             train_grad_rel_err=grad_err, train=train, train_cli=cli,
             tune=tuned, examples=examples, systolic=systolic, die=die,
             lm=lm, lm_train=lm_train, moe=moe, cross=cross, recurrent=rec,
-            family_train=fam, depth_train=depth),
+            family_train=fam, depth_train=depth, dryrun=dry,
+            phase_seconds=phase_s),
             indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {

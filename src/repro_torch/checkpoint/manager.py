@@ -9,7 +9,11 @@
 Leaves are flattened in the reference's order with its path strings
 (``tree``), so either package restores the other's checkpoints.  ``save``
 copies the state to host memory at once (one synchronising device-to-host
-copy per leaf) and writes the files on a background thread.
+copy per leaf) and writes the files on a background thread.  A sharded
+state (DTensor leaves) is gathered whole first, every rank taking part,
+and rank 0 writes; ``restore(..., shardings=)`` places each leaf by the
+*new* mesh's layouts, so a checkpoint saved on one mesh restores onto
+another (elastic re-sharding).
 """
 from __future__ import annotations
 
@@ -28,10 +32,19 @@ from ..tree import flatten_with_paths, unflatten_like
 
 
 def _host_copy(leaf) -> np.ndarray:
-    """A host array that no later update of ``leaf`` can change."""
+    """A host array that no later update of ``leaf`` can change (a DTensor
+    gathered whole: every rank must call this)."""
+    from ..sharding import is_dtensor
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     t = torch.as_tensor(leaf).detach()
     a = t.cpu().numpy()
     return a.copy() if t.device.type == 'cpu' else a
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 class CheckpointManager:
@@ -48,6 +61,8 @@ class CheckpointManager:
         self.wait()                                     # one in flight max
         host = [(path, _host_copy(leaf))
                 for path, leaf in flatten_with_paths(state)]
+        if _rank() != 0:                   # rank 0 writes a sharded state
+            return
         if blocking:
             self._write(step, host)
         else:
@@ -107,10 +122,14 @@ class CheckpointManager:
         return max(steps) if steps else None
 
     def restore(self, state_like, step: Optional[int] = None,
-                validate: bool = True, match_paths: bool = True):
+                shardings=None, validate: bool = True,
+                match_paths: bool = True):
         """Restore into the structure of ``state_like``: each leaf becomes a
         tensor on its target leaf's device (the CPU for a target that is not
-        a tensor).  ``match_paths`` checks every manifest path against the
+        a tensor).  ``shardings``: a tree like ``state_like`` of
+        ``sharding.Layout``s (a missing leaf: unplaced) — pass the new
+        mesh's layouts to re-shard on restore: each rank keeps its shard of
+        each leaf.  ``match_paths`` checks every manifest path against the
         target's, so a structurally different state fails loudly, naming the
         first mismatched leaf; ``validate`` checks the checksums."""
         step = self.latest_step() if step is None else step
@@ -119,6 +138,7 @@ class CheckpointManager:
         d = self.dir / f'step_{step:08d}'
         manifest = json.loads((d / 'manifest.json').read_text())
         pathed = flatten_with_paths(state_like)
+        layout = dict(flatten_with_paths(shardings)) if shardings else {}
         if len(manifest['leaves']) != len(pathed):
             raise ValueError(f'checkpoint has {len(manifest["leaves"])} '
                              f'leaves, target has {len(pathed)}')
@@ -133,6 +153,10 @@ class CheckpointManager:
             if validate and (hashlib.sha1(arr.tobytes()).hexdigest()[:16]
                              != meta['sha1']):
                 raise IOError(f'checksum mismatch for {meta["path"]}')
+            t = torch.from_numpy(arr)
+            if layout.get(path) is not None:
+                out.append(layout[path].distribute(t))
+                continue
             dev = target.device if isinstance(target, torch.Tensor) else 'cpu'
-            out.append(torch.from_numpy(arr).to(dev))
+            out.append(t.to(dev))
         return unflatten_like(state_like, out)

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -101,15 +101,32 @@ class ArchConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:
-    """One batch shape: ``kind`` is ``train`` here; ``seq_len`` frames per
-    utterance, ``global_batch`` utterances per step."""
+    """One batch shape: ``kind`` is ``train``, ``prefill`` or ``decode``;
+    ``seq_len`` tokens (frames, for the CTC LSTM) per sequence, or a
+    decode's cache length; ``global_batch`` sequences per step."""
     name: str
     kind: str
     seq_len: int
     global_batch: int
 
+    @property
+    def is_train(self) -> bool:
+        return self.kind == 'train'
+
+
+# The four assigned LM shapes of the reference's dry run (identical across
+# the ten LM architectures; ``shapes_for`` drops ``long_500k`` where the
+# attention is quadratic).
+SHAPES: Dict[str, ShapeConfig] = {
+    'train_4k': ShapeConfig('train_4k', 'train', 4_096, 256),
+    'prefill_32k': ShapeConfig('prefill_32k', 'prefill', 32_768, 32),
+    'decode_32k': ShapeConfig('decode_32k', 'decode', 32_768, 128),
+    'long_500k': ShapeConfig('long_500k', 'decode', 524_288, 1),
+}
+
 
 ARCH_MODULES = {
+    'xlstm-1.3b': 'xlstm_1_3b',
     'kimi-k2-1t-a32b': 'kimi_k2_1t_a32b',
     'mixtral-8x22b': 'mixtral_8x22b',
     'qwen3-14b': 'qwen3_14b',
@@ -118,10 +135,11 @@ ARCH_MODULES = {
     'qwen2.5-14b': 'qwen25_14b',
     'whisper-base': 'whisper_base',
     'llama-3.2-vision-90b': 'llama32_vision_90b',
-    'xlstm-1.3b': 'xlstm_1_3b',
     'hymba-1.5b': 'hymba_1_5b',
     'chipmunk-ctc': 'chipmunk_ctc',
 }
+
+ASSIGNED_ARCHS = [a for a in ARCH_MODULES if a != 'chipmunk-ctc']
 
 
 def get_config(name: str) -> ArchConfig:
@@ -133,3 +151,17 @@ def get_smoke_config(name: str) -> ArchConfig:
     """The reduced same-family configuration of ``name`` for CPU tests."""
     return importlib.import_module(f'.{ARCH_MODULES[name]}', __package__).SMOKE
 
+
+
+def long_context_supported(cfg: ArchConfig) -> bool:
+    """``long_500k`` runs only for the sub-quadratic architectures: the
+    recurrent families, and sliding-window attention with no global
+    layer."""
+    return (cfg.family in ('ssm', 'hybrid')
+            or (cfg.sliding_window is not None and not cfg.global_layer_ids))
+
+
+def shapes_for(cfg: ArchConfig) -> List[ShapeConfig]:
+    """The shapes of ``SHAPES`` that ``cfg`` runs, in order."""
+    return [s for s in SHAPES.values()
+            if s.name != 'long_500k' or long_context_supported(cfg)]

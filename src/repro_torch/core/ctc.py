@@ -12,6 +12,8 @@ from typing import Tuple
 
 import torch
 
+from ..op_cost import steps
+
 NEG_INF = -1e30
 
 
@@ -62,7 +64,7 @@ def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor,
     first = torch.where(label_lengths > 0, emit[0, :, 1], NEG_INF)
     alpha = torch.cat([emit[0, :, :1], first[:, None], neg(S - 2)], dim=1)
     alpha = torch.where(valid, alpha, NEG_INF)
-    for t in range(1, T):
+    for t in steps(range(1, T), log_probs):
         shift1 = torch.cat([neg(1), alpha[:, :-1]], dim=1)
         shift2 = torch.where(can_skip,
                              torch.cat([neg(2), alpha[:, :-2]], dim=1),

@@ -79,6 +79,8 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from ..op_cost import stack_steps, steps
+
 GATES = 4  # i, f, g, o
 I, F, G, O = 0, 1, 2, 3
 PEEP_I, PEEP_F, PEEP_O = 0, 1, 2
@@ -240,13 +242,14 @@ def _lstm_scan(w_h, w_peep, b, pre_x, h0, c0):
     (T, B, 4, N_h).  Returns (hs, cs, gates (T, B, 4, N_h))."""
     h, c = h0, c0
     hs, cs, gates = [], [], []
-    for pre_x_t in pre_x:
-        pre = pre_x_t + torch.einsum('ghk,...k->...gh', w_h, h)
+    T = pre_x.shape[0]
+    for t in steps(range(T), pre_x):
+        pre = pre_x[t] + torch.einsum('ghk,...k->...gh', w_h, h)
         h, c, g = _gate_phase(pre, w_peep, b, c)
         hs.append(h)
         cs.append(c)
         gates.append(torch.stack(g, dim=-2))
-    return torch.stack(hs), torch.stack(cs), torch.stack(gates)
+    return stack_steps(hs, T), stack_steps(cs, T), stack_steps(gates, T)
 
 
 def lstm_bwd_core(w_h, w_peep, hs, cs, gates, h0, c0, dhs, dh_T, dc_T):
@@ -258,7 +261,7 @@ def lstm_bwd_core(w_h, w_peep, hs, cs, gates, h0, c0, dhs, dh_T, dc_T):
     c_prevs = torch.cat([c0[None], cs[:-1]])
     dh_next, dc_next = dh_T, dc_T
     das = [None] * hs.shape[0]
-    for t in range(hs.shape[0] - 1, -1, -1):
+    for t in steps(range(hs.shape[0] - 1, -1, -1), hs):
         i, f, g, o = gates[t].unbind(-2)
         dh = dhs[t] + dh_next
         tc = torch.tanh(cs[t])
@@ -271,7 +274,7 @@ def lstm_bwd_core(w_h, w_peep, hs, cs, gates, h0, c0, dhs, dh_T, dc_T):
         dc_next = dct * f + da_i * w_peep[PEEP_I] + da_f * w_peep[PEEP_F]
         das[t] = torch.stack([da_i, da_f, da_g, da_o], dim=-2)
         dh_next = torch.einsum('ghk,...gh->...k', w_h, das[t])
-    das = torch.stack(das)
+    das = stack_steps(das, hs.shape[0])
     # weight gradients: single wide contractions outside the loop
     dw_h = torch.einsum('t...gh,t...k->ghk', das, h_prevs)
     d_peep = torch.stack([
@@ -562,7 +565,8 @@ def hoisted_input(w_x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     row count, and a product over all T*B rows would make a row's bits
     depend on how many steps share the call — chunked serving would then
     not be bit-equal to the monolithic call on the card."""
-    return torch.stack([torch.einsum('ghx,bx->bgh', w_x, x_t) for x_t in xs])
+    return stack_steps([torch.einsum('ghx,bx->bgh', w_x, xs[t])
+                        for t in steps(range(xs.shape[0]), xs)], xs.shape[0])
 
 
 def readout(w_out: torch.Tensor, b_out: torch.Tensor,
@@ -570,8 +574,8 @@ def readout(w_out: torch.Tensor, b_out: torch.Tensor,
     """The dense read-out (logits) of a hidden sequence (T, B, N_h) ->
     (T, B, N_out), one product per step for the reason given in
     ``hoisted_input``."""
-    return torch.stack([torch.einsum('oh,bh->bo', w_out, h_t) + b_out
-                        for h_t in h])
+    return stack_steps([torch.einsum('oh,bh->bo', w_out, h[t]) + b_out
+                        for t in steps(range(h.shape[0]), h)], h.shape[0])
 
 
 def _lstm_scan_masked(w_h, w_peep, b, pre_x, h0, c0, mask):

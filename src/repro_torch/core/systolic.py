@@ -67,6 +67,7 @@ from typing import ClassVar, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..op_cost import collective
 from . import quant
 from .lstm import (GATES, I, F, G, O, PEEP_I, PEEP_F, PEEP_O, LSTMParams,
                    _gate_phase, hoisted_input, recompute_gates_layer,
@@ -603,6 +604,7 @@ def seq_scaleout_admissible(n_h: int, mesh, *,
 def _psum(parts: Sequence[torch.Tensor], dst: torch.device) -> torch.Tensor:
     """``psum`` over ``col``: a row's partials summed in column order onto
     the device that finishes the row."""
+    collective('all-reduce', parts)
     acc = parts[0].to(dst)
     for p in parts[1:]:
         acc = acc + p.to(dst)
@@ -613,11 +615,13 @@ def _all_gather(chunks: Sequence[torch.Tensor], dst: torch.device,
                 dim: int = -1) -> torch.Tensor:
     """Tiled ``all_gather``: the chunks concatenated in engine order onto
     ``dst``."""
+    collective('all-gather', chunks)
     return torch.cat([x.to(dst) for x in chunks], dim)
 
 
 def _ppermute(x: torch.Tensor, dst: torch.device) -> torch.Tensor:
     """``ppermute`` stage s -> s + 1: a copy, none on a shared device."""
+    collective('collective-permute', [x])
     return x.to(dst)
 
 

@@ -1,5 +1,5 @@
-from .pipeline import (HostLoader, SyntheticCTC, SyntheticLM, TokenFile,
-                       source_for)
+from .pipeline import (HostLoader, PipelineConfig, ShardedLoader,
+                       SyntheticCTC, SyntheticLM, TokenFile, source_for)
 
-__all__ = ['HostLoader', 'SyntheticCTC', 'SyntheticLM', 'TokenFile',
-           'source_for']
+__all__ = ['HostLoader', 'PipelineConfig', 'ShardedLoader', 'SyntheticCTC',
+           'SyntheticLM', 'TokenFile', 'source_for']

@@ -9,20 +9,32 @@ batches are bit-identical to the reference's.  Sources: ``SyntheticCTC``
 (MFCC frames and phoneme labels), ``SyntheticLM`` (a Zipf token stream,
 and for the audio and VLM families the stub frontend's ``source`` frames
 or patches) and ``TokenFile`` (windows of a memory-mapped token corpus).
-``HostLoader`` stands in for the reference's ``ShardedLoader``: one
-process, no mesh, no prefetch thread; each batch is copied to the device
-as it is drawn (a pinned, non-blocking copy waits for a trace that shows
-the copy in the step's way).  The reference's ``PipelineConfig`` is read
-by nothing in either package and has no counterpart.
+``HostLoader`` feeds one process with no mesh and no prefetch thread;
+each batch is copied to the device as it is drawn (a pinned, non-blocking
+copy waits for a trace that shows the copy in the step's way).
+``ShardedLoader`` is the reference's: a prefetch thread draws each rank's
+rows of the global batch, and each batch leaf becomes a DTensor placed by
+its ``sharding.Layout`` (``launch.train.batch_shardings``), the rank
+holding its own rows.  ``PipelineConfig`` carries the reference's seed
+and prefetch depth.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional, Tuple
+import dataclasses
+import queue
+import threading
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..configs import ArchConfig, ShapeConfig
+
+
+@dataclasses.dataclass
+class PipelineConfig:
+    seed: int = 0
+    prefetch: int = 2
 
 
 def _rng_for_step(seed: int, step: int) -> np.random.Generator:
@@ -132,3 +144,53 @@ class HostLoader:
         host = self.source.host_batch(step, 0, self.shape.global_batch)
         self.step += 1
         return step, {k: self._to_device(v) for k, v in host.items()}
+
+
+class ShardedLoader:
+    """Iterate ``(step, batch)`` from ``start_step`` on, each leaf a
+    DTensor placed by ``shardings[name]`` (a ``sharding.Layout``; a name
+    without one: a plain tensor).  Each rank draws the global batch and
+    keeps its rows (the reference's per-host slice, every rank a host);
+    ``prefetch`` batches are drawn ahead on a thread.  ``device``: where
+    the local rows go (the mesh's device type by default)."""
+
+    def __init__(self, source, shape: ShapeConfig, shardings: Dict[str, Any],
+                 start_step: int = 0, prefetch: int = 2, device=None):
+        self.source, self.shape, self.shardings = source, shape, shardings
+        self.step = start_step
+        lay = next(iter(shardings.values()), None)
+        self.device = torch.device(
+            device or (lay.mesh.device_type if lay is not None else 'cpu'))
+        self._q: queue.Queue = queue.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        step = self.step
+        while not self._stop.is_set():
+            host = self.source.host_batch(step, 0, self.shape.global_batch)
+            try:
+                self._q.put((step, host), timeout=1.0)
+                step += 1
+            except queue.Full:
+                continue
+
+    def _assemble(self, host: Dict[str, np.ndarray]):
+        out = {}
+        for k, v in host.items():
+            t = torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+            lay = self.shardings.get(k)
+            out[k] = t if lay is None else lay.distribute(t)
+        return out
+
+    def __iter__(self) -> Iterator[Tuple[int, Dict[str, torch.Tensor]]]:
+        return self
+
+    def __next__(self) -> Tuple[int, Dict[str, torch.Tensor]]:
+        step, host = self._q.get()
+        self.step = step + 1
+        return step, self._assemble(host)
+
+    def close(self):
+        self._stop.set()

@@ -113,6 +113,49 @@ def _defaults(q, k, causal, sm_scale, offset):
     return scale, offset
 
 
+@torch.library.custom_op('repro_torch::flash_attention_bwd_kv',
+                         mutates_args=())
+def flash_attention_bwd_kv_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, do: torch.Tensor,
+                                 lse: torch.Tensor, delta: torch.Tensor,
+                                 causal: bool, window: Optional[int],
+                                 sm_scale: float, offset: int
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_bwd_kv`` on CPU tensors, the op
+    ``repro_torch::flash_attention_bwd_kv``: the plain version, and under
+    fake tensors outputs of its shapes (a cost model charges the op by its
+    launch geometry, ``kernel.attention_bwd_cost``)."""
+    return attention_bwd_ref(q, k, v, do, lse, delta, causal=causal,
+                             window=window, sm_scale=sm_scale,
+                             offset=offset)[1:]
+
+
+@flash_attention_bwd_kv_plain.register_fake
+def _(q, k, v, do, lse, delta, causal, window, sm_scale, offset):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+@torch.library.custom_op('repro_torch::flash_attention_bwd_q',
+                         mutates_args=())
+def flash_attention_bwd_q_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, do: torch.Tensor,
+                                lse: torch.Tensor, delta: torch.Tensor,
+                                causal: bool, window: Optional[int],
+                                sm_scale: float, offset: int
+                                ) -> torch.Tensor:
+    """``flash_attention_bwd_q`` on CPU tensors, the op
+    ``repro_torch::flash_attention_bwd_q`` (as
+    ``flash_attention_bwd_kv_plain``)."""
+    return attention_bwd_ref(q, k, v, do, lse, delta, causal=causal,
+                             window=window, sm_scale=sm_scale,
+                             offset=offset)[0]
+
+
+@flash_attention_bwd_q_plain.register_fake
+def _(q, k, v, do, lse, delta, causal, window, sm_scale, offset):
+    return q.new_empty(q.shape)
+
+
 def flash_attention_bwd_kv(q, k, v, do, lse, delta, *, causal: bool = True,
                            window: Optional[int] = None,
                            sm_scale: Optional[float] = None,
@@ -126,9 +169,8 @@ def flash_attention_bwd_kv(q, k, v, do, lse, delta, *, causal: bool = True,
     ``.launches``."""
     scale, offset = _defaults(q, k, causal, sm_scale, offset)
     if q.device.type == 'cpu':
-        return attention_bwd_ref(q, k, v, do, lse, delta, causal=causal,
-                                 window=window, sm_scale=scale,
-                                 offset=offset)[1:]
+        return flash_attention_bwd_kv_plain(q, k, v, do, lse, delta, causal,
+                                            window, scale, offset)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch('flash_attention_bwd_kv', q, k, v, do, lse, delta, (dk, dv),
             causal, window, scale, offset, split)
@@ -144,9 +186,8 @@ def flash_attention_bwd_q(q, k, v, do, lse, delta, *, causal: bool = True,
     ``flash_attention_bwd_kv``.  Counted in ``.launches``."""
     scale, offset = _defaults(q, k, causal, sm_scale, offset)
     if q.device.type == 'cpu':
-        return attention_bwd_ref(q, k, v, do, lse, delta, causal=causal,
-                                 window=window, sm_scale=scale,
-                                 offset=offset)[0]
+        return flash_attention_bwd_q_plain(q, k, v, do, lse, delta, causal,
+                                           window, scale, offset)
     dq = torch.empty_like(q)
     _launch('flash_attention_bwd_q', q, k, v, do, lse, delta, (dq,),
             causal, window, scale, offset)
@@ -163,12 +204,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         sm_scale: Optional[float] = None,
                         offset: Optional[int] = None):
     """(dq, dk, dv) of K8 at cotangent ``do``, from its output ``o`` and
-    ``lse``: both kernels on CUDA tensors, ``attention_bwd_ref`` once on
-    CPU ones."""
+    ``lse``: both kernels (on CPU tensors both plain versions)."""
     kw = dict(causal=causal, window=window, sm_scale=sm_scale, offset=offset)
     delta = attention_delta(o, do)
-    if q.device.type == 'cpu':
-        return attention_bwd_ref(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_attention_bwd_kv(q, k, v, do, lse, delta, **kw)
     return flash_attention_bwd_q(q, k, v, do, lse, delta, **kw), dk, dv
 

@@ -108,6 +108,92 @@ def attention_geometry(B: int, H: int, Hkv: int, Sq: int, Sk: int,
                              n_splits, lo, hi, per * SPLIT_KEYS)
 
 
+def _row_ranges(Sq: int, Sk: int, offset: int, causal: bool,
+                window: Optional[int], kv_len: Optional[int]):
+    """(lo, hi) numpy arrays: query row i sees keys [lo[i], hi[i])."""
+    import numpy as np
+    pos = np.arange(Sq, dtype=np.int64) + offset
+    kv = Sk if kv_len is None else max(0, min(Sk, kv_len))
+    hi = np.minimum(kv, pos + 1) if causal else np.full(Sq, kv, np.int64)
+    lo = (np.zeros(Sq, np.int64) if window is None
+          else np.maximum(0, pos - window + 1))
+    return lo, np.maximum(hi, lo)
+
+
+def live_tile_area(Sq: int, Sk: int, rows: int, keys: int, offset: int,
+                   causal: bool, window: Optional[int],
+                   kv_len: Optional[int] = None) -> int:
+    """Query x key elements of the (query tile of ``rows``, key tile of
+    ``keys``) pairs that hold at least one valid pair: the work of a tiled
+    schedule that skips dead tiles (each tile clipped to Sq, Sk)."""
+    import numpy as np
+    lo, hi = _row_ranges(Sq, Sk, offset, causal, window, kv_len)
+    area = 0
+    for r0 in range(0, Sq, rows):
+        l, h = lo[r0:r0 + rows], hi[r0:r0 + rows]
+        live = h > l
+        if not live.any():
+            continue
+        k0 = int(l[live].min()) // keys * keys
+        k1 = min(Sk, -(-int(h[live].max()) // keys) * keys)
+        area += len(l) * (k1 - k0)
+    return int(area)
+
+
+def attention_cost(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
+                   dtype: torch.dtype, *, causal: bool, window, kv_len,
+                   offset: int, return_lse: bool, sms: int):
+    """(FLOPs, bytes, dtype) of one K8 launch by its geometry
+    (``attention_geometry``): FLOPs 4 D a (query, key) element of the
+    tiles the schedule computes (the tiled schedule's live 64-key tiles
+    of each query tile; every packed row against the split's key range);
+    bytes q, the keys any query sees and the output (and lse) once."""
+    geom = attention_geometry(B, H, Hkv, Sq, Sk, window, kv_len, offset, D,
+                              sms, causal=causal,
+                              wide=dtype == torch.bfloat16,
+                              split=not return_lse)
+    if geom.path == 'split':
+        area = Sq * (geom.key_hi - geom.key_lo)
+    else:
+        area = live_tile_area(Sq, Sk, geom.tile_rows, 64, offset, causal,
+                              window, kv_len)
+    lo, hi = _row_ranges(Sq, Sk, offset, causal, window, kv_len)
+    live = hi > lo
+    keys = int(hi[live].max() - lo[live].min()) if live.any() else 0
+    es = torch.finfo(dtype).bits // 8
+    nbytes = es * (2 * B * H * Sq * D + 2 * B * Hkv * keys * D) + (
+        4 * B * H * Sq if return_lse else 0)
+    return float(4 * D * area * B * H), float(nbytes), dtype
+
+
+def attention_bwd_cost(which: str, B: int, H: int, Hkv: int, Sq: int,
+                       Sk: int, D: int, dtype: torch.dtype, *, causal: bool,
+                       window, offset: int, sms: int):
+    """(FLOPs, bytes, dtype) of one launch of K8's backward ``kv`` (dk,
+    dv: 8 D a computed element) or ``q`` kernel (dq: 6 D), by the tiles of
+    ``attention_bwd_geometry``; bytes as ``chip_smoke.py`` reckons them."""
+    g = attention_bwd_geometry(B, H, Hkv, Sq, Sk, D, dtype, window, offset,
+                               sms, causal=causal)
+    if which == 'kv':
+        area = live_tile_area(Sq, Sk, g.kv_rows, g.kv_keys, offset, causal,
+                              window)
+    else:
+        area = live_tile_area(Sq, Sk, g.q_rows, g.q_keys, offset, causal,
+                              window)
+    lo, hi = _row_ranges(Sq, Sk, offset, causal, window, None)
+    live = hi > lo
+    keys = int(hi[live].max() - lo[live].min()) if live.any() else 0
+    es = torch.finfo(dtype).bits // 8
+    n_q, n_kv, rows = B * H * Sq * D, B * Hkv, B * H * Sq
+    if which == 'kv':
+        nbytes = es * (2 * n_q + 4 * n_kv * keys * D) + 8 * rows
+        per = 8
+    else:
+        nbytes = es * (3 * n_q + 2 * n_kv * keys * D) + 8 * rows
+        per = 6
+    return float(per * D * area * B * H), float(nbytes), dtype
+
+
 BWD_WARPS = 4              # warps a CTA of either backward kernel
 BWD_ROWS = 16 * BWD_WARPS  # keys a kv_kernel CTA, query rows a q_kernel CTA
 BWD_TILES_MAX = 65535      # tiles of either grid (its y axis)
@@ -228,6 +314,32 @@ def attention_bwd_geometry(B: int, H: int, Hkv: int, Sq: int, Sk: int,
         q_tiles=q_tiles, q_ctas=B * H * q_tiles, q_reverse=q_reverse)
 
 
+@torch.library.custom_op('repro_torch::flash_attention', mutates_args=())
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool, window: Optional[int],
+                          sm_scale: float, kv_len: Optional[int],
+                          offset: int, return_lse: bool
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention`` on CPU tensors, the op
+    ``repro_torch::flash_attention``: the plain version, (out, lse) (lse
+    empty without ``return_lse``), and under fake tensors outputs of its
+    shapes (a cost model charges the op by its launch geometry,
+    ``attention_cost``)."""
+    kw = dict(causal=causal, window=window, sm_scale=sm_scale,
+              kv_len=kv_len, offset=offset)
+    if return_lse:
+        return attention_ref(q, k, v, return_lse=True, **kw)
+    return (attention_ref(q, k, v, **kw),
+            q.new_empty((0,), dtype=torch.float32))
+
+
+@flash_attention_plain.register_fake
+def _(q, k, v, causal, window, sm_scale, kv_len, offset, return_lse):
+    b, h, sq, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty(
+        (b, h, sq) if return_lse else (0,), dtype=torch.float32)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     sm_scale: Optional[float] = None,
@@ -256,9 +368,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         offset = sk - sq if causal else 0
     dev = q.device
     if dev.type == 'cpu':
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             sm_scale=scale, kv_len=kv_len, offset=offset,
-                             return_lse=return_lse)
+        o, lse = flash_attention_plain(q, k, v, causal, window, scale,
+                                       kv_len, offset, return_lse)
+        return (o, lse) if return_lse else o
     if dev.type != 'cuda':
         raise ValueError(f'flash_attention runs on cuda or cpu, not {dev}')
     if q.dtype not in _DTYPES:

@@ -220,6 +220,36 @@ def coresident_ctas(lib, occupancy_fn: str, device: torch.device,
     return _CORESIDENT[key]
 
 
+def seq_launch_cost(T: int, B: int, N: int, layers: int, weights: int):
+    """(FLOPs, bytes, dtype) of one unmasked f32 K1 (``layers`` 1) or K2
+    launch from its geometry, as ``chip_smoke.py``'s bound column reckons
+    it: bytes every input read and every output written once (``weights``
+    recurrent and inter-layer matrix elements), FLOPs every step's
+    products (2L - 1 matrix families) and epilogues."""
+    families = 2 * layers - 1
+    nbytes = 4 * (T * B * 4 * N + weights
+                  + layers * (7 * N + 2 * B * N + 2 * T * B * N)) + T * B
+    flops = T * B * (families * 2 * 4 * N * N + layers * 30 * N)
+    return float(flops), float(nbytes), torch.float32
+
+
+@torch.library.custom_op('repro_torch::lstm_seq', mutates_args=())
+def lstm_seq_plain(pre_x: torch.Tensor, w_h: torch.Tensor,
+                   peep: torch.Tensor, bias: torch.Tensor, h0: torch.Tensor,
+                   c0: torch.Tensor, mask: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lstm_seq`` on CPU tensors, the op ``repro_torch::lstm_seq``: the
+    plain version, and under fake tensors outputs of its shapes (a cost
+    model charges the op by its launch geometry, ``seq_launch_cost``)."""
+    return lstm_seq_ref(pre_x, w_h, peep, bias, h0, c0, mask)
+
+
+@lstm_seq_plain.register_fake
+def _(pre_x, w_h, peep, bias, h0, c0, mask):
+    T, B, _, N = pre_x.shape
+    return pre_x.new_empty((T, B, N)), pre_x.new_empty((T, B, N))
+
+
 def lstm_seq(pre_x: torch.Tensor, w_h: torch.Tensor, peep: torch.Tensor,
              bias: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
              mask: torch.Tensor = None):
@@ -235,7 +265,7 @@ def lstm_seq(pre_x: torch.Tensor, w_h: torch.Tensor, peep: torch.Tensor,
     if mask is None:
         mask = torch.ones((T, B), dtype=torch.bool, device=pre_x.device)
     if pre_x.device.type == 'cpu':
-        return lstm_seq_ref(pre_x, w_h, peep, bias, h0, c0, mask)
+        return lstm_seq_plain(pre_x, w_h, peep, bias, h0, c0, mask)
     if pre_x.device.type != 'cuda':
         raise ValueError(f'lstm_seq runs on cuda or cpu, not {pre_x.device}')
     device = pre_x.device

@@ -14,6 +14,7 @@ only.  A batch larger than the geometry admits runs in blocks
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -45,6 +46,26 @@ _SIGNATURES = {
 }
 
 
+@torch.library.custom_op('repro_torch::lstm_stack_seq_kernel',
+                         mutates_args=())
+def lstm_stack_seq_plain(pre_x: torch.Tensor, w_in: torch.Tensor,
+                         w_h: torch.Tensor, peep: torch.Tensor,
+                         bias: torch.Tensor, h0: torch.Tensor,
+                         c0: torch.Tensor, mask: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lstm_stack_seq_kernel`` on CPU tensors, the op
+    ``repro_torch::lstm_stack_seq_kernel``: the plain version, and under
+    fake tensors outputs of its shapes (a cost model charges the op by its
+    launch geometry, ``seq_launch_cost``)."""
+    return lstm_stack_seq_ref(pre_x, w_in, w_h, peep, bias, h0, c0, mask)
+
+
+@lstm_stack_seq_plain.register_fake
+def _(pre_x, w_in, w_h, peep, bias, h0, c0, mask):
+    (T, B, _, N), L = pre_x.shape, w_h.shape[0]
+    return (pre_x.new_empty((L, T, B, N)), pre_x.new_empty((L, T, B, N)))
+
+
 def lstm_stack_seq_kernel(pre_x: torch.Tensor, w_in: torch.Tensor,
                           w_h: torch.Tensor, peep: torch.Tensor,
                           bias: torch.Tensor, h0: torch.Tensor,
@@ -64,7 +85,8 @@ def lstm_stack_seq_kernel(pre_x: torch.Tensor, w_in: torch.Tensor,
     if mask is None:
         mask = torch.ones((T, B), dtype=torch.bool, device=pre_x.device)
     if pre_x.device.type == 'cpu':
-        return lstm_stack_seq_ref(pre_x, w_in, w_h, peep, bias, h0, c0, mask)
+        return lstm_stack_seq_plain(pre_x, w_in, w_h, peep, bias, h0, c0,
+                                    mask)
     if pre_x.device.type != 'cuda':
         raise ValueError(f'lstm_stack_seq_kernel runs on cuda or cpu, not '
                          f'{pre_x.device}')

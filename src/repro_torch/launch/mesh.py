@@ -22,16 +22,100 @@ serving engine's recovery runtime then steps onto a real intermediate rung
 (``graves-3x25``: 75 -> 50 -> 25 engines) instead of a flat kernel::
 
     python -m repro_torch.launch.serve --die-topology graves-3x25
+
+The production mesh of the reference's dry run (``make_production_mesh``):
+a ``torch.distributed`` ``DeviceMesh`` of ('data', 'model') = (16, 16) or
+('pod', 'data', 'model') = (2, 16, 16), over the fake process-group
+backend when no group exists (every collective completes at once and
+moves nothing; ``launch.dryrun`` runs the real step on it under fake
+tensors).  ``resolve_rules`` drops the mesh axes a mesh lacks.  The
+card's peak rates, which the roofline and ``chip_smoke.py``'s bounds
+read, are defined here once.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import ClassVar, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..core.systolic import (SystolicMesh, _device, install_mesh,
                              make_systolic_mesh)
+
+# ---------------------------------------------------------------------------
+# The card: one NVIDIA H100 SXM (NVIDIA's data sheet, dense rates without
+# sparsity, at the full 700 W power limit)
+# ---------------------------------------------------------------------------
+HBM_BW = 3.35e12              # B/s, HBM3 (80 GB)
+PEAK_FLOPS_BF16 = 989e12      # FLOP/s, bf16/fp16 tensor cores
+PEAK_FLOPS_TF32 = 495e12      # FLOP/s, TF32 tensor cores
+PEAK_FLOPS_F32 = 67e12        # FLOP/s, f32 outside the tensor cores
+PEAK_OPS_INT8 = 1979e12       # OP/s, int8 tensor cores
+LINK_BW = 450e9               # B/s a direction, NVLink 4 (900 GB/s total)
+HBM_BYTES = 80e9              # device memory a card
+SMS = 132                     # streaming multiprocessors (a launch's geometry)
+
+
+def peak_rate(dtype: torch.dtype) -> float:
+    """The card's peak arithmetic rate for operands of ``dtype``: the
+    tensor cores' for bf16/fp16 and int8, f32's outside the tensor cores
+    for everything else (the port keeps TF32 off, as the reference's f32
+    is)."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return PEAK_FLOPS_BF16
+    if dtype in (torch.int8, torch.uint8):
+        return PEAK_OPS_INT8
+    return PEAK_FLOPS_F32
+
+
+# ---------------------------------------------------------------------------
+# The production mesh
+# ---------------------------------------------------------------------------
+def _init_fake_group(world_size: int) -> None:
+    """A process group of ``world_size`` ranks over PyTorch's fake backend
+    (this process is rank 0; collectives complete at once)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group('fake', store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The (data, model) mesh of the reference's launch scripts: one 16x16
+    pod slice, or two pods under a leading 'pod' axis, as a CPU
+    ``DeviceMesh``.  Built over the fake backend when no process group
+    exists; a group of another size raises (a process holds one group, so
+    a dry run runs in its own process)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ('pod', 'data', 'model') if multi_pod else ('data', 'model')
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        _init_fake_group(n)
+    elif dist.get_world_size() != n:
+        raise RuntimeError(f'make_production_mesh: a process group of '
+                           f'{dist.get_world_size()} ranks exists, the mesh '
+                           f'needs {n}')
+    return init_device_mesh('cpu', shape, mesh_dim_names=axes)
+
+
+def resolve_rules(rules: Dict[str, object], mesh) -> Dict[str, object]:
+    """Drop mesh axes that don't exist on this mesh (e.g. 'pod' on a
+    single pod)."""
+    names = set(getattr(mesh, "mesh_dim_names", None) or mesh.axis_names)
+    out = {}
+    for k, v in rules.items():
+        if v is None:
+            out[k] = None
+        elif isinstance(v, str):
+            out[k] = v if v in names else None
+        else:
+            kept = tuple(a for a in v if a in names)
+            out[k] = kept if kept else None
+    return out
+
 
 # name -> (stage, rows, cols) engine grids from the paper's scaling study.
 SYSTOLIC_TOPOLOGIES = {

@@ -34,13 +34,25 @@ full width cut by depth (``chip_smoke.py``)::
     python -m repro_torch.launch.train --arch hymba-1.5b --smoke --steps 8
     python -m repro_torch.launch.train --arch mixtral-8x22b --smoke --steps 8
 
-The reference's mesh and sharding (``abstract_train_state``,
-``batch_shardings``, ``local_mesh``) have no counterpart here (one card).
+The sharded state (the reference's): ``abstract_init`` and
+``abstract_train_state`` build the parameters and the optimizer state as
+fake DTensors placed by ``sharding.param_sharding_tree`` (zero
+allocation: the dry run's state at any size), ``batch_shardings`` the
+batch's layouts, and ``local_mesh`` the largest (data, model) mesh over
+the visible cards.  ``main`` run as one rank of several (``torchrun
+--nproc-per-node N -m repro_torch.launch.train ...``, or in a process
+group its caller made) places its state on ``local_mesh()`` under
+``TRAIN_RULES``, feeds it from ``ShardedLoader`` and steps under those
+rules.  Alone on one card, where that mesh would be (1, 1), it keeps the
+plain tensors on the card: a one-device DTensor computes the same thing,
+and every kernel launches as before.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
+import os
 import pathlib
 import time
 from typing import Callable, Dict, List
@@ -48,18 +60,21 @@ from typing import Callable, Dict, List
 import torch
 
 from .. import configs
+from .. import sharding as shd
 from ..checkpoint import CheckpointManager
 from ..core.lstm import BACKENDS
-from ..data import HostLoader, source_for
+from ..data import HostLoader, ShardedLoader, source_for
 from ..kernels.flash_attention import (flash_attention,
                                        flash_attention_bwd_kv,
                                        flash_attention_bwd_q)
 from ..models import chipmunk_net, get_bundle
+from ..op_cost import steps
 from ..optim import (apply_updates, clip_by_global_norm,
                      clip_by_global_norm_, cosine_schedule, make_optimizer,
                      wsd_schedule)
 from ..runtime import FaultConfig, FaultTolerantRunner
 from ..tree import leaves, tree_map, unflatten_like
+from .mesh import resolve_rules
 
 DEFAULT_CKPT_DIR = (pathlib.Path(__file__).resolve().parents[3] / 'build'
                     / 'train_ckpt')
@@ -112,13 +127,12 @@ def make_train_step(loss_fn: Callable, optimizer, *, microbatches: int = 1,
     def grads_and_loss(params, batch) -> tuple:
         if microbatches == 1:
             return _grad_leaves(loss_fn, params, batch)
-        split = {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                              + tuple(v.shape[1:]))
+        split = {k: _split_microbatches(v, microbatches)
                  for k, v in batch.items()}
         gsum: List[torch.Tensor] = [torch.zeros_like(p)
                                     for p in leaves(params)]
         lsum = 0.0
-        for i in range(microbatches):
+        for i in steps(range(microbatches), leaves(params)[0]):
             loss_i, g = _grad_leaves(loss_fn, params,
                                      {k: v[i] for k, v in split.items()})
             for a, x in zip(gsum, g):
@@ -147,6 +161,20 @@ def make_train_step(loss_fn: Callable, optimizer, *, microbatches: int = 1,
                 {'loss': loss, 'grad_norm': gnorm})
 
     return train_step
+
+
+def _split_microbatches(v: torch.Tensor, m: int) -> torch.Tensor:
+    """``v`` (B, ...) as (m, B / m, ...).  A DTensor sharded on the batch
+    splits each rank's rows in place (microbatch i takes rows i of every
+    rank's share), so no microbatch moves between ranks."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(v, DTensor):
+        return v.reshape((m, v.shape[0] // m) + tuple(v.shape[1:]))
+    loc = v.to_local()
+    loc = loc.reshape((m, loc.shape[0] // m) + tuple(loc.shape[1:]))
+    pl = [Shard(p.dim + 1) if isinstance(p, Shard) else p
+          for p in v.placements]
+    return DTensor.from_local(loc, v.device_mesh, pl, run_check=False)
 
 
 def attention_launches() -> str:
@@ -180,6 +208,133 @@ def init_train_state(cfg, optimizer, device, seed: int = 0):
                                       dev)
     return {'params': params, 'opt': optimizer.init(params),
             'step': torch.zeros((), dtype=torch.int32)}
+
+
+# ------------------------------------------------------- the sharded state
+def abstract_init(bundle):
+    """(parameters, their logical axes tree) of ``bundle`` with no
+    storage: its ``init`` run under ``FakeTensorMode`` (the active one,
+    else a new one) on the CPU; ``sharding.param_sharding_tree`` places
+    them (the reference's ``abstract_init``, which ``eval_shape``s)."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with detect_fake_mode() or FakeTensorMode():
+        params = bundle.init(torch.Generator().manual_seed(0), 'cpu')
+    return params, bundle.param_axes(bundle.cfg)
+
+
+def abstract_train_state(bundle, mesh, rules_dict, lr_fn=None):
+    """(state, layouts, optimizer) with zero allocation: the parameters
+    and the optimizer state of ``bundle.cfg.optimizer`` as fake DTensors
+    on ``mesh``, each placed by its logical axes under ``rules_dict``
+    (the state inherits its parameter's, ``optimizer_state_axes``);
+    0-d leaves (the steps) stay plain.  The reference's
+    ``abstract_train_state``."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from ..optim import optimizer_state_axes
+    cfg = bundle.cfg
+    optimizer = make_optimizer(cfg.optimizer, lr_fn or lr_schedule_for(cfg))
+    rules = resolve_rules(rules_dict, mesh)
+    fake = detect_fake_mode() or FakeTensorMode()
+    with fake:
+        params = bundle.init(torch.Generator().manual_seed(0), 'cpu')
+        opt = optimizer.init(params)
+    axes = bundle.param_axes(cfg)
+    p_lay = shd.param_sharding_tree(axes, params, mesh, rules)
+    o_lay = shd.param_sharding_tree(
+        optimizer_state_axes(cfg.optimizer, axes), opt, mesh, rules)
+    with fake:
+        state = {'params': shd.place(params, p_lay),
+                 'opt': shd.place(opt, o_lay),
+                 'step': torch.zeros((), dtype=torch.int32)}
+    return state, {'params': p_lay, 'opt': o_lay, 'step': None}, optimizer
+
+
+def batch_shardings(cfg, shape, mesh, rules_dict) -> Dict[str, object]:
+    """{input name: ``sharding.Layout``} of ``input_specs(cfg, shape)``
+    on ``mesh`` by ``batch_axes``."""
+    from ..models import batch_axes, input_specs
+    rules = shd.ShardingRules(mesh, resolve_rules(rules_dict, mesh))
+    ax = batch_axes(cfg, shape)
+    return {k: shd.Layout(mesh, rules.spec(ax[k], spec.shape))
+            for k, spec in input_specs(cfg, shape).items()}
+
+
+def local_mesh(device_type: str = 'cuda'):
+    """The largest (data, model) ``DeviceMesh`` over the process group's
+    ranks, one card each (the model axis the largest of 16, 8, 4, 2, 1
+    that divides their count): (1, 1) on one card, where a one-rank
+    ``gloo`` group on localhost is made when none exists."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    model = next(m for m in (16, 8, 4, 2, 1) if n % m == 0)
+    if not dist.is_initialized():
+        dist.init_process_group(
+            'gloo', init_method=f'tcp://localhost:{_free_port()}', rank=0,
+            world_size=1)
+    if device_type == 'cuda' and torch.cuda.is_available():
+        # a rank's card, set before the mesh is built
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    return init_device_mesh(device_type, (n // model, model),
+                            mesh_dim_names=('data', 'model'))
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def state_layouts(state, mesh, cfg, rules_dict):
+    """The layouts of a train state ({'params', 'opt', 'step'}) on
+    ``mesh`` by its logical axes (``abstract_train_state``'s)."""
+    from ..models import get_bundle
+    from ..optim import optimizer_state_axes
+    rules = resolve_rules(rules_dict, mesh)
+    axes = get_bundle(cfg).param_axes(cfg)
+    return {'params': shd.param_sharding_tree(axes, state['params'], mesh,
+                                              rules),
+            'opt': shd.param_sharding_tree(
+                optimizer_state_axes(cfg.optimizer, axes), state['opt'],
+                mesh, rules)}
+
+
+def place_state(state, layouts):
+    """``state`` placed by ``state_layouts``."""
+    return {'params': shd.place(state['params'], layouts['params']),
+            'opt': shd.place(state['opt'], layouts['opt']),
+            'step': state['step']}
+
+
+def _rank_mesh(device_type: str):
+    """``local_mesh()`` when this process is one rank of a process group
+    of several (made by the caller, or from torchrun's environment), else
+    None: one process trains on its plain tensors."""
+    import torch.distributed as dist
+    if not dist.is_initialized() and int(os.environ.get('WORLD_SIZE',
+                                                        '1')) > 1:
+        dist.init_process_group('nccl' if device_type == 'cuda' else 'gloo')
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return None
+    return local_mesh(device_type)
+
+
+def _sharded_scope(mesh):
+    """Where a sharded step runs: ``TRAIN_RULES`` on ``mesh`` installed
+    (the models' ``logical`` sites and the MoE's groups read them) and
+    DTensor's implicit replication of plain tensors (a scalar, a mask)
+    on; nothing for None."""
+    scope = contextlib.ExitStack()
+    if mesh is not None:
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        scope.enter_context(shd.use_rules(shd.ShardingRules(
+            mesh, resolve_rules(shd.TRAIN_RULES, mesh))))
+        scope.enter_context(implicit_replication())
+    return scope
 
 
 def main(argv=None):
@@ -217,31 +372,47 @@ def main(argv=None):
                                        total=args.steps))
     step_fn = make_train_step(loss_fn_for(cfg), optimizer,
                               microbatches=args.microbatches, donate=True)
+    mesh = _rank_mesh(torch.device(args.device).type)
     state = init_train_state(cfg, optimizer, args.device)
+    layouts = None
+    if mesh is not None:
+        layouts = state_layouts(state, mesh, cfg, shd.TRAIN_RULES)
+        state = place_state(state, layouts)
+        print(f'mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} of '
+              f'{mesh.size()} ranks, TRAIN_RULES')
 
     ckpt = CheckpointManager(args.ckpt_dir)
     start = 0
     if args.resume and ckpt.latest_step() is not None:
-        state = ckpt.restore(state)
+        state = ckpt.restore(state, shardings=layouts)
         start = int(state['step'])
         print(f'resumed at step {start}')
 
-    loader = HostLoader(source_for(cfg, shape), shape, args.device,
-                        start_step=start)
+    if layouts is None:
+        loader = HostLoader(source_for(cfg, shape), shape, args.device,
+                            start_step=start)
+    else:
+        loader = ShardedLoader(
+            source_for(cfg, shape), shape,
+            batch_shardings(cfg, shape, mesh, shd.TRAIN_RULES),
+            start_step=start, device=args.device)
     runner = FaultTolerantRunner(
         step_fn, ckpt_manager=ckpt,
         cfg=FaultConfig(heartbeat_path=f'{args.ckpt_dir}/heartbeat.json'),
-        restore_fn=lambda: ckpt.restore(state))
+        restore_fn=lambda: ckpt.restore(state, shardings=layouts))
     t0 = time.time()
-    for i, (step, batch) in zip(range(start, args.steps), loader):
-        state, metrics = runner.run_step(step, state, batch)
-        if step % args.log_every == 0 or step == args.steps - 1:
-            print(f'step {step:5d} loss {float(metrics["loss"]):8.4f} '
-                  f'gnorm {float(metrics["grad_norm"]):8.3f} '
-                  f'({(time.time() - t0) / (i - start + 1):.2f}s/step)')
-        if (step + 1) % args.ckpt_every == 0:
-            ckpt.save(step + 1, state)
+    with _sharded_scope(mesh):
+        for i, (step, batch) in zip(range(start, args.steps), loader):
+            state, metrics = runner.run_step(step, state, batch)
+            if step % args.log_every == 0 or step == args.steps - 1:
+                print(f'step {step:5d} loss {float(metrics["loss"]):8.4f} '
+                      f'gnorm {float(metrics["grad_norm"]):8.3f} '
+                      f'({(time.time() - t0) / (i - start + 1):.2f}s/step)')
+            if (step + 1) % args.ckpt_every == 0:
+                ckpt.save(step + 1, state)
     ckpt.save(args.steps, state, blocking=True)
+    if mesh is not None:
+        loader.close()
     if cfg.family not in ('lstm', 'ssm'):      # the families with attention
         print(attention_launches())
     print(f'done; events: {runner.events[:5]}')

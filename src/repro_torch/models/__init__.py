@@ -2,7 +2,9 @@
 (``layers``, ``transformer``) and the recurrent LMs (``recurrent``: xLSTM,
 Hymba), selected by ``registry.get_bundle``."""
 from . import chipmunk_net, layers, recurrent, registry, transformer
-from .registry import ModelBundle, get_bundle
+from .registry import (ModelBundle, TensorSpec, batch_axes, get_bundle,
+                       input_specs)
 
 __all__ = ['chipmunk_net', 'layers', 'recurrent', 'registry', 'transformer',
-           'ModelBundle', 'get_bundle']
+           'ModelBundle', 'TensorSpec', 'batch_axes', 'get_bundle',
+           'input_specs']

@@ -5,6 +5,10 @@ PyTorch.
 Counterpart of ``repro.models.chipmunk_net``; the LSTM backend comes from
 ``cfg.lstm_backend`` (``core.lstm.BACKENDS``), the read-out einsum and
 ``log_softmax`` are plain torch, and ``loss_fn`` is the mean CTC loss.
+On DTensors (a sharded step, ``sharding``) the stack and the CTC
+recursion run on each rank's own streams (``sharding.run_local``), the
+weights made whole first: data parallel, as the reference's ``lstm``
+family rule places the batch over the whole mesh.
 """
 from __future__ import annotations
 
@@ -14,8 +18,10 @@ import torch
 
 from ..configs import ArchConfig
 from ..core import ctc
-from ..core.lstm import (LSTMStackParams, init_lstm_stack, lstm_stack_apply,
-                         lstm_stack_chunk, stack_params_to)
+from ..core.lstm import (LSTMParams, LSTMStackParams, init_lstm_stack,
+                         lstm_stack_apply, lstm_stack_chunk, stack_params_to)
+from ..sharding import is_dtensor, logical, replicated, run_local
+from ..tree import leaves, unflatten_like
 
 
 def init(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
@@ -29,11 +35,38 @@ def init(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     return stack_params_to(params, device)
 
 
+def axes(cfg: ArchConfig) -> LSTMStackParams:
+    """The logical axes of ``init``'s parameters: the systolic axes
+    ('lstm_row' -> TP, 'lstm_col' -> DP/FSDP), so under a production mesh
+    the weight matrices tile in 2-D like the paper's engine grid."""
+    layer = LSTMParams(w_x=(None, 'lstm_row', 'lstm_col'),
+                       w_h=(None, 'lstm_row', 'lstm_col'),
+                       w_peep=(None, 'lstm_row'), b=(None, 'lstm_row'))
+    return LSTMStackParams(layers=tuple(layer for _ in range(cfg.n_layers)),
+                           w_out=('lstm_row', 'lstm_col'),
+                           b_out=('lstm_row',))
+
+
+def state_axes(cfg: ArchConfig):
+    """The logical axes of ``init_state``'s (h, c) per layer."""
+    return tuple((('batch', 'lstm_row'), ('batch', 'lstm_row'))
+                 for _ in range(cfg.n_layers))
+
+
 def forward(cfg: ArchConfig, params: LSTMStackParams, frames: torch.Tensor):
     """frames: (B, T, n_in) -> log-probs (T, B, n_out), whole utterances
     from zero state on ``cfg.lstm_backend``."""
     xs = frames.transpose(0, 1).contiguous()            # (T, B, n_in)
-    ys, _ = lstm_stack_apply(params, xs, backend=cfg.lstm_backend)
+    xs = logical(xs, 'seq', 'batch', None)
+    if is_dtensor(xs):
+        # each rank runs its streams through the stack's kernels
+        flat = leaves(params)
+        ys = run_local(
+            lambda x, *p: lstm_stack_apply(unflatten_like(params, p), x,
+                                           backend=cfg.lstm_backend)[0],
+            [xs] + [replicated(p) for p in flat], xs.placements)
+    else:
+        ys, _ = lstm_stack_apply(params, xs, backend=cfg.lstm_backend)
     return torch.log_softmax(ys, dim=-1)
 
 
@@ -43,8 +76,16 @@ def loss_fn(cfg: ArchConfig, params: LSTMStackParams,
     ``frame_len`` (B,), ``label_len`` (B,) — the reference's ``loss_fn``;
     differentiable on every backend."""
     log_probs = forward(cfg, params, batch['frames'])
-    return ctc.ctc_loss(log_probs, batch['labels'], batch['frame_len'],
-                        batch['label_len']).mean()
+    args = [log_probs, batch['labels'], batch['frame_len'],
+            batch['label_len']]
+    if is_dtensor(log_probs):     # the recursion runs on each rank's streams
+        from torch.distributed.tensor import Shard
+        nll = run_local(ctc.ctc_loss, args,
+                        tuple(Shard(0) if isinstance(p, Shard) else p
+                              for p in log_probs.placements))
+    else:
+        nll = ctc.ctc_loss(*args)
+    return nll.mean()
 
 
 def init_state(cfg: ArchConfig, batch: int, device='cuda'):

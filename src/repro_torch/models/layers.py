@@ -4,7 +4,12 @@ Counterpart of the dense part of ``repro.models.layers``: parameters are
 nested dicts of tensors with the reference's names and layouts (``wq``
 (d, H, hd), ``wo`` (H, hd, d), ...), so weights carry across leaf for leaf
 (``convert.lm_params_from_numpy``).  The reference's ``logical(...)``
-sharding constraints have no meaning on one card and are dropped.  dtypes
+sharding sites are kept (``sharding.logical``): no-ops on plain tensors,
+they place DTensor activations by the installed rules; on DTensors the
+products run tensor-parallel on each rank's shards (``_mm_sharded``), K8
+on each rank's heads or query rows (``_attention_sharded``), the
+embedding and the cross entropy split over the vocabulary, and an MoE
+block dispatches its own token groups (``_moe_block_sharded``).  dtypes
 follow JAX's promotion: a bf16 activation times an f32 parameter is f32
 (``_mm`` promotes both sides of a product, as ``jnp.einsum`` does), and the
 callers cast residuals back.
@@ -45,11 +50,18 @@ import torch
 import torch.nn.functional as F
 
 from ..configs import ATTN_BACKENDS
+from ..sharding import is_dtensor, logical, replicated, run_local
 from ..kernels.flash_attention import (attention_ref, attention_train,
                                        flash_attention)
 
 f32 = torch.float32
 Params = Dict[str, torch.Tensor]
+
+
+def is_fake_mode() -> bool:
+    """True inside a ``FakeTensorMode`` (the dry run's tracing)."""
+    from torch._guards import detect_fake_mode
+    return detect_fake_mode() is not None
 
 
 # ---------------------------------------------------------------- param utils
@@ -58,7 +70,12 @@ def mk_param(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
              fan_in_dims: Tuple[int, ...] = (0,)) -> torch.Tensor:
     """Truncated-normal (on [-2, 2]) fan-in init on ``gen``'s device, drawn
     in f32, scaled in place (one f32 copy of the matrix at a time: 0.94 GB
-    for a Llama-3.2-Vision MLP matrix) and cast to ``dtype``."""
+    for a Llama-3.2-Vision MLP matrix) and cast to ``dtype``.  Under fake
+    tensors (``launch.train.abstract_init``) nothing is drawn (the draw
+    reads its tensor on the host): the result has the shape and dtype
+    alone."""
+    if is_fake_mode():
+        return torch.empty(tuple(shape), dtype=dtype, device=gen.device)
     if scale is None:
         fan_in = 1
         for d in fan_in_dims:
@@ -69,12 +86,75 @@ def mk_param(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
     return w.mul_(scale).to(dtype)
 
 
-def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., d) times w (d, ...) over d, both promoted to their common
-    dtype (``jnp.einsum``'s rule): (..., *w.shape[1:])."""
+def _mm(x: torch.Tensor, w: torch.Tensor, k: int = 1,
+        shared: int = 0) -> torch.Tensor:
+    """x (s..., ..., c_1..c_k) times w (s..., c_1..c_k, ...) over the k
+    contracted dims, batched over ``shared`` leading dims of both (an MoE
+    block's experts), both promoted to their common dtype
+    (``jnp.einsum``'s rule): (s..., ..., *w.shape[shared + k:]).  On
+    DTensors each rank multiplies its shards (``_mm_sharded``)."""
+    if is_dtensor(x) or is_dtensor(w):
+        return _mm_sharded(x, w, k, shared)
     dt = torch.promote_types(x.dtype, w.dtype)
-    out = x.to(dt) @ w.to(dt).reshape(x.shape[-1], -1)
-    return out.reshape(x.shape[:-1] + w.shape[1:])
+    lead, nb = x.shape[:shared], x.shape[:x.ndim - k]
+    c = math.prod(w.shape[shared:shared + k])
+    out = x.to(dt).reshape(lead + (-1, c)) @ w.to(dt).reshape(lead + (c, -1))
+    return out.reshape(nb + w.shape[shared + k:])
+
+
+def _mm_sharded(x: torch.Tensor, w: torch.Tensor, k: int,
+                shared: int) -> torch.Tensor:
+    """``_mm`` on DTensors as a tensor-parallel product on each rank's
+    shards, mesh dimension by mesh dimension: a shared dim sharded -> both
+    sides and the output sharded on it; x's batch dims sharded -> the
+    output's (w made whole there); w's output dims sharded (TP columns)
+    -> the output's; both sharded on the same contracted dim -> a partial
+    sum (TP rows); w alone sharded on a contracted dim (FSDP) -> w
+    gathered; x alone -> x gathered.  No sharded dimension is reshaped,
+    so no strided shards arise."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = (x if is_dtensor(x) else w).device_mesh
+    nb = x.ndim - k                    # x's shared and batch dims
+    wo = shared + k                    # w's first output dim
+    whole = [Replicate()] * mesh.ndim
+    xp = list(x.placements) if is_dtensor(x) else list(whole)
+    wp = list(w.placements) if is_dtensor(w) else list(whole)
+    out = []
+    for m in range(mesh.ndim):
+        xp[m] = Replicate() if isinstance(xp[m], Partial) else xp[m]
+        wp[m] = Replicate() if isinstance(wp[m], Partial) else wp[m]
+        a = xp[m].dim if isinstance(xp[m], Shard) else None
+        b = wp[m].dim if isinstance(wp[m], Shard) else None
+        if a is not None and a < shared:              # a shared dim
+            wp[m] = Shard(a)
+            out.append(Shard(a))
+        elif b is not None and b < shared:
+            xp[m] = Shard(b)
+            out.append(Shard(b))
+        elif a is not None and a < nb:                # batch-like dim of x
+            wp[m] = Replicate()
+            out.append(Shard(a))
+        elif a is not None and b == a - nb + shared:  # one contracted dim
+            out.append(Partial())
+        elif a is not None:                           # contracted, x only
+            xp[m] = Replicate()
+            if b is not None and b < wo:
+                wp[m] = Replicate()
+            out.append(Shard(nb + b - wo) if b is not None and b >= wo
+                       else Replicate())
+        elif b is not None and b < wo:                # contracted, w only
+            wp[m] = Replicate()
+            out.append(Replicate())
+        elif b is not None:                           # w's output dims
+            out.append(Shard(nb + b - wo))
+        else:
+            out.append(Replicate())
+    if is_dtensor(x) and list(x.placements) != xp:
+        x = x.redistribute(mesh, xp)
+    if is_dtensor(w) and list(w.placements) != wp:
+        w = w.redistribute(mesh, wp)
+    return run_local(lambda xl, wl: _mm(xl, wl, k, shared), [x, w],
+                     tuple(out))
 
 
 # --------------------------------------------------------------------- norms
@@ -97,6 +177,14 @@ def apply_norm(cfg, p: Params, x: torch.Tensor, prefix: str = ''):
     if cfg.norm == 'layernorm':
         return layer_norm(x, p[prefix + 'scale'], p[prefix + 'bias'])
     return rms_norm(x, p[prefix + 'scale'])
+
+
+def norm_axes(cfg) -> dict:
+    """The logical axes of ``init_norm``'s parameters."""
+    ax = {'scale': ('embed',)}
+    if cfg.norm == 'layernorm':
+        ax['bias'] = ('embed',)
+    return ax
 
 
 def init_norm(cfg, dtype: torch.dtype, device) -> Params:
@@ -148,6 +236,10 @@ def attention(backend: str, q: torch.Tensor, k: torch.Tensor,
     if backend not in ATTN_BACKENDS:
         raise ValueError(f'attn_backend {backend!r}, expected one of '
                          f'{ATTN_BACKENDS}')
+    if is_dtensor(q):
+        return _attention_sharded(backend, q, k, v, causal=causal,
+                                  window=window, offset=offset,
+                                  kv_len=kv_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         if kv_len is not None:
@@ -159,6 +251,84 @@ def attention(backend: str, q: torch.Tensor, k: torch.Tensor,
     if backend == 'torch':
         return attention_ref(q, k, v, **kw)
     return flash_attention(q, k, v, **kw)
+
+
+# the logical axes of attention's operands in K8's layout: q and o (B, H,
+# Sq, D), k and v (B, Hkv, Sk, D).  The reference groups q's heads (B, Hkv,
+# G, Sq, D); the port tests q's head dim at Hkv's size (``_qg``), which
+# places it as the reference's grouped dim.
+_QG_AXES = ('batch', 'kv_heads', 'seq_q', 'head_dim_act')
+_KV_AXES = ('batch', 'kv_heads', None, 'head_dim_act')
+
+
+class _GradLogical(torch.autograd.Function):
+    """The identity whose backward places the gradient by logical axes:
+    the placement of a cotangent (the reference's ``logical`` calls inside
+    its attention backward)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, shape):
+        ctx.axes, ctx.shape = axes, shape
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return logical(g, *ctx.axes, shape=ctx.shape), None, None
+
+
+def _grad_logical(x: torch.Tensor, *axes, shape=None) -> torch.Tensor:
+    if not (is_dtensor(x) and x.requires_grad and torch.is_grad_enabled()):
+        return x
+    return _GradLogical.apply(x, axes, shape)
+
+
+def _qg(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """q (B, H, Sq, D) placed by ``_QG_AXES`` at Hkv heads' size."""
+    b, _, sq, d = q.shape
+    return logical(q, *_QG_AXES, shape=(b, n_kv, sq, d))
+
+
+def _attention_sharded(backend: str, q, k, v, *, causal, window, offset,
+                       kv_len):
+    """``attention`` on DTensors: K8 on each rank's shards.  Both of the
+    reference's policies are local per shard: heads over a mesh axis (k
+    and v split by their kv heads alike, GQA groups intact), or query rows
+    over it with k and v whole (context parallelism: each rank's rows
+    start at their own position, so the causal offset moves with them).
+    The cotangents are placed alike (``_grad_logical``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    n_kv = k.shape[1]
+    q = _qg(q, n_kv)
+    k = logical(k, *_KV_AXES)
+    v = logical(v, *_KV_AXES)
+    qg_shape = (q.shape[0], n_kv) + tuple(q.shape[2:])
+    q, k, v = (_grad_logical(q, *_QG_AXES, shape=qg_shape),
+               _grad_logical(k, *_KV_AXES), _grad_logical(v, *_KV_AXES))
+    mesh = q.device_mesh
+    kv_pl = [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+             for p in q.placements]
+    q = q.redistribute(mesh, [p if isinstance(p, Shard) and p.dim < 3
+                              else Replicate() for p in q.placements])
+    k, v = (t.redistribute(mesh, kv_pl) if list(t.placements) != kv_pl
+            else t for t in (k, v))
+    sq, sk = q.shape[2], k.shape[2]
+    off = offset if offset is not None else (sk - sq if causal else 0)
+    # this rank's first query row (DTensor splits a dim in mesh order,
+    # ceil-sized chunks)
+    size, coord = sq, mesh.get_coordinate()
+    for m, p in enumerate(q.placements):
+        if isinstance(p, Shard) and p.dim == 2:
+            chunk = -(-size // mesh.size(m))
+            off += coord[m] * chunk
+            size = max(0, min(chunk, size - coord[m] * chunk))
+
+    def local(ql, kl, vl):
+        return attention(backend, ql.contiguous(), kl.contiguous(),
+                         vl.contiguous(), causal=causal, window=window,
+                         offset=off, kv_len=kv_len)
+
+    o = run_local(local, [q, k, v], q.placements)
+    return _grad_logical(_qg(o, n_kv), *_QG_AXES, shape=qg_shape)
 
 
 def init_attention(cfg, gen: torch.Generator, dtype: torch.dtype,
@@ -184,6 +354,20 @@ def init_attention(cfg, gen: torch.Generator, dtype: torch.dtype,
     return p
 
 
+def attention_axes(cfg, cross: bool = False) -> dict:
+    """The logical axes of ``init_attention``'s parameters."""
+    ax = {'wq': ('embed', 'heads', 'head_dim'),
+          'wk': ('embed', 'kv_heads', 'head_dim'),
+          'wv': ('embed', 'kv_heads', 'head_dim'),
+          'wo': ('heads', 'head_dim', 'embed')}
+    if cfg.qkv_bias and not cross:
+        ax.update(bq=('heads', 'head_dim'), bk=('kv_heads', 'head_dim'),
+                  bv=('kv_heads', 'head_dim'))
+    if cfg.qk_norm and not cross:
+        ax.update(q_norm=('head_dim',), k_norm=('head_dim',))
+    return ax
+
+
 def _project_q(p: Params, x: torch.Tensor) -> torch.Tensor:
     """q (B, S, H, hd) alone: the projection, bias and qk-norm."""
     q = _mm(x, p['wq'])
@@ -207,13 +391,18 @@ def _project_qkv(p: Params, x: torch.Tensor, cos_sin=None, kv_src=None):
     if cos_sin is not None:
         q = apply_rope(q, cos_sin)
         k = apply_rope(k, cos_sin)
+    # either kv_heads carries the TP axis or seq_q does (context
+    # parallelism; sharding.rules_for_arch); head_dim_act is never sharded.
+    # K and V stay whole on the seq dim: every query shard needs every key.
+    q = logical(q, 'batch', 'seq_q', 'heads', 'head_dim_act')
+    k = logical(k, 'batch', None, 'kv_heads', 'head_dim_act')
+    v = logical(v, 'batch', None, 'kv_heads', 'head_dim_act')
     return q, k, v
 
 
 def _out_proj(p: Params, o: torch.Tensor) -> torch.Tensor:
     """o (B, S, H, hd) -> (B, S, d) through ``wo`` (H, hd, d)."""
-    b, s, h, hd = o.shape
-    return _mm(o.reshape(b, s, h * hd), p['wo'].reshape(h * hd, -1))
+    return _mm(o, p['wo'], 2)
 
 
 def attention_block(cfg, p: Params, x: torch.Tensor, *, cos_sin,
@@ -233,7 +422,8 @@ def attention_block(cfg, p: Params, x: torch.Tensor, *, cos_sin,
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     o = attention(cfg.attn_backend, qh, kh, vh, causal=causal,
                   window=window)
-    return _out_proj(p, o.transpose(1, 2))
+    o = logical(o.transpose(1, 2), 'batch', 'seq_q', 'heads', 'head_dim_act')
+    return logical(_out_proj(p, o), 'batch', 'seq', 'embed')
 
 
 def cross_attention_decode(cfg, p: Params, x: torch.Tensor,
@@ -309,13 +499,26 @@ def init_mlp(cfg, gen: torch.Generator, dtype: torch.dtype,
             'b_down': torch.zeros((d,), dtype=dtype, device=dev)}
 
 
+def mlp_axes(cfg) -> dict:
+    """The logical axes of ``init_mlp``'s parameters."""
+    if cfg.act == 'silu':
+        return {'w_gate': ('embed', 'mlp'), 'w_up': ('embed', 'mlp'),
+                'w_down': ('mlp', 'embed')}
+    return {'w_up': ('embed', 'mlp'), 'b_up': ('mlp',),
+            'w_down': ('mlp', 'embed'), 'b_down': ('embed',)}
+
+
 def mlp_block(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.act == 'silu':
         h = F.silu(_mm(x, p['w_gate'])) * _mm(x, p['w_up'])
-        return _mm(h, p['w_down'])
-    # jax.nn.gelu's default is the tanh approximation
-    h = F.gelu(_mm(x, p['w_up']) + p['b_up'], approximate='tanh')
-    return _mm(h, p['w_down']) + p['b_down']
+        h = logical(h, 'batch', 'seq', 'mlp')
+        out = _mm(h, p['w_down'])
+    else:
+        # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(_mm(x, p['w_up']) + p['b_up'], approximate='tanh')
+        h = logical(h, 'batch', 'seq', 'mlp')
+        out = _mm(h, p['w_down']) + p['b_down']
+    return logical(out, 'batch', 'seq', 'embed')
 
 
 # ----------------------------------------------------------------------- MoE
@@ -340,13 +543,24 @@ def init_moe(cfg, gen: torch.Generator, dtype: torch.dtype) -> Params:
             'w_down': experts((m.d_ff, d))}
 
 
+def moe_axes(cfg) -> dict:
+    """The logical axes of ``init_moe``'s parameters."""
+    return {'router': ('embed', None),
+            'w_gate': ('experts', 'embed', 'expert_mlp'),
+            'w_up': ('experts', 'embed', 'expert_mlp'),
+            'w_down': ('experts', 'expert_mlp', 'embed')}
+
+
 def _moe_group_count(n: int, target_group: int = 4096) -> int:
-    """Token groups of ``moe_block``: ``n // target_group``, at least one,
-    lowered until it divides ``n``.  The reference also takes at least
-    one group per data-parallel shard of its installed mesh; the port has
-    no sharding rules yet (ROADMAP queue 1, item 3(d)), so its one shard
-    gives dp = 1."""
+    """Token groups of ``moe_block``: ``n // target_group``, at least one
+    per data-parallel shard of the installed rules' mesh (dispatch stays
+    shard-local), lowered until it divides ``n``."""
+    from ..sharding import current_rules, mesh_sizes
+    r = current_rules()
     dp = 1
+    if r is not None and r.mesh is not None:
+        sizes = mesh_sizes(r.mesh)
+        dp = sizes.get('pod', 1) * sizes.get('data', 1)
     g = min(n, max(dp, n // target_group))
     while n % g:
         g -= 1
@@ -383,16 +597,20 @@ def moe_route(cfg, p: Params, x: torch.Tensor) -> MoERoute:
     of the pairs by expert (``jnp.argsort`` is stable, and which pairs a
     full expert drops depends on the order), each pair's rank within its
     expert and the capacity ``cap = max(ceil(P / E * cf / 8) * 8, 8)``."""
-    m = cfg.moe
     b, s, d = x.shape
-    n = b * s
+    g = _moe_group_count(b * s)
+    return _route_groups(cfg, p['router'], x.reshape(g, (b * s) // g, d))
+
+
+def _route_groups(cfg, router: torch.Tensor, xg: torch.Tensor) -> MoERoute:
+    """``moe_route`` of tokens already in groups, ``xg`` (G, Sg, d)."""
+    m = cfg.moe
+    g, sg, _ = xg.shape
     k, e = m.top_k, m.n_experts
-    g = _moe_group_count(n)
-    sg = n // g
     pairs = sg * k
     cap = max(int(math.ceil(pairs / e * m.capacity_factor / 8)) * 8, 8)
-    dev = x.device
-    logits = x.reshape(g, sg, d).to(f32) @ p['router']
+    dev = xg.device
+    logits = xg.to(f32) @ router
     top, idx = torch.topk(logits, k, dim=-1)
     gates = torch.softmax(top, dim=-1)
     pair_expert = idx.reshape(g, pairs)
@@ -421,7 +639,8 @@ def _live_experts(counts: torch.Tensor) -> List[int]:
     to the host once: the expert products run over these alone.  Under
     remat the recompute reads them again from the same routes: ``topk``,
     the stable sort and ``searchsorted`` are deterministic on the same
-    input, ties included, so both reads agree."""
+    input, ties included, so both reads agree.  A DTensor step reads no
+    count (``_moe_block_sharded``)."""
     with torch.profiler.record_function(LIVE_EXPERTS_LABEL):
         per = counts.reshape(-1, counts.shape[-1]).sum(0).tolist()
     return [e for e, c in enumerate(per) if c]
@@ -440,9 +659,24 @@ def _expert_products(p: Params, live: List[int],
     outs = []
     for j, e in enumerate(live):
         xe = buf[..., j, :, :]
-        h = F.silu(_mm(xe, wg[e])) * _mm(xe, wu[e])
+        h = logical(F.silu(_mm(xe, wg[e])) * _mm(xe, wu[e]),
+                    *(None,) * (xe.ndim - 1) + ('expert_mlp',))
         outs.append(_mm(h, wd[e]))
     return torch.stack(outs, dim=-3)
+
+
+def _all_expert_products(p: Params, buf: torch.Tensor) -> torch.Tensor:
+    """SwiGLU of every expert over its capacity rows, batched over the
+    experts: ``buf`` (G, E, cap, d) -> (G, E, cap, d), placed as the
+    reference's expert buffers (experts over the EP axes, the capacity
+    over TP)."""
+    buf_e = logical(buf.transpose(0, 1), 'experts', None, 'moe_cap', 'embed')
+    h = F.silu(_mm(buf_e, p['w_gate'], shared=1)) * _mm(buf_e, p['w_up'],
+                                                        shared=1)
+    h = logical(h, 'experts', None, 'moe_cap', None)
+    y_e = logical(_mm(h, p['w_down'], shared=1), 'experts', None, 'moe_cap',
+                  'embed')
+    return logical(y_e.transpose(0, 1), 'batch', None, None, None)
 
 
 def _compact_slots(live: torch.Tensor, n_experts: int,
@@ -474,36 +708,114 @@ def moe_block(cfg, p: Params, x: torch.Tensor):
     experts that hold a pair; an empty expert's rows are never read back,
     so the output is the same.  Over all E, Kimi-K2's decode would read
     33.8 GB of expert weights a token and layer instead of ~0.7 GB."""
-    m = cfg.moe
+    if is_dtensor(x):
+        return _moe_block_sharded(cfg, p, x)
     b, s, d = x.shape
-    k, e = m.top_k, m.n_experts
+    k = cfg.moe.top_k
     r = moe_route(cfg, p, x)
     g, pairs = r.order.shape
-    sg, cap = pairs // k, r.cap
-    xg = x.reshape(g, sg, d)
+    xg = logical(x.reshape(g, pairs // k, d), 'batch', None, None)
+    live = _live_experts(r.counts)
+    buf, rows, inv = _moe_pack(cfg, r, xg, live)
+    y = _expert_products(p, live, buf)
+    out = logical(_moe_unpack(cfg, y, rows, r.keep, inv, r.gates, x.dtype),
+                  'batch', None, None)
+    return (logical(out.reshape(b, s, d), 'batch', 'seq', 'embed'),
+            _moe_aux(cfg, r.logits, r.counts))
+
+
+def _moe_pack(cfg, r: MoERoute, xg: torch.Tensor,
+              live: Optional[List[int]] = None):
+    """The dispatch half of a rank's groups: xg (G, Sg, d) routed by ``r``
+    -> (buf (G, L, cap, d): row c of expert e's buffer the group's c-th
+    pair sorted to e, zero past its count; rows (G, P): a sorted pair's
+    row in ``buf`` flattened (0 for a dropped pair); inv (G, P): the
+    inverse of the sort).  The experts ``live`` (L of them), or every
+    expert at capacity for None."""
+    k, e = cfg.moe.top_k, cfg.moe.n_experts
+    g, pairs = r.order.shape
+    d, cap = xg.shape[-1], r.cap
     xk = torch.gather(xg, 1, (r.order // k)[..., None].expand(g, pairs, d))
     xk_pad = torch.cat([xk, xk.new_zeros((g, 1, d))], dim=1)
-    live = _live_experts(r.counts)
-    lt = torch.tensor(live, device=x.device)
-    cgrid = torch.arange(cap, device=x.device)
-    cnt, st = r.counts[:, lt, None], r.starts[:, lt, None]
-    src = torch.where(cgrid < cnt, st + cgrid, pairs)     # (G, L, cap)
+    if live is None:
+        cnt, st = r.counts[..., None], r.starts[..., None]
+        rows = torch.where(r.keep, r.slot, 0)
+    else:
+        lt = torch.tensor(live, device=xg.device)
+        cnt, st = r.counts[:, lt, None], r.starts[:, lt, None]
+        rows = _compact_slots(lt, e, r.expert, r.pos, r.keep, cap)
+    cgrid = torch.arange(cap, device=xg.device)
+    src = torch.where(cgrid < cnt, st + cgrid, pairs)       # (G, L, cap)
     buf = torch.gather(xk_pad, 1, src.reshape(g, -1, 1).expand(-1, -1, d))
-    y = _expert_products(p, live, buf.reshape(g, len(live), cap, d))
-    y = y.reshape(g, len(live) * cap, d)
-    rows = _compact_slots(lt, e, r.expert, r.pos, r.keep, cap)
-    y_sorted = torch.gather(y, 1, rows[..., None].expand(g, pairs, d))
-    y_sorted = y_sorted * r.keep[..., None].to(x.dtype)
     inv = torch.empty_like(r.order).scatter_(
-        1, r.order, torch.arange(pairs, device=x.device).expand(g, pairs))
-    y_pairs = torch.gather(y_sorted, 1, inv[..., None].expand(g, pairs, d))
-    out = (y_pairs.reshape(g, sg, k, d)
-           * r.gates[..., None].to(x.dtype)).sum(dim=2)
-    # GShard load-balance aux loss from the per-group expert loads
-    probs_mean = torch.softmax(r.logits, dim=-1).mean(dim=(0, 1))
-    load = r.counts.sum(0).to(f32) / (g * sg) / k
-    ce = (probs_mean * load).sum() * e
-    return out.reshape(b, s, d), ce
+        1, r.order, torch.arange(pairs, device=xg.device).expand(g, pairs))
+    return buf.reshape(g, -1, cap, d), rows, inv
+
+
+def _moe_unpack(cfg, y: torch.Tensor, rows: torch.Tensor,
+                keep: torch.Tensor, inv: torch.Tensor, gates: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The combine half: the expert outputs y (G, L, cap, d) back to the
+    pairs through the inverse sort (a dropped pair's zeroed by ``keep``),
+    a token's output the sum over its k choices of output times gate (the
+    gate and ``keep`` in x's ``dtype``) -> (G, Sg, d)."""
+    k = cfg.moe.top_k
+    g, pairs = rows.shape
+    d = y.shape[-1]
+    ys = torch.gather(y.reshape(g, -1, d), 1,
+                      rows[..., None].expand(g, pairs, d))
+    ys = ys * keep[..., None].to(dtype)
+    yp = torch.gather(ys, 1, inv[..., None].expand(g, pairs, d))
+    return (yp.reshape(g, pairs // k, k, d)
+            * gates[..., None].to(dtype)).sum(dim=2)
+
+
+def _moe_aux(cfg, logits: torch.Tensor, counts: torch.Tensor):
+    """GShard's load-balance loss from the groups' router logits (G, Sg,
+    E) and expert loads ``counts`` (G, E)."""
+    m = cfg.moe
+    g, sg = logits.shape[:2]
+    probs_mean = torch.softmax(logits, dim=-1).mean(dim=(0, 1))
+    load = counts.sum(0).to(f32) / (g * sg) / m.top_k
+    return (probs_mean * load).sum() * m.n_experts
+
+
+def _moe_block_sharded(cfg, p: Params, x: torch.Tensor):
+    """``moe_block`` on DTensors, the reference's hierarchical dispatch:
+    the token groups split over the ranks that split the batch (whole
+    groups a rank: ``_moe_group_count`` takes a group per data-parallel
+    shard at least), each rank routes and packs its own groups' capacity
+    buffers and unpacks their outputs (``_moe_pack`` and ``_moe_unpack``
+    under ``run_local``: the sorts and gathers need nothing from another
+    rank), and only the expert products move: the buffers to the experts'
+    ranks (experts over the EP axes, the capacity over TP) and back.
+    Every expert runs at capacity (no count is read to the host), as in
+    the reference's own dry run."""
+    from torch.distributed.tensor import Replicate, Shard
+    b, s, d = x.shape
+    g = _moe_group_count(b * s)
+    sg = (b * s) // g
+    x = logical(x, 'batch', 'seq', 'embed')
+    pl = tuple(q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+               for q in x.placements)
+    if tuple(x.placements) != pl:
+        x = x.redistribute(x.device_mesh, pl)
+
+    def dispatch(xl, router):
+        if (xl.shape[0] * s) % sg:
+            raise ValueError(f'moe_block: a rank\'s {xl.shape[0]} x {s} '
+                             f'tokens are not whole groups of {sg}')
+        xl = xl.reshape(-1, sg, d)
+        r = _route_groups(cfg, router, xl)
+        return (*_moe_pack(cfg, r, xl), r.keep, r.gates, r.logits, r.counts)
+
+    buf, rows, inv, keep, gates, logits, counts = run_local(
+        dispatch, [x, replicated(p['router'])], (pl,) * 7)
+    y = _all_expert_products(p, buf)
+    out = run_local(lambda *a: _moe_unpack(cfg, *a, x.dtype).reshape(
+        -1, s, d), [y, rows, keep, inv, gates], pl)
+    return logical(out, 'batch', 'seq', 'embed'), _moe_aux(cfg, logits,
+                                                           counts)
 
 
 def moe_block_global(cfg, p: Params, x: torch.Tensor):
@@ -519,7 +831,7 @@ def moe_block_global(cfg, p: Params, x: torch.Tensor):
     n = b * s
     k, e = m.top_k, m.n_experts
     dev = x.device
-    xf = x.reshape(n, d)
+    xf = logical(x.reshape(n, d), 'batch', None)
     logits = xf.to(f32) @ p['router']
     top, idx = torch.topk(logits, k, dim=-1)
     gates = torch.softmax(top, dim=-1)
@@ -536,15 +848,16 @@ def moe_block_global(cfg, p: Params, x: torch.Tensor):
                           keep, cap)
     buf = x.new_zeros((len(live) * cap, d))
     buf[rows[keep]] = xf[(perm // k)[keep]]
-    y = _expert_products(p, live, buf.reshape(len(live), cap, d))
-    y = y.reshape(len(live) * cap, d)
+    buf = logical(buf.reshape(len(live), cap, d), 'experts', None, 'embed')
+    y = _expert_products(p, live, buf)
+    y = logical(y, 'experts', None, 'embed').reshape(len(live) * cap, d)
     y_sorted = y[rows] * keep[:, None].to(x.dtype)
     y_pairs = x.new_zeros((n * k, d))
     y_pairs[perm] = y_sorted.to(x.dtype)
     out = (y_pairs.reshape(n, k, d) * gates[..., None].to(x.dtype)).sum(1)
     me = torch.softmax(logits, dim=-1).mean(dim=0)
     ce = ((counts.to(f32) / (n * k)) * me).mean() * e * e
-    return out.reshape(b, s, d), ce
+    return logical(out.reshape(b, s, d), 'batch', 'seq', 'embed'), ce
 
 
 # ----------------------------------------------------------------- embedding
@@ -556,22 +869,150 @@ def init_embedding(cfg, gen: torch.Generator, dtype: torch.dtype) -> Params:
     return p
 
 
+def embedding_axes(cfg) -> dict:
+    """The logical axes of ``init_embedding``'s parameters."""
+    ax = {'table': ('vocab', 'embed')}
+    if not cfg.tie_embeddings:
+        ax['unembed'] = ('embed', 'vocab')
+    return ax
+
+
 def embed(cfg, p: Params, tokens: torch.Tensor) -> torch.Tensor:
     """The table's rows at ``tokens``.  Through ``F.embedding``, whose
     backward sums each row's gradients in a fixed order; indexing's
     (``index_put_`` with accumulate) adds them in thread order on the CPU,
     so two runs of a step would differ in their last bits."""
-    return F.embedding(tokens, p['table']).to(cfg.adtype())
+    if is_dtensor(p['table']):
+        x = _embed_sharded(tokens, p['table'])
+    else:
+        x = F.embedding(tokens, p['table'])
+    return logical(x.to(cfg.adtype()), 'batch', 'seq', 'embed')
+
+
+def _embed_sharded(tokens: torch.Tensor, table: torch.Tensor
+                   ) -> torch.Tensor:
+    """``F.embedding`` of a DTensor table: a vocabulary-parallel lookup
+    where the table's rows are split (each rank looks up the tokens in its
+    rows, zero elsewhere: a partial sum over that mesh dimension), the
+    table gathered on any other mesh dimension that splits it."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tab_pl, tok_pl, out_pl = [], [], []
+    for m in range(mesh.ndim):
+        vocab = isinstance(table.placements[m], Shard) and \
+            table.placements[m].dim == 0
+        tp = tokens.placements[m]
+        tab_pl.append(Shard(0) if vocab else Replicate())
+        tok_pl.append(tp if isinstance(tp, Shard) and not vocab
+                      else Replicate())
+        out_pl.append(Partial() if vocab else tok_pl[-1])
+    if list(table.placements) != tab_pl:
+        table = table.redistribute(mesh, tab_pl)
+    if list(tokens.placements) != tok_pl:
+        tokens = tokens.redistribute(mesh, tok_pl)
+    rows = [m for m in range(mesh.ndim) if isinstance(tab_pl[m], Shard)]
+
+    def local(tok, tab):
+        if not rows:
+            return F.embedding(tok, tab)
+        v0 = mesh.get_coordinate()[rows[0]] * tab.shape[0]
+        idx = tok.long() - v0
+        hit = (idx >= 0) & (idx < tab.shape[0])
+        out = F.embedding(idx.clamp(0, tab.shape[0] - 1), tab)
+        return out * hit[..., None].to(out.dtype)
+
+    return run_local(local, [tokens, table], tuple(out_pl))
 
 
 def unembed(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     w = p['table'].T if cfg.tie_embeddings else p['unembed']
-    return x @ w.to(x.dtype)
+    if is_dtensor(x) or is_dtensor(w):
+        logits = _mm(x, w.to(x.dtype))
+    else:
+        logits = x @ w.to(x.dtype)
+    return logical(logits, 'batch', 'seq', 'vocab')
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Token-mean cross entropy, f32 logsumexp over the vocabulary."""
+    """Token-mean cross entropy, f32 logsumexp over the vocabulary.  On
+    DTensors each rank takes its tokens and its slice of the vocabulary
+    (``_xent_sharded``)."""
+    if is_dtensor(logits):
+        return _xent_sharded(logits, labels)
     logits = logits.to(f32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     return (lse - gold).mean()
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    """Per-token cross entropy of logits whose vocabulary is split over a
+    mesh dimension: each rank holds (b, s, v) from vocabulary row ``v0``;
+    the max, the sum of exponentials and the gold logit are all-reduced
+    over ``group``.  The backward is local: softmax minus the one-hot."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v0: int, group):
+        import torch.distributed._functional_collectives as funcol
+        x = logits.to(f32)
+        m = funcol.wait_tensor(funcol.all_reduce(
+            x.amax(dim=-1), 'max', group))
+        se = funcol.wait_tensor(funcol.all_reduce(
+            torch.exp(x - m[..., None]).sum(-1), 'sum', group))
+        lse = m + torch.log(se)
+        local = labels.long() - v0
+        hit = (local >= 0) & (local < x.shape[-1])
+        gold = x.gather(-1, local.clamp(0, x.shape[-1] - 1)[..., None])[..., 0]
+        gold = funcol.wait_tensor(funcol.all_reduce(
+            torch.where(hit, gold, 0.0), 'sum', group))
+        ctx.save_for_backward(x, lse, local, hit)
+        ctx.dtype = logits.dtype
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse, local, hit = ctx.saved_tensors
+        p = torch.exp(x - lse[..., None])
+        onehot = torch.zeros_like(p).scatter_(
+            -1, local.clamp(0, x.shape[-1] - 1)[..., None],
+            hit[..., None].to(p.dtype))
+        return ((p - onehot) * g[..., None]).to(ctx.dtype), None, None, None
+
+
+def _xent_sharded(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """``softmax_xent`` of DTensor logits (B, S, V): the tokens stay on
+    their ranks, the vocabulary's mesh dimension (if any) is reduced over
+    by ``_VocabParallelXent``, and only the (B, S) per-token losses meet
+    in the mean."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = logits.device_mesh
+    pl = [p if isinstance(p, Shard) else Replicate()
+          for p in logits.placements]
+    vocab = [m for m, p in enumerate(pl)
+             if isinstance(p, Shard) and p.dim == logits.ndim - 1]
+    for m in vocab[1:]:
+        pl[m] = Replicate()
+    vocab = vocab[:1]
+    if list(logits.placements) != pl:
+        logits = logits.redistribute(mesh, pl)
+    tok_pl = [Replicate() if m in vocab or not isinstance(p, Shard) else p
+              for m, p in enumerate(pl)]
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    labels = labels.redistribute(mesh, tok_pl)
+
+    def local(lg, lb):
+        if not vocab:
+            x = lg.to(f32)
+            return torch.logsumexp(x, dim=-1) - x.gather(
+                -1, lb.long()[..., None])[..., 0]
+        m = vocab[0]
+        v0 = mesh.get_coordinate()[m] * lg.shape[-1]
+        return _VocabParallelXent.apply(lg, lb, v0, (mesh, m))
+
+    return run_local(local, [logits, labels], tuple(tok_pl)).mean()

@@ -42,9 +42,10 @@ import torch
 import torch.nn.functional as F
 
 from ..configs import ArchConfig
+from ..op_cost import stack_steps, steps
 from ..tree import tree_map
 from . import layers as L
-from .transformer import _maybe_remat, _stack_init, unbind
+from .transformer import _maybe_remat, _stack_init, stacked_axes, unbind
 
 f32 = torch.float32
 Params = Dict[str, Any]
@@ -118,7 +119,7 @@ def mlstm_chunkwise(q, k, v, log_f, log_i, chunk: int, state=None):
                      device=q.device).tril()
     floor = q.new_tensor(-1e29, dtype=f32)
     ys = []
-    for j in range(nc):
+    for j in steps(range(nc), q):
         qc, kc, vc = qs[:, :, j], ks[:, :, j], vs[:, :, j]
         li_c, csum_c, tot_c = li[:, :, j], csum_f[:, :, j], total_f[:, :, j]
         # intra-chunk log weights D_ts = csum_t - csum_s + li_s (s <= t)
@@ -144,7 +145,7 @@ def mlstm_chunkwise(q, k, v, log_f, log_i, chunk: int, state=None):
         c = c * decay[..., None, None] + kw.transpose(-1, -2) @ vc
         n = n * decay[..., None] + kw.sum(dim=-2)
         m = m_new
-    y = torch.stack(ys, dim=2).reshape(b, h, s, dh)
+    y = stack_steps(ys, nc, dim=2).reshape(b, h, s, dh)
     return y.to(v.dtype), (c, n, m)
 
 
@@ -182,6 +183,25 @@ def mlstm_block(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
 
 
 # =============================================================== sLSTM block
+# Megatron-style block sharding (the reference's): the post-conv stream is
+# gathered once, q/k/v run with output-sharded weights, one reduce at
+# w_down.
+MLSTM_AXES = {
+    'ln': ('embed',), 'w_up': ('embed', 'mlp'), 'conv_w': (None, None),
+    'wq': (None, 'mlp'), 'wk': (None, 'mlp'), 'wv': (None, 'mlp'),
+    'w_if': (None, None), 'b_if': (None,),
+    'out_norm': ('mlp',), 'w_down': ('mlp', 'embed'),
+}
+
+# recurrent weights sharded on the output dh: the contraction stays local
+SLSTM_AXES = {
+    'ln': ('embed',), 'w_in': (None, 'embed', 'state'),
+    'r': (None, 'heads', None, 'state'), 'b': (None, 'state'),
+    'out_norm': ('state',), 'ln_ff': ('embed',),
+    'w_ff1': ('embed', 'mlp'), 'w_ff2': ('mlp', 'embed'),
+}
+
+
 def init_slstm(cfg: ArchConfig, gen: torch.Generator) -> Params:
     d = cfg.d_model
     h = cfg.n_heads
@@ -230,7 +250,7 @@ def slstm_scan(p: Params, zx: torch.Tensor, state, n_heads: int,
     # a trace reads the loop's host time under this label (nothing when no
     # profiler runs)
     with torch.profiler.record_function(SLSTM_LABEL):
-        for t in range(s):
+        for t in steps(range(s), zx):
             rec = torch.einsum('ghde,bhd->bghe', r,
                                hid.reshape(b, h, dh)).reshape(b, 4, d)
             pre = zx[:, t].to(f32) + rec
@@ -246,7 +266,7 @@ def slstm_scan(p: Params, zx: torch.Tensor, state, n_heads: int,
             m = m_new
             hid = o * (c / n)
             ys.append(hid)
-    return torch.stack(ys, dim=1), (c, n, m, hid)
+    return stack_steps(ys, s, dim=1), (c, n, m, hid)
 
 
 def slstm_block(cfg: ArchConfig, p: Params, x: torch.Tensor, state=None):
@@ -285,6 +305,25 @@ def init_xlstm(cfg: ArchConfig, generator: torch.Generator = None,
             'slstm': _stack_init(lambda: init_slstm(cfg, gen), n_groups),
             'final_norm': {'scale': torch.ones(
                 (cfg.d_model,), dtype=cfg.dtype(), device=dev)}}
+
+
+def xlstm_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of ``init_xlstm``'s parameters, leaf for leaf."""
+    return {'embed': L.embedding_axes(cfg),
+            'mlstm': stacked_axes(MLSTM_AXES, 2),
+            'slstm': stacked_axes(SLSTM_AXES),
+            'final_norm': {'scale': ('embed',)}}
+
+
+def xlstm_state_axes(cfg: ArchConfig):
+    """The logical axes of ``init_xlstm_state``'s tensors (the
+    reference's layout)."""
+    conv_ax = ('layers', None, 'batch', None, 'mlp')
+    mem_ax = (('layers', None, 'batch', 'heads', 'head_dim', None),
+              ('layers', None, 'batch', 'heads', 'head_dim'),
+              ('layers', None, 'batch', 'heads'))
+    s_ax = ('layers', 'batch', 'embed')
+    return (conv_ax, mem_ax), (s_ax, s_ax, s_ax, s_ax)
 
 
 def forward_xlstm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
@@ -427,6 +466,32 @@ def mamba_mix(cfg: ArchConfig, p: Params, x: torch.Tensor, state=None):
 
 
 # ================================================================ Hymba model
+MAMBA_AXES = {
+    'w_in': ('embed', 'mlp'), 'conv_w': (None, 'mlp'),
+    'w_bdt': ('mlp', None), 'w_dt': (None, 'mlp'), 'b_dt': ('mlp',),
+    'a_log': ('mlp', None), 'd_skip': ('mlp',), 'w_out': ('mlp', 'embed'),
+}
+
+
+def hymba_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of ``init_hymba``'s parameters, leaf for leaf."""
+    blk = {'ln1': L.norm_axes(cfg), 'attn': L.attention_axes(cfg),
+           'mamba': MAMBA_AXES, 'attn_norm': ('embed',),
+           'mamba_norm': ('embed',), 'ln2': L.norm_axes(cfg),
+           'mlp': L.mlp_axes(cfg)}
+    return {'embed': L.embedding_axes(cfg), 'blocks': stacked_axes(blk),
+            'meta': (None, 'embed'), 'final_norm': L.norm_axes(cfg)}
+
+
+def hymba_cache_axes(cfg: ArchConfig) -> List[dict]:
+    """The logical axes of ``init_hymba_cache``'s tensors, a dict per
+    layer in the port's layout (``kv_heads`` before ``kv_seq``; no
+    ``pos``)."""
+    kv = ('batch', 'kv_heads', 'kv_seq', 'head_dim_act')
+    return [{'k': kv, 'v': kv, 'conv': ('batch', None, 'mlp'),
+             'ssm': ('batch', 'mlp', None)} for _ in range(cfg.n_layers)]
+
+
 def init_hymba_block(cfg: ArchConfig, gen: torch.Generator) -> Params:
     dtype, dev = cfg.dtype(), gen.device
     return {'ln1': L.init_norm(cfg, dtype, dev),

@@ -35,6 +35,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from ..configs import ArchConfig
+from ..sharding import is_dtensor
 from ..tree import leaves, tree_map, unflatten_like
 from . import layers as L
 
@@ -70,6 +71,8 @@ def _stack_init(init_fn: Callable[[], Params],
     init holds one layer."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     blk = init_fn()
+    if L.is_fake_mode():       # shapes alone: nothing to draw or copy
+        return tree_map(lambda a: a.new_empty(shape + a.shape), blk)
     if math.prod(shape) == 1:
         return tree_map(lambda a: a.reshape(shape + a.shape), blk)
     stack = tree_map(lambda a: a.new_empty(shape + a.shape), blk)
@@ -113,6 +116,38 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator = None,
     return params
 
 
+def _block_axes(cfg: ArchConfig, cross: bool = False) -> dict:
+    return {'ln1': L.norm_axes(cfg),
+            'attn': L.attention_axes(cfg, cross=cross),
+            'ln2': L.norm_axes(cfg),
+            **({'moe': L.moe_axes(cfg)} if cfg.moe is not None
+               else {'mlp': L.mlp_axes(cfg)})}
+
+
+def stacked_axes(axes, n_lead: int = 1):
+    """``axes`` with ``n_lead`` leading ``'layers'`` axes on every leaf
+    (the reference's ``_stack_init`` adds one a stacking)."""
+    from ..sharding import map_axes
+    return map_axes(lambda a: ('layers',) * n_lead + a, axes)
+
+
+def lm_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of ``init_lm``'s parameters, leaf for leaf (the
+    reference's ``init_lm`` returns them beside its parameters)."""
+    ax = {'embed': L.embedding_axes(cfg)}
+    if cfg.cross_attn_every:
+        ax['blocks'] = stacked_axes(_block_axes(cfg), 2)
+        ax['cross'] = stacked_axes(_block_axes(cfg, cross=True))
+    else:
+        ax['blocks'] = stacked_axes(_block_axes(cfg))
+    if cfg.n_encoder_layers:
+        ax['enc_blocks'] = stacked_axes(_block_axes(cfg))
+        ax['enc_cross'] = stacked_axes(_block_axes(cfg, cross=True))
+        ax['enc_norm'] = L.norm_axes(cfg)
+    ax['final_norm'] = L.norm_axes(cfg)
+    return ax
+
+
 def layer(params: Params, i: int) -> Params:
     """Layer ``i``'s block parameters of a one-axis ``blocks`` stack (a
     VLM's group ``i``): views into the stack."""
@@ -121,12 +156,35 @@ def layer(params: Params, i: int) -> Params:
 
 class _StackGrad:
     """The gradient of one stacked leaf, written a slice at a time by
-    ``_Sink`` and handed to autograd whole by ``_Unbind``."""
+    ``_Sink`` and handed to autograd whole by ``_Unbind``.  Of a DTensor
+    stack it is a DTensor placed as the stack is, each rank writing its
+    shard of each slice."""
 
     def __init__(self, like: torch.Tensor):
         self.shape, self.dtype, self.device = like.shape, like.dtype, \
             like.device
+        self.mesh = self.placements = None
+        if is_dtensor(like):
+            self.mesh, self.placements = like.device_mesh, like.placements
         self.buf: Optional[torch.Tensor] = None
+
+    def write(self, i: int, g: torch.Tensor) -> None:
+        """Slice i of the gradient is ``g``."""
+        if self.mesh is None:
+            if self.buf is None:
+                self.buf = torch.zeros(self.shape, dtype=self.dtype,
+                                       device=self.device)
+            self.buf[i].copy_(g)
+            return
+        from torch.distributed.tensor import Shard, zeros
+        if self.buf is None:
+            self.buf = zeros(self.shape, dtype=self.dtype,
+                             device_mesh=self.mesh,
+                             placements=self.placements)
+        row = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+               for p in self.placements]
+        self.buf.to_local()[i].copy_(g.redistribute(self.mesh, row)
+                                     .to_local())
 
 
 class _Unbind(torch.autograd.Function):
@@ -160,11 +218,7 @@ class _Sink(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        acc = ctx.grad
-        if acc.buf is None:
-            acc.buf = torch.zeros(acc.shape, dtype=acc.dtype,
-                                  device=acc.device)
-        acc.buf[ctx.i].copy_(g)
+        ctx.grad.write(ctx.i, g)
         return g.new_zeros(()).expand(g.shape), None, None
 
 
@@ -381,6 +435,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
              cfg.resolved_head_dim)
     return {'k': torch.zeros(shape, dtype=cfg.adtype(), device=device),
             'v': torch.zeros(shape, dtype=cfg.adtype(), device=device)}
+
+
+def cache_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of ``init_cache``'s tensors in the port's layout
+    (the reference's ``k``/``v`` axes, with ``kv_heads`` before
+    ``kv_seq``; the port keeps no ``pos``)."""
+    kv = ('layers', 'batch', 'kv_heads', 'kv_seq', 'head_dim_act')
+    return {'k': kv, 'v': kv}
 
 
 def precompute_cross_kv(cfg: ArchConfig, params: Params,

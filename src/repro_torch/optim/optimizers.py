@@ -26,16 +26,19 @@ slice (in f32) before a second pass recomputes each slice's direction
 and applies it.  Both forms run the same slices in the
 same order, so their results are equal bit for bit; against the
 reference (one sum over the leaf) they differ by f32 summation order.
-``optimizer_state_axes`` (sharding) is not ported: one card has no mesh.
+``optimizer_state_axes`` gives the state's logical sharding axes from the
+parameters' (the state inherits the parameter sharding, ZeRO-style).
 """
 from __future__ import annotations
 
 import itertools
 import math
-from typing import Any, Callable, List, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 
+from ..op_cost import steps
 from ..tree import leaves, tree_map, unflatten_like
 
 f32 = torch.float32
@@ -69,18 +72,36 @@ def _lead(shape) -> tuple:
     return tuple(shape[:k])
 
 
-def _slices(x: torch.Tensor, lead=None) -> List[torch.Tensor]:
+class _Slices(Sequence):
+    """Views of ``x``, one per index of its ``lead`` leading dims, each
+    made when read."""
+
+    def __init__(self, x: torch.Tensor, lead):
+        self.x, self.index = x, list(itertools.product(*map(range, lead)))
+
+    def __len__(self) -> int:
+        return len(self.index)
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return self.x[self.index[i]]
+
+
+def _slices(x: torch.Tensor, lead=None) -> Sequence[torch.Tensor]:
     """Views of ``x``, one per index of its ``lead`` leading dims (default
     ``_lead(x.shape)``), in order: x whole when it has at most two dims or
     ``SLICE_ELEMS`` elements, else its slices, none of more than two dims
-    larger than that.  A state leaf is split by its parameter's lead."""
+    larger than that.  A state leaf is split by its parameter's lead.  A
+    loop over them is an ``op_cost.steps`` loop: traced, one slice counts
+    for all (they are alike)."""
     lead = _lead(x.shape) if lead is None else lead
-    return [x[i] for i in itertools.product(*map(range, lead))]
+    return _Slices(x, lead)
 
 
 def _sq_sum(x: torch.Tensor) -> torch.Tensor:
     """The f32 sum of squares of ``x``, a slice at a time."""
-    return sum(torch.sum(torch.square(m.to(f32))) for m in _slices(x))
+    sl = _slices(x)
+    return sum(torch.sum(torch.square(sl[i].to(f32)))
+               for i in steps(range(len(sl)), x))
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -179,14 +200,14 @@ def _leaf_updates(rule: Rule, sc: dict, g, p, olds, outs):
     clip = 1.0
     if rule.leaf_clip is not None:
         ss = 0.0
-        for i, gi in enumerate(gs):
-            gi = gi.to(f32)
+        for i in steps(range(len(gs)), p):
+            gi = gs[i].to(f32)
             u = rule.direction(gi, ps[i], *moments(i, gi), **sc)
             ss = ss + torch.sum(torch.square(u))
             del gi, u
         clip = rule.leaf_clip(torch.sqrt(ss / p.numel() + 1e-12))
-    for i, gi in enumerate(gs):
-        gi = gi.to(f32)
+    for i in steps(range(len(gs)), p):
+        gi = gs[i].to(f32)
         news = ([o[i] for o in out_ms] if rule.leaf_clip is not None
                 else moments(i, gi))
         yield i, rule.step(rule.direction(gi, ps[i], *news, **sc), ps[i],
@@ -354,3 +375,21 @@ def make_optimizer(name: str, lr_fn: Callable) -> Optimizer:
         raise ValueError(f'optimizer {name!r}, expected one of '
                          f'{sorted(OPTIMIZERS)}')
     return OPTIMIZERS[name](lr_fn)
+
+
+def optimizer_state_axes(name: str, param_axes):
+    """Logical axes of ``name``'s state from the parameters' axes tree:
+    the moments inherit each parameter's axes; Adafactor's row moment
+    drops a leaf's last axis and its column moment the one before."""
+    from ..sharding import map_axes
+    scalar = ()
+    if name == 'adamw':
+        return AdamWState(scalar, param_axes, param_axes)
+    if name == 'adafactor':
+        return AdafactorState(
+            scalar, map_axes(lambda a: a[:-1] if len(a) >= 2 else a, param_axes),
+            map_axes(lambda a: a[:-2] + a[-1:] if len(a) >= 2 else (),
+                 param_axes))
+    if name == 'sgd':
+        return SGDState(scalar, param_axes)
+    raise ValueError(name)

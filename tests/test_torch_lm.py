@@ -206,9 +206,20 @@ def test_ring_caches_and_other_families_raise():
 
 
 def test_get_bundle_refuses_the_lstm():
-    """The CTC LSTM runs through ``models.chipmunk_net``, not a bundle."""
-    with pytest.raises(ValueError, match='chipmunk_net'):
-        get_bundle(configs.get_smoke_config('chipmunk-ctc'))
+    """The CTC LSTM's bundle is ``models.chipmunk_net``'s (the dry run
+    takes every family through ``get_bundle``): its loss is
+    ``chipmunk_net.loss_fn``, its cache the per-layer (h, c), and its
+    axes tree matches its parameters leaf for leaf."""
+    from repro_torch import sharding
+    from repro_torch.models import chipmunk_net
+    cfg = configs.get_smoke_config('chipmunk-ctc')
+    b = get_bundle(cfg)
+    params = b.init(torch.Generator().manual_seed(0), 'cpu')
+    assert b.loss_fn.func is chipmunk_net.loss_fn
+    assert len(b.init_cache(2, 8, 'cpu')) == cfg.n_layers
+    assert len(sharding.axes_leaves(b.param_axes(cfg))) == len(
+        leaves(params))
+    assert b.param_count(params) == b.active_param_count(params)
 
 
 def test_param_count_matches_reference():
