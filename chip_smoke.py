@@ -317,6 +317,22 @@ and then the sharding slice (``dryrun_phase``, 11l; one budget of
     local shards, ``torch.equal`` to the plain call; and
     ``optim.compress_tensor``'s int8 codes of a tensor on the card
     ``torch.equal`` to those of its copy on the CPU;
+11m. K2's layer block ``lb`` (``stack_lb_phase``) at the full widths (123
+    -> 3x421, the seed weights): K2 at every candidate ``lb``
+    (``enumerate_lb_candidates`` on the card: [1, 3]) at T = 16 and 64, B
+    = 8 and 105, masked by ragged lengths and unmasked, ``torch.equal`` to
+    ``lb = 3`` (hs and cs, so the finals), within ``KERNEL_ATOL`` of the
+    plain version, launching (L / lb) x its batch blocks, each timed; a
+    6x421 stack at B = 8, which K2 refuses whole (``lb = 6`` raises by
+    name, launching nothing), run at ``lb`` 1, 2 and 3, ``torch.equal``
+    to each other and within ``KERNEL_ATOL`` of the plain version, each
+    timed; the unmasked autograd path's gradients at ``lb = 1`` and 3
+    ``torch.equal``; ``tune_stack_lb(measure=True)`` at T = 16, B = 8 and
+    105, its medians and winner printed; and the f32 engine drain of
+    4 (``cuda_seq_fused``, sync) under a cache holding the measured entry
+    and under one naming ``lb = 1``, with the K2 launch counter set to 0
+    just before each drain and read just after: log-probs ``torch.equal``
+    to the drain with no cache, (L / lb) K2 launches a chunk;
 
 and then the two kernels that no path of the system reaches, each on its
 public op, and K8 also on its own, each held against its plain version and
@@ -440,6 +456,12 @@ TUNE_TRIALS = 5               # K4 vs K3 trials (and 3 serving trials) a run
 TUNE_SLO = 1.0
 SUBPROCESS_TIMEOUT_S = 300    # each CLI run of the tune and examples phases
 CELL_BATCH = 8                # K6: the training batch, on layers 0 and 1
+# K2's layer block (``stack_lb_phase``): its (T, B) cases on the main
+# stack, the depth of a stack K2 refuses whole, the trials' batches
+LB_SHAPES = ((16, 8), (64, 8), (16, 105), (64, 105))
+LB_DEEP = 6
+LB_TRIAL_B = (8, 105)
+LB_REPS = 20                  # timed calls of each case (``cuda_ms``)
 GATES_T = 16                  # steps of the timed K5 chain (``chain_ms``)
 # K7 (label, M, K, N): kernel_bench.py:147 and Mixtral 8x22B's expert
 # up-projection (256 tokens, d_model 6144 -> d_ff 16384); the first is the
@@ -723,7 +745,8 @@ PHASES = ('kernel_checks', 'chunked_checks', 'engine_runs', 'engine_timing',
           'fault_train', 'tune_phase', 'examples_phase', 'systolic_phase',
           'die_phase', 'lm_phase', 'lm_train_phase', 'moe_phase',
           'cross_phase', 'recurrent_phase', 'family_train_phase',
-          'depth_train_phase', 'dryrun_phase', 'cell_checks',
+          'depth_train_phase', 'dryrun_phase', 'stack_lb_phase',
+          'cell_checks',
           'quant_matmul_checks', 'attention_checks', '_bwd_rows')
 
 
@@ -2454,8 +2477,9 @@ def tune_phase(cfg, params, qps, q_utts, dev):
     (so does a cache naming each backend in turn), with codes equal to the
     cold-cache run's, and a ``deadline_policy`` server's ceiling is the
     tuned depth, with its streams bit-equal to a fixed-chunk server's;
-    last, the tune CLI (``--measure``) and the serve CLI (``--tune
-    --schedule-cache``) as subprocesses."""
+    last, the tune CLI (``--measure``: its int8 and layer-block entries
+    measured) and the serve CLI (``--tune --schedule-cache``) as
+    subprocesses."""
     import tempfile
     from repro_torch.core.systolic import N_LSTM_SILICON
     from repro_torch.kernels.lstm_seq import (lstm_stack_seq_kernel,
@@ -2612,8 +2636,13 @@ def tune_phase(cfg, params, qps, q_utts, dev):
             f'{tmp}/cli.json', '--csv', f'{tmp}/cli.csv'], tmp)
         cli = [e for e in ScheduleCache.load(f'{tmp}/cli.json').entries()
                if e.kind == 'q_stack_backend']
+        lb_cli = [e for e in ScheduleCache.load(f'{tmp}/cli.json').entries()
+                  if e.kind == 'stack_lb']
         check(len(cli) == 1 and cli[0].source == 'measured'
-              and 'q_stack_backend -> ' in out, 'tune CLI wrote no entry')
+              and 'q_stack_backend -> ' in out and len(lb_cli) == 1
+              and lb_cli[0].source == 'measured'
+              and f'stack_lb -> lb={lb_cli[0].lb} (measured' in out,
+              'tune CLI wrote no entry')
         out = _run_cli('serve CLI --tune', [
             'repro_torch.launch.serve', '--tune', '--schedule-cache',
             f'{tmp}/serve.json', '--slots', str(SLOTS), '--chunk',
@@ -2628,6 +2657,200 @@ def tune_phase(cfg, params, qps, q_utts, dev):
         res['cli'] = dict(tune=dataclasses.asdict(cli[0]),
                           serve=[dataclasses.asdict(e)
                                  for e in saved.entries()])
+    return res
+
+
+def _lb_runs(wts, lbs, args, n_layers, N, B, sms):
+    """K2 at each ``lb`` of ``lbs`` on ``args`` (pre_x, h0, c0, mask), the
+    launch counter set to 0 just before each call and read just after:
+    lb -> (hs, cs), lb -> launches, lb -> the launches it should take,
+    (L / lb) x its batch blocks."""
+    from repro_torch.kernels.lstm_seq import (lstm_stack_seq_kernel,
+                                              stack_geometry)
+    from repro_torch.kernels.lstm_seq.kernel import (batch_blocks,
+                                                     largest_batch)
+    pre_x, h0, c0, mask = args
+    outs, launches, want = {}, {}, {}
+    for lb in lbs:
+        block = largest_batch(
+            lambda b: stack_geometry(N, n_layers, b, sms, lb=lb), B, sms)
+        want[lb] = n_layers // lb * len(batch_blocks(B, block))
+        torch.cuda.synchronize()
+        lstm_stack_seq_kernel.launches = 0
+        outs[lb] = lstm_stack_seq_kernel(pre_x, wts.w_in, wts.w_h, wts.peep,
+                                         wts.b, h0, c0, mask, lb=lb)
+        torch.cuda.synchronize()
+        launches[lb] = lstm_stack_seq_kernel.launches
+    return outs, launches, want
+
+
+def _lb_case(label, wts, lbs, args, n_layers, N, sms, same_as, time_it):
+    """One (T, B, mask) case of ``stack_lb_phase``: every ``lb`` of
+    ``lbs`` ``torch.equal`` to ``lb = same_as``, the largest error against
+    the plain version, the launches against (L / lb) x blocks, and with
+    ``time_it`` each ``lb``'s ms (``cuda_ms``) beside its bound
+    (``stack_launch_costs``: every launch's bytes and products)."""
+    from repro_torch.kernels.lstm_seq import (lstm_stack_seq_kernel,
+                                              lstm_stack_seq_ref)
+    from repro_torch.kernels.lstm_seq.stack_kernel import stack_launch_costs
+    pre_x, h0, c0, mask = args
+    T, B = pre_x.shape[0], pre_x.shape[1]
+    outs, launches, want = _lb_runs(wts, lbs, args, n_layers, N, B, sms)
+    plain_mask = (mask if mask is not None else
+                  torch.ones((T, B), dtype=torch.bool, device=pre_x.device))
+    ref = lstm_stack_seq_ref(pre_x, wts.w_in, wts.w_h, wts.peep, wts.b, h0,
+                             c0, plain_mask)
+    equal = all(torch.equal(outs[lb][i], outs[same_as][i])
+                for lb in lbs for i in (0, 1))
+    err = max(float((outs[lb][i] - ref[i]).abs().max())
+              for lb in lbs for i in (0, 1))
+    case = dict(label=label, T=T, B=B, n_layers=n_layers,
+                masked=mask is not None, lbs=list(lbs), equal=equal,
+                max_abs_err=err, launches=launches, want_launches=want)
+    if time_it:
+        case['ms'], case['bound_ms'] = {}, {}
+        for lb in lbs:
+            case['ms'][lb] = cuda_ms(lambda lb=lb: lstm_stack_seq_kernel(
+                pre_x, wts.w_in, wts.w_h, wts.peep, wts.b, h0, c0, mask,
+                lb=lb), LB_REPS)
+            costs = stack_launch_costs(T, B, N, n_layers, lb)
+            case['bound_ms'][lb] = bound(sum(b for _, b in costs),
+                                         sum(f for f, _ in costs))[0]
+    print(f"stack_lb: {label} T={T} B={B} "
+          f"{'masked' if mask is not None else 'unmasked'}: lb {list(lbs)} "
+          f"torch.equal to lb={same_as}: {equal}, max_abs_err {err:.3e} "
+          f"(tol {KERNEL_ATOL}), launches {launches} (want {want})"
+          + (f", ms {case['ms']}, bound ms {case['bound_ms']}"
+             if time_it else ''), flush=True)
+    check(equal and err <= KERNEL_ATOL and launches == want,
+          f'stack_lb: K2 at {label} T={T} B={B} disagrees across lb or with '
+          f'its plain version, or launched other than (L / lb) x blocks')
+    return case
+
+
+def stack_lb_phase(cfg, params, utts, card, dev):
+    """K2's layer block ``lb`` on the card (11m of the module docstring):
+    the main stack at every candidate ``lb`` and ``LB_SHAPES``, a stack of
+    ``LB_DEEP`` layers that K2 refuses whole, the gradients at ``lb`` 1
+    and 3, ``tune_stack_lb`` measured at ``LB_TRIAL_B``, and the f32
+    engine's drain under its entry and under one naming ``lb = 1``."""
+    from repro_torch.core.lstm import (LSTMParams, LSTMStackParams,
+                                       hoisted_input, init_lstm_stack,
+                                       stack_params_to, valid_len_mask)
+    from repro_torch.kernels.lstm_seq import (lstm_stack_seq,
+                                              lstm_stack_seq_kernel,
+                                              stack_kernel_weights)
+    from repro_torch.tune import (ScheduleCache, ScheduleEntry,
+                                  enumerate_lb_candidates, tune_stack_lb,
+                                  using_schedule_cache)
+    N, L, NX = cfg.lstm_hidden, cfg.n_layers, cfg.lstm_inputs
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(SEED + 24)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.5
+
+    def inputs(n_layers, T, B):
+        lens = torch.randint(1, T, (B,), generator=g, device=dev)
+        lens[0], lens[1] = T, 0
+        return (hoisted_input(params.layers[0].w_x, r(T, B, NX)),
+                r(n_layers, B, N), r(n_layers, B, N),
+                valid_len_mask(T, lens, B))
+
+    lbs = enumerate_lb_candidates(NX, N, L, SLOTS, device=dev)
+    check(lbs == [1, L], f'stack_lb: candidates {lbs} at {NX} -> {L}x{N}, '
+                         f'expected [1, {L}]')
+    res = dict(card=card, candidates=lbs, cases=[])
+    wts = stack_kernel_weights(params)
+    for T, B in LB_SHAPES:
+        pre_x, h0, c0, mask = inputs(L, T, B)
+        for m in (mask, None):
+            res['cases'].append(_lb_case(
+                f'{NX}->{L}x{N}', wts, lbs, (pre_x, h0, c0, m), L, N, sms,
+                L, time_it=m is not None))
+
+    # a stack K2 refuses whole, in groups
+    deep = stack_params_to(init_lstm_stack(
+        NX, N, LB_DEEP, None, torch.Generator().manual_seed(SEED + 6)), dev)
+    dwts = stack_kernel_weights(deep)
+    deep_lbs = enumerate_lb_candidates(NX, N, LB_DEEP, SLOTS, device=dev)
+    check(deep_lbs == [1, 2, 3], f'stack_lb: candidates {deep_lbs} at '
+                                 f'{LB_DEEP}x{N}, expected [1, 2, 3]')
+    pre_x = hoisted_input(deep.layers[0].w_x, r(CHUNK, SLOTS, NX))
+    args = (pre_x, r(LB_DEEP, SLOTS, N), r(LB_DEEP, SLOTS, N),
+            inputs(L, CHUNK, SLOTS)[3])
+    lstm_stack_seq_kernel.launches = 0
+    try:
+        lstm_stack_seq_kernel(pre_x, dwts.w_in, dwts.w_h, dwts.peep, dwts.b,
+                              *args[1:])
+        refused = ''
+    except RuntimeError as e:
+        refused = str(e)
+    print(f'stack_lb: {LB_DEEP}x{N} at lb={LB_DEEP}: {refused}', flush=True)
+    check(refused.startswith('lstm_stack_seq_kernel: ')
+          and lstm_stack_seq_kernel.launches == 0,
+          f'stack_lb: K2 did not refuse the whole {LB_DEEP}x{N} stack')
+    res['deep'] = dict(refused=refused, case=_lb_case(
+        f'{NX}->{LB_DEEP}x{N}', dwts, deep_lbs, args, LB_DEEP, N, sms,
+        deep_lbs[-1], time_it=True))
+
+    # the unmasked autograd path's gradients at lb = 1 and lb = L
+    xs, g_ys = r(CHUNK, SLOTS, NX), r(CHUNK, SLOTS, N)
+    grads = []
+    for lb in (1, L):
+        p = LSTMStackParams(tuple(LSTMParams(*(
+            getattr(lp, f.name).detach().clone().requires_grad_()
+            for f in dataclasses.fields(LSTMParams)))
+            for lp in params.layers), None, None)
+        leaves = [getattr(lp, f.name) for lp in p.layers
+                  for f in dataclasses.fields(LSTMParams)]
+        ys, finals = lstm_stack_seq(p, xs, lb=lb)
+        loss = (ys * g_ys).sum() + sum(h.sum() + 0.5 * c.sum()
+                                       for h, c in finals)
+        grads.append(torch.autograd.grad(loss, leaves))
+    same = all(torch.equal(a, b) for a, b in zip(*grads))
+    res['gradients_equal'] = same
+    print(f'stack_lb: gradients of {len(grads[0])} leaves at lb=1 '
+          f'torch.equal to lb={L}: {same}', flush=True)
+    check(same, 'stack_lb: the gradients differ across lb')
+
+    # the tuner's trial, and the main path under its entry
+    cache = ScheduleCache()
+    res['trials'] = []
+    for B in LB_TRIAL_B:
+        ent, recs = tune_stack_lb(NX, N, L, CHUNK, B, cache=cache,
+                                  iters=TUNE_ITERS, device=dev)
+        med = {r.params['lb']: r.metrics['measured_us'] for r in recs}
+        res['trials'].append(dict(B=B, medians_us=med, lb=ent.lb))
+        print(f'stack_lb: tune_stack_lb at T={CHUNK} B={B} ({card}; '
+              f'torch.equal before timing; medians of {TUNE_ITERS} '
+              f'interleaved turns, us): {med} -> lb={ent.lb}', flush=True)
+        check(ent.source == 'measured' and sorted(med) == lbs
+              and all(v > 0 for v in med.values()),
+              'stack_lb: the trial did not measure every candidate')
+    key = dict(kind='stack_lb', n_x=NX, n_h=N, n_layers=L, T=CHUNK,
+               B=SLOTS)
+    cold, cold_run = serve_once(cfg, params, 'cuda_seq_fused', utts, SLOTS,
+                                CHUNK)
+    res['engine'] = {}
+    for label, c in (('measured', cache), ('lb=1', ScheduleCache(
+            [ScheduleEntry(lb=1, source='measured', **key)]))):
+        lb = c.lookup(**key).lb
+        with using_schedule_cache(c):
+            lps, run = serve_once(cfg, params, 'cuda_seq_fused', utts,
+                                  SLOTS, CHUNK)
+        equal = len(lps) == len(cold) and all(
+            np.array_equal(a, b) for a, b in zip(lps, cold))
+        k2 = run['launches']['lstm_stack_seq_kernel']
+        res['engine'][label] = dict(lb=lb, k2_launches=k2,
+                                    steps=run['steps'], equal=equal)
+        print(f'stack_lb: engine drain under the {label} cache (lb={lb}): '
+              f'{k2} K2 launches over {run["steps"]} chunks, log-probs '
+              f'torch.equal to the drain without a cache: {equal}',
+              flush=True)
+        check(equal and k2 == L // lb * run['steps']
+              and cold_run['launches']['lstm_stack_seq_kernel']
+              == cold_run['steps'],
+              f'stack_lb: the engine under the {label} cache changed its '
+              f'bits or did not launch (L / lb) K2 a chunk')
     return res
 
 
@@ -6653,6 +6876,9 @@ def main(argv=None) -> int:
     # the sharding slice: the production-mesh dry run on the CPU, the cost
     # model's bounds against launches and MiniCPM-2B's step on the card
     dry = dryrun_phase(cfg, params, lm_train, card, dev)
+    # K2's layer block: the main stack in groups, a stack K2 refuses
+    # whole, the tuner's trial and the engine under its entry
+    stack_lb = stack_lb_phase(cfg, params, utts, card, dev)
 
     # K6 and K7 on their public ops (no path of the system reaches them);
     # K8 at Mixtral's shapes and on mha beside the LM path's cases
@@ -6673,6 +6899,12 @@ def main(argv=None) -> int:
                     ['lstm_gates_rec'])
     for r in rows:
         r['launches'] = launches[r['name']]
+        if r['name'] == 'lstm_stack_seq_kernel':
+            r['lb_cases'] = [dict(T=c['T'], B=c['B'], n_layers=c['n_layers'],
+                                  ms=c['ms'], bound_ms=c['bound_ms'],
+                                  launches=c['launches'])
+                             for c in stack_lb['cases'] + [
+                                 stack_lb['deep']['case']] if 'ms' in c]
     rows += op_rows
     for r in rows:
         check(r['launches'] > 0, f"{r['name']} never launched on the path")
@@ -6681,7 +6913,7 @@ def main(argv=None) -> int:
             'recurrent_launches', 'family_train_launches',
             'depth_train_launches', 'max_abs_err', 'ms', 'plain_ms',
             'bound_ms', 'bound_by', 'library_ms', 'tol', 'ok', 'shape',
-            'geometry', 'cases')
+            'geometry', 'cases', 'lb_cases')
     kernels = {'kernels': [{k: r[k] for k in keys if k in r} for r in rows]}
     phase_s['build'] = build_s
     phase_s['total'] = time.perf_counter() - t_start
@@ -6702,7 +6934,7 @@ def main(argv=None) -> int:
             tune=tuned, examples=examples, systolic=systolic, die=die,
             lm=lm, lm_train=lm_train, moe=moe, cross=cross, recurrent=rec,
             family_train=fam, depth_train=depth, dryrun=dry,
-            phase_seconds=phase_s),
+            stack_lb=stack_lb, phase_seconds=phase_s),
             indent=1))
     print(json.dumps(kernels), flush=True)
     print(json.dumps({'ok': True, 'device': {

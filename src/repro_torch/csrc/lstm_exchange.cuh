@@ -194,14 +194,17 @@ __device__ __forceinline__ void finish(unsigned* counters, int layers,
 //   | the step's pre_x rows [R][4][B] | its mask row, as the 4-byte words
 //   that hold it
 // Threads: one producer warp, then R * splits dot warps (at most 16).
+// `splits` (K splits a row) defaults to 8 / R below 8 rows, else 1; K2
+// passes its stack's, so every layer group sums in one order.
 struct Layout {
   int splits, dot_warps;
   size_t planes, plane, plane_stride, w, part, sums, consts, c, pre, mask,
       total;
 };
-__host__ __device__ inline Layout layout(int B, int N, int R, int fam) {
+__host__ __device__ inline Layout layout(int B, int N, int R, int fam,
+                                         int splits = 0) {
   Layout L;
-  L.splits = R < 8 ? 8 / R : 1;
+  L.splits = splits > 0 ? splits : R < 8 ? 8 / R : 1;
   L.dot_warps = R * L.splits < kMaxDotWarps ? R * L.splits : kMaxDotWarps;
   L.planes = 128;
   L.plane = (size_t)32 * chunks_of(B) * N;

@@ -33,6 +33,19 @@
 // Every (layer, step) writes its own slots, so a layer running ahead
 // clobbers nothing.  Clock stamps (-DCLOCK_STAMPS) time, for the producer,
 // the prologue, the waits, the staging, the dot and the epilogue.
+//
+// Layer groups (the reference's layer-block factor `lb`): a launch runs
+// layers l0 .. l0 + lb - 1 only, its CTAs the (layer, row-slice) pairs of
+// those layers, R rows each from the lb-layer geometry; L / lb launches on
+// one stream run the stack.  The exchange planes `xs` span every layer
+// and outlive the launches of a chunk: a group's bottom layer l0 > 0
+// stages the planes of layer l0 - 1, which an earlier launch finished, as
+// soon as it reaches each step (no counter to wait on), and sums W_in
+// h_below as any inner layer does; only layer 0 reads `pre_x`.  Every
+// group sums with its stack's K splits (`S`, not its own rows'), so each
+// lb gives the bits of one launch over the stack.  Fewer layers a launch
+// take fewer rows a CTA: less shared memory, larger batch blocks, and
+// stacks that do not fit whole.
 #include <cuda_runtime.h>
 
 #include "clock_stamps.cuh"
@@ -44,7 +57,7 @@ namespace {
 using namespace lstm_exchange;
 
 // xs: h_t k-major, (L, T, chunks, N, 8), what the next steps stage;
-// counters: one progress counter per layer, then `done`
+// counters: one progress counter per layer of the group, then `done`
 __global__ void __launch_bounds__(32 * (kMaxDotWarps + 1))
 lstm_stack_seq_kernel(const float* __restrict__ pre_x,  // (T, B, 4, N)
                       const float* __restrict__ w_in,   // (L-1, 4, N, N)
@@ -57,9 +70,9 @@ lstm_stack_seq_kernel(const float* __restrict__ pre_x,  // (T, B, 4, N)
                       float* hs,                        // (L, T, B, N)
                       float* cs,                        // (L, T, B, N)
                       float* xs, unsigned* counters, int T, int B, int N,
-                      int L, int R, int cpl) {
+                      int l0, int R, int S, int cpl) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout Ly = layout(B, N, R, 2);
+  const Layout Ly = layout(B, N, R, 2, S);
   // [0] own plane, [1] below plane
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   float* w_s = reinterpret_cast<float*>(smem + Ly.w);  // [W_h, W_in][R][N][4]
@@ -74,17 +87,20 @@ lstm_stack_seq_kernel(const float* __restrict__ pre_x,  // (T, B, 4, N)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nthreads = blockDim.x, nwarps = nthreads >> 5;
-  const int l = blockIdx.x / cpl;
+  const int lb = gridDim.x / cpl, ll = blockIdx.x / cpl;  // layer in group
+  const int l = l0 + ll;
   const int row0 = (blockIdx.x % cpl) * R;
   const int rows = min(R, N - row0);
   const bool inner = l > 0;
+  // the group's bottom layer reads planes an earlier launch finished
+  const bool below_done = inner && ll == 0;
   const size_t plane_n = (size_t)B * N, layer_w = (size_t)4 * N * N;
   const size_t xs_n = Ly.plane / 4;   // floats of one xs plane
   const float* xs_own = xs + (size_t)l * T * xs_n;
   // layer 0 reads no plane below (its pointers are never dereferenced)
   const float* xs_below = inner ? xs_own - (size_t)T * xs_n : xs;
-  unsigned* p_own = counters + (size_t)l * kCounterStride;
-  const unsigned* p_below = inner ? p_own - kCounterStride : p_own;
+  unsigned* p_own = counters + (size_t)ll * kCounterStride;
+  const unsigned* p_below = ll > 0 ? p_own - kCounterStride : p_own;
   Clock clk;
 
   if (tid == 0) {
@@ -148,7 +164,8 @@ lstm_stack_seq_kernel(const float* __restrict__ pre_x,  // (T, B, 4, N)
         while (!own_ready || !below_ready) {
           spin_guard(since);
           if (!below_ready &&
-              load_acquire(p_below) >= (unsigned)((t + 1) * cpl)) {
+              (below_done ||
+               load_acquire(p_below) >= (unsigned)((t + 1) * cpl))) {
             below_ready = true;
             async_proxy_fence();
             bulk_load(below, xs_below + t * xs_n, (uint32_t)Ly.plane,
@@ -205,10 +222,10 @@ lstm_stack_seq_kernel(const float* __restrict__ pre_x,  // (T, B, 4, N)
     // a barrier: every h_t row of this CTA is written; the sums and both
     // staged planes are free
     clk.sync_lap(4);
-    // the top layer's last step feeds no one
-    if (tid == 0 && (t + 1 < T || l + 1 < L)) publish(p_own);
+    // the group's top layer's last step feeds no one in this launch
+    if (tid == 0 && (t + 1 < T || ll + 1 < lb)) publish(p_own);
   }
-  if (tid == 0) finish(counters, L, gridDim.x);
+  if (tid == 0) finish(counters, lb, gridDim.x);
   clk.save(T);
 }
 
@@ -222,11 +239,11 @@ int set_smem(size_t smem) {
 
 extern "C" {
 
-int lstm_stack_seq_occupancy(int device, int B, int N, int R,
+int lstm_stack_seq_occupancy(int device, int B, int N, int S, int R,
                              int* blocks_per_sm) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  const Layout Ly = layout(B, N, R, 2);
+  const Layout Ly = layout(B, N, R, 2, S);
   e = (cudaError_t)set_smem(Ly.total);
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -234,26 +251,29 @@ int lstm_stack_seq_occupancy(int device, int B, int N, int R,
       Ly.total);
 }
 
-// counters: zero, (L + 1) * kCounterStride words, used by no concurrent
+// Layers l0 .. l0 + lb - 1 of the stack (pointers to the whole stack's
+// tensors), R rows and S K splits a CTA; the layers below l0 are done.
+// counters: zero, (lb + 1) * kCounterStride words, used by no concurrent
 // launch (the wrapper keeps one buffer per device and stream).
-// xs: scratch of L * T * ceil(B / 8) * N * 8 floats, 16-byte aligned.
+// xs: scratch of L * T * ceil(B / 8) * N * 8 floats, 16-byte aligned,
+// holding layer l0 - 1's planes.
 int lstm_stack_seq_launch(int device, const float* pre_x, const float* w_in,
                           const float* w_h, const float* peep,
                           const float* bias, const float* h0,
                           const float* c0, const unsigned char* mask,
                           float* hs, float* cs, float* xs,
-                          unsigned* counters, int T, int B, int N, int L,
-                          int R, void* stream) {
+                          unsigned* counters, int T, int B, int N, int l0,
+                          int lb, int R, int S, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  const Layout Ly = layout(B, N, R, 2);
+  const Layout Ly = layout(B, N, R, 2, S);
   e = (cudaError_t)set_smem(Ly.total);
   if (e != cudaSuccess) return e;
   int cpl = (N + R - 1) / R;               // CTAs per layer
   void* args[] = {&pre_x, &w_in, &w_h, &peep, &bias, &h0, &c0, &mask,
-                  &hs, &cs, &xs, &counters, &T, &B, &N, &L, &R, &cpl};
+                  &hs, &cs, &xs, &counters, &T, &B, &N, &l0, &R, &S, &cpl};
   e = cudaLaunchCooperativeKernel(
-      (const void*)lstm_stack_seq_kernel, dim3(L * cpl),
+      (const void*)lstm_stack_seq_kernel, dim3(lb * cpl),
       dim3(32 * (Ly.dot_warps + 1)), args, Ly.total, (cudaStream_t)stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();

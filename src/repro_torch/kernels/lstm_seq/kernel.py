@@ -115,23 +115,27 @@ def seq_splits(rows: int) -> int:
     return 8 // rows if rows < 8 else 1
 
 
-def seq_threads(rows: int) -> int:
+def seq_threads(rows: int, splits: Optional[int] = None) -> int:
     """Threads of one K1/K2 CTA: a producer warp, then ``rows * splits``
-    dot warps, at most 16."""
-    return 32 * (1 + min(16, rows * seq_splits(rows)))
+    dot warps, at most 16 (``splits`` defaults to ``seq_splits(rows)``)."""
+    splits = seq_splits(rows) if splits is None else splits
+    return 32 * (1 + min(16, rows * splits))
 
 
-def seq_smem_bytes(batch: int, n_h: int, rows: int, families: int) -> int:
+def seq_smem_bytes(batch: int, n_h: int, rows: int, families: int,
+                   splits: Optional[int] = None) -> int:
     """Shared memory of one K1 (``families`` 1: W_h) or K2 CTA (2: W_h and
     W_in), the formula of ``layout`` in ``csrc/lstm_exchange.cuh``: two
     mbarriers (a 128-byte line); a family's h plane (N_h x 8 streams a
     chunk of 8, to a 128-byte boundary), weight rows (``rows`` x N_h x 4
-    gates) and gate sums of every chunk and K split; peep and bias, c, the
-    step's pre_x rows and its mask row."""
+    gates) and gate sums of every chunk and K split (``splits``, default
+    ``seq_splits(rows)``); peep and bias, c, the step's pre_x rows and its
+    mask row."""
     chunks = -(-batch // 8)
+    splits = seq_splits(rows) if splits is None else splits
     return (128 + families * (_round_up(32 * chunks * n_h, 128)
                               + 16 * rows * n_h
-                              + 4 * chunks * seq_splits(rows) * rows * 32)
+                              + 4 * chunks * splits * rows * 32)
             + 4 * (8 * rows + rows * batch + 4 * rows * batch)
             + _round_up(batch + 8, 16))
 
@@ -220,14 +224,17 @@ def coresident_ctas(lib, occupancy_fn: str, device: torch.device,
     return _CORESIDENT[key]
 
 
-def seq_launch_cost(T: int, B: int, N: int, layers: int, weights: int):
+def seq_launch_cost(T: int, B: int, N: int, layers: int, weights: int,
+                    first: bool = True):
     """(FLOPs, bytes, dtype) of one unmasked f32 K1 (``layers`` 1) or K2
     launch from its geometry, as ``chip_smoke.py``'s bound column reckons
     it: bytes every input read and every output written once (``weights``
     recurrent and inter-layer matrix elements), FLOPs every step's
-    products (2L - 1 matrix families) and epilogues."""
-    families = 2 * layers - 1
-    nbytes = 4 * (T * B * 4 * N + weights
+    products (2L - 1 matrix families) and epilogues.  A K2 launch of a
+    layer group above layer 0 (not ``first``) reads the h_t of the layer
+    below it in place of ``pre_x`` and sums 2L families."""
+    families = 2 * layers - (1 if first else 0)
+    nbytes = 4 * (T * B * N * (4 if first else 1) + weights
                   + layers * (7 * N + 2 * B * N + 2 * T * B * N)) + T * B
     flops = T * B * (families * 2 * 4 * N * N + layers * 30 * N)
     return float(flops), float(nbytes), torch.float32

@@ -10,7 +10,11 @@ The kernel's weight layout (``StackWeights``) is built by
 starts and passes it to every chunk.  Unmasked, ``lstm_stack_seq`` is
 differentiable (``lstm_stack_seq_fused``: forward K2, backward the
 cross-layer gate recompute); built per call, the stacked weights pass
-their gradients back to the per-layer parameters.
+their gradients back to the per-layer parameters.  ``lb`` runs K2 in
+groups of ``lb`` layers, one launch a group, the same bits for every
+``lb``; ``lb=None`` takes an installed schedule cache's ``stack_lb`` entry
+(``_tuned_lb``, the reference's), else the whole stack in one launch.
+Dispatch never picks ``lb``: an explicit argument or a cache entry does.
 
 ``lstm_stack_seq_quantized`` is the int8 counterpart (K4): bit-identical to
 chaining ``lstm_layer_seq_quantized`` layer by layer, one launch instead of
@@ -37,7 +41,8 @@ from ...core.systolic import (QuantizedPackedLSTM, SystolicPlan,
                               quantized_x_prefix)
 from .ops import (QuantizedLayerWeights, _dense_from_tiles,
                   lstm_layer_seq_quantized)
-from .stack_kernel import lstm_stack_seq_kernel, lstm_stack_seq_kernel_q
+from .stack_kernel import (check_layer_block, lstm_stack_seq_kernel,
+                           lstm_stack_seq_kernel_q)
 
 
 def stack_fused_compatible(params: LSTMStackParams) -> bool:
@@ -81,33 +86,57 @@ def stack_kernel_weights(params: LSTMStackParams) -> StackWeights:
                         b=torch.stack([l.b for l in layers]))
 
 
-def _stack_forward(w_in, w_h, peep, b, pre_x, h0s, c0s):
-    return lstm_stack_seq_kernel(pre_x, w_in, w_h, peep, b, h0s, c0s)
+def lstm_stack_seq_fused(w_in, w_h, peep, b, pre_x, h0s, c0s,
+                         lb: Optional[int] = None):
+    """K2 over the whole stack (in ``lb``-layer groups when given),
+    unmasked, with the cross-layer gate-recompute backward
+    (``core.lstm.recompute_stack_gates``): the counterpart of the
+    reference's ``lstm_stack_seq_fused`` custom VJP, in the port's layout
+    (``w_in`` (L-1, 4, N_h, N_h)).  Returns (ys (T, B, N_h), (h_T, c_T)
+    each (L, B, N_h))."""
+    def forward(w_in, w_h, peep, b, pre_x, h0s, c0s):
+        return lstm_stack_seq_kernel(pre_x, w_in, w_h, peep, b, h0s, c0s,
+                                     lb=lb)
+    return recompute_stack_gates(forward, w_in, w_h, peep, b, pre_x, h0s,
+                                 c0s)
 
 
-def lstm_stack_seq_fused(w_in, w_h, peep, b, pre_x, h0s, c0s):
-    """K2 over the whole stack, unmasked, with the cross-layer
-    gate-recompute backward (``core.lstm.recompute_stack_gates``): the
-    counterpart of the reference's ``lstm_stack_seq_fused`` custom VJP, in
-    the port's layout (``w_in`` (L-1, 4, N_h, N_h)).  Returns (ys (T, B,
-    N_h), (h_T, c_T) each (L, B, N_h))."""
-    return recompute_stack_gates(_stack_forward, w_in, w_h, peep, b, pre_x,
-                                 h0s, c0s)
+def _tuned_lb(n_x: int, n_h: int, n_layers: int, T: int,
+              B: int) -> Optional[int]:
+    """The layer block an installed schedule cache records (kind
+    ``'stack_lb'``), or None on a miss, with no cache, or for an entry
+    that is not a layer block of the stack (``1 <= lb <= L``, ``L % lb ==
+    0``): a stale entry never breaks a launch.  The reference's
+    ``_tuned_lb``."""
+    from ...tune.schedule import current_schedule_cache
+    cache = current_schedule_cache()
+    if cache is None:
+        return None
+    ent = cache.lookup('stack_lb', n_x=n_x, n_h=n_h, n_layers=n_layers,
+                       T=T, B=B)
+    if ent is None or not ent.lb:
+        return None
+    lb = int(ent.lb)
+    return lb if 1 <= lb <= n_layers and n_layers % lb == 0 else None
 
 
 def lstm_stack_seq(params: LSTMStackParams, xs: torch.Tensor,
                    states: Optional[Sequence] = None, *,
                    valid_len: Optional[torch.Tensor] = None,
-                   weights: Optional[StackWeights] = None):
+                   weights: Optional[StackWeights] = None,
+                   lb: Optional[int] = None):
     """Fused drop-in for the layer loop of ``core.lstm.lstm_stack_apply``
     / ``lstm_stack_chunk`` (everything but the read-out): ONE wavefront
-    launch for all layers, allclose to the layerwise composition.
+    launch for all layers (or one a group of ``lb``), allclose to the
+    layerwise composition.
 
     xs: (T, B, N_x); states: optional per-layer ``((h, c), ...)`` carries;
     ``valid_len`` (B,) masks steps ``t >= valid_len[b]`` in every layer
     (identity on each layer's carried state; inference-only, as in the
     reference); ``weights``: the stack's ``stack_kernel_weights``, built
-    here when None (and then differentiable back to ``params``).  Returns
+    here when None (and then differentiable back to ``params``); ``lb``:
+    the layer block, a divisor of L (None: the installed cache's
+    ``stack_lb`` entry, else L), the same bits for every ``lb``.  Returns
     (hs_top (T, B, N_h), per-layer ((h_T, c_T), ...)).
     """
     if weights is None:
@@ -117,16 +146,19 @@ def lstm_stack_seq(params: LSTMStackParams, xs: torch.Tensor,
     layers = params.layers
     L, n_h = len(layers), layers[0].n_h
     T, B = xs.shape[0], xs.shape[1]
+    if lb is None:
+        lb = _tuned_lb(layers[0].n_x, n_h, L, T, B)
+    lb = check_layer_block(L, lb)
     h0s, c0s = stack_carry_arrays(states, L, B, n_h, xs)
     pre_x = hoisted_input(layers[0].w_x, xs)
     if valid_len is None:
         ys, (h_T, c_T) = lstm_stack_seq_fused(
             weights.w_in, weights.w_h, weights.peep, weights.b, pre_x, h0s,
-            c0s)
+            c0s, lb=lb)
         return ys, tuple((h_T[l], c_T[l]) for l in range(L))
     hs, cs = lstm_stack_seq_kernel(pre_x, weights.w_in, weights.w_h,
                                    weights.peep, weights.b, h0s, c0s,
-                                   valid_len_mask(T, valid_len, B))
+                                   valid_len_mask(T, valid_len, B), lb=lb)
     return hs[-1], tuple((hs[l, -1], cs[l, -1]) for l in range(L))
 
 

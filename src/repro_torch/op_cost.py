@@ -32,7 +32,8 @@ its plain PyTorch version: off the card each wrapper runs the custom op
 ``repro_torch::<kernel>`` (the plain version, and under fake tensors its
 fake implementation's outputs), and the mode charges that op by name from
 ``KERNEL_COSTS``: the FLOPs and bytes of its launch geometry (the same
-reckoning as the bound column of ``chip_smoke.py``'s kernel line; K8's
+reckoning as the bound column of ``chip_smoke.py``'s kernel line; K2
+each launch of its ``lb``-layer groups, ``stack_launch_costs``; K8's
 FLOPs from the query x key tiles its schedule computes,
 ``kernels.flash_attention.attention_cost``).
 
@@ -213,10 +214,13 @@ def _seq_cost(pre_x, w_h, *_):
     return seq_launch_cost(T, B, N, 1, w_h.numel())
 
 
-def _stack_seq_cost(pre_x, w_in, w_h, *_):
-    from .kernels.lstm_seq.kernel import seq_launch_cost
+def _stack_seq_cost(pre_x, w_in, w_h, peep, bias, h0, c0, mask, lb):
+    from .kernels.lstm_seq.stack_kernel import stack_launch_costs
     T, B, _, N = pre_x.shape
-    return seq_launch_cost(T, B, N, w_h.shape[0], w_in.numel() + w_h.numel())
+    L = w_h.shape[0]
+    costs = stack_launch_costs(T, B, N, L, lb)
+    return (sum(f for f, _ in costs), sum(b for _, b in costs),
+            torch.float32, L // lb)
 
 
 def _attention_cost(q, k, v, causal, window, sm_scale, kv_len, offset,
@@ -241,7 +245,8 @@ def _attention_bwd_cost(which: str):
 
 
 #: op name (``repro_torch::<name>``) -> its arguments -> (FLOPs, bytes,
-#: dtype) of the kernel launch it stands for
+#: dtype) of the kernel launch it stands for, or (FLOPs, bytes, dtype,
+#: launches) of the launches it stands for (K2 in layer groups)
 KERNEL_COSTS: Dict[str, Callable[..., Tuple[float, float, torch.dtype]]] = {
     'lstm_seq': _seq_cost,
     'lstm_stack_seq_kernel': _stack_seq_cost,
@@ -409,8 +414,9 @@ class CostMode(TorchDispatchMode):
         w = self._weight()
         ns = func.namespace
         if ns == 'repro_torch':
-            flops, nbytes, dtype = KERNEL_COSTS[name](*args)
-            self.charge(name, w * flops, w * nbytes, dtype, w)
+            flops, nbytes, dtype, *launches = KERNEL_COSTS[name](*args)
+            self.charge(name, w * flops, w * nbytes, dtype,
+                        w * (launches[0] if launches else 1))
             for o in outs:
                 self._track(o)
             return

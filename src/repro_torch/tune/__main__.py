@@ -1,15 +1,17 @@
 """Offline schedule tuner CLI.
 
 ``python -m repro_torch.tune`` decides the int8 stack backend (K4 against
-the K3 chain) at one shape, shmoos the staged schedule of one ``--stages x
-(--rows x --cols)`` placement, checks the cache's replay and writes it::
+the K3 chain) and K2's layer block ``lb`` at one shape, shmoos the staged
+schedule of one ``--stages x (--rows x --cols)`` placement, checks the
+cache's replay and writes it::
 
     python -m repro_torch.tune --measure --n-x 123 --n-h 421 --layers 3 \\
         --T 16 --B 8 --tile 96 --stages 3 --rows 5 --cols 5
     python -m repro_torch.tune --device cpu            # predicted only
 
 Predicted-only by default (the cold rule and the model's ranking, no clock:
-deterministic, byte for byte); ``--measure`` runs the int8 trial.
+deterministic, byte for byte); ``--measure`` runs the int8 trial and the
+layer-block trial (``tune_stack_lb``).
 ``--staged-devices N`` is an engine budget on ``--device``: the staged
 chunk depth of the placement is then measured in process, every engine on
 that device and one controller driving them (``tune_staged_stack``);
@@ -143,8 +145,8 @@ def main(argv=None) -> int:
                     help='also write the staged or geometry shmoo (shared '
                          'CSV format) and the int8 trial records (.q.csv)')
     ap.add_argument('--measure', action='store_true',
-                    help='run the interleaved int8 trial (default: the '
-                         'predicted answer only)')
+                    help='run the interleaved int8 and layer-block trials '
+                         '(default: the predicted answers only)')
     ap.add_argument('--staged-devices', type=int, default=0,
                     help='engine budget on --device for measured staged / '
                          'geometry trials, one controller driving every '
@@ -204,7 +206,7 @@ def main(argv=None) -> int:
             if err:
                 raise SystemExit(err)
 
-    from .autotune import replay_check, tune_quantized_backend
+    from .autotune import replay_check, tune_quantized_backend, tune_stack_lb
     from .schedule import ScheduleCache
     from .shmoo import (card_budget, geometry_shmoo_records,
                         staged_shmoo_records, write_shmoo_csv)
@@ -219,6 +221,17 @@ def main(argv=None) -> int:
                       f"{r.metrics['measured_us']:.1f} us" for r in q_records)
     print(f'q_stack_backend -> {entry.backend} ({entry.source}'
           + (f'; medians at tile {tile}: {trial}' if trial else '') + ')')
+
+    # K2's layer block at the same shape
+    lb_ent, lb_records = tune_stack_lb(
+        args.n_x, args.n_h, args.layers, args.T, args.B, cache=cache,
+        measure=args.measure, iters=args.iters, device=args.device)
+    if lb_ent is not None:
+        trial = ', '.join(f"lb={r.params['lb']} "
+                          f"{r.metrics['measured_us']:.1f} us"
+                          for r in lb_records if r.metrics['measured_us'])
+        print(f'stack_lb -> lb={lb_ent.lb} ({lb_ent.source}'
+              + (f'; medians: {trial}' if trial else '') + ')')
 
     shape = (args.n_x, args.n_h, args.layers, args.T, args.B)
     if args.geometry:

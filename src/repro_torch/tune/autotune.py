@@ -17,8 +17,9 @@ with ``allow_reassoc`` lets other classes in under an allclose gate).
 The staged trials run the scale-out of ``core.systolic`` with one
 controller driving every engine: ``tune_staged_stack`` on a live
 ``SystolicMesh``, ``tune_geometry`` on meshes it builds inside an engine
-budget, every engine on one device.  ``lb`` has no counterpart on the
-port's K2 (``shmoo.py``).
+budget, every engine on one device.  ``tune_stack_lb`` times K2's layer
+blocks (one launch a group of ``lb`` layers, the same bits for every
+``lb``) in the space of ``shmoo.enumerate_lb_candidates``.
 """
 from __future__ import annotations
 
@@ -32,8 +33,9 @@ import torch
 from .schedule import (ANY_MESH, ScheduleCache, ScheduleEntry,
                        devices_signature, host_fingerprint, mesh_signature)
 from .shmoo import (TC_GRID, GeometryCandidate, ShmooRecord, card_budget,
-                    enumerate_geometry_candidates, enumerate_staged_candidates,
-                    geometry_params, rank_geometry_candidates,
+                    enumerate_geometry_candidates, enumerate_lb_candidates,
+                    enumerate_staged_candidates, geometry_params,
+                    rank_geometry_candidates, rank_lb_candidates,
                     rank_staged_candidates, staged_params)
 
 def _sync(device) -> None:
@@ -143,6 +145,77 @@ def tune_quantized_backend(n_x: int, n_h: int, n_layers: int, T: int, B: int,
             backend='layerwise' if us_lw <= us_fu else 'fused',
             measured_us=min(us_lw, us_fu), source='measured',
             host=host_fingerprint(device), **key)
+    if cache is not None:
+        cache.record(entry)
+    return entry, records
+
+
+# ---------------------------------------------------------------------------
+# K2's layer block lb — one card
+# ---------------------------------------------------------------------------
+
+def tune_stack_lb(n_x: int, n_h: int, n_layers: int, T: int, B: int, *,
+                  cache: Optional[ScheduleCache] = None, iters: int = 3,
+                  warmup: int = 1, measure: bool = True, device='cuda'
+                  ) -> Tuple[Optional[ScheduleEntry], List[ShmooRecord]]:
+    """Tune the fused stack's layer block ``lb``: K2 in groups of ``lb``
+    layers, one launch a group (``lstm_stack_seq(..., lb=lb)``).
+
+    The candidates are ``shmoo.enumerate_lb_candidates`` on ``device``
+    (the divisors of L whose group geometry admits one stream on the
+    card; every divisor on the CPU), ranked by passes L / lb, fewest
+    first: the prediction is the largest.  With ``measure`` and more than
+    one candidate, every candidate runs K2 on one seeded stack and input
+    at ``(T, B)``, unmasked, from weights built once; their outputs and
+    final states must be ``torch.equal`` before ``measure_interleaved``
+    times them, each call ending in a synchronize.  Records
+    ``kind='stack_lb'`` for any mesh (``source`` ``'predicted'`` or
+    ``'measured'``) in ``cache`` when given.  Returns ``(entry,
+    records)``; the entry is None when no ``lb`` is admissible (K2 cannot
+    run the stack at all; nothing to record)."""
+    cands = enumerate_lb_candidates(n_x, n_h, n_layers, B, device=device)
+    if not cands:
+        return None, []
+    ranked = rank_lb_candidates(cands, n_layers)
+    records = [ShmooRecord(
+        suite='stack_lb',
+        params={'n_x': n_x, 'n_h': n_h, 'n_layers': n_layers, 'T': T,
+                'B': B, 'lb': lb},
+        metrics={'passes': passes, 'measured_us': 0.0})
+        for lb, passes in ranked]
+    key = dict(kind='stack_lb', n_x=n_x, n_h=n_h, n_layers=n_layers, T=T,
+               B=B, mesh=ANY_MESH)
+    if not measure or len(cands) == 1:
+        entry = ScheduleEntry(lb=ranked[0][0], source='predicted', **key)
+    else:
+        from ..core.lstm import init_lstm_stack, stack_params_to
+        from ..kernels.lstm_seq import lstm_stack_seq, stack_kernel_weights
+        stack = stack_params_to(init_lstm_stack(
+            n_x, n_h, n_layers, None, torch.Generator().manual_seed(7)),
+            device)
+        xs = (torch.randn((T, B, n_x),
+                          generator=torch.Generator().manual_seed(8))
+              * 0.5).to(device)
+        with torch.no_grad():
+            weights = stack_kernel_weights(stack)
+            runs = [lambda lb=lb: lstm_stack_seq(stack, xs, weights=weights,
+                                                 lb=lb)
+                    for lb, _ in ranked]
+            outs = [run() for run in runs]
+            for (lb, _), out in zip(ranked[1:], outs[1:]):
+                if not _stack_equal(out, outs[0]):
+                    raise AssertionError(f'K2 at lb={lb} differs from '
+                                         f'lb={ranked[0][0]} at n_x={n_x} '
+                                         f'n_h={n_h} L={n_layers} T={T} '
+                                         f'B={B}')
+            meds = measure_interleaved(runs, iters=iters, warmup=warmup,
+                                       device=device)
+        for r, us in zip(records, meds):
+            r.metrics['measured_us'] = us
+        win = int(np.argmin(meds))
+        entry = ScheduleEntry(lb=ranked[win][0], measured_us=meds[win],
+                              source='measured',
+                              host=host_fingerprint(device), **key)
     if cache is not None:
         cache.record(entry)
     return entry, records
@@ -554,6 +627,22 @@ def _check_staged(e: ScheduleEntry, budget: Optional[int]) -> None:
                                  f'vs {e}')
 
 
+def _check_lb(e: ScheduleEntry, device) -> None:
+    """A ``stack_lb`` entry against a fresh enumeration of K2's layer
+    blocks on ``device``: its ``lb`` must still be a candidate, and a
+    ``predicted`` one must still rank first."""
+    cands = enumerate_lb_candidates(e.n_x, e.n_h, e.n_layers, e.B or 8,
+                                    device=device)
+    if e.lb not in cands:
+        raise AssertionError(f'cached layer block left the admissible '
+                             f'space {cands}: {e}')
+    if e.source == 'predicted':
+        want = rank_lb_candidates(cands, e.n_layers)[0][0]
+        if want != e.lb:
+            raise AssertionError(f'predicted layer block drifted: lb={want} '
+                                 f'vs {e}')
+
+
 def replay_check(cache: ScheduleCache, *, device='cuda',
                  tile: int = 96) -> Tuple[int, List[ScheduleEntry]]:
     """Check the entries of the kinds this port tunes, with no clock: a
@@ -565,11 +654,13 @@ def replay_check(cache: ScheduleCache, *, device='cuda',
     and a staged (``stack_f32``/``stack_int8``) entry on a concrete mesh
     lie in a fresh enumeration of their space at ``device``'s
     ``card_budget``, a ``predicted`` one re-ranking first
-    (``_check_geometry``, ``_check_staged``).  Raises ``AssertionError``
-    on drift.  Returns ``(checked, unchecked)``: the count of entries
-    checked, and the entries no space re-derives (staged entries for any
-    mesh, the reference's ``stack_lb`` and ``stack_backend``), which the
-    caller reports rather than passes."""
+    (``_check_geometry``, ``_check_staged``); a ``stack_lb`` entry names a
+    layer block K2 can run on ``device``, a ``predicted`` one the first of
+    the ranking (``_check_lb``).  Raises ``AssertionError`` on drift.
+    Returns ``(checked, unchecked)``: the count of entries checked, and
+    the entries no space re-derives (staged entries for any mesh, the
+    reference's ``stack_backend``), which the caller reports rather than
+    passes."""
     budget = card_budget(device)
     checked, unchecked = 0, []
     for e in cache.entries():
@@ -589,6 +680,8 @@ def replay_check(cache: ScheduleCache, *, device='cuda',
                                      f'{serving_depths(e.T)}: {e}')
         elif e.kind == 'geometry' and e.mesh.startswith('devices:'):
             _check_geometry(e, budget)
+        elif e.kind == 'stack_lb':
+            _check_lb(e, device)
         elif (e.kind in ('stack_f32', 'stack_int8') and e.tc
               and e.mesh != ANY_MESH and ':' in e.mesh):
             _check_staged(e, budget)

@@ -35,10 +35,19 @@ Deviations from the reference, each for the card:
   H100, ``(3, 1, 5)`` (bn 425) differs from ``(3, 5, 5)`` (bn 85) by up
   to 2.2e-08.  So the port's class is ``(n_h_p, bk, bn)``
   (``GeometryCandidate.arith_signature``).
+* **(d) The layer-block budget.** The reference's ``lb`` space prunes a
+  layer group by its VMEM estimate (``stack_vmem_bytes_estimate``
+  against 12 MB).  The port's K2 keeps a group resident across the SMs,
+  so ``enumerate_lb_candidates`` prunes by the card's own rule: the
+  ``lb``-layer geometry (``stack_geometry(..., lb=lb)``) must admit one
+  stream (shared memory within a CTA's limit, every CTA resident), the
+  batch alone never pruning, since K2 runs a batch in blocks.  Off the
+  card (no SM count) every divisor of L is a candidate.  At 123 -> 3x421
+  on 132 SMs the port's space is [1, 3], the reference's [1].
 
-The reference's ``lb`` space (:342-374) streams layer groups through a
-TPU's VMEM, while the port's K2 keeps the whole stack resident across the
-SMs, so it has no ``lb`` to tune.
+The layer-block space (``enumerate_lb_candidates``,
+``rank_lb_candidates``) ranks by passes L / lb, fewest first, as the
+reference does; every candidate gives the same bits.
 """
 from __future__ import annotations
 
@@ -365,3 +374,42 @@ def geometry_shmoo_records(n_x: int, n_h: int, n_layers: int, T: int, B: int,
                         metrics={'predicted_us': us})
             for c, us in rank_geometry_candidates(cands, n_x, n_h, n_layers,
                                                   T)]
+
+
+# ---------------------------------------------------------------------------
+# Single-engine layer-block space (K2's lb)
+# ---------------------------------------------------------------------------
+
+def enumerate_lb_candidates(n_x: int, n_h: int, n_layers: int, batch: int,
+                            *, sms: Optional[int] = None,
+                            device=None) -> List[int]:
+    """The layer blocks K2 can run a stack in: the divisors of
+    ``n_layers`` whose ``lb``-layer geometry admits at least one stream on
+    a card of ``sms`` SMs (default: ``device``'s, when it is a CUDA
+    device), ascending (deviation (d)).  With no SM count (the CPU, whose
+    plain version runs any ``lb``) every divisor.  ``n_x`` and ``batch``
+    do not prune: layer 0's input product is hoisted, and K2 runs a batch
+    in blocks."""
+    from ..kernels.lstm_seq import stack_geometry
+    if sms is None and device is not None:
+        import torch
+        device = torch.device(device)
+        if device.type == 'cuda':
+            sms = torch.cuda.get_device_properties(
+                device).multi_processor_count
+    divisors = [lb for lb in range(1, n_layers + 1) if n_layers % lb == 0]
+    if sms is None:
+        return divisors
+    return [lb for lb in divisors if stack_geometry(
+        n_h, n_layers, 1, sms, lb=lb).admissible(sms)]
+
+
+def rank_lb_candidates(cands: Sequence[int], n_layers: int
+                       ) -> List[Tuple[int, float]]:
+    """lb candidates scored by passes (``n_layers / lb``: launches a batch
+    block on the card, weight re-streams on the TPU), best first; ties
+    break on the larger lb.  The reference's ranking: the predicted
+    preference is the largest admissible lb, which the measured trial in
+    ``autotune.tune_stack_lb`` confirms or overturns per card."""
+    scored = [(lb, n_layers / lb) for lb in cands]
+    return sorted(scored, key=lambda cu: (cu[1], -cu[0]))

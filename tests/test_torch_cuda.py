@@ -123,6 +123,43 @@ def test_kernels_match_plain_versions(dev, arch):
         torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize('B', [5, 30])
+def test_stack_layer_blocks_bit_equal_on_card(dev, B):
+    """K2 in groups of lb layers: every lb the bits of lb = L (at B = 30
+    in batch blocks of 24 and of 48), within atol of the plain version,
+    (L / lb) launches a batch block; a 6-layer stack refused whole runs in
+    groups."""
+    cfg = configs.get_config('chipmunk-ctc')
+    params = _params(cfg, dev)
+    T, N, L = 16, cfg.lstm_hidden, cfg.n_layers
+    f, xs, mask = _inputs(cfg, T, B, dev)
+    pre = tlstm.hoisted_input(params.layers[0].w_x, xs)
+    wts = stack_kernel_weights(params)
+    args = (pre, wts.w_in, wts.w_h, wts.peep, wts.b, f(L, B, N), f(L, B, N),
+            mask)
+    want = lstm_stack_seq_ref(*args)
+    got = {}
+    for lb, launches in ((3, 1 if B <= 24 else 2), (1, 3)):
+        n0 = lstm_stack_seq_kernel.launches
+        got[lb] = lstm_stack_seq_kernel(*args, lb=lb)
+        assert lstm_stack_seq_kernel.launches == n0 + launches
+        for g, w in zip(got[lb], want):
+            torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+    assert all(torch.equal(a, b) for a, b in zip(got[1], got[3]))
+    deep = tlstm.stack_params_to(tlstm.init_lstm_stack(
+        cfg.lstm_inputs, N, 6, None, torch.Generator().manual_seed(1)), dev)
+    dw = stack_kernel_weights(deep)
+    args = (tlstm.hoisted_input(deep.layers[0].w_x, xs), dw.w_in, dw.w_h,
+            dw.peep, dw.b, f(6, B, N), f(6, B, N), mask)
+    with pytest.raises(RuntimeError, match='lstm_stack_seq_kernel: '):
+        lstm_stack_seq_kernel(*args)
+    outs = [lstm_stack_seq_kernel(*args, lb=lb) for lb in (1, 2, 3)]
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+    for g, w in zip(outs[0], lstm_stack_seq_ref(*args)):
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+
+
 @pytest.mark.parametrize('backend', ['cuda_seq', 'cuda_seq_fused'])
 def test_chunked_equals_monolithic_on_card(dev, backend):
     cfg = configs.get_config('chipmunk-ctc')

@@ -360,7 +360,7 @@ def test_cli_measured_geometry_on_cpu_engines(tmp_path, capsys):
     text = capsys.readouterr().out
     assert 'balanced ref 2x(2x2)' in text and '(measured, ' in text
     kinds = sorted(e.kind for e in ScheduleCache.load(out).entries())
-    assert kinds == ['geometry', 'q_stack_backend', 'stack_f32']
+    assert kinds == ['geometry', 'q_stack_backend', 'stack_f32', 'stack_lb']
     assert replay_check(ScheduleCache.load(out), device='cpu')[1] == []
 
 

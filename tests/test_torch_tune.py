@@ -17,6 +17,7 @@ in either package.
 import dataclasses
 import json
 import pathlib
+import re
 import types
 
 import numpy as np
@@ -36,7 +37,8 @@ from repro_torch.models import chipmunk_net  # noqa: E402
 from repro_torch.serving import tuned_chunk_ceiling  # noqa: E402
 from repro_torch.tune import (ANY_MESH, ScheduleCache, ScheduleEntry,  # noqa
                               ShmooRecord, clear_schedule_cache,
-                              current_schedule_cache, install_schedule_cache,
+                              current_schedule_cache,
+                              enumerate_lb_candidates, install_schedule_cache,
                               mesh_signature, replay_check, serving_depths,
                               tune_quantized_backend, tune_serving_config,
                               using_schedule_cache, write_shmoo_csv)
@@ -351,15 +353,17 @@ def test_predicted_entry_on_the_card_prunes_inadmissible_fused(h100):
 
 
 def test_replay_check_accepts_committed_cache_and_catches_drift():
-    """The committed cache's entries replay, except two predictions the
+    """The committed cache's entries replay, except three predictions the
     port's rules re-derive otherwise, and the check says so: the
     reference's int8 prediction at 421 hidden (pruned to layerwise by its
-    TPU VMEM estimate; the port's rule gives fused) and its staged
+    TPU VMEM estimate; the port's rule gives fused), its staged
     prediction in the ``'batched'`` in-stage order (the port runs one
-    order, shmoo deviation (b)).  The measured geometry and staged entries
-    lie in the port's spaces; entries no space re-derives (a staged entry
-    for any mesh, ``stack_lb``) are reported as not checkable, never
-    passed."""
+    order, shmoo deviation (b)), and its layer block at 123 -> 3x421 (lb
+    1 by the TPU's VMEM; K2's candidates are [1, 3] on the card and on
+    the CPU, shmoo deviation (d), ranking 3 first).  The measured geometry
+    and staged entries lie in the port's spaces; entries no space
+    re-derives (a staged entry for any mesh) are reported as not
+    checkable, never passed."""
     committed = ScheduleCache.load(REPO / 'tuned_schedules.json')
     vmem = [e for e in committed.entries() if e.kind == 'q_stack_backend'
             and e.source == 'predicted']
@@ -372,12 +376,18 @@ def test_replay_check_accepts_committed_cache_and_catches_drift():
         ('stack_f32', 'stage:2,row:2,col:2')]
     with pytest.raises(AssertionError, match='one order'):
         replay_check(_cache(*batched), device='cpu')
+    lb = [e for e in committed.entries() if e.kind == 'stack_lb']
+    assert [(e.n_x, e.n_h, e.n_layers, e.lb, e.source) for e in lb] == [
+        (123, 421, 3, 1, 'predicted')]
+    assert enumerate_lb_candidates(123, 421, 3, 8, sms=132) == [1, 3]
+    with pytest.raises(AssertionError, match='layer block drifted: lb=3'):
+        replay_check(_cache(*lb), device='cpu')
     rest = ScheduleCache(e for e in committed.entries()
-                         if e not in vmem + batched)
+                         if e not in vmem + batched + lb)
     checked, unchecked = replay_check(rest, device='cpu')
     assert checked == 5
     assert sorted({(e.kind, e.mesh) for e in unchecked}) == [
-        ('stack_f32', ANY_MESH), ('stack_lb', ANY_MESH)]
+        ('stack_f32', ANY_MESH)]
     assert len(unchecked) == len(rest) - checked
     for bad in (ScheduleEntry(kind='serving_chunk', n_x=1, n_h=2,
                               n_layers=3, T=16, B=4, tc=12),
@@ -469,16 +479,20 @@ def test_tune_cli_writes_under_tmp_path(tmp_path, capsys):
             '--B', '2', '--tile', '8', '--device', 'cpu', '--out', str(out)]
     assert tune_main(tiny + ['--measure', '--iters', '1',
                              '--csv', str(csv)]) == 0
-    # the int8 entry and the staged prediction of the 2x(2x2) placement
-    assert len(ScheduleCache.load(out)) == 2
+    # the int8 entry, the layer block and the staged prediction of the
+    # 2x(2x2) placement
+    assert len(ScheduleCache.load(out)) == 3
     assert csv.with_suffix('.q.csv').read_text().splitlines()[0] == (
         'suite,B,T,backend,n_h,n_layers,n_x,tile,measured_us,predicted_us')
     assert csv.read_text().splitlines()[0].startswith('suite,B,T,bk,bn,')
     # a second run at another shape refines the file, never forgets
     assert tune_main(tiny[:-2] + ['--out', str(out), '--T', '16']) == 0
-    assert len(ScheduleCache.load(out)) == 4
+    assert len(ScheduleCache.load(out)) == 6
     text = capsys.readouterr().out
-    assert 'q_stack_backend -> ' in text and 'replay check: 4 entries' in text
+    assert 'q_stack_backend -> ' in text and 'replay check: 6 entries' in text
+    assert re.search(r'stack_lb -> lb=[12] \(measured; medians: lb=2 '
+                     r'[0-9.]+ us, lb=1 [0-9.]+ us\)', text)
+    assert 'stack_lb -> lb=2 (predicted)' in text
     with pytest.raises(SystemExit):
         tune_main(['--device', 'cpu', '--out',
                    str(REPO / 'tuned_schedules.json')])
